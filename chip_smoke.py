@@ -9,10 +9,11 @@ Phases, each printing one JSON line:
      build every CUDA kernel from ``src/repro_torch/csrc`` (one ``nvcc`` per
      source, in parallel);
   2. kernels: each kernel against its plain PyTorch version on the card at
-     the serving path's shapes, with masked and sentinel (dst == A) edges,
+     the main paths' shapes, with masked and sentinel (dst == A) edges,
      under the tolerances stated below; each kernel, its plain version and
      a one-call PyTorch yardstick (``library_ms``, never used by the port)
-     are timed with CUDA events;
+     are timed with CUDA events. The edge kernel's backward is checked per
+     output, and two calls must give the same bits;
   3. serve: ``ServeSession`` serves hydragnn-gfm at full width (4 EGNN
      layers at H=866, 5 branches of 3x889 MLPs, fp32, seeded random
      weights) over a bucket grid planned from synthetic five-source
@@ -21,7 +22,16 @@ Phases, each printing one JSON line:
      ``predict_one``; the kernel's launch count, zeroed just before the
      pass, equals 4 x batches; both passes agree with each other and with
      the plain forward;
-  4. the ``kernels`` summary line, the ``nvidia-smi`` line, and the final
+  4. train: ``Session`` trains hydragnn-gfm at full width under
+     ``"fused"`` for 10 steps (5 synthetic sources, 8 graphs each per step,
+     A=64, E=2048, AdamW, a checkpoint). Every loss is finite; the forward
+     and backward edge kernels, counted from zero over the run, launch 4
+     times per step each (one trunk pass over all 40 graphs, 4 layers);
+     one step's gradients match the plain path's (``"jnp"``, autograd)
+     on the same batch; two 3-step runs from one seed end with bitwise
+     equal parameters; ``ServeSession.from_checkpoint`` serves requests
+     from the written checkpoint;
+  5. the ``kernels`` summary line, the ``nvidia-smi`` line, and the final
      ``{"ok": true, "device": ...}`` line.
 
 Any failure exits nonzero. Without a GPU, or without the repository around
@@ -47,8 +57,16 @@ FP32_FLOPS = 67e12                 # H100 SXM fp32, non-tensor
 SS_TOL = 1e-5                      # segment-sum: f32 sums of <= ~60 terms
 EDGE_TOL = 1e-4                    # egnn_edge: 866/1733-term contractions
                                    # grouped differently (node projections)
+BWD_TOL = 1e-4                     # egnn_edge backward, per output and
+                                   # relative to its largest entry: the
+                                   # same regrouping, weight gradients
+                                   # summed over up to B·A nodes
 SERVE_TOL = 1e-4                   # full forward, 4 layers + heads
+GRAD_TOL = 1e-4                    # train step grads vs the plain path,
+                                   # per leaf, relative to its largest entry
 N_REQUESTS = 80                    # mixed-head requests per serving pass
+TRAIN_STEPS = 10
+DEVICE = "cuda"                    # the training phase's device
 
 
 def fail(msg: str):
@@ -196,6 +214,89 @@ def check_egnn_edge(torch, dev, g):
     return out
 
 
+def check_egnn_edge_bwd(torch, dev, g):
+    """The backward kernel through ``egnn_edge_agg``'s autograd Function
+    against ``egnn_edge_bwd_ref``, per output, at the training path's graph
+    shape and a ragged one; two backward calls must give the same bits."""
+    from repro_torch.kernels.egnn_edge import egnn_edge_agg
+    from repro_torch.kernels.egnn_edge.ref import egnn_edge_bwd_ref
+    H = 866
+    names = ("dh", "dpos", "dw0", "db0", "dw1", "db1")
+    cases = [("main", 8, 64, 2048), ("ragged", 3, 40, 1000)]
+    worst, out = 0.0, {}
+    for name, B, A, E in cases:
+        def t(*shape, scale=1.0):
+            return (scale * torch.randn(shape, generator=g, device=dev)
+                    ).requires_grad_(True)
+        w0, b0 = t(2 * H + 1, H, scale=(2 * H + 1) ** -0.5), t(H, scale=0.1)
+        w1, b1 = t(H, H, scale=H ** -0.5), t(H, scale=0.1)
+        h, pos = t(B, A, H), t(B, A, 3, scale=2.0)
+        leaves = [h, pos, w0, b0, w1, b1]
+        phi = {"fc0": {"w": w0, "b": b0}, "fc1": {"w": w1, "b": b1}}
+        src, dst, em = edge_case(torch, B, E, A, g, dev)
+        gup = torch.randn((B, A, H), generator=g, device=dev)
+        agg = egnn_edge_agg(h, pos, src, dst, em, phi)
+
+        def bwd():
+            return torch.autograd.grad(agg, leaves, gup, retain_graph=True)
+        got = bwd()
+        again = bwd()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"egnn_edge_bwd {name}: two calls differ bitwise")
+        sr = torch.where(em, src, A)
+        dr = torch.where(em, dst, A)
+        d = [x.detach() for x in leaves]
+
+        def plain():
+            return egnn_edge_bwd_ref(gup, d[0], d[1], sr, dr, d[2][:H],
+                                     d[2][H:2 * H], d[2][2 * H:],
+                                     d[3][None], d[4])
+        dh, dpos, dw0i, dw0j, dw0d, db0, dw1, db1 = plain()
+        want = [dh, dpos, torch.cat([dw0i, dw0j, dw0d]), db0[0], dw1, db1[0]]
+        errs = {}
+        for n, a, b in zip(names, got, want):
+            err = float((a - b).abs().max())
+            scale = float(b.abs().max())
+            if not err <= BWD_TOL * scale:
+                fail(f"egnn_edge_bwd {name} {n}: max_abs_err {err} > "
+                     f"{BWD_TOL}*{scale}")
+            errs[n] = err / scale
+            worst = max(worst, err)
+        if name != "main":
+            out["ragged_rel_err"] = errs
+            continue
+        n_valid = int(em.sum())
+        ms = time_ms(torch, bwd)
+        agg_np = egnn_edge_agg(h, pos.detach(), src, dst, em, phi)
+        ms_no_dpos = time_ms(torch, lambda: torch.autograd.grad(
+            agg_np, [h, w0, b0, w1, b1], gup, retain_graph=True))
+        plain_ms = time_ms(torch, plain, iters=5)
+        # six node-level products (2·B·A·H² each) and ~15 operations per
+        # valid edge and column; bytes: inputs (g, h, Pi, Pj, S, deg, pos,
+        # src, dst, weights) read once, outputs written once
+        ops_count = 6 * 2 * B * A * H * H + 15 * n_valid * H
+        w_bytes = (2 * H + 1) * H + H * H
+        nbytes = 4 * (5 * B * A * H + B * A + B * A * 3 + 2 * B * E
+                      + w_bytes                                # inputs
+                      + B * A * H + B * A * 3 + w_bytes + 2 * H)  # outputs
+        t_ops = ops_count / FP32_FLOPS * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        out.update({"ms": ms, "ms_no_dpos": ms_no_dpos, "plain_ms": plain_ms,
+                    "library_ms": None,
+                    "library_note": "no one PyTorch call computes this "
+                                    "backward",
+                    "bound_ms": max(t_ops, t_bytes),
+                    "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                    "shape": [B, A, E, H], "valid_edges": n_valid,
+                    "operations": ops_count, "bytes": nbytes,
+                    "rel_err": errs,
+                    "per_edge_form_bound_ms":
+                        8 * 2 * B * E * H * H / FP32_FLOPS * 1e3})
+    out["max_abs_err"] = worst
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 3: serving at full width
 # ---------------------------------------------------------------------------
@@ -303,6 +404,145 @@ def serve_phase(torch, n_requests):
             "fused_vs_plain_rel_err": vs_plain, "tolerance": SERVE_TOL}
 
 
+# ---------------------------------------------------------------------------
+# phase 4: training at full width
+# ---------------------------------------------------------------------------
+
+def _train_session(torch, sources, steps, ckpt=None):
+    from repro_torch.configs.hydragnn_gfm import CONFIG
+    from repro_torch.engine import Session, SessionConfig
+    cfg = CONFIG.replace(segment_sum_impl="fused")
+    scfg = SessionConfig(model="gfm-mtl", arch=cfg, steps=steps,
+                         batch_per_task=8, lr=1e-3, warmup=2, log_every=1,
+                         eval_every=10 ** 9, seed=0, ckpt_path=ckpt,
+                         verbose=False)
+    return Session.from_config(scfg, sources=sources, device=DEVICE)
+
+
+def _train_sources():
+    from repro_torch.data.synthetic_atoms import generate_all, source_dicts
+    return source_dicts(generate_all(32, max_atoms=64, max_edges=2048,
+                                     seed=0))
+
+
+def train_phase(torch, counters):
+    from repro_torch import interop
+    from repro_torch.configs.hydragnn_gfm import CONFIG
+    from repro_torch.core.mtl import make_gfm_mtl
+    from repro_torch.data.loader import GroupBatcher
+    from repro_torch.engine import multitask_grad_fn
+    from repro_torch.serve import ServeSession
+
+    sources = _train_sources()
+    ckpt = str(ROOT / "build" / "chip_smoke" / "gfm_train")
+    sess = _train_session(torch, sources, TRAIN_STEPS, ckpt)
+    n_params = sess.n_params()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    with sess:
+        result = sess.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    rows = result.logger.history
+    losses = [r["loss"] for r in rows]
+    if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
+        fail(f"train: losses {losses}")
+    want = {"egnn_edge": 4 * TRAIN_STEPS, "egnn_edge_bwd": 4 * TRAIN_STEPS,
+            "segment_sum": 0}
+    if launches != want:
+        fail(f"train launch counts {launches}, design implies {want}")
+    # steady step time: host clock between the loss reads of steps 1 and
+    # the last (every step is logged, so each row ends in a sync)
+    step_ms = (rows[-1]["wall"] - rows[1]["wall"]) / (TRAIN_STEPS - 2) * 1e3
+
+    # one step's gradients against the plain path on the same batch
+    dev = torch.device(DEVICE)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             GroupBatcher(sources, 8, seed=1).next_batch().items()}
+    params = result.params
+    grads = {}
+    for impl in ("fused", "jnp"):
+        model = make_gfm_mtl(CONFIG.replace(segment_sum_impl=impl),
+                             len(sources))
+        loss, metrics, g = multitask_grad_fn(model, len(sources))(params,
+                                                                  batch)
+        grads[impl] = (float(loss), interop.leaves(g))
+    torch.cuda.synchronize()
+    worst_leaf, worst = None, 0.0
+    for k, ref in grads["jnp"][1].items():
+        got = grads["fused"][1][k]
+        scale = float(ref.abs().max())
+        rel = float((got - ref).abs().max()) / max(scale, 1e-30)
+        if not rel <= GRAD_TOL:
+            fail(f"train grad {k}: relative error {rel} > {GRAD_TOL}")
+        if rel >= worst:
+            worst_leaf, worst = k, rel
+    loss_rel = abs(grads["fused"][0] - grads["jnp"][0]) / abs(grads["jnp"][0])
+    if not loss_rel <= GRAD_TOL:
+        fail(f"train loss fused vs plain: relative error {loss_rel}")
+
+    # bitwise replay: two 3-step runs from one seed
+    ends = []
+    for _ in range(2):
+        with _train_session(torch, sources, 3) as s:
+            ends.append(interop.leaves(s.run().params))
+    torch.cuda.synchronize()
+    if not all(torch.equal(ends[0][k], ends[1][k]) for k in ends[0]):
+        fail("train: two 3-step runs from one seed end with different "
+             "parameters")
+
+    # serve from the written checkpoint
+    cfg = CONFIG.replace(segment_sum_impl="fused")
+    samples = [({k: s[k][i] for k in ("species", "pos", "edge_src",
+                                      "edge_dst", "node_mask", "edge_mask")},
+                t) for t, s in enumerate(sources) for i in range(2)]
+    with ServeSession.from_checkpoint(ckpt, cfg, max_batch=8,
+                                      device=DEVICE) as srv:
+        futs = [srv.submit(x, head=t) for x, t in samples]
+        served = [f.result(timeout=600) for f in futs]
+    if not all(math.isfinite(r["energy"]) and
+               bool(torch.isfinite(torch.from_numpy(r["forces"])).all())
+               for r in served):
+        fail("serving from the trained checkpoint gave non-finite results")
+    return {"phase": "train", "config": "hydragnn-gfm",
+            "impl": "fused", "steps": TRAIN_STEPS, "tasks": len(sources),
+            "batch_per_task": 8, "graphs_per_step": 8 * len(sources),
+            "params": n_params, "losses": losses, "launches": launches,
+            "wall_s": wall, "step_ms": step_ms, "peak_mem_bytes": peak,
+            "grad_vs_plain": {"worst_leaf": worst_leaf, "rel_err": worst,
+                              "loss_rel_err": loss_rel,
+                              "tolerance": GRAD_TOL},
+            "replay_bitwise": True, "served_from_ckpt": len(served)}
+
+
+def _device_time_by_kernel(torch, prof, wall_us=None):
+    """Device time by kernel: only events that ran on the device, so the
+    host ops and autograd nodes that launched a kernel (which the profiler
+    also credits with its time) do not count it again."""
+    from torch.autograd import DeviceType
+    rows = []
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        dt = ev.device_time_total
+        if dt:
+            rows.append((dt, ev.key[:60], ev.count))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    out = {"device_us_total": busy, "kernels": len(rows),
+           "launches": sum(r[2] for r in rows),
+           "top": [{"kernel": k, "us": t, "calls": c}
+                   for t, k, c in rows[:12]]}
+    if wall_us is not None:
+        out.update(wall_us=wall_us, device_idle_share=1 - busy / wall_us)
+    return out
+
+
 def profile_phase(torch):
     """Device time by kernel name (``torch.profiler``) for the forward of
     one full-width served batch (8 rows of A=64, E=2048), per impl."""
@@ -336,18 +576,26 @@ def profile_phase(torch):
                                  ProfilerActivity.CUDA]) as prof:
             fwd()
             torch.cuda.synchronize()
-        rows = []
-        for ev in prof.key_averages():
-            dt = getattr(ev, "device_time_total", None)
-            if dt is None:
-                dt = getattr(ev, "cuda_time_total", 0.0)
-            if dt and ev.key and not ev.key.startswith(("aten::", "cuda")):
-                rows.append((dt, ev.key[:60], ev.count))
-        rows.sort(reverse=True)
-        out[impl] = {"device_us_total": sum(r[0] for r in rows),
-                     "top": [{"kernel": k, "us": t, "calls": c}
-                             for t, k, c in rows[:10]]}
-    return {"phase": "profile", "batch": "mptrj B=8 A=64 E=2048", **out}
+        out[impl] = _device_time_by_kernel(torch, prof)
+    # one full-width training step (5 tasks x 8 graphs, fused), after two
+    # warm-up steps
+    with _train_session(torch, _train_sources(), 3) as sess:
+        batches = sess._batches()
+        state = sess.state
+        for _ in range(2):
+            state, _ = sess.step_fn(state, batches())
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state, _ = sess.step_fn(state, batches())
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    # the step's wall time is taken under the profiler, which slows the
+    # host side: the idle share read from it is an upper estimate
+    out["train_step"] = _device_time_by_kernel(torch, prof, wall_us)
+    return {"phase": "profile", "batch": "mptrj B=8 A=64 E=2048; train "
+            "step 5 tasks x 8 graphs", **out}
 
 
 def main():
@@ -382,13 +630,26 @@ def main():
     eg = check_egnn_edge(torch, dev, g)
     emit({"phase": "kernel", "name": "egnn_edge_fused", "tolerance": EDGE_TOL,
           **eg})
+    eb = check_egnn_edge_bwd(torch, dev, g)
+    emit({"phase": "kernel", "name": "egnn_edge_fused_bwd",
+          "tolerance": BWD_TOL, **eb})
 
     if args.profile:
         emit(profile_phase(torch))
     serve = serve_phase(torch, N_REQUESTS)
     emit(serve)
-    launches = {"segment_sum": serve["pallas"]["launches"]["segment_sum"],
-                "egnn_edge_fused": serve["fused"]["launches"]["egnn_edge"]}
+    train = train_phase(torch, {"egnn_edge": edge_ops.egnn_edge_agg,
+                                "egnn_edge_bwd": edge_ops.egnn_edge_bwd,
+                                "segment_sum": ss_ops.segment_sum})
+    emit(train)
+    # each path's counts, zeroed just before it: serving (fused and pallas
+    # passes) and training
+    by_path = {
+        "segment_sum": {"serve": serve["pallas"]["launches"]["segment_sum"]},
+        "egnn_edge_fused": {"serve": serve["fused"]["launches"]["egnn_edge"],
+                            "train": train["launches"]["egnn_edge"]},
+        "egnn_edge_fused_bwd": {"train": train["launches"]["egnn_edge_bwd"]}}
+    launches = {k: sum(v.values()) for k, v in by_path.items()}
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
     kernels = [
@@ -400,9 +661,14 @@ def main():
          "source": "src/repro_torch/csrc/egnn_edge.cu",
          "replaces": "src/repro/kernels/egnn_edge/kernel.py:156",
          "launches": launches["egnn_edge_fused"], **eg},
+        {"name": "egnn_edge_fused_bwd", "route": "cuda",
+         "source": "src/repro_torch/csrc/egnn_edge_bwd.cu",
+         "replaces": "src/repro/kernels/egnn_edge/kernel.py:319",
+         "launches": launches["egnn_edge_fused_bwd"], **eb},
     ]
-    emit({"kernels": [{k: kern[k] for k in
-                       ("name", "route", "source", "replaces") + keys}
+    emit({"kernels": [dict({k: kern[k] for k in
+                            ("name", "route", "source", "replaces") + keys},
+                           launches_by_path=by_path[kern["name"]])
                       for kern in kernels]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

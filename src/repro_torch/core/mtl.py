@@ -1,13 +1,26 @@
-"""The GFM-MTL parameter tree (the init half of ``repro.core.mtl``).
+"""Two-level hierarchical MTL model (port of the GFM half of
+``repro.core.mtl``).
 
 Level 1: one branch per data source; level 2: each branch = {energy head,
-force head}. The loss and the training step come with the training slice.
+force head}. ``make_gfm_mtl`` is GFM-MTL-All (shared EGNN + per-source
+branches); with n_tasks=1 it is GFM-Baseline-All's single branch.
+
+The trunk is shared, so ``loss_fn`` runs it ONCE over all T·B graphs of a
+task-major batch and applies each task's branch to its own rows (batched
+over tasks), where ``repro`` vmaps the whole model over tasks. Every kernel
+on the path is row-independent, so the two forms compute the same function;
+one trunk pass makes each fused-edge kernel launch once per layer and step.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models import gnn, heads
+
+from .taskpar import MultiTaskModel
+
+GRAPH_KEYS = ("species", "pos", "edge_src", "edge_dst", "node_mask",
+              "edge_mask")
 
 
 def gfm_mtl_init(cfg, n_tasks: int, *, seed: int = 0, device="cpu",
@@ -23,3 +36,67 @@ def gfm_mtl_init(cfg, n_tasks: int, *, seed: int = 0, device="cpu",
                                        device=device)
     return {"shared": gnn.egnn_init(cfg, seed=seed, device=device),
             "heads": hp}
+
+
+def gfm_loss_terms(e_pred, f_pred, batch_t, force_weight=1.0):
+    """Masked MSE on energy-per-atom + forces for one task's sub-batch. The
+    batch dims are reduced from the right, so task-major inputs (leading T)
+    give one term per task."""
+    nm = batch_t["node_mask"]
+    e_err = ((e_pred - batch_t["energy"]) ** 2).mean(-1)
+    f_err = (((f_pred - batch_t["forces"]) ** 2) * nm[..., None]).sum(
+        (-3, -2, -1)) / torch.clamp(nm.sum((-2, -1)) * 3.0, min=1.0)
+    return e_err + force_weight * f_err, e_err, f_err
+
+
+def trunk_features(shared, batch, *, cfg):
+    """EGNN features of a task-major batch, (T, B, A, hid), from one trunk
+    pass over its T·B graphs."""
+    T, B = batch["species"].shape[:2]
+    flat = {k: batch[k].reshape(T * B, *batch[k].shape[2:])
+            for k in GRAPH_KEYS}
+    feats = gnn.egnn_apply(shared, flat, cfg=cfg)
+    return feats.reshape(T, B, *feats.shape[1:])
+
+
+def make_gfm_mtl(cfg, n_tasks: int, force_weight: float = 1.0,
+                 uncertainty: bool = False) -> MultiTaskModel:
+    """uncertainty=True adds Kendall homoscedastic weighting: each branch
+    owns learnable log sigma^2 for its (energy, force) pair."""
+    def init(seed: int = 0, device="cpu"):
+        return gfm_mtl_init(cfg, n_tasks, seed=seed, device=device,
+                            uncertainty=uncertainty)
+
+    def loss_fn(shared, hp, batch):
+        # batch leaves are task-major: (T, B, ...)
+        feats = trunk_features(shared, batch, cfg=cfg)
+        nm = batch["node_mask"]
+        e, f = heads.stacked_branches_apply(
+            {k: v for k, v in hp.items() if k != "log_sigma2"}, feats, nm,
+            cfg=cfg)
+        _, e_err, f_err = gfm_loss_terms(e, f, batch, force_weight)
+        if uncertainty:
+            s = hp["log_sigma2"]
+            ls = (torch.exp(-s[:, 0]) * e_err + s[:, 0]
+                  + torch.exp(-s[:, 1]) * force_weight * f_err + s[:, 1])
+        else:
+            ls = e_err + force_weight * f_err
+        return ls, {"energy_mse": e_err, "force_mse": f_err}
+
+    return MultiTaskModel(init=init, loss_fn=loss_fn,
+                          name=f"gfm-mtl-{n_tasks}", n_tasks=n_tasks)
+
+
+def gfm_eval_fn(cfg):
+    """Returns eval(shared, head_t, batch_single_task) -> (energy MAE, force
+    MAE), without gradients."""
+    @torch.no_grad()
+    def ev(shared, hp_t, batch_t):
+        feats = gnn.egnn_apply(shared, batch_t, cfg=cfg)
+        e, f = heads.branch_apply(hp_t, feats, batch_t["node_mask"], cfg=cfg)
+        nm = batch_t["node_mask"]
+        e_mae = (e - batch_t["energy"]).abs().mean()
+        f_mae = ((f - batch_t["forces"]).abs() * nm[..., None]).sum() / \
+            torch.clamp(nm.sum() * 3.0, min=1.0)
+        return e_mae, f_mae
+    return ev

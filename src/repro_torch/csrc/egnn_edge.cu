@@ -38,104 +38,7 @@
 // thread); edge groups inside each CTA (as many as shared memory allows,
 // ``budget.plan_groups``) keep more of those gathers in flight.
 #include "common.cuh"
-
-// ---------------------------------------------------------------------------
-// C[M,N] = A[M,K] @ B[K,N] (+ bias[n] · (rowscale ? rowscale[m] : 1)),
-// row-major, lda = K, ldb = ldc = N. 64x64 tile, k-step 16, 256 threads,
-// a 4x4 block of outputs per thread read as float4 from shared memory; the
-// next k-step's tile is fetched into registers while this one is multiplied
-// (two shared-memory stages). k runs 0..K-1 in order for every output.
-// gridDim.z = 2 runs a second problem on the same A (the two node
-// projections) in the same launch.
-// ---------------------------------------------------------------------------
-constexpr int GM = 64, GN = 64, GK = 16, GT = 256, GPAD = 4;
-
-struct GemmOut {
-  const float* B;
-  float* C;
-  const float* bias;
-};
-
-__global__ void __launch_bounds__(GT)
-gemm_f32_kernel(const float* __restrict__ A, GemmOut p0, GemmOut p1,
-                const float* __restrict__ rowscale, int M, int N, int K) {
-  __shared__ __align__(16) float As[2][GK][GM + GPAD];
-  __shared__ __align__(16) float Bs[2][GK][GN];
-  const GemmOut p = blockIdx.z ? p1 : p0;
-  const float* __restrict__ B = p.B;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * GM, n0 = blockIdx.x * GN;
-  float acc[4][4] = {};
-  float ra[4], rb[4];
-
-  auto fetch = [&](int k0) {
-#pragma unroll
-    for (int l = 0; l < 4; ++l) {
-      const int idx = tid + l * GT;
-      const int r = idx / GK, k = idx % GK;          // A: along k
-      const int gm = m0 + r, gk = k0 + k;
-      ra[l] = (gm < M && gk < K) ? A[(size_t)gm * K + gk] : 0.f;
-      const int kb = idx / GN, c = idx % GN;         // B: along n
-      const int gkb = k0 + kb, gn = n0 + c;
-      rb[l] = (gkb < K && gn < N) ? B[(size_t)gkb * N + gn] : 0.f;
-    }
-  };
-  auto stash = [&](int s) {
-#pragma unroll
-    for (int l = 0; l < 4; ++l) {
-      const int idx = tid + l * GT;
-      As[s][idx % GK][idx / GK] = ra[l];
-      Bs[s][idx / GN][idx % GN] = rb[l];
-    }
-  };
-
-  fetch(0);
-  stash(0);
-  __syncthreads();
-  int s = 0;
-  for (int k0 = 0; k0 < K; k0 += GK) {
-    const bool more = k0 + GK < K;
-    if (more) fetch(k0 + GK);
-#pragma unroll
-    for (int k = 0; k < GK; ++k) {
-      const float4 a = *reinterpret_cast<const float4*>(&As[s][k][ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&Bs[s][k][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    if (more) stash(s ^ 1);
-    __syncthreads();
-    s ^= 1;
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gm = m0 + ty * 4 + i;
-    if (gm >= M) continue;
-    const float scale = rowscale ? rowscale[gm] : 1.f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gn = n0 + tx * 4 + j;
-      if (gn >= N) continue;
-      float v = acc[i][j];
-      if (p.bias) v += p.bias[gn] * scale;
-      p.C[(size_t)gm * N + gn] = v;
-    }
-  }
-}
-
-// One launch, `count` (1 or 2) problems sharing A.
-static cudaError_t gemm(const float* A, GemmOut p0, GemmOut p1, int count,
-                        const float* rowscale, int M, int N, int K,
-                        cudaStream_t s) {
-  dim3 grid((N + GN - 1) / GN, (M + GM - 1) / GM, count);
-  gemm_f32_kernel<<<grid, GT, 0, s>>>(A, p0, p1, rowscale, M, N, K);
-  return cudaGetLastError();
-}
+#include "gemm_f32.cuh"
 
 // ---------------------------------------------------------------------------
 // Edge kernel: one CTA per (column tile of block_h, graph); blockDim =
@@ -248,7 +151,8 @@ egnn_edge_kernel(const float* __restrict__ Pi, const float* __restrict__ Pj,
 // h (B,A,H), pos (B,A,3) f32; src/dst (B,E) int32, dst >= A for edges that
 // contribute nothing; w0 the whole fc0 weight (2H+1, H) = [w0i; w0j; w0d];
 // b0, b1 (H,); w1 (H,H); out (B,A,H). Scratch from the caller: Pi, Pj, S
-// (B,A,H) and deg (B,A). All f32, contiguous. block_h x groups <= 512.
+// (B,A,H) and deg (B,A), which the wrapper keeps for the backward
+// (csrc/egnn_edge_bwd.cu). All f32, contiguous. block_h x groups <= 512.
 extern "C" int egnn_edge_fwd_launch(const float* h, const float* pos,
                                     const int32_t* src, const int32_t* dst,
                                     const float* w0, const float* b0,
@@ -262,8 +166,10 @@ extern "C" int egnn_edge_fwd_launch(const float* h, const float* pos,
   const float* w0i = w0;
   const float* w0j = w0 + (size_t)H * H;
   const float* w0d = w0 + (size_t)2 * H * H;
-  cudaError_t err = gemm(h, GemmOut{w0i, Pi, b0}, GemmOut{w0j, Pj, nullptr},
-                         2, nullptr, M, H, H, s);
+  GemmBatch proj{};
+  proj.p[0] = gemm_prob(h, w0i, Pi, M, b0);
+  proj.p[1] = gemm_prob(h, w0j, Pj, M);
+  cudaError_t err = gemm<false, false>(proj, 2, M, H, H, s);
   if (err != cudaSuccess) return (int)err;
 
   const size_t smem =
@@ -277,6 +183,7 @@ extern "C" int egnn_edge_fwd_launch(const float* h, const float* pos,
                                              deg, A, E, H, block_e);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const GemmOut fc1{w1, out, b1};
-  return (int)gemm(S, fc1, fc1, 1, deg, M, H, H, s);
+  GemmBatch fc1{};
+  fc1.p[0] = gemm_prob(S, w1, out, M, b1, deg);
+  return (int)gemm<false, false>(fc1, 1, M, H, H, s);
 }

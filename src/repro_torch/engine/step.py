@@ -1,0 +1,126 @@
+"""Unified train-step construction (port of the single-device path of
+``repro.engine.step``):
+
+    grad_fn = multitask_grad_fn(model, n_tasks, task_weights)
+    grad_fn = with_grad_accum(grad_fn, accum)
+    step    = make_train_step(grad_fn, optimizer)
+
+``make_step`` composes the pipeline in one call. A ``grad_fn`` has the
+signature ``grad_fn(params, batch) -> (loss, metrics, grads)``; a step has
+``step(state, batch) -> (state, StepOutput)``. PyTorch runs eagerly, so
+there is nothing to compile. Task-parallel plans (``shard_map``,
+hierarchical) belong to a later slice and raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.core.taskpar import MultiTaskModel
+from repro_torch.interop import leaves as tree_leaves
+from repro_torch.interop import tree_map, unflatten
+
+from .state import StepOutput, TrainState
+
+# step(state, batch) -> (state, StepOutput)
+TrainStep = Callable[[TrainState, Any], tuple[TrainState, StepOutput]]
+
+
+def normalized_task_weights(n_tasks: int, task_weights=None,
+                            device="cpu") -> torch.Tensor:
+    tw = torch.ones(n_tasks, dtype=torch.float32) if task_weights is None \
+        else torch.as_tensor(task_weights, dtype=torch.float32)
+    return (tw / tw.sum()).to(device)
+
+
+def multitask_grad_fn(model: MultiTaskModel, n_tasks: int,
+                      task_weights=None) -> Callable:
+    on_device = {}                  # the weights, copied once per device
+
+    def grad_fn(params, batch):
+        leaves = {k: v.detach().requires_grad_(True)
+                  for k, v in tree_leaves(params).items()}
+        p = unflatten(params, leaves)
+        with torch.enable_grad():
+            per_task, metrics = model.loss_fn(p["shared"], p["heads"], batch)
+            dev = per_task.device
+            if dev not in on_device:
+                on_device[dev] = normalized_task_weights(n_tasks,
+                                                         task_weights, dev)
+            tw = on_device[dev]
+            # zero-weight (quarantined) tasks are excluded by select, not by
+            # multiplication: 0 * non-finite is still non-finite
+            loss = torch.where(tw > 0, per_task * tw,
+                               torch.zeros((), device=per_task.device)).sum()
+            grads = torch.autograd.grad(loss, list(leaves.values()))
+        grads = unflatten(params, dict(zip(leaves, grads)))
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        return loss.detach(), dict(metrics, per_task_loss=per_task.detach()), \
+            grads
+
+    return grad_fn
+
+
+def with_grad_accum(grad_fn: Callable, accum: int) -> Callable:
+    """Microbatch a grad_fn over a task-major ``(T, B, ...)`` batch: split
+    B into ``accum`` slices and average losses, metrics and grads over the
+    slices, in slice order. A leaf with no batch dim (ndim <= 1, e.g.
+    per-task weights) goes whole to every slice."""
+    if accum <= 1:
+        return grad_fn
+
+    def split(x):
+        if x.dim() <= 1:
+            return [x] * accum
+        b = x.shape[1]
+        if b % accum:
+            raise ValueError(f"batch dim {b} not divisible by accum={accum}")
+        return torch.chunk(x, accum, dim=1)
+
+    def accum_fn(params, batch):
+        parts = {k: split(v) for k, v in batch.items()}
+        loss, grads, metrics = None, None, []
+        for i in range(accum):
+            l, m, g = grad_fn(params, {k: v[i] for k, v in parts.items()})
+            if loss is None:
+                loss, grads = l, g
+            else:
+                loss = loss + l
+                grads = tree_map(torch.add, grads, g)
+            metrics.append(m)
+        metrics = {k: torch.stack([m[k] for m in metrics]).mean(0)
+                   for k in metrics[0]}
+        grads = tree_map(lambda g: g / accum, grads)
+        return loss / accum, metrics, grads
+
+    return accum_fn
+
+
+def make_train_step(grad_fn: Callable, optimizer) -> TrainStep:
+    """Wrap a grad_fn + optimizer into the unified TrainStep signature."""
+    def step(state: TrainState, batch):
+        loss, metrics, grads = grad_fn(state.params, batch)
+        new_params, new_opt = optimizer.update(grads, state.opt_state,
+                                               state.params)
+        new_state = TrainState(params=new_params, opt_state=new_opt,
+                               step=state.step + 1)
+        return new_state, StepOutput(loss=loss, metrics=metrics)
+    return step
+
+
+def make_step(model, optimizer, plan=None, *, accum: int = 1,
+              task_weights=None) -> TrainStep:
+    """One call from model + optimizer to a TrainStep on one device.
+    ``plan`` is for the task-parallel plans of a later slice: anything but
+    None raises."""
+    if plan is not None:
+        raise NotImplementedError(
+            "sharded (pjit / shard_map) and hierarchical plans are not "
+            "ported yet; the port trains on one device (plan=None)")
+    if not isinstance(model, MultiTaskModel):
+        raise NotImplementedError(
+            "single-task (LM) models are not ported yet; build a "
+            "MultiTaskModel (registry 'gfm-mtl' / 'gfm-baseline')")
+    grad_fn = multitask_grad_fn(model, model.n_tasks, task_weights)
+    return make_train_step(with_grad_accum(grad_fn, accum), optimizer)

@@ -44,3 +44,19 @@ def leaves(tree, prefix=""):
             out.update(leaves(v, f"{prefix}{k}/"))
         return out
     return {prefix[:-1]: tree}
+
+
+def unflatten(template, flat: dict, prefix=""):
+    """Inverse of ``leaves``: the template's dict structure with each leaf
+    taken from ``flat`` by its path."""
+    if isinstance(template, dict):
+        return {k: unflatten(v, flat, f"{prefix}{k}/")
+                for k, v in template.items()}
+    return flat[prefix[:-1]]
+
+
+def tree_map(fn, *trees):
+    """``fn`` over the leaves of nested dicts of equal structure."""
+    if isinstance(trees[0], dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)

@@ -1,17 +1,28 @@
-"""Public entry for the fused EGNN edge kernel (forward).
+"""Public entry for the fused EGNN edge kernel, forward and backward.
 
-``egnn_edge_agg`` is the port of ``repro.kernels.egnn_edge.ops.egnn_edge_agg``:
-CUDA tensors launch ``csrc/egnn_edge.cu`` (the port of the Pallas
-``egnn_edge_fused``; its design note explains the node-projection form),
-CPU tensors run the plain version in ``ref.py``. There is no fallback: a
-CUDA call the kernel does not take (a dtype other than float32, mixed
-devices) raises. The bf16 kernel and the backward come in later work.
+``egnn_edge_agg`` is the port of ``repro.kernels.egnn_edge.ops.egnn_edge_agg``
+and, like its ``jax.custom_vjp``, a ``torch.autograd.Function`` on every
+device:
+
+  * CUDA tensors: the forward launches ``csrc/egnn_edge.cu`` (the port of
+    the Pallas ``egnn_edge_fused``), the backward ``csrc/egnn_edge_bwd.cu``
+    (the port of ``egnn_edge_fused_bwd``, wrapper ``egnn_edge_bwd``);
+  * CPU tensors: the plain versions in ``ref.py``, ``egnn_edge_agg_ref``
+    forward and ``egnn_edge_bwd_ref`` backward.
+
+There is no fallback: a CUDA call the kernels do not take (a dtype other
+than float32, mixed devices) raises. The forward keeps only node-major
+tensors for the backward: its inputs and, on the card, its scratch Pi, Pj,
+S (B·A·H f32 each) and deg (B·A), which the backward would otherwise
+recompute — never an edge-major (B,E,H) message or (B,E,2H+1) concat.
 
 Block planning mirrors ``repro``: ``None`` plans ``(block_e, block_h)``
-against the shared-memory model in ``budget.py``, explicit overrides are
-validated and raise ``SmemBudgetError`` when over budget — on every device,
-so a CPU run rejects what the card could not launch.
-``egnn_edge_agg.launches`` counts calls that launched the kernel.
+against the shared-memory model in ``budget.py``, each direction on its
+own; explicit overrides apply to both directions and are validated against
+each direction the call runs, raising ``SmemBudgetError`` when over budget
+— on every device, so a CPU run rejects what the card could not launch.
+``egnn_edge_agg.launches`` counts forward kernel launches,
+``egnn_edge_bwd.launches`` backward ones.
 """
 from __future__ import annotations
 
@@ -21,100 +32,192 @@ import torch
 
 from .. import _build
 from .budget import check_blocks, plan_blocks, plan_groups
-from .ref import egnn_edge_agg_ref
+from .ref import egnn_edge_agg_ref, egnn_edge_bwd_ref
 
 
-def _split_phi_e(phi_e, H, cd):
-    """fc0 weight (2H+1, H) -> its h_i / h_j / d² row blocks, plus b0, w1,
-    b1 (biases as (1, H) rows). On a contiguous float32 fc0 weight in the
-    compute dtype these are views: the three blocks stay adjacent rows of
-    one buffer, which is how the kernel reads them."""
-    w0 = phi_e["fc0"]["w"].to(cd)
-    assert w0.shape[0] == 2 * H + 1, \
-        f"phi_e fc0 expects (2H+1, H)={2 * H + 1}, got {tuple(w0.shape)}"
-    return (w0[:H], w0[H:2 * H], w0[2 * H:],
-            phi_e["fc0"]["b"].to(cd)[None, :],
-            phi_e["fc1"]["w"].to(cd),
-            phi_e["fc1"]["b"].to(cd)[None, :])
-
-
-def _resolve_blocks(block_e, block_h, A, E, H):
-    """Plan-or-validate ``(block_e, block_h)`` against the budget model."""
+def _resolve_blocks(block_e, block_h, A, E, H, *, bwd=False):
+    """Plan-or-validate ``(block_e, block_h)`` against the budget model of
+    one direction."""
     if block_e and block_h:
-        check_blocks(A, E, H, block_e, block_h)
+        check_blocks(A, E, H, block_e, block_h, bwd=bwd)
         return block_e, block_h
-    pe, ph = plan_blocks(A, E, H)
+    pe, ph = plan_blocks(A, E, H, bwd=bwd)
     be, bh = block_e or pe, block_h or ph
     if block_e or block_h:          # one side overridden: re-validate the mix
-        check_blocks(A, E, H, be, bh)
+        check_blocks(A, E, H, be, bh, bwd=bwd)
     return be, bh
 
 
-def _lib():
-    lib = _build.load("egnn_edge")
-    fn = lib.egnn_edge_fwd_launch
+def _lib(name, fn_name, n_ptr, n_int):
+    lib = _build.load(name)
+    fn = getattr(lib, fn_name)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + \
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + \
             [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    return lib
+    return lib, fn
 
 
-def _launch(h, pos, src, dst, edge_mask, phi_e, cd, block_e, block_h):
-    if cd != torch.float32 or h.dtype != torch.float32:
-        raise TypeError(f"egnn_edge CUDA kernel is float32 only, got h "
-                        f"{h.dtype}, compute dtype {cd}")
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _check_cuda(what, h, tensors):
+    if h.dtype != torch.float32:
+        raise TypeError(f"{what} CUDA kernel is float32 only, got {h.dtype}")
     dev = h.device
-    tensors = [pos, src, dst, edge_mask] + [
-        v for layer in phi_e.values() for v in layer.values()]
     if any(t.device != dev for t in tensors):
-        raise ValueError("egnn_edge_agg: every input must be on " + str(dev))
-    B, A, H = h.shape
-    E = src.shape[1]
-    if B > 65535:
-        raise ValueError(f"egnn_edge grid: B={B} > 65535")
-    w0 = phi_e["fc0"]["w"]
+        raise ValueError(f"{what}: every input must be on {dev}")
+    if h.shape[0] > 65535:
+        raise ValueError(f"{what} grid: B={h.shape[0]} > 65535")
+
+
+def _launch_fwd(h, pos, sr, dr, w0, b0, w1, b1, cd, block_e, block_h):
+    """The forward kernel on routed int32 src/dst. Returns (out, Pi, Pj, S,
+    deg)."""
+    if cd != torch.float32:
+        raise TypeError(f"egnn_edge CUDA kernel is float32 only, got "
+                        f"compute dtype {cd}")
+    _check_cuda("egnn_edge", h, (pos, sr, dr, w0, b0, w1, b1))
     if w0.dtype != torch.float32:
         raise TypeError(f"egnn_edge CUDA kernel takes float32 weights, "
                         f"got {w0.dtype}")
-    w0 = w0.contiguous()
-    _, _, _, b0, w1, b1 = _split_phi_e(phi_e, H, cd)
-    b0, w1, b1 = b0.contiguous(), w1.contiguous(), b1.contiguous()
+    B, A, H = h.shape
+    E = sr.shape[1]
     h = h.contiguous()
-    pos = pos.to(torch.float32).contiguous()
-    sentinel = torch.full_like(src, A)
-    sr = torch.where(edge_mask, src, sentinel).to(torch.int32).contiguous()
-    dr = torch.where(edge_mask, dst, sentinel).to(torch.int32).contiguous()
+    w0, b0, w1, b1 = (t.contiguous() for t in (w0, b0, w1, b1))
     out = torch.empty_like(h)
     pi, pj, s = (torch.empty_like(h) for _ in range(3))
-    deg = torch.empty((B, A), dtype=torch.float32, device=dev)
+    deg = torch.empty((B, A), dtype=torch.float32, device=h.device)
     be = min(block_e, max(E, 1))
-    lib = _lib()
-    code = lib.egnn_edge_fwd_launch(
-        h.data_ptr(), pos.data_ptr(), sr.data_ptr(), dr.data_ptr(),
-        w0.data_ptr(), b0.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-        out.data_ptr(), pi.data_ptr(), pj.data_ptr(), s.data_ptr(),
-        deg.data_ptr(), B, A, E, H, be, block_h,
-        plan_groups(A, be, block_h), _build.stream_ptr(h))
+    lib, fn = _lib("egnn_edge", "egnn_edge_fwd_launch", 13, 7)
+    code = fn(h.data_ptr(), pos.data_ptr(), sr.data_ptr(), dr.data_ptr(),
+              w0.data_ptr(), b0.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+              out.data_ptr(), pi.data_ptr(), pj.data_ptr(), s.data_ptr(),
+              deg.data_ptr(), B, A, E, H, be, block_h,
+              plan_groups(A, be, block_h), _build.stream_ptr(h))
     _build.check(lib, code, "egnn_edge_fwd_launch")
     egnn_edge_agg.launches += 1
-    return out
+    return out, pi, pj, s, deg
+
+
+def egnn_edge_bwd(g, h, pos, src, dst, w0, w1, pi, pj, s, deg, *,
+                  block_e, block_h, need_dpos=True):
+    """Kernel #4 (``csrc/egnn_edge_bwd.cu``): the backward of the fused edge
+    path on the card. ``g`` is the (B, A, H) cotangent of the aggregated
+    output; src/dst (B, E) int32, routed (dst >= A: no contribution); w0 the
+    whole fc0 weight (2H+1, H); pi, pj, s, deg the forward kernel's scratch.
+    Returns ``(dh, dpos, dw0, db0, dw1, db1)`` in f32 — dpos is None unless
+    ``need_dpos``. CUDA tensors only: its plain version is
+    ``ref.egnn_edge_bwd_ref``."""
+    if g.device.type != "cuda":
+        raise ValueError("egnn_edge_bwd launches the CUDA kernel; CPU "
+                         "tensors take ref.egnn_edge_bwd_ref")
+    _check_cuda("egnn_edge_bwd", h, (g, pos, src, dst, w0, w1, pi, pj, s,
+                                     deg))
+    B, A, H = h.shape
+    E = src.shape[1]
+    be = min(block_e, max(E, 1))
+    dev, f32 = h.device, torch.float32
+    g, h, w0, w1 = (t.contiguous() for t in (g, h, w0, w1))
+    dh = torch.empty_like(h)
+    dpos = torch.empty((B, A, 3), dtype=f32, device=dev) if need_dpos \
+        else None
+    dw0 = torch.empty((2 * H + 1, H), dtype=f32, device=dev)
+    dw1 = torch.empty((H, H), dtype=f32, device=dev)
+    db0, db1 = (torch.empty(H, dtype=f32, device=dev) for _ in range(2))
+    ds, dpi, dpj = (torch.empty_like(h) for _ in range(3))
+    dw0d_part = torch.empty((B, H), dtype=f32, device=dev)
+    dd2_part = torch.empty((B, -(-H // 32), E), dtype=f32, device=dev) \
+        if need_dpos else None
+    lib, fn = _lib("egnn_edge_bwd", "egnn_edge_bwd_launch", 22, 7)
+    code = fn(g.data_ptr(), h.data_ptr(), pos.data_ptr(), src.data_ptr(),
+              dst.data_ptr(), w0.data_ptr(), w1.data_ptr(), pi.data_ptr(),
+              pj.data_ptr(), s.data_ptr(), deg.data_ptr(), dh.data_ptr(),
+              _ptr(dpos), dw0.data_ptr(), db0.data_ptr(), dw1.data_ptr(),
+              db1.data_ptr(), ds.data_ptr(), dpi.data_ptr(), dpj.data_ptr(),
+              dw0d_part.data_ptr(), _ptr(dd2_part), B, A, E, H, be, block_h,
+              plan_groups(A, be, block_h, bwd=True), _build.stream_ptr(h))
+    _build.check(lib, code, "egnn_edge_bwd_launch")
+    egnn_edge_bwd.launches += 1
+    return dh, dpos, dw0, db0, dw1, db1
+
+
+egnn_edge_bwd.launches = 0
+
+
+class _EdgeAgg(torch.autograd.Function):
+    """Inputs: h, pos, the four φ_e leaves (fc0 w/b, fc1 w/b), src, dst,
+    edge_mask, the compute dtype and the two directions' blocks."""
+
+    @staticmethod
+    def forward(ctx, h, pos, w0, b0, w1, b1, src, dst, edge_mask, cd,
+                fwd_blocks, bwd_blocks):
+        A = h.shape[1]
+        # masked edges -> sentinel A (excluded from every sum)
+        sentinel = torch.full_like(src, A)
+        sr = torch.where(edge_mask, src, sentinel)
+        dr = torch.where(edge_mask, dst, sentinel)
+        ctx.cd, ctx.bwd_blocks = cd, bwd_blocks
+        ctx.dtypes = tuple(t.dtype for t in (h, pos, w0, b0, w1, b1))
+        if h.device.type == "cpu":
+            phi = {"fc0": {"w": w0, "b": b0}, "fc1": {"w": w1, "b": b1}}
+            ctx.save_for_backward(h, pos, sr, dr, w0, b0, w1)
+            return egnn_edge_agg_ref(h, pos, src, dst, edge_mask, phi,
+                                     compute_dtype=cd)
+        sr = sr.to(torch.int32).contiguous()
+        dr = dr.to(torch.int32).contiguous()
+        pos32 = pos.to(torch.float32).contiguous()
+        out, pi, pj, s, deg = _launch_fwd(h.to(cd), pos32, sr, dr, w0, b0, w1,
+                                          b1, cd, *fwd_blocks)
+        ctx.save_for_backward(h, pos32, sr, dr, w0, w1, pi, pj, s, deg)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        cd = ctx.cd
+        need_dpos = ctx.needs_input_grad[1]
+        if g.device.type == "cpu":
+            h, pos, sr, dr, w0, b0, w1 = ctx.saved_tensors
+            H = h.shape[-1]
+            w0c = w0.to(cd)
+            dh, dpos, dw0i, dw0j, dw0d, db0, dw1, db1 = egnn_edge_bwd_ref(
+                g, h.to(cd), pos, sr, dr, w0c[:H], w0c[H:2 * H], w0c[2 * H:],
+                b0.to(cd)[None], w1.to(cd))
+            dw0 = torch.cat([dw0i, dw0j, dw0d], 0)
+            db0, db1 = db0[0], db1[0]
+        else:
+            h, pos, sr, dr, w0, w1, pi, pj, s, deg = ctx.saved_tensors
+            dh, dpos, dw0, db0, dw1, db1 = egnn_edge_bwd(
+                g.to(torch.float32), h.to(cd), pos, sr, dr, w0, w1, pi, pj, s,
+                deg, block_e=ctx.bwd_blocks[0], block_h=ctx.bwd_blocks[1],
+                need_dpos=need_dpos)
+        grads = (dh, dpos if need_dpos else None, dw0, db0, dw1, db1)
+        return tuple(None if x is None else x.to(dt)
+                     for x, dt in zip(grads, ctx.dtypes)) + (None,) * 6
 
 
 def egnn_edge_agg(h, pos, src, dst, edge_mask, phi_e, *, compute_dtype=None,
                   block_e=None, block_h=None):
     """Fused EGNN message + aggregation: (B, A, H) node features in,
     (B, A, H) aggregated messages out. Drop-in for the unfused
-    gather/φ_e/segment-sum sequence in ``egnn_apply`` (numerics: ``ref.py``).
+    gather/φ_e/segment-sum sequence in ``egnn_apply`` (numerics: ``ref.py``),
+    differentiable in h, pos and every φ_e leaf through the backward kernel.
     ``block_e``/``block_h``: None plans against the shared-memory model;
     over-budget overrides raise ``budget.SmemBudgetError``."""
     B, A, H = h.shape
-    block_e, block_h = _resolve_blocks(block_e, block_h, A, src.shape[1], H)
-    cd = compute_dtype or h.dtype
-    if h.device.type == "cpu":
-        return egnn_edge_agg_ref(h, pos, src, dst, edge_mask, phi_e,
-                                 compute_dtype=cd)
-    return _launch(h, pos, src, dst, edge_mask, phi_e, cd, block_e, block_h)
+    E = src.shape[1]
+    fwd_blocks = _resolve_blocks(block_e, block_h, A, E, H)
+    f0, f1 = phi_e["fc0"], phi_e["fc1"]
+    leaves = (h, pos, f0["w"], f0["b"], f1["w"], f1["b"])
+    bwd_blocks = None
+    if torch.is_grad_enabled() and any(t.requires_grad for t in leaves):
+        bwd_blocks = _resolve_blocks(block_e, block_h, A, E, H, bwd=True)
+    if f0["w"].shape[0] != 2 * H + 1:
+        raise ValueError(f"phi_e fc0 expects (2H+1, H) = ({2 * H + 1}, {H}),"
+                         f" got {tuple(f0['w'].shape)}")
+    return _EdgeAgg.apply(*leaves, src, dst, edge_mask,
+                          compute_dtype or h.dtype, fwd_blocks, bwd_blocks)
 
 
 egnn_edge_agg.launches = 0

@@ -8,6 +8,11 @@ CUDA tensor the kernel does not take (dtype, shape) raises.
 Masked edges are routed to the ``n_nodes`` sentinel, so they contribute
 nothing — the ``>= n_nodes`` pad contract shared with ``repro``.
 ``segment_sum.launches`` counts kernel launches (one per CUDA call).
+
+The kernel has no backward, as ``repro``'s Pallas segment-sum has no
+``custom_vjp``: a CUDA call on messages that require grad raises instead of
+returning a detached result. ``segment_sum_impl="fused"`` is the trainable
+kernel path (``kernels.egnn_edge``).
 """
 from __future__ import annotations
 
@@ -126,6 +131,11 @@ def segment_sum(messages, dst, n_nodes: int, *, edge_mask=None,
         dst = torch.where(edge_mask, dst, torch.full_like(dst, n_nodes))
     if messages.device.type == "cpu":
         return segment_sum_ref(messages, dst, n_nodes)
+    if torch.is_grad_enabled() and messages.requires_grad:
+        raise RuntimeError(
+            "the segment_sum CUDA kernel has no backward (nor has repro's "
+            "Pallas segment-sum); train with segment_sum_impl=\"fused\" "
+            "(the fused edge kernels carry gradients) or \"jnp\"")
     return _launch(messages, dst, n_nodes, block_n, block_e)
 
 

@@ -63,11 +63,30 @@ def embedding_init(rng, vocab: int, d: int, dtype=torch.float32,
     return {"table": normal_init(rng, (vocab, d), dtype, 0.02, device)}
 
 
+class _Embed(torch.autograd.Function):
+    """``table[ids]`` whose backward is a one-hot product, the same fixed
+    summation order on every device. Indexing's own backward accumulates
+    with ``index_put_``, which on CUDA adds with float atomics in no fixed
+    order — training would not replay bitwise."""
+
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.save_for_backward(ids)
+        ctx.vocab = table.shape[0]
+        return table[ids]
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        onehot = F.one_hot(ids.reshape(-1), ctx.vocab).to(g.dtype)
+        return onehot.T @ g.reshape(-1, g.shape[-1]), None
+
+
 def embed(params: Params, ids: torch.Tensor, compute_dtype=None):
     t = params["table"]
     if compute_dtype is not None:
         t = t.to(compute_dtype)
-    return t[ids.long()]
+    return _Embed.apply(t, ids.long())
 
 
 def gelu(x):

@@ -45,3 +45,23 @@ def branch_apply(bp: Params, node_feats, node_mask, *, cfg):
     e = mlp_apply(bp["energy"], pooled, "silu", cd)[..., 0]  # (B,)
     f = mlp_apply(bp["force"], node_feats, "silu", cd) * nm  # (B,A,3)
     return e.to(torch.float32), f.to(torch.float32)
+
+
+def stacked_branches_apply(bp: Params, node_feats, node_mask, *, cfg):
+    """Task-major inputs: node_feats (T,B,A,hid), node_mask (T,B,A); bp
+    leaves have a leading task dim. Returns (energy (T,B), forces
+    (T,B,A,3)) — each task's ``branch_apply`` on its own rows, one batched
+    product per layer for all tasks."""
+    def per_task(mlp):           # biases broadcast over each task's rows
+        return {k: {"w": l["w"], "b": l["b"][:, None]} for k, l in
+                mlp.items()}
+
+    cd = cfg.compute_dtype
+    T, B, A, H = node_feats.shape
+    nm = node_mask[..., None].to(cd)
+    n = node_mask.sum(-1, keepdim=True).to(torch.float32).clamp(min=1.0)
+    pooled = (node_feats * nm).sum(2) / n.to(cd)            # (T,B,hid)
+    e = mlp_apply(per_task(bp["energy"]), pooled, "silu", cd)[..., 0]
+    f = mlp_apply(per_task(bp["force"]), node_feats.reshape(T, B * A, H),
+                  "silu", cd).reshape(T, B, A, 3) * nm
+    return e.to(torch.float32), f.to(torch.float32)

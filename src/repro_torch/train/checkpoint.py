@@ -1,10 +1,11 @@
 """The numpy side of ``repro``'s checkpoint layout.
 
 One ``.npz`` whose keys are the ``"/"``-joined tree paths (lists/tuples as
-``__i``), plus an optional ``.meta.json`` sidecar — the files
-``repro.train.checkpoint.save`` writes. A checkpoint saved by ``repro``
-loads here, and one saved here loads there. Leaves come back as numpy
-arrays; ``repro_torch.interop.to_torch`` puts them on a device.
+``__i``), plus optional ``.meta.json`` and ``.datapipe.json`` sidecars —
+the files ``repro.train.checkpoint.save`` writes. A checkpoint saved by
+``repro`` loads here, and one saved here loads there, sidecars included.
+Leaves come back as numpy arrays; ``repro_torch.interop.to_torch`` puts
+them on a device.
 """
 from __future__ import annotations
 
@@ -19,9 +20,11 @@ def _npz_path(path: str) -> str:
     return path if path.endswith(".npz") else path + ".npz"
 
 
-def _meta_path(path: str) -> str:
+def _sidecar(path: str, suffix: str) -> str:
+    """The sidecar next to the .npz (only a trailing ``.npz`` is
+    stripped)."""
     base = path[:-len(".npz")] if path.endswith(".npz") else path
-    return base + ".meta.json"
+    return base + suffix
 
 
 def _flatten(tree, prefix=""):
@@ -49,9 +52,25 @@ def _np_dtype(leaf):
     return np.asarray(leaf).dtype
 
 
-def save(path: str, tree, metadata: dict | None = None):
+def _write_json_atomic(path: str, obj, **dump_kw):
+    """Same-directory temp file + ``os.replace``: an interrupted writer
+    leaves the previous sidecar (or none), never a truncated one."""
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(obj, f, **dump_kw)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+
+
+def save(path: str, tree, metadata: dict | None = None,
+         datapipe: dict | None = None):
     """Write ``tree`` (nested dicts/lists of tensors or arrays) as one .npz,
-    atomically (same-directory temp file + ``os.replace``)."""
+    atomically (same-directory temp file + ``os.replace``).
+    datapipe: a batcher/prefetcher ``state()`` dict, written to the
+    ``.datapipe.json`` sidecar stamped with ``metadata["step"]`` (the npz
+    and the sidecar are two files; the stamp lets a resume detect a crash
+    between the two writes)."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     arrs = {k: _as_numpy(v) for k, v in _flatten(tree).items()}
     npz = _npz_path(path)
@@ -67,8 +86,11 @@ def save(path: str, tree, metadata: dict | None = None):
             os.unlink(tmp)
         raise
     if metadata is not None:
-        with open(_meta_path(path), "w") as f:
-            json.dump(metadata, f, indent=2)
+        _write_json_atomic(_sidecar(path, ".meta.json"), metadata, indent=2)
+    if datapipe is not None:
+        _write_json_atomic(_sidecar(path, ".datapipe.json"),
+                           {"step": (metadata or {}).get("step"),
+                            "state": datapipe})
 
 
 def restore(path: str, template):
@@ -103,5 +125,30 @@ def _unflatten_like(tree, flat, prefix):
 
 
 def load_metadata(path: str) -> dict:
-    with open(_meta_path(path)) as f:
+    with open(_sidecar(path, ".meta.json")) as f:
         return json.load(f)
+
+
+def _datapipe_payload(path: str):
+    with open(_sidecar(path, ".datapipe.json")) as f:
+        payload = json.load(f)
+    stamped = isinstance(payload, dict) and set(payload) == {"step", "state"}
+    return payload, stamped
+
+
+def load_datapipe(path: str) -> dict:
+    """The input-pipeline state from the ``.datapipe.json`` sidecar (a
+    stamped ``{"step", "state"}`` envelope or a raw state dict)."""
+    payload, stamped = _datapipe_payload(path)
+    return payload["state"] if stamped else payload
+
+
+def load_datapipe_step(path: str):
+    """The ``metadata["step"]`` stamp the sidecar was written with (None if
+    unstamped)."""
+    payload, stamped = _datapipe_payload(path)
+    return payload["step"] if stamped else None
+
+
+def has_datapipe(path: str) -> bool:
+    return os.path.exists(_sidecar(path, ".datapipe.json"))

@@ -8,13 +8,17 @@ so it also runs where only the port is installed:
 
 Tolerances: 1e-5 x max(1, |ref|) for segment-sum (f32 sums in another
 order); 1e-4 x max(1, |ref|) for the fused edge kernel (node projections
-group the 2H+1- and H-term contractions differently).
+group the 2H+1- and H-term contractions differently); 1e-4 x max|ref| per
+output for its backward (the same regrouping, and weight gradients summed
+over up to B·A nodes in another order).
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels.egnn_edge import egnn_edge_agg, egnn_edge_agg_ref
+from repro_torch.kernels.egnn_edge.ops import egnn_edge_bwd
+from repro_torch.kernels.egnn_edge.ref import egnn_edge_bwd_ref
 from repro_torch.kernels.segment_sum import segment_sum, segment_sum_ref
 from repro_torch.models.mlp import mlp_init
 
@@ -77,3 +81,55 @@ def test_egnn_edge_kernel_matches_plain(cuda, B, A, E, H):
     assert torch.equal(got, egnn_edge_agg(h, pos, src, dst, em, phi))
     with pytest.raises(TypeError, match="float32"):
         egnn_edge_agg(h.bfloat16(), pos, src, dst, em, phi)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,A,E,H", [(2, 10, 40, 24), (3, 40, 1000, 96),
+                                     (8, 64, 2048, 866)])
+def test_egnn_edge_bwd_kernel_matches_plain(cuda, B, A, E, H):
+    rng = np.random.default_rng(2)
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy(
+            scale * rng.standard_normal(shape).astype(np.float32)).to(cuda)
+
+    w0, b0 = t(2 * H + 1, H, scale=(2 * H + 1) ** -0.5), t(H, scale=0.1)
+    w1, b1 = t(H, H, scale=H ** -0.5), t(H, scale=0.1)
+    h, pos, g = t(B, A, H), t(B, A, 3, scale=2.0), t(B, A, H)
+    leaves = [h, pos, w0, b0, w1, b1]
+    for x in leaves:
+        x.requires_grad_(True)
+    phi = {"fc0": {"w": w0, "b": b0}, "fc1": {"w": w1, "b": b1}}
+    src, dst, em = _edges(rng, B, E, A, cuda)
+    src[:, -3:], dst[:, -3:], em[:, -3:] = 1, A, True   # sentinel, unmasked
+    out = egnn_edge_agg(h, pos, src, dst, em, phi)
+    before = egnn_edge_bwd.launches
+    got = torch.autograd.grad(out, leaves, g, retain_graph=True)
+    assert egnn_edge_bwd.launches == before + 1
+    sr = torch.where(em, src, A)
+    dr = torch.where(em, dst, A)
+    dh, dpos, dw0i, dw0j, dw0d, db0, dw1, db1 = egnn_edge_bwd_ref(
+        g, h.detach(), pos.detach(), sr, dr, w0[:H].detach(),
+        w0[H:2 * H].detach(), w0[2 * H:].detach(), b0.detach()[None],
+        w1.detach())
+    want = [dh, dpos, torch.cat([dw0i, dw0j, dw0d]), db0[0], dw1, db1[0]]
+    for name, a, b in zip(("h", "pos", "w0", "b0", "w1", "b1"), got, want):
+        err = float((a - b).abs().max())
+        assert err <= 1e-4 * float(b.abs().max()), (name, err)
+    # deterministic: the same backward gives the same bits
+    again = torch.autograd.grad(out, leaves, g, retain_graph=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    # pos needing no gradient skips dpos and leaves the rest bitwise as is
+    out = egnn_edge_agg(h, pos.detach(), src, dst, em, phi)
+    no_pos = torch.autograd.grad(out, [h, w0, b0, w1, b1], g)
+    assert all(torch.equal(a, b) for a, b in zip(no_pos, got[:1] + got[2:]))
+
+
+@pytest.mark.gpu
+def test_segment_sum_kernel_refuses_grad(cuda):
+    msg = torch.ones((1, 8, 4), device=cuda, requires_grad=True)
+    dst = torch.zeros((1, 8), dtype=torch.int64, device=cuda)
+    with pytest.raises(RuntimeError, match="fused"):
+        segment_sum(msg, dst, 2)
+    with torch.no_grad():
+        assert segment_sum(msg, dst, 2).shape == (1, 2, 4)

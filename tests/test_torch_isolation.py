@@ -31,7 +31,8 @@ def test_port_imports_without_jax_or_repro():
     r = subprocess.run([sys.executable, "-c", SCRIPT], env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.strip()) >= 20        # every submodule was imported
+    # every submodule was imported, the training slice's among them
+    assert int(r.stdout.strip()) >= 35
 
 
 def test_entry_points_need_a_gpu_unless_cpu_is_asked_for():
@@ -48,6 +49,18 @@ def test_entry_points_need_a_gpu_unless_cpu_is_asked_for():
         ServeSession(params, cfg, spec=BucketSpec((16,), (64,)))
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device()
+    from repro_torch.data.synthetic_atoms import generate_all, source_dicts
+    from repro_torch.engine import Session, SessionConfig
+    from repro_torch.launch import train as launch_train
+    sources = source_dicts(generate_all(4, max_atoms=16, max_edges=64))[:2]
+    scfg = SessionConfig(model="gfm-mtl", arch=cfg, steps=1,
+                         batch_per_task=2, verbose=False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Session(scfg, sources=sources)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch_train.main(["--steps", "1", "--samples", "4", "--batch", "2"])
+    with Session(scfg, sources=sources, device="cpu") as sess:
+        assert np.isfinite(sess.run().final_loss)
     srv = ServeSession(params, cfg, spec=BucketSpec((16,), (64,)),
                        device="cpu")
     with srv:

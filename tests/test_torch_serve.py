@@ -38,8 +38,7 @@ TOL = 1e-4
 
 @pytest.fixture(scope="module")
 def served():
-    # the port's generator: same structures as repro's (last test), without
-    # repro's label computation
+    # the port's generator: same structures as repro's (last test)
     sources = t_atoms.source_dicts(t_atoms.generate_mixture(
         40, max_atoms=16, max_edges=64))
     params = make_gfm_mtl(JCFG, len(sources)).init(jax.random.PRNGKey(0))
