@@ -31,8 +31,28 @@ Phases, each printing one JSON line:
      on the same batch; two 3-step runs from one seed end with bitwise
      equal parameters; ``ServeSession.from_checkpoint`` serves requests
      from the written checkpoint;
-  5. the ``kernels`` summary line, the ``nvidia-smi`` line, and the final
+  5. lm kernels: flash attention (#5) and flash decode (#6) against their
+     plain versions on the card, f32 and bf16, causal with and without a
+     window, GQA, ragged lengths, rotated (rolling) positions with pads,
+     and for #6 splits with no valid key and splits past the cache end;
+     timed beside ``scaled_dot_product_attention`` (``library_ms``, never
+     used by the port);
+  6. lm_serve: ``greedy_generate(impl="pallas")`` serves h2o-danube-1.8b
+     at full width (24 swa layers, d=2560, 32/8 heads, hd 80, window 4096,
+     bf16 compute over fp32 weights drawn on the card from a seed) in two
+     runs: (a) B=8, a 1024-token prompt from ``lm_data``, 32 new tokens;
+     (b) B=1, a 4200-token prompt (past the window: the prefill's window
+     mask and the rolling cache), 16 new tokens. Launches counted from
+     zero: #5 = 24 per prefill, #6 = 24 per decode step. Checks:
+     teacher-forced logits (prefill + 8 decode steps) of the kernel path
+     against the plain path, in bf16 and in f32 compute; two runs of (a)
+     bitwise equal; one ``task=`` decode step of a 3-head tree;
+  7. the ``kernels`` summary line, the ``nvidia-smi`` line, and the final
      ``{"ok": true, "device": ...}`` line.
+
+``--profile`` adds device time by kernel (``torch.profiler``) for one
+served GNN batch, one training step, one LM prefill and one decode step,
+and the device time of #5 over masks and of #6 over split counts.
 
 Any failure exits nonzero. Without a GPU, or without the repository around
 it, the script exits nonzero before printing any result. It imports no JAX.
@@ -40,6 +60,7 @@ it, the script exits nonzero before printing any result. It imports no JAX.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import math
 import subprocess
@@ -64,9 +85,28 @@ BWD_TOL = 1e-4                     # egnn_edge backward, per output and
 SERVE_TOL = 1e-4                   # full forward, 4 layers + heads
 GRAD_TOL = 1e-4                    # train step grads vs the plain path,
                                    # per leaf, relative to its largest entry
+ATTN_TOL_F32 = 2e-5                # flash kernels vs plain, x max(1, |ref|):
+                                   # online softmax summed in another order
+ATTN_RTOL_BF16 = 2.0 ** -7         # bf16, per element: |got - ref| <=
+                                   # 2^-7 |ref| + the f32 tolerance; both
+                                   # sides compute in f32 from the same
+                                   # bf16 inputs and round once to bf16,
+                                   # which moves a value by at most 1 ulp,
+                                   # and 1 ulp is at most 2^-7 of it
+LM_TOL_F32 = (2e-4, 2e-3)          # teacher-forced logits, f32 compute,
+                                   # atol/rtol (repro's own test_serve)
+LM_TOL_BF16 = 5e-2                 # ... bf16 compute, x max|ref logit|:
+                                   # bf16 roundings of attention outputs
+                                   # flip where the sums' order differs and
+                                   # spread through the residual stream;
+                                   # the two plain paths at full width on
+                                   # the CPU differ by 0.026/0.046/0.064 at
+                                   # 2/4/8 layers (max |logit| ~4.9), ~0.11
+                                   # at 24 by sqrt(L); tolerance ~0.25
+BF16_FLOPS = 989e12                # H100 SXM bf16 tensor cores, dense
 N_REQUESTS = 80                    # mixed-head requests per serving pass
 TRAIN_STEPS = 10
-DEVICE = "cuda"                    # the training phase's device
+DEVICE = "cuda"                    # the train and lm_serve phases' device
 
 
 def fail(msg: str):
@@ -99,6 +139,26 @@ def time_ms(torch, fn, iters=20, warm=3) -> float:
     t1.record()
     t1.synchronize()
     return t0.elapsed_time(t1) / iters
+
+
+def device_ms(torch, fn, iters=20, warm=3) -> float:
+    """Device time of one call of ``fn``: the kernels it launches, summed
+    from a ``torch.profiler`` trace of ``iters`` calls. Unlike CUDA events
+    around the calls, it leaves out the device's idle time while the host
+    prepares the next launch, which dominates calls of tens of us."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(ev.device_time_total for ev in prof.key_averages()
+             if ev.device_type == DeviceType.CUDA)
+    return us / iters / 1e3
 
 
 def scaled_err(torch, got, ref) -> tuple[float, float]:
@@ -520,6 +580,465 @@ def train_phase(torch, counters):
             "replay_bitwise": True, "served_from_ckpt": len(served)}
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the LM attention kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+PAD_POS = -(10 ** 9)
+# the LM prefill shapes of runs (a) and (b), then edge cases
+FA_CASES = [  # name, dtype, B, Sq, Sk, H, K, D, causal, window, rolled
+    ("prefill_a", "bfloat16", 8, 1024, 1024, 32, 8, 80, True, 4096,
+     False),
+    ("prefill_b", "bfloat16", 1, 4200, 4200, 32, 8, 80, True, 4096,
+     False),
+    ("f32_prefill_a", "float32", 8, 1024, 1024, 32, 8, 80, True, 4096,
+     False),
+    ("f32_window_ragged", "float32", 2, 1000, 1000, 32, 8, 80, True,
+     300, False),
+    ("f32_no_window", "float32", 2, 333, 333, 32, 8, 80, True, 0,
+     False),
+    ("f32_rolled_pads", "float32", 1, 300, 300, 8, 2, 80, True, 128,
+     True),
+    ("bf16_rolled_pads", "bfloat16", 1, 300, 300, 8, 2, 80, True,
+     128, True),
+    ("f32_noncausal_mha", "float32", 1, 200, 200, 4, 4, 64, False,
+     0, False),
+]
+# the LM decode shapes of runs (a) and (b), then edge cases
+FD_CASES = [  # name, dtype, B, C, H, K, D, pos, window, n_splits, block_k
+    ("decode_a", "bfloat16", 8, 1056, 32, 8, 80, 1040, 4096, None,
+     None),
+    ("decode_b_rolling", "bfloat16", 1, 4200, 32, 8, 80, 4210, 4096,
+     None, None),
+    ("f32_repro_plan", "float32", 3, 1000, 32, 8, 80, 700, 0, 8, 512),
+    ("f32_dead_and_empty_splits", "float32", 2, 640, 8, 2, 64, 639,
+     0, 12, 64),
+    ("f32_rolling_window", "float32", 2, 300, 8, 8, 32, 777, 50, 5,
+     None),
+]
+
+
+def _attn_err(torch, got, ref, name):
+    """Max abs error of ``got`` against ``ref``, held per element to
+    ATTN_TOL_F32 x max(1, max|ref|), plus ATTN_RTOL_BF16 x |ref| for bf16;
+    also the worst element's share of its tolerance."""
+    err, scale = scaled_err(torch, got, ref)
+    diff = (got.float() - ref.float()).abs()
+    tol = ATTN_TOL_F32 * scale
+    if ref.dtype == torch.bfloat16:
+        tol = tol + ATTN_RTOL_BF16 * ref.float().abs()
+    share = float((diff / tol).max())
+    if not share <= 1.0:
+        fail(f"{name}: an element is off by {share:.3g} x its tolerance "
+             f"(max_abs_err {err}, max|ref| {scale})")
+    return err, share
+
+
+def _bound(torch, n_ops, n_bytes, dtype):
+    """The least time for this work: bytes over HBM, operations over the
+    peak of the inputs' type (bf16 tensor cores, fp32 FFMA)."""
+    peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+    t_ops = n_ops / peak * 1e3
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "operations": n_ops, "bytes": n_bytes,
+            "ops_rate": "bf16 tensor cores 989 TFLOP/s"
+            if dtype == torch.bfloat16 else "fp32 FFMA 67 TFLOP/s",
+            "fp32_ffma_bound_ms": n_ops / FP32_FLOPS * 1e3}
+
+
+def check_flash_attention(torch, dev, g):
+    """#5 against ``flash_attention_ref`` (f32 scores, full softmax) at the
+    LM prefill shapes and edge cases; timed at runs (a) and (b)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+    from repro_torch.kernels.flash_attention.ref import keep_mask
+    worst, out = 0.0, {"cases": {}}
+    for name, dt, B, Sq, Sk, H, K, D, causal, window, rolled in FA_CASES:
+        dt = getattr(torch, dt)
+
+        def t(*shape):
+            return torch.randn(shape, generator=g, device=dev).to(dt)
+        q, k, v = t(B, Sq, H, D), t(B, Sk, K, D), t(B, Sk, K, D)
+        kp = torch.arange(Sk, device=dev, dtype=torch.int32)
+        if rolled:
+            kp = torch.remainder(kp - Sk // 3, Sk)
+            kp[::11] = PAD_POS
+        qp = torch.arange(Sk - Sq, Sk, device=dev, dtype=torch.int32)
+        kw = dict(causal=causal, window=window)
+        got = flash_attention(q, k, v, q_pos=qp, k_pos=kp, **kw)
+        ref = flash_attention_ref(q, k, v, qp, kp, **kw)
+        again = flash_attention(q, k, v, q_pos=qp, k_pos=kp, **kw)
+        torch.cuda.synchronize()
+        err, share = _attn_err(torch, got, ref, f"flash_attention {name}")
+        if not torch.equal(got, again):
+            fail(f"flash_attention {name}: two calls differ bitwise")
+        worst = max(worst, err)
+        out["cases"][name] = {"max_abs_err": err, "tol_share": share}
+        if not name.startswith("prefill"):
+            continue
+        keep = keep_mask(qp.long(), kp.long(), **kw)
+        pairs = int(keep.sum()) * B * H
+
+        def kernel():
+            flash_attention(q, k, v, q_pos=qp, k_pos=kp, **kw)
+
+        def plain():
+            flash_attention_ref(q, k, v, qp, kp, **kw)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+        def library():
+            F.scaled_dot_product_attention(qt, kt, vt, attn_mask=keep,
+                                           enable_gqa=True)
+        ms = device_ms(torch, kernel, iters=10)
+        wall = time_ms(torch, kernel, iters=10)
+        plain_ms = device_ms(torch, plain, iters=5)
+        lib = device_ms(torch, library, iters=10)
+        isz = q.element_size()
+        nbytes = isz * (2 * B * Sq * H * D + 2 * B * Sk * K * D) \
+            + 4 * (Sq + Sk)
+        timed = {"ms": ms, "wall_ms": wall, "plain_ms": plain_ms,
+                 "library_ms": lib,
+                 "library": "scaled_dot_product_attention(enable_gqa, "
+                            "bool mask)",
+                 "shape": [B, Sq, Sk, H, K, D], "window": window,
+                 "kept_pairs": pairs,
+                 **_bound(torch, 4 * D * pairs, nbytes, dt)}
+        if name == "prefill_a":
+            out.update(timed)
+        else:
+            out[name] = timed
+    out["max_abs_err"] = worst
+    return out
+
+
+def _cache_positions(torch, dev, C, pos, window):
+    """k_pos of a (rolling) cache of C slots after position ``pos`` was
+    written, the window folded in — what the decode path hands #6."""
+    j = torch.arange(C, device=dev)
+    slot_pos = pos - torch.remainder(pos - j, C)
+    valid = slot_pos >= 0
+    if window:
+        valid &= slot_pos > pos - window
+    return torch.where(valid, slot_pos, PAD_POS).to(torch.int32)
+
+
+def check_flash_decode(torch, dev, g):
+    """#6 against the plain split partials + combine with the same plan,
+    and against ``decode_ref``, at the LM decode shapes and edge cases;
+    timed at runs (a) and (b)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_decode import (combine_partials,
+                                                  decode_partials_ref,
+                                                  decode_ref, flash_decode,
+                                                  plan_splits)
+    worst, out = 0.0, {"cases": {}}
+    for name, dt, B, C, H, K, D, pos, window, n_splits, block_k in FD_CASES:
+        dt = getattr(torch, dt)
+
+        def t(*shape):
+            return torch.randn(shape, generator=g, device=dev).to(dt)
+        q, k, v = t(B, 1, H, D), t(B, C, K, D), t(B, C, K, D)
+        kp = _cache_positions(torch, dev, C, pos, window)[None].expand(B, C)
+        if name.startswith("f32_dead"):
+            kp = kp.clone()
+            kp[:, 128:192] = PAD_POS             # split 2: pads only
+            kp[:, 320:384] = 10 ** 6             # split 5: future keys only
+        qp = torch.full((B,), pos, device=dev, dtype=torch.int32)
+        kw = dict(n_splits=n_splits, block_k=block_k)
+        got = flash_decode(q, k, v, q_pos=qp, k_pos=kp, **kw)
+        again = flash_decode(q, k, v, q_pos=qp, k_pos=kp, **kw)
+        n, per = plan_splits(B, K, C, n_splits, block_k)
+
+        def plain():
+            m, l, acc = decode_partials_ref(q, k, v, q_pos=qp, k_pos=kp,
+                                            n_splits=n, per_split=per)
+            return combine_partials(m, l, acc).reshape(B, 1, H, D).to(dt)
+        ref = plain()
+        oracle = decode_ref(q, k, v, q_pos=qp, k_pos=kp)
+        torch.cuda.synchronize()
+        err, share = _attn_err(torch, got, ref, f"flash_decode {name}")
+        _attn_err(torch, got, oracle, f"flash_decode {name} vs decode_ref")
+        if not torch.equal(got, again):
+            fail(f"flash_decode {name}: two calls differ bitwise")
+        worst = max(worst, err)
+        out["cases"][name] = {"max_abs_err": err, "tol_share": share,
+                              "n_splits": n, "per_split": per}
+        if not name.startswith("decode"):
+            continue
+        valid = int((kp > -(10 ** 8)).sum())
+        # the decode path reads each layer's cache once, after the layer
+        # before streamed its weights through L2: time over copies of the
+        # cache that together exceed the 50 MB L2, taken in turn
+        isz = q.element_size()
+        n_copy = 1 + (100 << 20) // (2 * B * C * K * D * isz)
+        copies = itertools.cycle([(k.clone(), v.clone())
+                                  for _ in range(n_copy)])
+        mask = (kp > -(10 ** 8))[:, None, None, :]
+
+        def kernel():
+            kc, vc = next(copies)
+            flash_decode(q, kc, vc, q_pos=qp, k_pos=kp, **kw)
+
+        def library():
+            kc, vc = next(copies)
+            F.scaled_dot_product_attention(
+                q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2),
+                attn_mask=mask, enable_gqa=True)
+        ms = device_ms(torch, kernel, iters=50)
+        wall = time_ms(torch, kernel, iters=50)
+        plain_ms = device_ms(torch, plain, iters=10)
+        lib = device_ms(torch, library, iters=50)
+        # q in and the output out, the k/v rows of the valid keys only
+        # (pads and slots past the window are not needed), k_pos and q_pos
+        nbytes = isz * (2 * B * H * D + 2 * valid * K * D) + 4 * (B * C + B)
+        timed = {"ms": ms, "wall_ms": wall, "plain_ms": plain_ms,
+                 "library_ms": lib,
+                 "library": "scaled_dot_product_attention(enable_gqa, "
+                            "bool mask), one query token",
+                 "l2_cold_copies": n_copy,
+                 "shape": [B, C, H, K, D], "pos": pos, "valid_keys": valid,
+                 "n_splits": n, "per_split": per,
+                 **_bound(torch, 4 * D * H * valid, nbytes, dt)}
+        if name == "decode_a":
+            out.update(timed)
+        else:
+            out[name] = timed
+    out["max_abs_err"] = worst
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 6: LM serving at full width
+# ---------------------------------------------------------------------------
+
+def _lm_prompts(cfg, B, S, extra=0, seed=0):
+    import torch
+
+    from repro_torch.data.lm_data import make_lm_source
+    src = make_lm_source(seed, B, S + extra, cfg.vocab)
+    return torch.from_numpy(src["tokens"])
+
+
+def _teacher_forced(torch, params, cfg, toks, S, impl):
+    """Prefill ``toks[:, :S]`` and decode the rest fed the true tokens:
+    the last prefill logits and each decode step's over the real vocab,
+    (steps, B, vocab), and the caches (one slot to spare for a follow-on
+    step)."""
+    from repro_torch.train.serve import (extend_caches, make_decode_step,
+                                         make_prefill_step)
+    dev = params["embed"]["table"].device
+    toks = toks.to(dev)
+    logits, caches = make_prefill_step(cfg, impl)(params, toks[:, :S])
+    caches = extend_caches(caches, cfg, toks.shape[1] + 1)
+    steps = [logits[:, -1]]
+    decode = make_decode_step(cfg, impl)
+    for t in range(S, toks.shape[1]):
+        lg, caches = decode(params, toks[:, t:t + 1], caches, t)
+        steps.append(lg[:, 0])
+    return torch.stack(steps)[..., :cfg.vocab], caches
+
+
+def _gen_run(torch, params, cfg, prompt, n_new, counters):
+    from repro_torch.train.serve import greedy_generate
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    timings = {}
+    toks, logits = greedy_generate(params, cfg, prompt, n_new,
+                                   impl="pallas", device=DEVICE,
+                                   return_logits=True, timings=timings)
+    launches = {k: c.launches for k, c in counters.items()}
+    B, S = prompt.shape
+    if not (toks.shape == (B, n_new) and bool(torch.isfinite(logits).all())
+            and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab):
+        fail(f"lm_serve B={B} S={S}: bad tokens or non-finite logits")
+    want = {"flash_attention": cfg.n_layers,
+            "flash_decode": cfg.n_layers * (n_new - 1)}
+    if launches != want:
+        fail(f"lm_serve B={B} S={S}: launches {launches}, design implies "
+             f"{want} (one per layer per prefill / decode step)")
+    info = {"batch": B, "prompt": S, "new": n_new, "launches": launches,
+            "prefill_s": timings["prefill_s"],
+            "prefill_tok_per_s": B * S / timings["prefill_s"],
+            "decode_s": timings["decode_s"],
+            "decode_tok_per_s": B * (n_new - 1) / timings["decode_s"],
+            "decode_ms_per_step": timings["decode_s"] / (n_new - 1) * 1e3,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+    return toks, logits, info
+
+
+def lm_serve_phase(torch, counters):
+    from repro_torch import interop
+    from repro_torch.configs import h2o_danube_1_8b
+    from repro_torch.models import transformer
+    from repro_torch.models.common import normal_init
+    cfg = h2o_danube_1_8b.CONFIG
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    params = transformer.lm_init(gen, cfg, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(x.numel() for x in interop.leaves(params).values())
+
+    # (a) B=8, prompt 1024, 32 new; twice, bitwise
+    prompt_a = _lm_prompts(cfg, 8, 1024, seed=1)
+    toks_a, logits_a, run_a = _gen_run(torch, params, cfg, prompt_a, 32,
+                                       counters)
+    toks_a2, logits_a2, run_a2 = _gen_run(torch, params, cfg, prompt_a, 32,
+                                          counters)
+    if not (torch.equal(toks_a, toks_a2) and torch.equal(logits_a,
+                                                         logits_a2)):
+        fail("lm_serve (a): two kernel-path runs differ bitwise")
+    # (b) B=1, prompt 4200 (past the 4096 window), 16 new
+    prompt_b = _lm_prompts(cfg, 1, 4200, seed=2)
+    _, logits_b, run_b = _gen_run(torch, params, cfg, prompt_b, 16,
+                                  counters)
+    del logits_b
+
+    # teacher-forced logits, kernel path vs plain path, bf16 compute
+    tf_toks = _lm_prompts(cfg, 8, 1024, extra=8, seed=1)
+    S = tf_toks.shape[1] - 8
+    got, caches = _teacher_forced(torch, params, cfg, tf_toks, S, "pallas")
+    want, _ = _teacher_forced(torch, params, cfg, tf_toks, S, "chunked")
+    scale = float(want.abs().max())
+    tf_err = float((got - want).abs().max())
+    per_step = (got - want).abs().amax(dim=(1, 2)).tolist()
+    if not tf_err <= LM_TOL_BF16 * scale:
+        fail(f"lm_serve teacher-forced bf16 logits: max_abs_err {tf_err} > "
+             f"{LM_TOL_BF16}*{scale} (per step {per_step})")
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    del got, want
+
+    # task heads: one task= decode step of a 3-head tree from the kernel
+    # path's caches (each path writes its slot into its own copy)
+    from repro_torch.train.serve import make_decode_step
+    cfg3 = cfg.replace(n_tasks=3)
+    params3 = dict(params, task_heads={"w": normal_init(
+        gen, (3, cfg.d_model, cfg.padded_vocab), cfg.param_dtype, 0.02,
+        dev)})
+    nxt = tf_toks[:, -1:].to(dev)
+    task_out = {}
+    for impl in ("pallas", "chunked"):
+        c = interop.tree_map(torch.clone, caches)
+        lg, _ = make_decode_step(cfg3, impl, task=1)(params3, nxt, c,
+                                                     tf_toks.shape[1])
+        task_out[impl] = lg[:, 0, :cfg.vocab]
+    task_err = float((task_out["pallas"] - task_out["chunked"]).abs().max())
+    task_scale = float(task_out["chunked"].abs().max())
+    if not task_err <= LM_TOL_BF16 * task_scale:
+        fail(f"lm_serve task head: max_abs_err {task_err} > "
+             f"{LM_TOL_BF16}*{task_scale}")
+    del params3, caches, task_out
+
+    # the same check in f32 compute: the kernels' arithmetic, no bf16 flips
+    cfg32 = cfg.replace(compute_dtype=torch.float32)
+    tf32 = _lm_prompts(cfg, 2, 256, extra=4, seed=3)
+    S32 = tf32.shape[1] - 4
+    got32, _ = _teacher_forced(torch, params, cfg32, tf32, S32, "pallas")
+    want32, _ = _teacher_forced(torch, params, cfg32, tf32, S32, "chunked")
+    atol, rtol = LM_TOL_F32
+    f32_err = float((got32 - want32).abs().max())
+    if not torch.allclose(got32, want32, atol=atol, rtol=rtol):
+        fail(f"lm_serve teacher-forced f32 logits: max_abs_err {f32_err} "
+             f"beyond atol {atol} / rtol {rtol}")
+    return {"phase": "lm_serve", "config": cfg.name, "layers": cfg.n_layers,
+            "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
+            "head_dim": cfg.hd, "window": cfg.window, "params": n_params,
+            "init_s": init_s, "compute_dtype": "bfloat16", "impl": "pallas",
+            "run_a": run_a, "run_a_replay": run_a2, "run_b": run_b,
+            "replay_bitwise": True,
+            "teacher_forced": {
+                "steps": len(per_step), "bf16_max_abs_err": tf_err,
+                "bf16_max_abs_logit": scale, "bf16_per_step": per_step,
+                "bf16_tolerance": LM_TOL_BF16 * scale,
+                "argmax_agreement": agree, "f32_max_abs_err": f32_err,
+                "f32_tolerance": list(LM_TOL_F32)},
+            "task_head": {"n_tasks": 3, "task": 1, "max_abs_err": task_err,
+                          "tolerance": LM_TOL_BF16 * task_scale}}
+
+
+def lm_profile(torch):
+    """Device time by kernel for one full-width prefill (B=8, S=1024) and
+    one decode step (B=8, cache 1056), kernel path, after a warm-up of
+    each."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import h2o_danube_1_8b
+    from repro_torch.models import transformer
+    from repro_torch.train.serve import (extend_caches, make_decode_step,
+                                         make_prefill_step)
+    cfg = h2o_danube_1_8b.CONFIG
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = transformer.lm_init(gen, cfg, device=dev)
+    toks = _lm_prompts(cfg, 8, 1024, extra=3, seed=1).to(dev)
+    prefill = make_prefill_step(cfg, "pallas")
+    decode = make_decode_step(cfg, "pallas")
+
+    def traced(fn):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        return out, _device_time_by_kernel(torch, prof, wall_us)
+    prefill(params, toks[:, :1024])                         # warm-up
+    (_, caches), pre = traced(lambda: prefill(params, toks[:, :1024]))
+    caches = extend_caches(caches, cfg, 1056)
+    decode(params, toks[:, 1024:1025], caches, 1024)        # warm-up
+    _, dec = traced(lambda: decode(params, toks[:, 1025:1026], caches, 1025))
+    # wall times under the profiler, which slows the host side: the idle
+    # shares read from them are upper estimates
+    return {"phase": "profile_lm", "config": cfg.name,
+            "batch": "prefill B=8 S=1024; decode B=8 cache 1056",
+            "prefill": pre, "decode_step": dec}
+
+
+def attn_sweep(torch):
+    """Device time per call of #5 over masks and of #6 over split counts,
+    at the LM path's shapes (prefill B=8, S=1024; decode B=8, cache 1056;
+    bf16) on L2-warm inputs: the measurements behind the kernels'
+    redesign notes."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_decode import flash_decode
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+
+    def t(*shape):
+        return torch.randn(shape, generator=g, device=dev).bfloat16()
+    B, S, H, K, D, C = 8, 1024, 32, 8, 80, 1056
+    q, k, v = t(B, S, H, D), t(B, S, K, D), t(B, S, K, D)
+    pos = torch.arange(S, device=dev, dtype=torch.int32)
+    fa = {}
+    for mask, kw in (("causal", dict(causal=True)),
+                     ("causal_window_64", dict(causal=True, window=64)),
+                     ("none", dict(causal=False))):
+        fa[mask] = device_ms(torch, lambda: flash_attention(
+            q, k, v, q_pos=pos, k_pos=pos, **kw), iters=10)
+    q1, kc, vc = t(B, 1, H, D), t(B, C, K, D), t(B, C, K, D)
+    kp = torch.arange(C, device=dev, dtype=torch.int32)
+    fd = {}
+    for n_splits in (1, 3, 9, 17):
+        fd[n_splits] = device_ms(torch, lambda: flash_decode(
+            q1, kc, vc, q_pos=C - 1, k_pos=kp, n_splits=n_splits))
+    return {"phase": "attn_sweep", "flash_attention_shape": [B, S, H, K, D],
+            "flash_attention_ms_by_mask": fa,
+            "flash_decode_shape": [B, C, H, K, D],
+            "flash_decode_ms_by_splits": fd}
+
+
 def _device_time_by_kernel(torch, prof, wall_us=None):
     """Device time by kernel: only events that ran on the device, so the
     host ops and autograd nodes that launched a kernel (which the profiler
@@ -601,7 +1120,10 @@ def profile_phase(torch):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also print device time by kernel for one batch")
+                    help="also print device time by kernel for one served "
+                         "batch, one train step, one LM prefill and one "
+                         "decode step, and of #5 over masks and #6 over "
+                         "split counts")
     args = ap.parse_args()
     if not (SRC / "repro_torch" / "csrc").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout")
@@ -612,6 +1134,8 @@ def main():
     import repro_torch  # noqa: F401  (pins TF32 off)
     from repro_torch.kernels import _build
     from repro_torch.kernels.egnn_edge import ops as edge_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_decode import ops as fd_ops
     from repro_torch.kernels.segment_sum import ops as ss_ops
 
     smi = nvidia_smi()
@@ -633,8 +1157,17 @@ def main():
     eb = check_egnn_edge_bwd(torch, dev, g)
     emit({"phase": "kernel", "name": "egnn_edge_fused_bwd",
           "tolerance": BWD_TOL, **eb})
+    fa = check_flash_attention(torch, dev, g)
+    emit({"phase": "kernel", "name": "flash_attention",
+          "tolerance": {"f32": ATTN_TOL_F32, "bf16_rtol": ATTN_RTOL_BF16},
+          **fa})
+    fd = check_flash_decode(torch, dev, g)
+    emit({"phase": "kernel", "name": "flash_decode",
+          "tolerance": {"f32": ATTN_TOL_F32, "bf16_rtol": ATTN_RTOL_BF16},
+          **fd})
 
     if args.profile:
+        emit(attn_sweep(torch))
         emit(profile_phase(torch))
     serve = serve_phase(torch, N_REQUESTS)
     emit(serve)
@@ -642,13 +1175,23 @@ def main():
                                 "egnn_edge_bwd": edge_ops.egnn_edge_bwd,
                                 "segment_sum": ss_ops.segment_sum})
     emit(train)
+    lm = lm_serve_phase(torch, {"flash_attention": fa_ops.flash_attention,
+                                "flash_decode": fd_ops.flash_decode})
+    emit(lm)
+    if args.profile:
+        emit(lm_profile(torch))
     # each path's counts, zeroed just before it: serving (fused and pallas
-    # passes) and training
+    # passes), training, and LM serving (runs (a) and (b))
+    lm_runs = (lm["run_a"]["launches"], lm["run_b"]["launches"])
     by_path = {
         "segment_sum": {"serve": serve["pallas"]["launches"]["segment_sum"]},
         "egnn_edge_fused": {"serve": serve["fused"]["launches"]["egnn_edge"],
                             "train": train["launches"]["egnn_edge"]},
-        "egnn_edge_fused_bwd": {"train": train["launches"]["egnn_edge_bwd"]}}
+        "egnn_edge_fused_bwd": {"train": train["launches"]["egnn_edge_bwd"]},
+        "flash_attention": {"lm_serve": sum(r["flash_attention"]
+                                            for r in lm_runs)},
+        "flash_decode": {"lm_serve": sum(r["flash_decode"]
+                                         for r in lm_runs)}}
     launches = {k: sum(v.values()) for k, v in by_path.items()}
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
@@ -665,6 +1208,14 @@ def main():
          "source": "src/repro_torch/csrc/egnn_edge_bwd.cu",
          "replaces": "src/repro/kernels/egnn_edge/kernel.py:319",
          "launches": launches["egnn_edge_fused_bwd"], **eb},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:102",
+         "launches": launches["flash_attention"], **fa},
+        {"name": "flash_decode", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_decode.cu",
+         "replaces": "src/repro/kernels/flash_decode/kernel.py:113",
+         "launches": launches["flash_decode"], **fd},
     ]
     emit({"kernels": [dict({k: kern[k] for k in
                             ("name", "route", "source", "replaces") + keys},

@@ -1,3 +1,33 @@
+"""Config registry of the ported architectures: ``get(name)`` /
+``get_smoke(name)`` / ``ARCHS``. An arch ``repro`` knows but the port does
+not yet (MoE, MLA, SSM, enc-dec, VLM) raises ``KeyError``."""
+from __future__ import annotations
+
+import importlib
+
 from .base import ArchConfig
 
-__all__ = ["ArchConfig"]
+_MODULES = {
+    "h2o-danube-1.8b": "h2o_danube_1_8b",
+    "qwen1.5-0.5b": "qwen1_5_0_5b",
+    "hydragnn-gfm": "hydragnn_gfm",
+}
+ARCHS = tuple(_MODULES)
+
+
+def _mod(name: str):
+    if name not in _MODULES:
+        raise KeyError(f"unknown or not yet ported arch '{name}'; the port "
+                       f"knows {list(_MODULES)} (ROADMAP.md, queue 1)")
+    return importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
+
+
+def get(name: str) -> ArchConfig:
+    return _mod(name).CONFIG
+
+
+def get_smoke(name: str) -> ArchConfig:
+    return _mod(name).smoke()
+
+
+__all__ = ["ARCHS", "ArchConfig", "get", "get_smoke"]

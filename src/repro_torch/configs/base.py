@@ -1,8 +1,10 @@
-"""The GNN side of ``ArchConfig`` with torch dtypes.
+"""``ArchConfig`` with torch dtypes.
 
 ``repro.configs.base`` imports jax for its dtypes, so the port keeps its own
-dataclass holding only the fields the EGNN trunk and the MTL heads read.
-Field names and defaults match the reference."""
+dataclass holding only the fields its ported paths read: the EGNN trunk and
+the MTL heads, and the decoder-only LM trunk (GQA ``attn``/``swa`` blocks).
+Field names and defaults match the reference; MoE, MLA, SSM and
+encoder-decoder fields come with their slices."""
 from __future__ import annotations
 
 import dataclasses
@@ -17,7 +19,24 @@ class ArchConfig:
     name: str = ""
     family: str = "gnn"
     citation: str = ""
-    # multi-task: one branch per data source --------------------------------
+    # LM trunk --------------------------------------------------------------
+    n_layers: int = 0
+    d_model: int = 0
+    n_heads: int = 0
+    n_kv_heads: int = 0
+    d_ff: int = 0
+    vocab: int = 0
+    head_dim: int = 0              # 0 => d_model // n_heads
+    qkv_bias: bool = False
+    act: str = "silu"
+    norm: str = "rmsnorm"          # rmsnorm | layernorm
+    rope_theta: float = 10000.0
+    tie_embeddings: bool = True
+    # attention pattern: 0 = full attention; >0 = sliding window. The unit
+    # is repeated to n_layers; the port's blocks are "attn" and "swa".
+    window: int = 0
+    block_pattern: tuple = ("attn",)
+    # multi-task: one branch (GNN) or one LM head (LM) per data source -----
     n_tasks: int = 1
     # GNN (hydragnn-gfm) ----------------------------------------------------
     gnn_hidden: int = 0
@@ -37,6 +56,24 @@ class ArchConfig:
     # precision -------------------------------------------------------------
     param_dtype: Any = torch.float32
     compute_dtype: Any = torch.bfloat16
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or (self.d_model // max(self.n_heads, 1))
+
+    @property
+    def padded_vocab(self) -> int:
+        """Vocab padded to a multiple of 256 (the reference's layout)."""
+        if self.vocab == 0:
+            return 0
+        return -(-self.vocab // 256) * 256
+
+    @property
+    def pattern(self) -> tuple:
+        """Full per-layer pattern of length n_layers."""
+        unit = self.block_pattern
+        reps = -(-self.n_layers // len(unit))
+        return (unit * reps)[: self.n_layers]
 
     def replace(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)

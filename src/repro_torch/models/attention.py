@@ -1,0 +1,216 @@
+"""Attention: GQA/MHA (+QKV bias) and sliding-window, ``repro``'s layout.
+
+Three compute paths, ``repro``'s names:
+  * ``impl="chunked"`` — blocked online-softmax attention in plain PyTorch
+    (``repro``'s default): memory O(q_chunk · k_chunk), never O(S²);
+  * ``impl="pallas"`` — the hand-written kernels: prefill through
+    ``kernels.flash_attention``, decode through ``kernels.flash_decode``
+    (CUDA on the card; their plain versions for CPU tensors);
+  * ``impl="naive"`` — the full score matrix; the oracle.
+
+Cache layout: ``{"k","v": (B, C, K, hd), "pos": 0-d int32}`` where C is the
+full length or the rolling window. Keys are stored post-RoPE at their
+absolute positions, so a rolling cache stays valid. A decode step writes
+its slot into ``k``/``v`` in place (``index_copy_``), so a token moves one
+row per layer rather than copying the cache; the values are ``repro``'s.
+
+MLA (DeepSeek-V2) is not ported yet (ROADMAP.md, queue 1).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..kernels.flash_attention import ops as fa_ops
+from ..kernels.flash_decode import ops as fd_ops
+from .common import Params, apply_rope, dense, dense_init
+
+NEG_INF = -1e30
+PAD_POS = -(10 ** 9)            # position of a pad or invalid slot
+
+
+def _mask(q_pos, k_pos, causal: bool, window: int):
+    """q_pos: (..., Sq), k_pos: (..., Sk) -> bool (..., Sq, Sk); True=keep.
+    Padded/invalid positions use large-negative sentinels; guard them
+    explicitly (a -1e9 k_pos would otherwise pass the causal test)."""
+    d = q_pos[..., :, None] - k_pos[..., None, :]
+    m = (k_pos > -(10 ** 8))[..., None, :] & (q_pos > -(10 ** 8))[..., :, None]
+    if causal:
+        m = m & (d >= 0)
+    if window > 0:
+        m = m & (d < window)
+    return m
+
+
+# ---------------------------------------------------------------------------
+# Scaled dot-product attention (grouped-query, no kv repeat)
+# ---------------------------------------------------------------------------
+
+def sdpa_naive(q, k, v, *, q_pos, k_pos, causal=True, window=0, scale=None):
+    """q: (B,Sq,H,hd) k,v: (B,Sk,K,hd). Oracle path."""
+    B, Sq, H, hd = q.shape
+    K = k.shape[2]
+    G = H // K
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    qg = q.reshape(B, Sq, K, G, hd)
+    s = torch.einsum("bqkgh,bskh->bkgqs", qg.float(), k.float()) * scale
+    m = _mask(q_pos, k_pos, causal, window)  # (Sq,Sk) or (B,Sq,Sk)
+    while m.dim() < s.dim():
+        m = m[..., None, :, :]
+    s = torch.where(m, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bskh->bqkgh", p, v.float())
+    return o.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def sdpa_chunked(q, k, v, *, q_pos, k_pos, causal=True, window=0, scale=None,
+                 q_chunk=512, k_chunk=1024):
+    """Blocked online-softmax attention in plain PyTorch; ``repro``'s
+    ``lax.map``/``lax.scan`` over blocks become Python loops."""
+    B, Sq, H, hd = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    G = H // K
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    qc, kc = min(q_chunk, Sq), min(k_chunk, Sk)
+    nq, nk = -(-Sq // qc), -(-Sk // kc)
+    pad_q, pad_k = nq * qc - Sq, nk * kc - Sk
+    if pad_q:
+        q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, pad_q))
+        q_pos = torch.nn.functional.pad(q_pos, (0, pad_q), value=PAD_POS)
+    if pad_k:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad_k))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad_k))
+        k_pos = torch.nn.functional.pad(k_pos, (0, pad_k), value=PAD_POS)
+    qb = q.reshape(B, nq, qc, K, G, hd).float()
+    kb = k.reshape(B, nk, kc, K, hd).float()
+    vb = v.reshape(B, nk, kc, K, hd).float()
+    qpb, kpb = q_pos.reshape(nq, qc), k_pos.reshape(nk, kc)
+    outs = []
+    for iq in range(nq):
+        qi = qb[:, iq]
+        m = torch.full((B, K, G, qc), NEG_INF, device=q.device)
+        l = torch.zeros((B, K, G, qc), device=q.device)
+        acc = torch.zeros((B, K, G, qc, hd), device=q.device)
+        for ik in range(nk):
+            s = torch.einsum("bqkgh,bskh->bkgqs", qi, kb[:, ik]) * scale
+            msk = _mask(qpb[iq], kpb[ik], causal, window)
+            s = torch.where(msk, s, torch.full_like(s, NEG_INF))
+            m_cur = torch.maximum(m, s.max(dim=-1).values)
+            p = torch.exp(s - m_cur[..., None])
+            corr = torch.exp(m - m_cur)
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum("bkgqs,bskh->bkgqh",
+                                                       p, vb[:, ik])
+            m = m_cur
+        o = acc / l.clamp_min(1e-30)[..., None]
+        outs.append(o.permute(0, 3, 1, 2, 4))        # (B,qc,K,G,hd)
+    out = torch.stack(outs, dim=1).reshape(B, nq * qc, H, hd)
+    return out[:, :Sq].to(q.dtype)
+
+
+def sdpa(q, k, v, *, q_pos, k_pos, causal=True, window=0, scale=None,
+         impl="chunked", **kw):
+    if impl == "naive":
+        return sdpa_naive(q, k, v, q_pos=q_pos, k_pos=k_pos, causal=causal,
+                          window=window, scale=scale)
+    if impl == "pallas":
+        return fa_ops.flash_attention(q, k, v, q_pos=q_pos, k_pos=k_pos,
+                                      causal=causal, window=window,
+                                      scale=scale)
+    if impl != "chunked":
+        raise ValueError(f"unknown attention impl {impl!r}: naive | chunked "
+                         f"| pallas")
+    return sdpa_chunked(q, k, v, q_pos=q_pos, k_pos=k_pos, causal=causal,
+                        window=window, scale=scale,
+                        q_chunk=kw.get("q_chunk", 512),
+                        k_chunk=kw.get("k_chunk", 1024))
+
+
+# ---------------------------------------------------------------------------
+# GQA attention block
+# ---------------------------------------------------------------------------
+
+def gqa_init(rng, cfg, device="cpu") -> Params:
+    d, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    dt = cfg.param_dtype
+    return {
+        "wq": dense_init(rng, d, H * hd, dt, bias=cfg.qkv_bias, device=device),
+        "wk": dense_init(rng, d, K * hd, dt, bias=cfg.qkv_bias, device=device),
+        "wv": dense_init(rng, d, K * hd, dt, bias=cfg.qkv_bias, device=device),
+        "wo": dense_init(rng, H * hd, d, dt,
+                         stddev=0.02 / math.sqrt(2 * cfg.n_layers or 2),
+                         device=device),
+    }
+
+
+def gqa_apply(params: Params, x, *, cfg, positions, window=0, cache=None,
+              impl="chunked"):
+    """x: (B,S,d). cache None => train/prefill (returns a new cache if
+    requested via cache == "init"); else a decode step (S == 1) that writes
+    its slot of ``cache["k"]``/``cache["v"]`` in place and returns
+    (out, new_cache)."""
+    B, S, d = x.shape
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    cd = cfg.compute_dtype
+    q = dense(params["wq"], x, cd).reshape(B, S, H, hd)
+    k = dense(params["wk"], x, cd).reshape(B, S, K, hd)
+    v = dense(params["wv"], x, cd).reshape(B, S, K, hd)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+
+    if cache is None or (isinstance(cache, str) and cache == "init"):
+        o = sdpa(q, k, v, q_pos=positions, k_pos=positions, causal=True,
+                 window=window, impl=impl)
+        out = dense(params["wo"], o.reshape(B, S, H * hd), cd)
+        if cache == "init":
+            pos = torch.tensor(S, dtype=torch.int32, device=x.device)
+            return out, {"k": k, "v": v, "pos": pos}
+        return out
+
+    # ---- decode: S == 1, rolling or full cache --------------------------
+    C = cache["k"].shape[1]
+    pos = cache["pos"]  # absolute position of the new token
+    slot = torch.remainder(pos, C).reshape(1).long()
+    ck = cache["k"].index_copy_(1, slot, k.to(cache["k"].dtype))
+    cv = cache["v"].index_copy_(1, slot, v.to(cache["v"].dtype))
+    # absolute position held by each slot j after the write:
+    j = torch.arange(C, device=x.device)
+    slot_pos = pos - torch.remainder(pos - j, C)  # <= pos, same residue as j
+    valid = slot_pos >= 0
+    if window > 0:
+        valid = valid & (slot_pos > pos - window)
+    k_pos = torch.where(valid, slot_pos, torch.full_like(slot_pos, PAD_POS))
+    if impl == "pallas":
+        # window already folded into k_pos validity
+        o = fd_ops.flash_decode(q, ck, cv, q_pos=pos,
+                                k_pos=k_pos[None].expand(B, C))
+    else:
+        o = sdpa_naive(q, ck, cv, q_pos=positions, k_pos=k_pos, causal=True,
+                       window=0)
+    out = dense(params["wo"], o.reshape(B, 1, H * hd), cd)
+    return out, {"k": ck, "v": cv, "pos": pos + 1}
+
+
+def gqa_cache_init(cfg, batch: int, cache_len: int, dtype=None,
+                   device="cpu") -> Params:
+    dt = dtype or cfg.compute_dtype
+    K, hd = cfg.n_kv_heads, cfg.hd
+    return {"k": torch.zeros((batch, cache_len, K, hd), dtype=dt,
+                             device=device),
+            "v": torch.zeros((batch, cache_len, K, hd), dtype=dt,
+                             device=device),
+            "pos": torch.tensor(0, dtype=torch.int32, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2): not ported yet
+# ---------------------------------------------------------------------------
+
+def _mla_unported(*_a, **_k):
+    raise NotImplementedError(
+        "MLA (DeepSeek-V2) attention is not ported yet: ROADMAP.md, queue 1, "
+        "item 11 (the other block types)")
+
+
+mla_init = mla_apply = mla_cache_init = _mla_unported

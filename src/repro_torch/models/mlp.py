@@ -1,9 +1,29 @@
-"""Plain 2+-layer MLP (HydraGNN head style), ``repro.models.mlp`` layout."""
+"""Feed-forward blocks: SwiGLU (gated) and the plain 2+-layer MLP (HydraGNN
+head style), ``repro.models.mlp`` layout."""
 from __future__ import annotations
+
+import math
 
 import torch
 
 from .common import ACT, Params, dense, dense_init
+
+
+def swiglu_init(rng, d: int, d_ff: int, dtype=torch.float32,
+                n_layers: int = 2, device="cpu") -> Params:
+    return {
+        "w_gate": dense_init(rng, d, d_ff, dtype, device=device),
+        "w_up": dense_init(rng, d, d_ff, dtype, device=device),
+        "w_down": dense_init(rng, d_ff, d, dtype,
+                             stddev=0.02 / math.sqrt(2 * n_layers),
+                             device=device),
+    }
+
+
+def swiglu_apply(params: Params, x, act="silu", compute_dtype=None):
+    g = dense(params["w_gate"], x, compute_dtype)
+    u = dense(params["w_up"], x, compute_dtype)
+    return dense(params["w_down"], ACT[act](g) * u, compute_dtype)
 
 
 def mlp_init(rng, d_in: int, hidden: int, d_out: int, n_hidden: int,

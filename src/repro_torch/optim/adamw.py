@@ -75,4 +75,8 @@ def adamw(lr, *, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.01,
 
 
 def _pick(tree, i):
-    return tree_map(lambda t: t[i], tree)
+    """Element i of each (param, m, v) triple at the leaves of ``tree``
+    (dicts only: ``tree_map`` would walk into the triples)."""
+    if isinstance(tree, dict):
+        return {k: _pick(v, i) for k, v in tree.items()}
+    return tree[i]

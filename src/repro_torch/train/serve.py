@@ -1,0 +1,125 @@
+"""Serving: prefill / decode step factories and batched greedy generation
+(the port of ``repro.train.serve``).
+
+``greedy_generate`` chains prefill -> cache extension -> decode. Under
+``impl="pallas"`` prefill runs the flash-attention kernel and every decode
+step the flash-decode kernel (one launch per layer each); ``"chunked"`` and
+``"naive"`` are the plain PyTorch paths. A decode step writes its token's
+k/v slot of each layer's cache in place (see ``models.attention``), so the
+caches handed to it are updated; the values are ``repro``'s.
+"""
+from __future__ import annotations
+
+import time
+
+import torch
+import torch.nn.functional as F
+
+from .. import resolve_device
+from ..models import transformer
+
+
+def extend_caches(caches, cfg, capacity: int):
+    """Pad prefill-produced attention caches (length S) to ``capacity``
+    along their sequence axis (the (reps,) stack leads where present). A
+    sliding-window cache already at or past the window keeps its length:
+    it is a rolling cache from the next token on."""
+    def fix(tree):
+        if isinstance(tree, dict):
+            out = {}
+            for k, v in tree.items():
+                if k in ("k", "v") and isinstance(v, torch.Tensor):
+                    seq_ax = v.dim() - 3
+                    cur = v.shape[seq_ax]
+                    cap = capacity
+                    if cfg.window and cur >= cfg.window:
+                        cap = cur
+                    if cap > cur:
+                        pad = [0, 0] * (v.dim() - seq_ax - 1) + [0, cap - cur]
+                        v = F.pad(v, pad)
+                    out[k] = v
+                elif isinstance(v, (dict, tuple)):
+                    out[k] = fix(v)
+                else:
+                    out[k] = v
+            return out
+        if isinstance(tree, tuple):
+            return tuple(fix(t) for t in tree)
+        return tree
+
+    return fix(caches)
+
+
+def make_prefill_step(cfg, impl="chunked"):
+    @torch.no_grad()
+    def prefill(params, tokens):
+        logits, caches, _ = transformer.lm_apply(params, tokens, cfg=cfg,
+                                                 mode="prefill", impl=impl)
+        return logits, caches
+    return prefill
+
+
+def make_decode_step(cfg, impl="chunked", task=None):
+    @torch.no_grad()
+    def decode(params, token, caches, pos):
+        """token: (B,1) int; pos: the absolute position (an int or a 0-d
+        tensor; a device tensor keeps the step free of host syncs). Writes
+        the token's k/v slot of each layer's cache in place and returns
+        (logits, caches). With ``task``, the logits come from that
+        source's LM head."""
+        positions = torch.as_tensor(pos, device=token.device).reshape(1)
+        logits, caches, _ = transformer.lm_apply(
+            params, token, cfg=cfg, mode="decode", caches=caches,
+            positions=positions, impl=impl, task=task)
+        return logits, caches
+    return decode
+
+
+def greedy_generate(params, cfg, prompt_tokens, n_new: int, *,
+                    impl="chunked", capacity: int | None = None,
+                    device=None, return_logits=False, timings=None):
+    """prompt_tokens: (B, S) ints. Returns the (B, n_new) int32 greedy
+    continuation on ``device`` — and, with ``return_logits``, the f32
+    logits each token was taken from, (B, n_new, padded vocab).
+
+    ``device`` None means ``cuda`` (raises without a GPU); ``params`` must
+    already live there (``interop.to_torch(tree, device)``). A
+    ``timings`` dict receives ``prefill_s`` and ``decode_s``, host clock
+    around device-synchronised phases."""
+    dev = resolve_device(device)
+    table = params["embed"]["table"]
+    if table.device.type != dev.type:
+        raise ValueError(f"params are on {table.device}, generating on "
+                         f"{dev}: move them with interop.to_torch")
+    tokens = torch.as_tensor(prompt_tokens).to(dev)
+    B, S = tokens.shape
+    capacity = capacity or (S + n_new)
+    prefill = make_prefill_step(cfg, impl)
+    decode = make_decode_step(cfg, impl)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    t0 = time.perf_counter()
+    logits, caches = prefill(params, tokens)
+    caches = extend_caches(caches, cfg, capacity)
+    last = logits[:, -1:]
+    tok = last.argmax(-1).to(torch.int32)
+    out, outs_logits = [tok], [last]
+    sync()
+    t1 = time.perf_counter()
+    pos = torch.tensor(S, dtype=torch.int64, device=dev)
+    for _ in range(n_new - 1):
+        logits, caches = decode(params, tok, caches, pos)
+        tok = logits[:, -1:].argmax(-1).to(torch.int32)
+        out.append(tok)
+        outs_logits.append(logits[:, -1:])
+        pos = pos + 1
+    sync()
+    if timings is not None:
+        timings.update(prefill_s=t1 - t0, decode_s=time.perf_counter() - t1)
+    toks = torch.cat(out, dim=1)
+    if return_logits:
+        return toks, torch.cat(outs_logits, dim=1)
+    return toks

@@ -1,0 +1,289 @@
+"""The plain versions of the port's attention kernels (#5 flash attention,
+#6 flash decode) against ``repro``'s, on the CPU.
+
+#5: the port's ``flash_attention`` on CPU tensors (its plain version) against
+``repro``'s Pallas ``flash_attention_bhsd`` in interpret mode (a few tiny
+shapes: interpret mode is slow) and against ``repro``'s ``attention_ref``.
+#6: the port's split partials and combine against ``repro``'s
+``decode_ref`` and ``combine_partials`` (``repro``'s Pallas decode kernel
+does not run on this JAX, so it is not the oracle). The CUDA kernels are
+held against these plain versions on the card (``chip_smoke.py``,
+``tests/test_torch_cuda.py``).
+
+Tolerances: 2e-5 in f32 (``repro``'s own kernel-vs-oracle tolerance, sums
+in another order); bf16 3e-2, ``repro``'s bf16 flash tolerance (outputs
+rounded to 8 mantissa bits).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention.kernel import flash_attention_bhsd
+from repro.kernels.flash_attention.ref import attention_ref
+from repro.kernels.flash_decode.kernel import combine_partials as j_combine
+from repro.kernels.flash_decode.ref import decode_ref as j_decode_ref
+
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_decode import ops as fd_ops
+from repro_torch.kernels.flash_decode import (combine_partials,
+                                              decode_partials_ref,
+                                              decode_ref, flash_decode,
+                                              plan_splits)
+
+TOL = 2e-5
+PAD = -(10 ** 9)
+
+
+def _qkv(B, Sq, Sk, H, K, D, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, Sq, H, D)).astype(np.float32),
+            rng.standard_normal((B, Sk, K, D)).astype(np.float32),
+            rng.standard_normal((B, Sk, K, D)).astype(np.float32))
+
+
+def _rolled(S, shift):
+    """A rolling cache's key positions: slot j holds position j + shift
+    (mod S), so the stream is not monotone."""
+    return ((np.arange(S) - shift) % S).astype(np.int32)
+
+
+def _bhsd(x):
+    return jnp.asarray(x).transpose(0, 2, 1, 3)
+
+
+def _port_fa(q, k, v, qp, kp, **kw):
+    return flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                           torch.from_numpy(v), q_pos=torch.from_numpy(qp),
+                           k_pos=torch.from_numpy(kp), **kw).numpy()
+
+
+# ---------------------------------------------------------------------------
+# #5 flash attention
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B,S,H,K,D,window,rolled", [
+    (1, 40, 4, 2, 16, 0, False),      # GQA, ragged S vs 32-blocks
+    (2, 70, 4, 1, 32, 13, False),     # MQA, window, ragged
+    (1, 64, 2, 2, 32, 32, True),      # rolling positions + window
+])
+def test_flash_attention_plain_matches_repro_pallas(B, S, H, K, D, window,
+                                                    rolled):
+    q, k, v = _qkv(B, S, S, H, K, D)
+    qp = np.arange(S, dtype=np.int32)
+    kp = _rolled(S, S // 2) if rolled else qp
+    got = _port_fa(q, k, v, qp, kp, causal=True, window=window)
+    want = flash_attention_bhsd(_bhsd(q), _bhsd(k), _bhsd(v),
+                                jnp.asarray(qp), jnp.asarray(kp),
+                                causal=True, window=window, block_q=32,
+                                block_k=32, interpret=True)
+    np.testing.assert_allclose(got, np.asarray(want).transpose(0, 2, 1, 3),
+                               atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("window", [0, 5, 37])
+@pytest.mark.parametrize("B,Sq,Sk,H,K,D", [
+    (1, 64, 64, 4, 4, 16),            # MHA, tile-aligned
+    (2, 100, 100, 8, 2, 32),          # GQA G=4, ragged
+    (1, 33, 97, 6, 3, 80),            # Sq != Sk, hd 80
+    (2, 1, 65, 4, 1, 64),             # one query row, MQA
+])
+def test_flash_attention_plain_matches_attention_ref(B, Sq, Sk, H, K, D,
+                                                     causal, window):
+    q, k, v = _qkv(B, Sq, Sk, H, K, D, seed=Sq + Sk)
+    kp = np.arange(Sk, dtype=np.int32)
+    qp = (Sk - Sq + np.arange(Sq)).astype(np.int32)   # queries at the end
+    got = _port_fa(q, k, v, qp, kp, causal=causal, window=window)
+    want = attention_ref(_bhsd(q), _bhsd(k), _bhsd(v), jnp.asarray(qp),
+                         jnp.asarray(kp), causal=causal, window=window)
+    np.testing.assert_allclose(got, np.asarray(want).transpose(0, 2, 1, 3),
+                               atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("shift", [0, 17, 50])
+def test_flash_attention_rolled_and_padded_keys(shift):
+    """Rotated key positions with pad keys (k_pos = -1e9) among them, and
+    an explicit scale."""
+    B, S, H, K, D = 2, 72, 4, 2, 32
+    q, k, v = _qkv(B, S, S, H, K, D, seed=shift)
+    kp = _rolled(S, shift)
+    kp[::7] = PAD
+    qp = np.arange(S, dtype=np.int32) + 5
+    got = _port_fa(q, k, v, qp, kp, causal=True, window=40, scale=0.3)
+    want = attention_ref(_bhsd(q), _bhsd(k), _bhsd(v), jnp.asarray(qp),
+                         jnp.asarray(kp), causal=True, window=40, scale=0.3)
+    np.testing.assert_allclose(got, np.asarray(want).transpose(0, 2, 1, 3),
+                               atol=TOL, rtol=TOL)
+
+
+def test_flash_attention_bf16():
+    q, k, v = _qkv(1, 96, 96, 4, 2, 80, seed=3)
+    pos = np.arange(96, dtype=np.int32)
+    tq, tk, tv = (torch.from_numpy(x).bfloat16() for x in (q, k, v))
+    got = flash_attention(tq, tk, tv, q_pos=torch.from_numpy(pos),
+                          k_pos=torch.from_numpy(pos), window=24)
+    assert got.dtype == torch.bfloat16
+    want = attention_ref(*(_bhsd(x.float().numpy()).astype(jnp.bfloat16)
+                           for x in (tq, tk, tv)), jnp.asarray(pos),
+                         jnp.asarray(pos), window=24)
+    np.testing.assert_allclose(
+        got.float().numpy(),
+        np.asarray(want, np.float32).transpose(0, 2, 1, 3), atol=3e-2,
+        rtol=3e-2)
+
+
+def test_flash_attention_wrapper_checks_shapes():
+    q = torch.zeros(1, 8, 4, 16)
+    k = torch.zeros(1, 8, 3, 16)
+    pos = torch.arange(8)
+    with pytest.raises(ValueError, match="H % K"):
+        flash_attention(q, k, k, q_pos=pos, k_pos=pos)
+    with pytest.raises(ValueError, match="q_pos"):
+        flash_attention(q, q, q, q_pos=pos[:4], k_pos=pos)
+    with pytest.raises(ValueError, match="shape"):
+        flash_attention(q, q, q[:, :4], q_pos=pos, k_pos=pos)
+    before = flash_attention.launches
+    flash_attention(q, q, q, q_pos=pos, k_pos=pos)
+    assert flash_attention.launches == before     # CPU: no kernel launch
+
+
+# ---------------------------------------------------------------------------
+# #6 flash decode
+# ---------------------------------------------------------------------------
+
+def _decode_case(B, S, H, K, D, *, rolled_pos=None, window=0, seed=0):
+    """One query per sequence at position q_pos; a cache whose slots hold
+    positions k_pos (a rolling layout when rolled_pos is given; slots past
+    the filled length are pads)."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, 1, H, D)).astype(np.float32)
+    k = rng.standard_normal((B, S, K, D)).astype(np.float32)
+    v = rng.standard_normal((B, S, K, D)).astype(np.float32)
+    if rolled_pos is None:
+        filled = rng.integers(S // 2, S + 1, B)
+        kp = np.where(np.arange(S)[None] < filled[:, None],
+                      np.arange(S)[None], PAD).astype(np.int32)
+        qp = (filled - 1).astype(np.int32)
+    else:
+        j = np.arange(S)
+        slot_pos = rolled_pos - (rolled_pos - j) % S
+        valid = slot_pos > rolled_pos - window if window else slot_pos >= 0
+        kp = np.broadcast_to(np.where(valid, slot_pos, PAD),
+                             (B, S)).astype(np.int32)
+        qp = np.full(B, rolled_pos, np.int32)
+    return q, k, v, qp, kp
+
+
+def _port_partials(q, k, v, qp, kp, n_splits, per_split, window=0):
+    return decode_partials_ref(torch.from_numpy(q), torch.from_numpy(k),
+                               torch.from_numpy(v),
+                               q_pos=torch.from_numpy(qp),
+                               k_pos=torch.from_numpy(kp), n_splits=n_splits,
+                               per_split=per_split, window=window)
+
+
+@pytest.mark.parametrize("n_splits", [1, 3, 8, None])
+@pytest.mark.parametrize("B,S,H,K,D", [
+    (2, 100, 4, 2, 16), (1, 256, 8, 8, 32), (3, 77, 6, 1, 80)])
+def test_flash_decode_splits_match_decode_ref(B, S, H, K, D, n_splits):
+    q, k, v, qp, kp = _decode_case(B, S, H, K, D, seed=S)
+    got = flash_decode(torch.from_numpy(q), torch.from_numpy(k),
+                       torch.from_numpy(v), q_pos=torch.from_numpy(qp),
+                       k_pos=torch.from_numpy(kp), n_splits=n_splits,
+                       block_k=16).numpy()
+    want = j_decode_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                        q_pos=jnp.asarray(qp), k_pos=jnp.asarray(kp))
+    np.testing.assert_allclose(got, np.asarray(want), atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("window", [0, 24])
+@pytest.mark.parametrize("pos", [50, 64, 130])
+def test_flash_decode_rolling_cache(window, pos):
+    """A rolling cache of 64 slots at absolute position ``pos`` (the slot
+    of ``pos`` was just written); the window folded into k_pos validity,
+    as the decode path does, and also passed as ``window``."""
+    q, k, v, qp, kp = _decode_case(2, 64, 4, 2, 32, rolled_pos=pos,
+                                   window=window, seed=pos)
+    want = j_decode_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                        q_pos=jnp.asarray(qp), k_pos=jnp.asarray(kp))
+    for w in (0, window):
+        got = flash_decode(torch.from_numpy(q), torch.from_numpy(k),
+                           torch.from_numpy(v), q_pos=int(qp[0]),
+                           k_pos=torch.from_numpy(kp[0]), window=w,
+                           n_splits=4, block_k=8).numpy()
+        np.testing.assert_allclose(got, np.asarray(want), atol=TOL, rtol=TOL)
+
+
+def test_flash_decode_empty_and_dead_splits():
+    """Trailing splits past the cache end (empty) and splits whose keys are
+    all pads or in the future (dead: m stays -1e30) weigh 0 in the exact
+    combine; repro's combine_partials agrees on the same partials."""
+    B, S, H, K, D = 2, 40, 4, 2, 16
+    q, k, v, qp, kp = _decode_case(B, S, H, K, D, seed=9)
+    kp[:, 8:16] = PAD                        # split 1 (8 keys): all pads
+    kp[:, 24:32] = 10 ** 6                   # split 3: all in the future
+    n_splits, per_split = 8, 8               # splits 5-7: past the end
+    m, l, acc = _port_partials(q, k, v, qp, kp, n_splits, per_split)
+    assert torch.all(m[..., 5:] == -1e30) and torch.all(l[..., 5:] == 0)
+    assert torch.all(m[..., [1, 3]] == -1e30)
+    assert torch.all(l[..., [1, 3]] == per_split)   # p = exp(0) = 1 each
+    got = combine_partials(m, l, acc).reshape(B, 1, H, D).numpy()
+    want = j_decode_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                        q_pos=jnp.asarray(qp), k_pos=jnp.asarray(kp))
+    np.testing.assert_allclose(got, np.asarray(want), atol=TOL, rtol=TOL)
+    j_out = j_combine(jnp.asarray(m.numpy()), jnp.asarray(l.numpy()),
+                      jnp.asarray(acc.numpy()))
+    np.testing.assert_allclose(combine_partials(m, l, acc).numpy(),
+                               np.asarray(j_out), atol=TOL, rtol=TOL)
+
+
+def test_flash_decode_port_oracle_is_repro_s():
+    q, k, v, qp, kp = _decode_case(2, 50, 8, 2, 16, seed=4)
+    for window in (0, 9):
+        got = decode_ref(torch.from_numpy(q), torch.from_numpy(k),
+                         torch.from_numpy(v), q_pos=torch.from_numpy(qp),
+                         k_pos=torch.from_numpy(kp), window=window)
+        want = j_decode_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                            q_pos=jnp.asarray(qp), k_pos=jnp.asarray(kp),
+                            window=window)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL,
+                                   rtol=TOL)
+
+
+def test_flash_decode_bf16():
+    q, k, v, qp, kp = _decode_case(2, 130, 8, 2, 80, seed=5)
+    tq, tk, tv = (torch.from_numpy(x).bfloat16() for x in (q, k, v))
+    got = flash_decode(tq, tk, tv, q_pos=torch.from_numpy(qp),
+                       k_pos=torch.from_numpy(kp))
+    assert got.dtype == torch.bfloat16
+    want = j_decode_ref(*(jnp.asarray(x.float().numpy()).astype(jnp.bfloat16)
+                          for x in (tq, tk, tv)), q_pos=jnp.asarray(qp),
+                        k_pos=jnp.asarray(kp))
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), atol=3e-2,
+                               rtol=3e-2)
+
+
+@pytest.mark.parametrize("B,K,S,n_splits,block_k", [
+    (8, 8, 1056, None, None), (1, 8, 4200, None, None), (1, 1, 10, None, None),
+    (4, 2, 300, 8, 64), (2, 2, 100, 3, 512), (1, 1, 1, 5, None)])
+def test_plan_splits_covers_the_cache(B, K, S, n_splits, block_k):
+    n, per = plan_splits(B, K, S, n_splits, block_k)
+    assert n * per >= S and per % (block_k or fd_ops.TILE) == 0
+    if n_splits is None:
+        assert (n - 1) * per < S                     # no empty split
+        assert n <= max(1, -(-528 // (B * K)))       # ~4 CTAs per SM
+    else:
+        assert n == n_splits
+
+
+def test_flash_decode_wrapper_checks_shapes():
+    q = torch.zeros(2, 1, 4, 16)
+    k = torch.zeros(2, 10, 2, 16)
+    with pytest.raises(ValueError, match="k_pos"):
+        flash_decode(q, k, k, q_pos=3, k_pos=torch.arange(9))
+    with pytest.raises(ValueError, match=r"\(B,1,H,D\)"):
+        flash_decode(q[:, [0, 0]], k, k, q_pos=3, k_pos=torch.arange(10))
+    with pytest.raises(ValueError, match=">= 1"):
+        flash_decode(q, k, k, q_pos=3, k_pos=torch.arange(10), n_splits=0)

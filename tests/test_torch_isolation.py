@@ -31,8 +31,9 @@ def test_port_imports_without_jax_or_repro():
     r = subprocess.run([sys.executable, "-c", SCRIPT], env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    # every submodule was imported, the training slice's among them
-    assert int(r.stdout.strip()) >= 35
+    # every submodule was imported, the training and LM serving slices'
+    # among them
+    assert int(r.stdout.strip()) >= 57
 
 
 def test_entry_points_need_a_gpu_unless_cpu_is_asked_for():
@@ -68,3 +69,23 @@ def test_entry_points_need_a_gpu_unless_cpu_is_asked_for():
                                "pos": np.eye(3, dtype=np.float32)})
     assert np.isfinite(out["energy"])
     assert srv.stats()["plan"]["device"] == "cpu"
+
+
+def test_lm_entry_points_need_a_gpu_unless_cpu_is_asked_for():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU: device=None legitimately runs there")
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch import serve_lm
+    from repro_torch.models import transformer
+    from repro_torch.train.serve import greedy_generate
+    cfg = get_smoke("h2o-danube-1.8b")
+    params = transformer.lm_init(np.random.default_rng(0), cfg)
+    prompt = np.ones((2, 5), np.int32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        greedy_generate(params, cfg, prompt, 3)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_lm.main(["--new", "2", "--prompt-len", "4"])
+    out = greedy_generate(params, cfg, prompt, 3, device="cpu")
+    assert out.shape == (2, 3) and out.device.type == "cpu"
+    assert serve_lm.main(["--device", "cpu", "--new", "2", "--prompt-len",
+                          "4", "--batch", "1"]).shape == (1, 2)
