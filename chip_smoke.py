@@ -52,7 +52,12 @@ Phases, each printing one JSON line:
 
 ``--profile`` adds device time by kernel (``torch.profiler``) for one
 served GNN batch, one training step, one LM prefill and one decode step,
-and the device time of #5 over masks and of #6 over split counts.
+and the device time of #5 over masks (beside SDPA on the same inputs) and
+of #6 over split counts. ``--sweep`` prints only that sweep, and ``--src
+DIR`` imports the port from another unpacked checkout, so that two
+versions are timed in one run (parent, change, change, parent):
+
+    python3 chip_smoke.py --sweep --src build/parent/src
 
 Any failure exits nonzero. Without a GPU, or without the repository around
 it, the script exits nonzero before printing any result. It imports no JAX.
@@ -603,6 +608,23 @@ FA_CASES = [  # name, dtype, B, Sq, Sk, H, K, D, causal, window, rolled
      128, True),
     ("f32_noncausal_mha", "float32", 1, 200, 200, 4, 4, 64, False,
      0, False),
+    # the bf16 kernel's ring and skip: windows that skip tiles on both
+    # sides of the diagonal, every head dim, G = 1..8, lengths ragged
+    # against the 64-row query tile and the 64-key tile, rows that see no
+    # key at all (Sq > Sk)
+    ("bf16_window_ragged", "bfloat16", 2, 1000, 1000, 32, 8, 80, True,
+     300, False),
+    ("bf16_no_window", "bfloat16", 2, 333, 333, 32, 8, 80, True, 0,
+     False),
+    ("bf16_noncausal_mha_d64", "bfloat16", 1, 200, 200, 4, 4, 64, False,
+     0, False),
+    ("bf16_d16_g1_window", "bfloat16", 3, 65, 129, 4, 4, 16, True, 7,
+     False),
+    ("bf16_d32_g2", "bfloat16", 2, 63, 63, 8, 4, 32, True, 0, False),
+    ("bf16_d96_g4", "bfloat16", 1, 129, 129, 8, 2, 96, True, 0, False),
+    ("bf16_d128_g8_rows_without_keys", "bfloat16", 1, 129, 65, 8, 1, 128,
+     True, 0, False),
+    ("bf16_one_key", "bfloat16", 2, 1, 1, 8, 2, 80, True, 0, False),
 ]
 # the LM decode shapes of runs (a) and (b), then edge cases
 FD_CASES = [  # name, dtype, B, C, H, K, D, pos, window, n_splits, block_k
@@ -1006,11 +1028,16 @@ def lm_profile(torch):
 
 
 def attn_sweep(torch):
-    """Device time per call of #5 over masks and of #6 over split counts,
-    at the LM path's shapes (prefill B=8, S=1024; decode B=8, cache 1056;
-    bf16) on L2-warm inputs: the measurements behind the kernels'
-    redesign notes."""
+    """Device time per call of #5 over masks, each beside
+    ``scaled_dot_product_attention`` on the same inputs (the bool keep mask,
+    as ``library_ms`` takes it, and SDPA's own causal / unmasked form where
+    the mask has one), and of #6 over split counts, at the LM path's shapes
+    (prefill B=8, S=1024; decode B=8, cache 1056; bf16) on L2-warm inputs:
+    the measurements behind the kernels' redesign notes."""
+    import torch.nn.functional as F
+
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention.ref import keep_mask
     from repro_torch.kernels.flash_decode import flash_decode
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
@@ -1020,13 +1047,25 @@ def attn_sweep(torch):
         return torch.randn(shape, generator=g, device=dev).bfloat16()
     B, S, H, K, D, C = 8, 1024, 32, 8, 80, 1056
     q, k, v = t(B, S, H, D), t(B, S, K, D), t(B, S, K, D)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     pos = torch.arange(S, device=dev, dtype=torch.int32)
     fa = {}
-    for mask, kw in (("causal", dict(causal=True)),
-                     ("causal_window_64", dict(causal=True, window=64)),
-                     ("none", dict(causal=False))):
-        fa[mask] = device_ms(torch, lambda: flash_attention(
-            q, k, v, q_pos=pos, k_pos=pos, **kw), iters=10)
+    for mask, kw, native in (
+            ("causal", dict(causal=True), dict(is_causal=True)),
+            ("causal_window_64", dict(causal=True, window=64), None),
+            ("none", dict(causal=False), {})):
+        keep = keep_mask(pos.long(), pos.long(), causal=kw["causal"],
+                         window=kw.get("window", 0))
+        row = {"kernel": device_ms(torch, lambda: flash_attention(
+            q, k, v, q_pos=pos, k_pos=pos, **kw), iters=10),
+            "sdpa_bool_mask": device_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=keep, enable_gqa=True), iters=10)}
+        if native is not None:
+            row["sdpa_native"] = device_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, enable_gqa=True, **native), iters=10)
+        fa[mask] = row
     q1, kc, vc = t(B, 1, H, D), t(B, C, K, D), t(B, C, K, D)
     kp = torch.arange(C, device=dev, dtype=torch.int32)
     fd = {}
@@ -1124,10 +1163,19 @@ def main():
                          "batch, one train step, one LM prefill and one "
                          "decode step, and of #5 over masks and #6 over "
                          "split counts")
+    ap.add_argument("--sweep", action="store_true",
+                    help="only build the kernels and print the attention "
+                         "sweep (#5 beside SDPA over masks, #6 over split "
+                         "counts), then exit; no contract line")
+    ap.add_argument("--src", type=Path, default=SRC,
+                    help="the src/ directory whose repro_torch to import "
+                         "(default: this checkout's), e.g. an unpacked "
+                         "earlier commit's, to time two versions in one run")
     args = ap.parse_args()
-    if not (SRC / "repro_torch" / "csrc").is_dir():
-        fail(f"{SRC / 'repro_torch'} not found: run from a checkout")
-    sys.path.insert(0, str(SRC))
+    src = args.src.resolve()
+    if not (src / "repro_torch" / "csrc").is_dir():
+        fail(f"{src / 'repro_torch'} not found: run from a checkout")
+    sys.path.insert(0, str(src))
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
@@ -1144,7 +1192,10 @@ def main():
           "kind": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": build["seconds"],
-          "built": build["built"]})
+          "built": build["built"], "src": str(src)})
+    if args.sweep:
+        emit(attn_sweep(torch))
+        return
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)

@@ -1,9 +1,10 @@
 """Public wrapper for causal / sliding-window GQA flash attention (prefill).
 
-CUDA tensors go to the hand-written kernel ``csrc/flash_attention.cu`` (the
-port of ``repro``'s Pallas ``flash_attention_bhsd``); CPU tensors take the
-plain version in ``ref.py``. There is no fallback: a CUDA call the kernel
-does not take (dtype, head dim, layout) raises.
+CUDA tensors go to the hand-written kernels of ``csrc/flash_attention.cu``
+(the port of ``repro``'s Pallas ``flash_attention_bhsd``: bf16 on the tensor
+cores, f32 in FFMA); CPU tensors take the plain version in ``ref.py``. There
+is no fallback: a CUDA call the kernels do not take (dtype, head dim,
+layout) raises.
 ``flash_attention.launches`` counts kernel launches (one per CUDA call).
 """
 from __future__ import annotations
@@ -40,8 +41,9 @@ def _launch(q, k, v, q_pos, k_pos, causal, window, scale):
     if D not in HEAD_DIMS:
         raise ValueError(f"flash_attention CUDA kernel: head dim {D} not "
                          f"in {HEAD_DIMS}")
-    if H > 65535 or B > 65535:
-        raise ValueError(f"grid too large: B={B}, H={H} (max 65535 each)")
+    if H > 65535 or B > 65535 or -(-Sq // 64) > 65535:
+        raise ValueError(f"grid too large: B={B}, H={H}, Sq={Sq} (max "
+                         f"65535 each, and 65535 query tiles of 64)")
     for name, t in (("q", q), ("k", k), ("v", v)):
         check_rows(name, t)
     qp = q_pos.to(device=q.device, dtype=torch.int32).contiguous()
@@ -78,8 +80,9 @@ def flash_attention(q, k, v, *, q_pos, k_pos, causal=True, window=0,
     """q: (B,Sq,H,D); k,v: (B,Sk,K,D), H % K == 0; q_pos (Sq,), k_pos (Sk,)
     integer positions -> (B,Sq,H,D) in q's dtype. Keys at ``k_pos <= -1e8``
     are pads; ``window > 0`` keeps ``q_pos - k_pos < window``. The CUDA
-    kernel's tile is fixed at 64 x 64 and masks the ragged edge itself, so
-    ``repro``'s ``block_q``/``block_k`` knobs have no counterpart."""
+    kernels' tiles are fixed (64 keys; 64 query rows for bf16 on the tensor
+    cores, 128 for f32) and mask the ragged edge themselves, so ``repro``'s
+    ``block_q``/``block_k`` knobs have no counterpart."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"q must be (B,Sq,H,D) and k, v one (B,Sk,K,D) "
                          f"shape; got {tuple(q.shape)}, {tuple(k.shape)}, "

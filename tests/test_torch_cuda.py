@@ -168,6 +168,17 @@ def _attn_close(got, ref):
     (1, 130, 130, 4, 4, 80, 37, True),      # rotated positions + pads
     (2, 64, 200, 32, 8, 80, 4096, False),   # Sq < Sk, the model's GQA
     (1, 1, 70, 6, 3, 128, 0, False),        # one query row
+    # the bf16 tensor-core kernel's edges: every head dim, G = 1, 2, 4, 8,
+    # lengths 1, 63, 65, 129 against the 64-row query and 64-key tiles
+    (3, 1, 1, 4, 4, 16, 0, False),          # one query, one key, G = 1
+    (2, 63, 63, 8, 4, 64, 0, False),        # G = 2
+    (1, 65, 65, 8, 2, 96, 0, False),        # G = 4
+    (1, 129, 129, 16, 2, 80, 0, False),     # G = 8
+    (2, 65, 129, 8, 8, 16, 7, False),       # short window: skips both sides
+    (1, 129, 63, 8, 1, 128, 0, False),      # Sq > Sk: rows see no key
+    (1, 300, 300, 8, 2, 80, 40, True),      # rolled pads + window: rows with
+                                            # dead first tiles (p = 1), then
+                                            # skipped tiles
 ])
 def test_flash_attention_kernel_matches_plain(cuda, dtype, B, Sq, Sk, H, K,
                                               D, window, rolled):

@@ -10,6 +10,11 @@ does not run on this JAX, so it is not the oracle). The CUDA kernels are
 held against these plain versions on the card (``chip_smoke.py``,
 ``tests/test_torch_cuda.py``).
 
+#5's bf16 precision contract: a plain-torch emulation of the CUDA kernel's
+bf16 arithmetic (64-key tiles, the sentinel and the skip rule, P·V as bf16
+hi + lo against bf16 v) holds the f32 tolerance of the plain version, and
+the same emulation with one bf16 p does not.
+
 Tolerances: 2e-5 in f32 (``repro``'s own kernel-vs-oracle tolerance, sums
 in another order); bf16 3e-2, ``repro``'s bf16 flash tolerance (outputs
 rounded to 8 mantissa bits).
@@ -24,7 +29,9 @@ from repro.kernels.flash_attention.ref import attention_ref
 from repro.kernels.flash_decode.kernel import combine_partials as j_combine
 from repro.kernels.flash_decode.ref import decode_ref as j_decode_ref
 
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_ref)
+from repro_torch.kernels.flash_attention.ref import NEG_INF, keep_mask
 from repro_torch.kernels.flash_decode import ops as fd_ops
 from repro_torch.kernels.flash_decode import (combine_partials,
                                               decode_partials_ref,
@@ -146,6 +153,95 @@ def test_flash_attention_wrapper_checks_shapes():
     before = flash_attention.launches
     flash_attention(q, q, q, q_pos=pos, k_pos=pos)
     assert flash_attention.launches == before     # CPU: no kernel launch
+
+
+# ---------------------------------------------------------------------------
+# #5's bf16 precision contract: why P·V splits p into two bf16 halves
+# ---------------------------------------------------------------------------
+
+def _emulate_bf16_kernel(q, k, v, qp, kp, *, causal, window, split):
+    """The arithmetic of the CUDA kernel's bf16 path in plain torch, f32 out
+    (before the one rounding to bf16): CTAs of 64 query rows walk 64-key
+    tiles; scores in f32 from bf16 q/k, scaled after the sum; the finite
+    sentinel; a tile with no kept pair skipped once every row of the CTA has
+    a finite max; online softmax; P·V of bf16 v against p as bf16 hi + lo
+    (``split``) or one bf16 p, accumulated in f32. Where the kernel
+    differs it changes no conclusion: it sums each product in another
+    order, takes 2^x of log2(e)-scaled scores on the SFU (a few ulp from
+    exp), and decides a skip one tile ahead (a dead tile it computes adds
+    exact zeros)."""
+    B, Sq, H, D = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    G, scale = H // K, D ** -0.5
+    keep = keep_mask(qp.long(), kp.long(), causal=causal, window=window)
+    qg = q.reshape(B, Sq, K, G, D).float()
+    kf, vf = k.float(), v.float()
+    out = torch.empty(B, Sq, K, G, D)
+    for r0 in range(0, Sq, 64):
+        rows = slice(r0, min(Sq, r0 + 64))
+        m = torch.full((B, K, G, rows.stop - r0), NEG_INF)
+        l = torch.zeros_like(m)
+        acc = torch.zeros(*m.shape, D)
+        for c0 in range(0, Sk, 64):
+            keys = slice(c0, min(Sk, c0 + 64))
+            kt = keep[rows, keys]
+            if not bool(kt.any()) and bool((m > 0.5 * NEG_INF).all()):
+                continue
+            s = torch.einsum("bqkgd,bskd->bkgqs", qg[:, rows],
+                             kf[:, keys]) * scale
+            s = torch.where(kt, s, torch.full_like(s, NEG_INF))
+            mx = torch.maximum(m, s.amax(-1))
+            corr = torch.exp(m - mx)
+            p = torch.exp(s - mx[..., None])
+            l = l * corr + p.sum(-1)
+            hi = p.bfloat16().float()
+            pv = torch.einsum("bkgqs,bskd->bkgqd", hi, vf[:, keys])
+            if split:
+                lo = (p - hi).bfloat16().float()
+                pv = pv + torch.einsum("bkgqs,bskd->bkgqd", lo, vf[:, keys])
+            acc = acc * corr[..., None] + pv
+            m = mx
+        out[:, rows] = (acc / l.clamp_min(1e-30)[..., None]).permute(
+            0, 3, 1, 2, 4)
+    return out.reshape(B, Sq, H, D)
+
+
+_CONTRACT_CASES = {   # B, S, H, K, D, window, rolled
+    "causal_gqa": (2, 200, 8, 2, 32, 0, False),
+    "rolled_pads_window": (1, 300, 4, 2, 80, 128, True),
+}
+
+
+def _contract_share(case, split):
+    """Worst element's share of the f32 tolerance, 2e-5 x max(1, |ref|),
+    of the emulated kernel against the plain version on bf16-valued
+    inputs."""
+    B, S, H, K, D, window, rolled = _CONTRACT_CASES[case]
+    q, k, v = (torch.from_numpy(x).bfloat16()
+               for x in _qkv(B, S, S, H, K, D, seed=S))
+    kp = np.arange(S, dtype=np.int32)
+    if rolled:
+        kp = _rolled(S, S // 3)
+        kp[::11] = PAD
+    qp, kp = torch.arange(S, dtype=torch.int32), torch.from_numpy(kp)
+    got = _emulate_bf16_kernel(q, k, v, qp, kp, causal=True, window=window,
+                               split=split)
+    ref = flash_attention_ref(q.float(), k.float(), v.float(), qp, kp,
+                              causal=True, window=window)
+    tol = TOL * max(1.0, float(ref.abs().max()))
+    return float((got - ref).abs().max()) / tol
+
+
+@pytest.mark.parametrize("case", sorted(_CONTRACT_CASES))
+def test_flash_attention_bf16_split_pv_keeps_f32_contract(case):
+    assert _contract_share(case, split=True) <= 1.0
+
+
+@pytest.mark.parametrize("case", sorted(_CONTRACT_CASES))
+def test_flash_attention_bf16_single_p_breaks_f32_contract(case):
+    """One bf16 p (FlashAttention-2's P·V) is off by up to 2^-9 of each p:
+    far past the f32 tolerance, which is why the kernel splits p."""
+    assert _contract_share(case, split=False) > 10.0
 
 
 # ---------------------------------------------------------------------------
