@@ -12,8 +12,10 @@ Phases, each printing one JSON line:
      the main paths' shapes, with masked and sentinel (dst == A) edges,
      under the tolerances stated below; each kernel, its plain version and
      a one-call PyTorch yardstick (``library_ms``, never used by the port)
-     are timed with CUDA events. The edge kernel's backward is checked per
-     output, and two calls must give the same bits;
+     are timed (device time for #1, #2, #5, #6; CUDA events for #3, #4).
+     The edge kernel's backward is checked per output, and two calls must
+     give the same bits; each graph of a batched segment-sum must be
+     bitwise equal to that graph alone, in f32 and bf16;
   3. serve: ``ServeSession`` serves hydragnn-gfm at full width (4 EGNN
      layers at H=866, 5 branches of 3x889 MLPs, fp32, seeded random
      weights) over a bucket grid planned from synthetic five-source
@@ -46,16 +48,21 @@ Phases, each printing one JSON line:
      zero: #5 = 24 per prefill, #6 = 24 per decode step. Checks:
      teacher-forced logits (prefill + 8 decode steps) of the kernel path
      against the plain path, in bf16 and in f32 compute; two runs of (a)
-     bitwise equal; one ``task=`` decode step of a 3-head tree;
+     bitwise equal; one ``task=`` decode step of a 3-head tree. Records
+     the device time of one prefill at (a) and the bf16 GEMM reduction
+     setting (``repro_torch`` pins it off);
   7. the ``kernels`` summary line, the ``nvidia-smi`` line, and the final
      ``{"ok": true, "device": ...}`` line.
 
 ``--profile`` adds device time by kernel (``torch.profiler``) for one
 served GNN batch, one training step, one LM prefill and one decode step,
 and the device time of #5 over masks (beside SDPA on the same inputs) and
-of #6 over split counts. ``--sweep`` prints only that sweep, and ``--src
-DIR`` imports the port from another unpacked checkout, so that two
-versions are timed in one run (parent, change, change, parent):
+of #6 over split counts. ``--sweep`` prints only the sweeps: #1 and #2
+beside ``index_add_``, that attention sweep, and the LM prefill's device
+time with its teacher-forced bf16 error under the bf16 GEMM reduction
+setting in force. ``--src DIR`` imports the port from another unpacked
+checkout, so that two versions are timed in one run (parent, change,
+change, parent):
 
     python3 chip_smoke.py --sweep --src build/parent/src
 
@@ -182,7 +189,39 @@ def edge_case(torch, B, E, A, g, dev):
     return src, dst, em
 
 
+def _ss_library(torch, msg, routed, em, A):
+    """``index_add_`` computing the same sums (masked edges into a spare
+    row): the one-call yardstick, never used by the port."""
+    B = msg.shape[0] if msg.dim() == 3 else 1
+    F = msg.shape[-1]
+    b_off = A * torch.arange(B, device=msg.device)
+    flat_idx = torch.where(
+        em, routed + (b_off[:, None] if routed.dim() == 2 else 0),
+        torch.full_like(routed, B * A)).reshape(-1)
+    flat_msg = msg.reshape(-1, F)
+
+    def library():
+        torch.zeros((B * A + 1, F), device=msg.device).index_add_(
+            0, flat_idx, flat_msg)
+    return library
+
+
+def _ss_bound(B, E, A, F, n_valid):
+    """Bytes (valid messages, dst, output, f32) over HBM, or f32 adds over
+    the FFMA peak, whichever is larger."""
+    nbytes = 4 * (n_valid * F + B * E + B * A * F)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_valid * F / FP32_FLOPS * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes}
+
+
 def check_segment_sum(torch, dev, g):
+    """#1/#2 against the plain version at the serve path's shape (B=8), a
+    ragged E and one graph (2-D); each graph of the B=8 call bitwise equal
+    to a call on that graph alone, in f32 and bf16; timed by device time
+    (``torch.profiler``) beside ``index_add_``."""
     from repro_torch.kernels.segment_sum import ops, segment_sum_ref
     cases = [("main", 8, 2048, 64, 866), ("ragged_e", 8, 1000, 64, 866),
              ("b1_2d", 1, 2048, 64, 866)]
@@ -200,30 +239,31 @@ def check_segment_sum(torch, dev, g):
         if not err <= SS_TOL * scale:
             fail(f"segment_sum {name}: max_abs_err {err} > {SS_TOL}*{scale}")
         worst = max(worst, err)
+        if name == "main":
+            # rows independent of the batch: graph b alone, same bits
+            for dt in (torch.float32, torch.bfloat16):
+                m = msg.to(dt)
+                full = ops.segment_sum(m, dst, A, edge_mask=em)
+                for b in range(B):
+                    one = ops.segment_sum(m[b:b + 1], dst[b:b + 1], A,
+                                          edge_mask=em[b:b + 1])
+                    if not torch.equal(full[b], one[0]):
+                        fail(f"segment_sum {dt}: graph {b} of the B={B} "
+                             f"call differs bitwise from the graph alone")
+            out["rows_bitwise_vs_b1"] = ["float32", "bfloat16"]
         if name == "ragged_e":
             continue
         d32 = routed.to(torch.int32).contiguous()
         n_valid = int(em.sum())
-        ms = time_ms(torch, lambda: ops.segment_sum(msg, d32, A))
-        plain = time_ms(torch, lambda: segment_sum_ref(msg, routed, A))
-        b_off = A * torch.arange(B, device=dev)
-        flat_idx = torch.where(
-            em, routed + (b_off[:, None] if routed.dim() == 2 else 0),
-            torch.full_like(routed, B * A)).reshape(-1)
-        flat_msg = msg.reshape(-1, F)
-
-        def library():
-            torch.zeros((B * A + 1, F), device=dev).index_add_(
-                0, flat_idx, flat_msg)
-        lib = time_ms(torch, library)
-        nbytes = 4 * (n_valid * F + B * E + B * A * F)
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = n_valid * F / FP32_FLOPS * 1e3
-        timed = {"ms": ms, "plain_ms": plain, "library_ms": lib,
-                 "bound_ms": max(t_bytes, t_ops),
-                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                 "shape": [B, E, A, F], "valid_edges": n_valid,
-                 "bytes": nbytes}
+        ms = device_ms(torch, lambda: ops.segment_sum(msg, d32, A), iters=50)
+        wall = time_ms(torch, lambda: ops.segment_sum(msg, d32, A), iters=50)
+        plain = device_ms(torch, lambda: segment_sum_ref(msg, routed, A))
+        lib = device_ms(torch, _ss_library(torch, msg, routed, em, A),
+                        iters=50)
+        timed = {"ms": ms, "wall_ms": wall, "plain_ms": plain,
+                 "library_ms": lib, "library": "index_add_ (with its zero "
+                 "fill)", "shape": [B, E, A, F], "valid_edges": n_valid,
+                 **_ss_bound(B, E, A, F, n_valid)}
         if name == "main":
             out.update(timed)
         else:
@@ -865,6 +905,15 @@ def _teacher_forced(torch, params, cfg, toks, S, impl):
     return torch.stack(steps)[..., :cfg.vocab], caches
 
 
+def _prefill_device_ms(torch, params, cfg, prompt):
+    """Device time of one kernel-path prefill of ``prompt`` (all its
+    kernels, ``torch.profiler``), after a warm-up."""
+    from repro_torch.train.serve import make_prefill_step
+    prefill = make_prefill_step(cfg, "pallas")
+    toks = prompt.to(params["embed"]["table"].device)
+    return device_ms(torch, lambda: prefill(params, toks), iters=3, warm=1)
+
+
 def _gen_run(torch, params, cfg, prompt, n_new, counters):
     from repro_torch.train.serve import greedy_generate
     torch.cuda.synchronize()
@@ -928,6 +977,7 @@ def lm_serve_phase(torch, counters):
     # teacher-forced logits, kernel path vs plain path, bf16 compute
     tf_toks = _lm_prompts(cfg, 8, 1024, extra=8, seed=1)
     S = tf_toks.shape[1] - 8
+    prefill_ms = _prefill_device_ms(torch, params, cfg, tf_toks[:, :S])
     got, caches = _teacher_forced(torch, params, cfg, tf_toks, S, "pallas")
     want, _ = _teacher_forced(torch, params, cfg, tf_toks, S, "chunked")
     scale = float(want.abs().max())
@@ -976,7 +1026,10 @@ def lm_serve_phase(torch, counters):
             "head_dim": cfg.hd, "window": cfg.window, "params": n_params,
             "init_s": init_s, "compute_dtype": "bfloat16", "impl": "pallas",
             "run_a": run_a, "run_a_replay": run_a2, "run_b": run_b,
-            "replay_bitwise": True,
+            "replay_bitwise": True, "prefill_device_ms": prefill_ms,
+            "allow_bf16_reduced_precision_reduction":
+                torch.backends.cuda.matmul
+                .allow_bf16_reduced_precision_reduction,
             "teacher_forced": {
                 "steps": len(per_step), "bf16_max_abs_err": tf_err,
                 "bf16_max_abs_logit": scale, "bf16_per_step": per_step,
@@ -1078,6 +1131,75 @@ def attn_sweep(torch):
             "flash_decode_ms_by_splits": fd}
 
 
+def ss_sweep(torch):
+    """Device time per call of #1 (one graph, 2-D) and #2 (B=8) at the
+    serve path's graph shape (E=2048, A=64, F=866, f32, 85% of edges
+    valid), each beside ``index_add_`` on the same inputs and its byte
+    bound; the inputs come from their own seed, so two versions (``--src``)
+    see the same data."""
+    from repro_torch.kernels.segment_sum import ops, segment_sum_ref
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(1)
+    B, E, A, F = 8, 2048, 64, 866
+    msg = torch.randn((B, E, F), generator=g, device=dev)
+    _, dst, em = edge_case(torch, B, E, A, g, dev)
+    routed = torch.where(em, dst, torch.full_like(dst, A))
+    out = {}
+    for name, m, d, e in (("1_segment_sum_2d", msg[0], routed[0], em[0]),
+                          ("2_segment_sum_batched", msg, routed, em)):
+        d32 = d.to(torch.int32).contiguous()
+        got = ops.segment_sum(m, d32, A)
+        err, scale = scaled_err(torch, got, segment_sum_ref(m, d, A))
+        if not err <= SS_TOL * scale:
+            fail(f"ss_sweep {name}: max_abs_err {err} > {SS_TOL}*{scale}")
+        b = m.shape[0] if m.dim() == 3 else 1
+        n_valid = int(e.sum())
+        out[name] = {
+            "shape": [b, E, A, F], "valid_edges": n_valid,
+            "ms": device_ms(torch, lambda: ops.segment_sum(m, d32, A),
+                            iters=50),
+            "wall_ms": time_ms(torch, lambda: ops.segment_sum(m, d32, A),
+                               iters=50),
+            "library_ms": device_ms(torch, _ss_library(torch, m, d, e, A),
+                                    iters=50),
+            # every edge routed to the sentinel: the dst walk, the zero
+            # writes and the launch, no message loaded
+            "walk_only_ms": device_ms(torch, lambda: ops.segment_sum(
+                m, torch.full_like(d32, A), A), iters=50),
+            "max_abs_err": err, **_ss_bound(b, E, A, F, n_valid)}
+    return {"phase": "ss_sweep", **out}
+
+
+def lm_bf16_probe(torch):
+    """The bf16 GEMM reduction setting in force, the device time of one
+    kernel-path prefill at run (a) (B=8, S=1024) and the teacher-forced
+    bf16 error of the lm_serve phase (prefill + 8 decode steps, kernel path
+    against the plain path, the same seeds), so that two versions
+    (``--src``) can be compared in one call."""
+    from repro_torch.configs import h2o_danube_1_8b
+    from repro_torch.models import transformer
+    cfg = h2o_danube_1_8b.CONFIG
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = transformer.lm_init(gen, cfg, device=dev)
+    tf_toks = _lm_prompts(cfg, 8, 1024, extra=8, seed=1)
+    S = tf_toks.shape[1] - 8
+    prefill_ms = _prefill_device_ms(torch, params, cfg, tf_toks[:, :S])
+    got, _ = _teacher_forced(torch, params, cfg, tf_toks, S, "pallas")
+    want, _ = _teacher_forced(torch, params, cfg, tf_toks, S, "chunked")
+    return {"phase": "lm_bf16",
+            "allow_bf16_reduced_precision_reduction":
+                torch.backends.cuda.matmul
+                .allow_bf16_reduced_precision_reduction,
+            "prefill_device_ms": prefill_ms,
+            "teacher_forced_bf16_max_abs_err":
+                float((got - want).abs().max()),
+            "bf16_max_abs_logit": float(want.abs().max()),
+            "bf16_tolerance": LM_TOL_BF16 * float(want.abs().max())}
+
+
 def _device_time_by_kernel(torch, prof, wall_us=None):
     """Device time by kernel: only events that ran on the device, so the
     host ops and autograd nodes that launched a kernel (which the profiler
@@ -1164,9 +1286,11 @@ def main():
                          "decode step, and of #5 over masks and #6 over "
                          "split counts")
     ap.add_argument("--sweep", action="store_true",
-                    help="only build the kernels and print the attention "
-                         "sweep (#5 beside SDPA over masks, #6 over split "
-                         "counts), then exit; no contract line")
+                    help="only build the kernels and print the sweeps (#1 "
+                         "and #2 beside index_add_; #5 beside SDPA over "
+                         "masks, #6 over split counts; the LM prefill's "
+                         "device time and bf16 error), then exit; no "
+                         "contract line")
     ap.add_argument("--src", type=Path, default=SRC,
                     help="the src/ directory whose repro_torch to import "
                          "(default: this checkout's), e.g. an unpacked "
@@ -1194,7 +1318,9 @@ def main():
           "cuda": torch.version.cuda, "build_s": build["seconds"],
           "built": build["built"], "src": str(src)})
     if args.sweep:
+        emit(ss_sweep(torch))
         emit(attn_sweep(torch))
+        emit(lm_bf16_probe(torch))
         return
 
     dev = torch.device("cuda")

@@ -22,6 +22,11 @@ import torch
 # are pinned here so the choice is explicit.
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+# bf16 GEMMs sum in f32, as repro's `dense` (a bf16 `x @ w` that XLA
+# accumulates in f32) does. At this flag's default (True) cuBLAS may add
+# the split-K partial sums of a bf16 product in bf16, rounding the LM's
+# q/k/v/o and SwiGLU products more often than the reference does.
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def resolve_device(device=None) -> torch.device:

@@ -13,6 +13,14 @@ function here takes.
 
 Any leaf ``np.asarray`` accepts (a numpy array, a JAX array) goes in; this
 module imports neither ``jax`` nor ``repro``.
+
+bf16 crosses as its 16-bit pattern, bit for bit. numpy has no bf16 of its
+own: JAX hands out ``ml_dtypes.bfloat16`` arrays, and an ``.npz`` written
+from one holds raw 2-byte voids (``|V2``). ``to_torch`` takes either and
+gives a ``torch.bfloat16`` tensor. ``to_numpy`` gives an
+``ml_dtypes.bfloat16`` array where ``ml_dtypes`` is installed (it comes
+with jax); where it is not, it gives the same bits as a ``uint16`` array,
+which ``bf16_from_numpy`` turns back into a bf16 tensor.
 """
 from __future__ import annotations
 
@@ -30,6 +38,8 @@ def to_torch(tree, device="cpu"):
     if isinstance(tree, torch.Tensor):
         return tree.detach().to(device, copy=True)
     arr = np.array(tree, copy=True)
+    if is_bf16(arr.dtype):
+        return bf16_from_numpy(arr).to(device)
     return torch.from_numpy(arr).to(device)
 
 
@@ -41,8 +51,36 @@ def to_numpy(tree):
     if isinstance(tree, tuple):
         return tuple(to_numpy(v) for v in tree)
     if isinstance(tree, torch.Tensor):
+        if tree.dtype == torch.bfloat16:
+            return bf16_to_numpy(tree)
         return tree.detach().cpu().numpy()
     return np.asarray(tree)
+
+
+def is_bf16(dtype: np.dtype) -> bool:
+    """A numpy dtype that holds bf16: ``ml_dtypes.bfloat16``, or the raw
+    2-byte void (``|V2``) an ``.npz`` stores it as."""
+    return dtype.name == "bfloat16" or (dtype.kind == "V" and
+                                        dtype.itemsize == 2 and
+                                        dtype.fields is None)
+
+
+def bf16_from_numpy(arr: np.ndarray) -> torch.Tensor:
+    """A bf16 (or ``|V2``, or ``uint16`` bit-pattern) array -> a CPU
+    ``torch.bfloat16`` tensor with the same bits."""
+    bits = np.asarray(arr, order="C").view(np.uint16)
+    return torch.from_numpy(bits.view(np.int16).copy()).view(torch.bfloat16)
+
+
+def bf16_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A ``torch.bfloat16`` tensor -> an ``ml_dtypes.bfloat16`` array with
+    the same bits, or, without ``ml_dtypes``, those bits as ``uint16``."""
+    bits = t.detach().cpu().contiguous().view(torch.int16).numpy()
+    try:
+        import ml_dtypes
+    except ImportError:
+        return bits.view(np.uint16)
+    return bits.view(ml_dtypes.bfloat16)
 
 
 def leaves(tree, prefix=""):

@@ -6,6 +6,11 @@ the files ``repro.train.checkpoint.save`` writes. A checkpoint saved by
 ``repro`` loads here, and one saved here loads there, sidecars included.
 Leaves come back as numpy arrays; ``repro_torch.interop.to_torch`` puts
 them on a device.
+
+bf16 leaves are stored as ``repro`` stores them, the raw 16-bit patterns
+(``|V2`` in the archive), and restore bit for bit into a bf16 template
+leaf: as ``ml_dtypes.bfloat16`` where that is installed, else as the
+``uint16`` patterns (``interop.bf16_to_numpy``'s contract).
 """
 from __future__ import annotations
 
@@ -14,6 +19,8 @@ import os
 
 import numpy as np
 import torch
+
+from .. import interop
 
 
 def _npz_path(path: str) -> str:
@@ -42,14 +49,35 @@ def _flatten(tree, prefix=""):
 
 def _as_numpy(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
+        arr = interop.to_numpy(leaf)
+        if leaf.dtype == torch.bfloat16 and arr.dtype == np.uint16:
+            return arr.view("V2")          # no ml_dtypes: repro's layout
+        return arr
     return np.asarray(leaf)
 
 
+def _is_bf16(leaf) -> bool:
+    if isinstance(leaf, torch.Tensor):
+        return leaf.dtype == torch.bfloat16
+    return interop.is_bf16(_np_dtype(leaf))
+
+
 def _np_dtype(leaf):
+    """The numpy dtype of a non-bf16 template leaf."""
     if isinstance(leaf, torch.Tensor):
         return torch.empty((), dtype=leaf.dtype).numpy().dtype
-    return np.asarray(leaf).dtype
+    dtype = getattr(leaf, "dtype", None)
+    return np.dtype(dtype) if dtype is not None else np.asarray(leaf).dtype
+
+
+def _restore_leaf(arr: np.ndarray, template) -> np.ndarray:
+    """The stored array in the template leaf's dtype; bf16 by its bits."""
+    if not _is_bf16(template):
+        return np.asarray(arr, dtype=_np_dtype(template))
+    if not (interop.is_bf16(arr.dtype) or arr.dtype == np.uint16):
+        raise ValueError(f"a bf16 template leaf needs bf16 bits in the "
+                         f"checkpoint, found {arr.dtype}")
+    return interop.bf16_to_numpy(interop.bf16_from_numpy(arr))
 
 
 def _write_json_atomic(path: str, obj, **dump_kw):
@@ -103,7 +131,7 @@ def restore(path: str, template):
         for k, t in _flatten(template).items():
             if k not in data.files:
                 raise KeyError(f"checkpoint {path} has no leaf '{k}'")
-            arr = np.asarray(data[k], dtype=_np_dtype(t))
+            arr = _restore_leaf(data[k], t)
             if arr.shape != tuple(t.shape):
                 raise ValueError(f"{k}: checkpoint shape {arr.shape} vs "
                                  f"template {tuple(t.shape)}")

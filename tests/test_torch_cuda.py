@@ -77,6 +77,91 @@ def test_segment_sum_kernel_matches_plain(cuda, B, E, A, F):
         em, dst, A), A).float(), 1e-2)
 
 
+def _ss_inputs(rng, B, E, A, F, dev, dtype=torch.float32):
+    msg = torch.from_numpy(rng.standard_normal((B, E, F), np.float32))
+    _, dst, em = _edges(rng, B, E, A, dev)
+    return msg.to(dev).to(dtype), dst, em
+
+
+def _ss_check(got, msg, dst, A, tol):
+    ref = segment_sum_ref(msg, dst, A)
+    assert got.dtype == msg.dtype and got.shape == ref.shape
+    _close(got.float(), ref.float(), tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("F", [866, 868, 867, 5])
+def test_segment_sum_kernel_windows_and_scalar_path(cuda, F, dtype, tol):
+    """E over several dst windows (partial sums carried), and an odd F
+    (the scalar-load instantiation), against the plain version; the
+    result does not depend on the window or the node block."""
+    rng = np.random.default_rng(3)
+    msg, dst, em = _ss_inputs(rng, 2, 5000, 64, F, cuda, dtype)
+    routed = torch.where(em, dst, 64)
+    got = segment_sum(msg, dst, 64, edge_mask=em, block_e=1024)
+    _ss_check(got, msg, routed, 64, tol)
+    for bn, be in ((None, None), (4, 1024), (64, 333), (7, 5000)):
+        assert torch.equal(got, segment_sum(msg, routed, 64, block_n=bn,
+                                            block_e=be)), (bn, be)
+
+
+@pytest.mark.gpu
+def test_segment_sum_kernel_masked_negative_and_out_of_range_dst(cuda):
+    rng = np.random.default_rng(4)
+    msg, dst, em = _ss_inputs(rng, 3, 700, 20, 64, cuda)
+    # every edge masked: zeros, one launch
+    before = segment_sum.launches
+    out = segment_sum(msg, dst, 20, edge_mask=torch.zeros_like(em))
+    assert segment_sum.launches == before + 1
+    assert torch.equal(out, torch.zeros_like(out))
+    # negative and past-the-end dst contribute nothing
+    wild = dst.clone()
+    wild[:, ::3] = -1
+    wild[:, 1::7] = -(2 ** 31)
+    wild[:, 2::5] = 2 ** 31 - 1
+    _ss_check(segment_sum(msg, wild, 20), msg, wild, 20, 1e-5)
+    for bn in (1, 3, 20):
+        assert torch.equal(segment_sum(msg, wild, 20, block_n=bn),
+                           segment_sum(msg, wild, 20))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_segment_sum_kernel_rows_independent_of_the_batch(cuda, dtype):
+    """Row b of a batched call is bitwise equal to a call on graph b alone
+    (3-D with B=1 and 2-D): a sum's order is the edge order alone."""
+    rng = np.random.default_rng(5)
+    msg, dst, em = _ss_inputs(rng, 8, 2048, 64, 866, cuda, dtype)
+    got = segment_sum(msg, dst, 64, edge_mask=em)
+    for b in range(8):
+        one = segment_sum(msg[b:b + 1], dst[b:b + 1], 64,
+                          edge_mask=em[b:b + 1])
+        two_d = segment_sum(msg[b], dst[b], 64, edge_mask=em[b])
+        assert torch.equal(got[b], one[0]) and torch.equal(got[b], two_d), b
+
+
+@pytest.mark.gpu
+def test_segment_sum_kernel_one_launch_per_call(cuda):
+    rng = np.random.default_rng(6)
+    for B, E, A, F, kw in ((1, 2048, 64, 866, {}), (8, 2048, 64, 866, {}),
+                           (2, 5000, 64, 866, {"block_e": 1024}),
+                           (2, 300, 33, 7, {"block_n": 5})):
+        msg, dst, em = _ss_inputs(rng, B, E, A, F, cuda)
+        before = segment_sum.launches
+        segment_sum(msg, dst, A, edge_mask=em, **kw)
+        assert segment_sum.launches == before + 1, (B, E, A, F, kw)
+    # no edges: zeros from one launch; no node: an empty result, no launch
+    before = segment_sum.launches
+    none = segment_sum(msg[:, :0], dst[:, :0], A)
+    assert segment_sum.launches == before + 1
+    assert none.shape == (2, A, F) and torch.equal(none,
+                                                   torch.zeros_like(none))
+    assert segment_sum(msg, dst, 0).shape == (2, 0, F)
+    assert segment_sum.launches == before + 1
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,A,E,H", [(2, 10, 40, 24), (3, 40, 1000, 96)])
 def test_egnn_edge_kernel_matches_plain(cuda, B, A, E, H):

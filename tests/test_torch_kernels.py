@@ -85,20 +85,93 @@ def test_segment_sum_rejects_bad_rank_and_blocks():
         ss_ops.segment_sum(msg[:, :, :, None], dst, 4, edge_mask=em)
     with pytest.raises(ValueError, match="block"):
         ss_ops.segment_sum(msg, dst, 4, block_n=0)
+    # a dst window of 40,000 edges stages 320 KB (dst and the edge list)
+    with pytest.raises(budget.SmemBudgetError):
+        ss_ops.segment_sum(torch.zeros(1, 40_000, 8),
+                           torch.zeros(1, 40_000, dtype=torch.int32), 16,
+                           block_e=40_000)
+    # 4096 nodes a CTA carry 4096 x 32 lanes x 2 f32 partials across windows
     with pytest.raises(budget.SmemBudgetError):
         ss_ops.segment_sum(torch.zeros(1, 64, 8), torch.zeros(1, 64,
                                                               dtype=torch.int32),
-                           1024, block_n=1024, block_e=64)
+                           4096, block_n=4096, block_e=32)
 
 
-def test_segment_sum_autotune_fits_budget():
-    for A in (1, 16, 64, 128, 500, 4096):
+def _plan_smem(p, E):
+    return ss_ops.smem_bytes(p.block_n, p.block_e, p.threads,
+                             carry=p.vec if E > p.block_e else 0)
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("B", [1, 8])
+def test_segment_sum_autotune_fits_budget(B, itemsize):
+    for A in (1, 16, 64, 128, 500, 4096, 200_000):
         for E in (1, 64, 2048, 100_000):
-            bn, be = ss_ops.autotune_blocks(A, E, 866)
-            g = ss_ops.edge_groups(bn, be)
-            assert 1 <= g <= 8
-            assert ss_ops.smem_bytes(bn, be, g) <= budget.SMEM_BUDGET
-            assert 1 <= bn <= max(A, 1) and 1 <= be <= max(E, 1)
+            for F in (1, 7, 866, 4096):
+                p = ss_ops.plan(A, E, F, batch=B, itemsize=itemsize)
+                assert ss_ops.autotune_blocks(
+                    A, E, F, batch=B, itemsize=itemsize) == (p.block_n,
+                                                             p.block_e)
+                assert _plan_smem(p, E) <= budget.SMEM_BUDGET
+                assert 1 <= p.block_n <= max(A, 1)
+                assert 1 <= p.block_e <= min(max(E, 1), ss_ops.MAX_BLOCK_E)
+                # grid limits: node blocks and graphs, threads a CTA
+                assert -(-A // p.block_n) <= ss_ops.MAX_GRID_YZ
+                assert 32 <= p.threads <= ss_ops.MAX_THREADS
+                # the chunks cover every column once, each row aligned
+                assert F % p.vec == 0 and p.vec * itemsize <= 8
+                assert (p.chunks - 1) * p.lanes < F // p.vec <= \
+                    p.chunks * p.lanes
+
+
+def test_segment_sum_plan_fills_the_card_at_the_main_shapes():
+    one = ss_ops.plan(64, 2048, 866, batch=1)
+    # one node and half of the columns a CTA: 128 CTAs of 224 threads
+    assert one == ss_ops.Plan(block_n=1, block_e=2048, vec=2, lanes=217,
+                              chunks=2)
+    assert one.threads == 224
+    # B=8: two nodes a CTA share the dst walk, ~4 CTAs an SM remain
+    batched = ss_ops.plan(64, 2048, 866, batch=8)
+    assert batched == ss_ops.Plan(block_n=2, block_e=2048, vec=2, lanes=217,
+                                  chunks=2)
+    assert ss_ops.plan(64, 2048, 866, batch=64).block_n == 16
+    for B, A, F in ((1, 3, 5), (1, 64, 866), (8, 64, 866), (2, 40, 96),
+                    (1, 8, 866)):
+        p = ss_ops.plan(A, 1000, F, batch=B)
+        grid = p.chunks * -(-A // p.block_n) * B
+        # at least half the SMs busy, unless the columns run out of lanes
+        assert 2 * grid >= ss_ops.SM_COUNT or p.lanes < 2 * ss_ops.MIN_LANES
+        assert p.block_n == 1 or grid >= ss_ops.MIN_CTAS_PER_SM * \
+            ss_ops.SM_COUNT
+
+
+@pytest.mark.parametrize("F,itemsize,align,vec", [
+    (866, 4, 8, 2), (867, 4, 8, 1), (866, 4, 4, 1), (866, 2, 8, 2),
+    (868, 2, 8, 4), (868, 2, 4, 2), (867, 2, 8, 1), (8, 8, 8, 1)])
+def test_segment_sum_vector_width(F, itemsize, align, vec):
+    assert ss_ops.vec_width(F, itemsize, align) == vec
+    p = ss_ops.plan(64, 2048, F, itemsize=itemsize, align=align)
+    assert p.vec == vec
+
+
+def test_segment_sum_plan_keeps_explicit_blocks_or_refuses():
+    p = ss_ops.plan(64, 5000, 866, block_e=1024)
+    assert (p.block_n, p.block_e) == (1, 1024)
+    # a window smaller than E carries partial sums: 8 bytes a lane and node
+    assert _plan_smem(p, 5000) == ss_ops.smem_bytes(1, 1024, p.threads,
+                                                    carry=2)
+    assert _plan_smem(p, 5000) - ss_ops.smem_bytes(1, 1024, p.threads) == \
+        8 * p.threads
+    p = ss_ops.plan(128, 2048, 866, block_n=128)
+    assert p.block_n == 128 and _plan_smem(p, 2048) <= budget.SMEM_BUDGET
+    # blocks past the problem are clipped to it
+    assert ss_ops.plan(3, 7, 5, block_n=8, block_e=8)[:2] == (3, 7)
+    # the column split narrows to fit a large explicit node block
+    wide = ss_ops.plan(512, 100_000, 866, block_n=512, block_e=2048)
+    assert wide.lanes < 217 and _plan_smem(wide, 100_000) <= \
+        budget.SMEM_BUDGET
+    with pytest.raises(ValueError, match="grid too large"):
+        ss_ops.plan(70_000, 64, 8, block_n=1)
 
 
 # ---------------------------------------------------------------------------
