@@ -56,13 +56,17 @@ Phases, each printing one JSON line:
 
 ``--profile`` adds device time by kernel (``torch.profiler``) for one
 served GNN batch, one training step, one LM prefill and one decode step,
-and the device time of #5 over masks (beside SDPA on the same inputs) and
-of #6 over split counts. ``--sweep`` prints only the sweeps: #1 and #2
-beside ``index_add_``, that attention sweep, and the LM prefill's device
-time with its teacher-forced bf16 error under the bf16 GEMM reduction
-setting in force. ``--src DIR`` imports the port from another unpacked
-checkout, so that two versions are timed in one run (parent, change,
-change, parent):
+and the attention sweep: the device time of #5 over masks (beside SDPA on
+the same inputs), and of #6 at LM decode runs (a) and (b), by kernel
+name, over 1 / 2 / 3 / 4 / 9 / 17 / 33 splits and the default plan at
+(a), beside
+SDPA and the bound. ``--sweep`` prints only the sweeps: #1 and #2 beside
+``index_add_``, that attention sweep, and the LM prefill's device time
+with its teacher-forced bf16 error under the bf16 GEMM reduction setting
+in force. ``--src DIR`` imports the port from another unpacked checkout;
+with ``--sweep`` it times that checkout and this one in turns (parent,
+change, change, parent), each turn in its own process, and ends with a
+summary line of the kernels' times by turn:
 
     python3 chip_smoke.py --sweep --src build/parent/src
 
@@ -72,6 +76,7 @@ it, the script exits nonzero before printing any result. It imports no JAX.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import itertools
 import json
 import math
@@ -153,11 +158,13 @@ def time_ms(torch, fn, iters=20, warm=3) -> float:
     return t0.elapsed_time(t1) / iters
 
 
-def device_ms(torch, fn, iters=20, warm=3) -> float:
-    """Device time of one call of ``fn``: the kernels it launches, summed
-    from a ``torch.profiler`` trace of ``iters`` calls. Unlike CUDA events
-    around the calls, it leaves out the device's idle time while the host
-    prepares the next launch, which dominates calls of tens of us."""
+def device_profile(torch, fn, iters=20, warm=3) -> dict:
+    """Device time of one call of ``fn`` (``ms``): the kernels it launches,
+    summed from a ``torch.profiler`` trace of ``iters`` calls, also by
+    kernel name (``by_kernel``, ms a call), and the kernels a call
+    launches (``kernels_per_call``). Unlike CUDA events around the calls,
+    it leaves out the device's idle time while the host prepares the next
+    launch, which dominates calls of tens of us."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warm):
@@ -168,9 +175,21 @@ def device_ms(torch, fn, iters=20, warm=3) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    us = sum(ev.device_time_total for ev in prof.key_averages()
-             if ev.device_type == DeviceType.CUDA)
-    return us / iters / 1e3
+    by_kernel, launches = {}, 0
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA and ev.device_time_total:
+            name = (ev.key.split("(")[0].split("<")[0].split()
+                    or [ev.key])[-1]
+            by_kernel[name] = (by_kernel.get(name, 0.0)
+                               + ev.device_time_total / iters / 1e3)
+            launches += ev.count
+    return {"ms": sum(by_kernel.values()), "by_kernel": by_kernel,
+            "kernels_per_call": launches / iters}
+
+
+def device_ms(torch, fn, iters=20, warm=3) -> float:
+    """``device_profile``'s device time of one call of ``fn``."""
+    return device_profile(torch, fn, iters, warm)["ms"]
 
 
 def scaled_err(torch, got, ref) -> tuple[float, float]:
@@ -677,6 +696,11 @@ FD_CASES = [  # name, dtype, B, C, H, K, D, pos, window, n_splits, block_k
      0, 12, 64),
     ("f32_rolling_window", "float32", 2, 300, 8, 8, 32, 777, 50, 5,
      None),
+    # several splits a CTA (33 splits, 11 CTAs of 3); the largest
+    # instantiation (f32, G = 16, D = 128)
+    ("bf16_33_splits", "bfloat16", 2, 1056, 32, 8, 80, 1040, 4096, 33,
+     None),
+    ("f32_d128_g16", "float32", 2, 700, 16, 1, 128, 699, 0, None, None),
 ]
 
 
@@ -791,13 +815,14 @@ def _cache_positions(torch, dev, C, pos, window):
 def check_flash_decode(torch, dev, g):
     """#6 against the plain split partials + combine with the same plan,
     and against ``decode_ref``, at the LM decode shapes and edge cases;
-    timed at runs (a) and (b)."""
+    each case's plan and kernels a call (from a profiler trace: more than
+    one fails the run); timed at runs (a) and (b)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_decode import (combine_partials,
                                                   decode_partials_ref,
                                                   decode_ref, flash_decode,
-                                                  plan_splits)
+                                                  plan_call)
     worst, out = 0.0, {"cases": {}}
     for name, dt, B, C, H, K, D, pos, window, n_splits, block_k in FD_CASES:
         dt = getattr(torch, dt)
@@ -814,11 +839,12 @@ def check_flash_decode(torch, dev, g):
         kw = dict(n_splits=n_splits, block_k=block_k)
         got = flash_decode(q, k, v, q_pos=qp, k_pos=kp, **kw)
         again = flash_decode(q, k, v, q_pos=qp, k_pos=kp, **kw)
-        n, per = plan_splits(B, K, C, n_splits, block_k)
+        plan = plan_call(q, k, n_splits, block_k)
 
         def plain():
             m, l, acc = decode_partials_ref(q, k, v, q_pos=qp, k_pos=kp,
-                                            n_splits=n, per_split=per)
+                                            n_splits=plan.n_splits,
+                                            per_split=plan.per_split)
             return combine_partials(m, l, acc).reshape(B, 1, H, D).to(dt)
         ref = plain()
         oracle = decode_ref(q, k, v, q_pos=qp, k_pos=kp)
@@ -827,17 +853,20 @@ def check_flash_decode(torch, dev, g):
         _attn_err(torch, got, oracle, f"flash_decode {name} vs decode_ref")
         if not torch.equal(got, again):
             fail(f"flash_decode {name}: two calls differ bitwise")
+        n_kernels = device_profile(torch, lambda: flash_decode(
+            q, k, v, q_pos=qp, k_pos=kp, **kw), iters=5)["kernels_per_call"]
+        if n_kernels != 1:
+            fail(f"flash_decode {name}: {n_kernels} kernels a call, not 1")
         worst = max(worst, err)
         out["cases"][name] = {"max_abs_err": err, "tol_share": share,
-                              "n_splits": n, "per_split": per}
+                              "kernels_per_call": n_kernels,
+                              "plan": plan._asdict()}
         if not name.startswith("decode"):
             continue
-        valid = int((kp > -(10 ** 8)).sum())
         # the decode path reads each layer's cache once, after the layer
         # before streamed its weights through L2: time over copies of the
         # cache that together exceed the 50 MB L2, taken in turn
-        isz = q.element_size()
-        n_copy = 1 + (100 << 20) // (2 * B * C * K * D * isz)
+        n_copy = 1 + (100 << 20) // (2 * B * C * K * D * q.element_size())
         copies = itertools.cycle([(k.clone(), v.clone())
                                   for _ in range(n_copy)])
         mask = (kp > -(10 ** 8))[:, None, None, :]
@@ -855,17 +884,13 @@ def check_flash_decode(torch, dev, g):
         wall = time_ms(torch, kernel, iters=50)
         plain_ms = device_ms(torch, plain, iters=10)
         lib = device_ms(torch, library, iters=50)
-        # q in and the output out, the k/v rows of the valid keys only
-        # (pads and slots past the window are not needed), k_pos and q_pos
-        nbytes = isz * (2 * B * H * D + 2 * valid * K * D) + 4 * (B * C + B)
         timed = {"ms": ms, "wall_ms": wall, "plain_ms": plain_ms,
                  "library_ms": lib,
                  "library": "scaled_dot_product_attention(enable_gqa, "
                             "bool mask), one query token",
                  "l2_cold_copies": n_copy,
-                 "shape": [B, C, H, K, D], "pos": pos, "valid_keys": valid,
-                 "n_splits": n, "per_split": per,
-                 **_bound(torch, 4 * D * H * valid, nbytes, dt)}
+                 "shape": [B, C, H, K, D], "pos": pos,
+                 **_fd_bound(torch, q, kp, K)}
         if name == "decode_a":
             out.update(timed)
         else:
@@ -1080,25 +1105,58 @@ def lm_profile(torch):
             "prefill": pre, "decode_step": dec}
 
 
+def _fd_plan(fd_ops, q, k, n_splits=None, block_k=None) -> dict:
+    """The split plan #6 takes for these inputs (an earlier checkout's
+    ``plan_splits`` gives only its split count and length)."""
+    if hasattr(fd_ops, "plan_call"):
+        return fd_ops.plan_call(q, k, n_splits, block_k)._asdict()
+    n, per = fd_ops.plan_splits(k.shape[0], k.shape[2], k.shape[1],
+                                n_splits, block_k)[:2]
+    return {"n_splits": n, "per_split": per}
+
+
+def _fd_bound(torch, q, kp, K) -> dict:
+    """#6's bound: q in and the output out, the k/v rows of the valid keys
+    only (pads and slots past the window are not needed), k_pos and
+    q_pos; 4·D FLOP a (head, valid key)."""
+    B, _, H, D = q.shape
+    valid = int((kp > -(10 ** 8)).sum())
+    nbytes = q.element_size() * (2 * B * H * D + 2 * valid * K * D) \
+        + 4 * (kp.numel() + B)
+    return {"valid_keys": valid,
+            **_bound(torch, 4 * D * H * valid, nbytes, q.dtype)}
+
+
+# the LM decode shapes of runs (a) and (b): name, B, cache slots, position
+FD_SWEEP = (("decode_a", 8, 1056, 1040), ("decode_b_rolling", 1, 4200, 4210))
+FD_SWEEP_SPLITS = (1, 2, 3, 4, 9, 17, 33, None)   # run (a); None: default
+
+
 def attn_sweep(torch):
     """Device time per call of #5 over masks, each beside
     ``scaled_dot_product_attention`` on the same inputs (the bool keep mask,
     as ``library_ms`` takes it, and SDPA's own causal / unmasked form where
-    the mask has one), and of #6 over split counts, at the LM path's shapes
-    (prefill B=8, S=1024; decode B=8, cache 1056; bf16) on L2-warm inputs:
-    the measurements behind the kernels' redesign notes."""
+    the mask has one), at the LM prefill shape (B=8, S=1024, bf16); and of
+    #6 at the LM decode shapes of runs (a) and (b) (window 4096 folded into
+    k_pos, as the decode path passes it), over split counts and the default
+    plan at (a), the default plan at (b), each with its device time by
+    kernel name, kernels a call, its time with the host's share (CUDA
+    events, ``wall_ms``), its plan and the waves the card takes for it,
+    beside SDPA and the bound. Inputs are L2-warm: the measurements behind
+    the kernels' redesign notes."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_attention.ref import keep_mask
-    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.flash_decode import ops as fd_ops
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
     g.manual_seed(0)
 
     def t(*shape):
         return torch.randn(shape, generator=g, device=dev).bfloat16()
-    B, S, H, K, D, C = 8, 1024, 32, 8, 80, 1056
+    B, S, H, K, D = 8, 1024, 32, 8, 80
+    fa_shape = [B, S, H, K, D]
     q, k, v = t(B, S, H, D), t(B, S, K, D), t(B, S, K, D)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     pos = torch.arange(S, device=dev, dtype=torch.int32)
@@ -1109,8 +1167,12 @@ def attn_sweep(torch):
             ("none", dict(causal=False), {})):
         keep = keep_mask(pos.long(), pos.long(), causal=kw["causal"],
                          window=kw.get("window", 0))
+        got = flash_attention(q, k, v, q_pos=pos, k_pos=pos, **kw)
         row = {"kernel": device_ms(torch, lambda: flash_attention(
             q, k, v, q_pos=pos, k_pos=pos, **kw), iters=10),
+            # the output's bits, to hold two versions to the same result
+            "sha256": hashlib.sha256(
+                got.view(torch.int16).cpu().numpy().tobytes()).hexdigest(),
             "sdpa_bool_mask": device_ms(
                 torch, lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, attn_mask=keep, enable_gqa=True), iters=10)}
@@ -1119,16 +1181,49 @@ def attn_sweep(torch):
                 torch, lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, enable_gqa=True, **native), iters=10)
         fa[mask] = row
-    q1, kc, vc = t(B, 1, H, D), t(B, C, K, D), t(B, C, K, D)
-    kp = torch.arange(C, device=dev, dtype=torch.int32)
     fd = {}
-    for n_splits in (1, 3, 9, 17):
-        fd[n_splits] = device_ms(torch, lambda: flash_decode(
-            q1, kc, vc, q_pos=C - 1, k_pos=kp, n_splits=n_splits))
-    return {"phase": "attn_sweep", "flash_attention_shape": [B, S, H, K, D],
-            "flash_attention_ms_by_mask": fa,
-            "flash_decode_shape": [B, C, H, K, D],
-            "flash_decode_ms_by_splits": fd}
+    for name, B, C, p in FD_SWEEP:
+        q1, kc, vc = t(B, 1, H, D), t(B, C, K, D), t(B, C, K, D)
+        kp = _cache_positions(torch, dev, C, p, 4096)[None].expand(B, C)
+        qp = torch.full((B,), p, device=dev, dtype=torch.int32)
+        mask = (kp > -(10 ** 8))[:, None, None, :]
+        row = {"shape": [B, C, H, K, D], "pos": p,
+               "sdpa_ms": device_ms(
+                   torch, lambda: F.scaled_dot_product_attention(
+                       q1.transpose(1, 2), kc.transpose(1, 2),
+                       vc.transpose(1, 2), attn_mask=mask, enable_gqa=True),
+                   iters=50),
+               **_fd_bound(torch, q1, kp, K)}
+        if hasattr(fd_ops, "max_active_clusters"):
+            # the card's occupancy of this instantiation: clusters of
+            # 1..16 CTAs (one split each) that one wave holds, by ring depth
+            row["max_active_clusters"] = {
+                f"stages_{st}": [fd_ops.max_active_clusters(
+                    dev.index or 0, q1.dtype, H // K, D, c, st, 1)
+                    for c in range(1, fd_ops.MAX_CLUSTER + 1)]
+                for st in fd_ops.STAGES}
+        for n in FD_SWEEP_SPLITS if name == "decode_a" else (None,):
+            def call():
+                fd_ops.flash_decode(q1, kc, vc, q_pos=qp, k_pos=kp,
+                                    n_splits=n)
+            plan = _fd_plan(fd_ops, q1, kc, n)
+            cell = {**device_profile(torch, call, iters=50),
+                    # CUDA events around back-to-back calls: the host's
+                    # share of a call included
+                    "wall_ms": time_ms(torch, call, iters=200),
+                    "plan": plan}
+            if "cluster" in plan:
+                # the card's clusters a wave at this plan, and the waves
+                # the B·K clusters take
+                per_wave = fd_ops.max_active_clusters(
+                    dev.index or 0, q1.dtype, H // K, D, plan["cluster"],
+                    plan["stages"], plan["splits_per_cta"])
+                cell.update(clusters_a_wave=per_wave,
+                            waves=-(-B * K // per_wave))
+            row[f"splits_{n or 'default'}"] = cell
+        fd[name] = row
+    return {"phase": "attn_sweep", "flash_attention_shape": fa_shape,
+            "flash_attention_ms_by_mask": fa, "flash_decode": fd}
 
 
 def ss_sweep(torch):
@@ -1173,10 +1268,11 @@ def ss_sweep(torch):
 
 def lm_bf16_probe(torch):
     """The bf16 GEMM reduction setting in force, the device time of one
-    kernel-path prefill at run (a) (B=8, S=1024) and the teacher-forced
-    bf16 error of the lm_serve phase (prefill + 8 decode steps, kernel path
-    against the plain path, the same seeds), so that two versions
-    (``--src``) can be compared in one call."""
+    kernel-path prefill at run (a) (B=8, S=1024), the teacher-forced bf16
+    error of the lm_serve phase (prefill + 8 decode steps, kernel path
+    against the plain path, the same seeds) and run (a)'s decode time a
+    step on the host's clock, so that two versions (``--src``) can be
+    compared in one call."""
     from repro_torch.configs import h2o_danube_1_8b
     from repro_torch.models import transformer
     cfg = h2o_danube_1_8b.CONFIG
@@ -1189,7 +1285,17 @@ def lm_bf16_probe(torch):
     prefill_ms = _prefill_device_ms(torch, params, cfg, tf_toks[:, :S])
     got, _ = _teacher_forced(torch, params, cfg, tf_toks, S, "pallas")
     want, _ = _teacher_forced(torch, params, cfg, tf_toks, S, "chunked")
+    # run (a)'s generation (B=8, prompt 1024, 32 new) on the host's clock,
+    # after one run to warm up
+    from repro_torch.train.serve import greedy_generate
+    prompt = _lm_prompts(cfg, 8, 1024, seed=1)
+    for _ in range(2):
+        timings = {}
+        greedy_generate(params, cfg, prompt, 32, impl="pallas", device=dev,
+                        timings=timings)
     return {"phase": "lm_bf16",
+            "decode_ms_per_step": timings["decode_s"] / 31 * 1e3,
+            "decode_tok_per_s": 8 * 31 / timings["decode_s"],
             "allow_bf16_reduced_precision_reduction":
                 torch.backends.cuda.matmul
                 .allow_bf16_reduced_precision_reduction,
@@ -1278,6 +1384,50 @@ def profile_phase(torch):
             "step 5 tasks x 8 graphs", **out}
 
 
+def sweep_in_turns(other: Path):
+    """``--sweep`` for ``other`` (an earlier checkout's src/) and this
+    checkout in turns, parent, change, change, parent, each in its own
+    process; every line tagged with its turn, then a summary of the
+    kernels' device times by turn."""
+    turns = [("parent", other), ("change", SRC), ("change", SRC),
+             ("parent", other)]
+    summary = []
+    for i, (version, src) in enumerate(turns):
+        r = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                            "--sweep", "--once", "--src", str(src)],
+                           stdout=subprocess.PIPE, text=True)
+        row = {"turn": i, "version": version}
+        for line in r.stdout.splitlines():
+            if not line.startswith("{"):
+                print(line, flush=True)
+                continue
+            rec = json.loads(line)
+            emit({"turn": i, "version": version, **rec})
+            if rec.get("phase") == "ss_sweep":
+                row.update({k: rec[k]["ms"] for k in rec if k != "phase"})
+            elif rec.get("phase") == "attn_sweep":
+                fa = rec["flash_attention_ms_by_mask"]
+                row["flash_attention_causal"] = fa["causal"]["kernel"]
+                row["flash_attention_sha256"] = {
+                    k: v["sha256"][:16] for k, v in fa.items()}
+                for k, v in rec["flash_decode"].items():
+                    row[f"flash_{k}_default"] = v["splits_default"]["ms"]
+                    row[f"flash_{k}_default_wall"] = \
+                        v["splits_default"]["wall_ms"]
+                row["flash_decode_a_ms_by_splits"] = {
+                    k[len("splits_"):]: v["ms"]
+                    for k, v in rec["flash_decode"]["decode_a"].items()
+                    if k.startswith("splits_")}
+            elif rec.get("phase") == "lm_bf16":
+                row["decode_ms_per_step"] = rec["decode_ms_per_step"]
+        if r.returncode != 0:
+            fail(f"--sweep for {src} exited {r.returncode}")
+        summary.append(row)
+    emit({"phase": "sweep_summary", "ms_by_turn": summary,
+          "flash_attention_bits_equal": len({json.dumps(
+              r["flash_attention_sha256"]) for r in summary}) == 1})
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -1294,9 +1444,14 @@ def main():
     ap.add_argument("--src", type=Path, default=SRC,
                     help="the src/ directory whose repro_torch to import "
                          "(default: this checkout's), e.g. an unpacked "
-                         "earlier commit's, to time two versions in one run")
+                         "earlier commit's; with --sweep, the sweeps run "
+                         "for it and for this checkout in turns: it, this, "
+                         "this, it")
+    ap.add_argument("--once", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     src = args.src.resolve()
+    if args.sweep and not args.once and src != SRC.resolve():
+        return sweep_in_turns(src)
     if not (src / "repro_torch" / "csrc").is_dir():
         fail(f"{src / 'repro_torch'} not found: run from a checkout")
     sys.path.insert(0, str(src))

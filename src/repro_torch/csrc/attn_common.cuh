@@ -1,6 +1,7 @@
 // Shared by the attention kernels (flash_attention.cu, flash_decode.cu):
-// the finite mask sentinel, the pad-key limit, and the 16-byte row loads
-// that stage (position, head) rows of D values into f32 shared memory.
+// the finite mask sentinel, the pad-key limit, the 16-byte row loads that
+// stage (position, head) rows of D values into f32 shared memory, and the
+// shared-memory address and cp.async helpers.
 #pragma once
 
 #include "common.cuh"
@@ -89,6 +90,25 @@ __device__ __forceinline__ void stage_rows_t(float* dst, const T* base,
 #pragma unroll
     for (int j = 0; j < V; ++j) dst[(c + j) * ROWS + r] = tmp[j];
   }
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, bypassing L1; zero-filled when !valid (the
+// source is then not read, but must still be a valid address)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // The mask of one (query, key) pair, as the TPU kernels apply it.

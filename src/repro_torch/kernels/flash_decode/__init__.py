@@ -1,5 +1,5 @@
-from .ops import flash_decode, plan_splits
+from .ops import Plan, flash_decode, plan_call, plan_splits
 from .ref import combine_partials, decode_partials_ref, decode_ref
 
-__all__ = ["combine_partials", "decode_partials_ref", "decode_ref",
-           "flash_decode", "plan_splits"]
+__all__ = ["Plan", "combine_partials", "decode_partials_ref", "decode_ref",
+           "flash_decode", "plan_call", "plan_splits"]

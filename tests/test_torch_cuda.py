@@ -26,10 +26,11 @@ from repro_torch.kernels.egnn_edge.ops import egnn_edge_bwd
 from repro_torch.kernels.egnn_edge.ref import egnn_edge_bwd_ref
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_ref)
-from repro_torch.kernels.flash_decode import (combine_partials,
+from repro_torch.kernels.flash_decode import (Plan, combine_partials,
                                               decode_partials_ref,
                                               decode_ref, flash_decode,
-                                              plan_splits)
+                                              plan_call, plan_splits)
+from repro_torch.kernels.flash_decode import ops as fd_ops
 from repro_torch.kernels.segment_sum import segment_sum, segment_sum_ref
 from repro_torch.models import transformer
 from repro_torch.models.mlp import mlp_init
@@ -321,6 +322,10 @@ def test_flash_attention_kernel_refuses(cuda):
     (3, 1000, 32, 8, 80, 8, 512),           # repro's defaults
     (2, 640, 8, 2, 64, 12, 64),             # trailing empty splits
     (1, 77, 16, 1, 32, 3, 16),              # MQA, G = 16, ragged
+    (2, 1000, 32, 8, 80, 17, None),         # 2 splits a CTA, 9 CTAs
+    (2, 1000, 32, 8, 80, 33, None),         # 3 splits a CTA, 11 CTAs
+    (2, 700, 16, 1, 128, None, None),       # the largest instantiation
+    (1, 700, 16, 1, 128, 40, 8),            # ... with 3 splits a CTA
 ])
 def test_flash_decode_kernel_matches_plain(cuda, dtype, B, S, H, K, D,
                                            n_splits, block_k):
@@ -342,9 +347,12 @@ def test_flash_decode_kernel_matches_plain(cuda, dtype, B, S, H, K, D,
                        block_k=block_k)
     assert flash_decode.launches == before + 1
     assert got.dtype == dt and got.shape == (B, 1, H, D)
-    n, per = plan_splits(B, K, S, n_splits, block_k)
-    m, l, acc = decode_partials_ref(q, k, v, q_pos=qp, k_pos=kp, n_splits=n,
-                                    per_split=per)
+    plan = plan_call(q, k, n_splits, block_k)
+    if n_splits is not None:
+        assert plan.n_splits == n_splits
+    m, l, acc = decode_partials_ref(q, k, v, q_pos=qp, k_pos=kp,
+                                    n_splits=plan.n_splits,
+                                    per_split=plan.per_split)
     plain = combine_partials(m, l, acc).reshape(B, 1, H, D).to(dt)
     assert _attn_close(got, plain)
     ref = decode_ref(q, k, v, q_pos=qp, k_pos=kp)
@@ -352,6 +360,111 @@ def test_flash_decode_kernel_matches_plain(cuda, dtype, B, S, H, K, D,
     again = flash_decode(q, k, v, q_pos=qp, k_pos=kp, n_splits=n_splits,
                          block_k=block_k)
     assert torch.equal(got, again)
+
+
+def _decode_run_b(cuda):
+    """LM decode run (b)'s shape: B=1, a rolling cache of 4200 slots at
+    position 4210, the window (4096) folded into k_pos; bf16."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(5)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda).bfloat16()
+               for shape in ((1, 1, 32, 80), (1, 4200, 8, 80),
+                             (1, 4200, 8, 80)))
+    j = torch.arange(4200, device=cuda)
+    slot_pos = 4210 - torch.remainder(4210 - j, 4200)
+    kp = torch.where(slot_pos > 4210 - 4096, slot_pos, PAD).to(torch.int32)
+    qp = torch.full((1,), 4210, device=cuda, dtype=torch.int32)
+    return q, k, v, qp, kp[None]
+
+
+@pytest.mark.gpu
+def test_flash_decode_kernel_decode_b_rolling(cuda):
+    q, k, v, qp, kp = _decode_run_b(cuda)
+    got = flash_decode(q, k, v, q_pos=qp, k_pos=kp)
+    plan = plan_call(q, k)
+    assert plan.cluster == plan.n_splits <= 16
+    m, l, acc = decode_partials_ref(q, k, v, q_pos=qp, k_pos=kp,
+                                    n_splits=plan.n_splits,
+                                    per_split=plan.per_split)
+    assert _attn_close(got, combine_partials(m, l, acc).reshape(
+        1, 1, 32, 80).bfloat16())
+    assert _attn_close(got, decode_ref(q, k, v, q_pos=qp, k_pos=kp))
+    for _ in range(3):                       # replays give the same bits
+        assert torch.equal(got, flash_decode(q, k, v, q_pos=qp, k_pos=kp))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_splits", [None, 1, 17, 33])
+def test_flash_decode_kernel_one_launch_a_call(cuda, n_splits):
+    """One kernel on the device a call, counted from a profiler trace."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    g = torch.Generator(device=cuda)
+    g.manual_seed(1)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda).bfloat16()
+               for shape in ((8, 1, 32, 80), (8, 1056, 8, 80),
+                             (8, 1056, 8, 80)))
+    kp = torch.arange(1056, device=cuda, dtype=torch.int32)[None]
+    qp = torch.full((8,), 1055, device=cuda, dtype=torch.int32)
+    flash_decode(q, k, v, q_pos=qp, k_pos=kp, n_splits=n_splits)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(4):
+            flash_decode(q, k, v, q_pos=qp, k_pos=kp, n_splits=n_splits)
+        torch.cuda.synchronize()
+    kernels = [ev for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA and ev.count]
+    assert [ev.key.split("<")[0].split()[-1] for ev in kernels] == [
+        "flash_decode_kernel"]
+    assert kernels[0].count == 4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S", [(8, 1056), (1, 4200)])
+def test_flash_decode_plan_matches_the_card(cuda, B, S):
+    """At the LM decode shapes (runs (a) and (b)) the plan taken from the
+    card's own occupancy (cudaOccupancyMaxActiveClusters) fits one wave
+    on the card, and the CPU path (no occupancy limit) takes its splits and
+    cluster; the card's counts are those of clusters that share the SMs
+    (c CTAs a cluster take c CTA slots) and of a CTA that fits one SM."""
+    q = torch.zeros(B, 1, 32, 80, device=cuda, dtype=torch.bfloat16)
+    k = torch.zeros(B, S, 8, 80, device=cuda, dtype=torch.bfloat16)
+    plan = plan_call(q, k)
+    assert plan[:4] == plan_splits(B, 8, S)[:4]
+    dev = q.device.index
+    assert fd_ops.max_active_clusters(
+        dev, torch.bfloat16, 4, 80, plan.cluster, plan.stages,
+        plan.splits_per_cta) >= B * 8
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for st in fd_ops.STAGES:
+        one = fd_ops.max_active_clusters(dev, torch.bfloat16, 4, 80, 1, st,
+                                         1)
+        assert one % sms == 0 and (one > 0) == (st % 8 == 0)
+        for c in range(2, fd_ops.MAX_CLUSTER + 1):
+            assert fd_ops.max_active_clusters(
+                dev, torch.bfloat16, 4, 80, c, st, 1) * c <= one
+
+
+@pytest.mark.gpu
+def test_flash_decode_kernel_refuses(cuda):
+    """What the kernel does not take raises: a cluster the card cannot
+    place (the largest instantiation with an 8-stage ring: 270 KB of
+    shared memory), G = 3, a misaligned row, float16."""
+    q = torch.zeros(1, 1, 16, 128, device=cuda)
+    k = torch.zeros(1, 64, 1, 128, device=cuda)
+    pos = torch.zeros(1, device=cuda, dtype=torch.int32)
+    kp = torch.zeros(1, 64, device=cuda, dtype=torch.int32)
+    with pytest.raises(ValueError, match="cannot place"):
+        fd_ops._launch(q, k, k, pos, kp, 0, 1.0, Plan(1, 64, 1, 1, 8))
+    with pytest.raises(ValueError, match="query heads"):
+        flash_decode(q[:, :, :3], k, k, q_pos=pos, k_pos=kp)
+    wide = torch.zeros(1, 64, 1, 136, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        flash_decode(q, wide[..., 2:130], wide[..., 2:130], q_pos=pos,
+                     k_pos=kp)
+    with pytest.raises(TypeError, match="float32"):
+        flash_decode(q.half(), k.half(), k.half(), q_pos=pos, k_pos=kp)
 
 
 @pytest.mark.gpu

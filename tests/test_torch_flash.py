@@ -37,6 +37,7 @@ from repro_torch.kernels.flash_decode import (combine_partials,
                                               decode_partials_ref,
                                               decode_ref, flash_decode,
                                               plan_splits)
+from repro_torch.kernels.flash_decode.ref import PAD_LIMIT
 
 TOL = 2e-5
 PAD = -(10 ** 9)
@@ -365,13 +366,228 @@ def test_flash_decode_bf16():
     (8, 8, 1056, None, None), (1, 8, 4200, None, None), (1, 1, 10, None, None),
     (4, 2, 300, 8, 64), (2, 2, 100, 3, 512), (1, 1, 1, 5, None)])
 def test_plan_splits_covers_the_cache(B, K, S, n_splits, block_k):
-    n, per = plan_splits(B, K, S, n_splits, block_k)
-    assert n * per >= S and per % (block_k or fd_ops.TILE) == 0
+    plan = plan_splits(B, K, S, n_splits, block_k)
+    n, per = plan.n_splits, plan.per_split
+    assert n * per >= S and per % (block_k or fd_ops.GRANULE) == 0
     if n_splits is None:
         assert (n - 1) * per < S                     # no empty split
-        assert n <= max(1, -(-528 // (B * K)))       # ~4 CTAs per SM
+        # one split a CTA, one cluster of at most 16 a (batch, kv head)
+        assert plan.cluster == n <= fd_ops.MAX_CLUSTER
+        assert plan.splits_per_cta == 1
     else:
         assert n == n_splits
+
+
+# The card's cudaOccupancyMaxActiveClusters for the LM's instantiation
+# (bf16, G=4, D=80, one split a CTA), clusters of 1..16 CTAs by ring
+# depth: chip_smoke.py --sweep on an H100 80GB HBM3 (the attn_sweep line's
+# max_active_clusters). Rings of 12 and 4 are not multiples of its 8
+# consumer warps.
+_H100_LM_CLUSTERS = {
+    16: (132, 66, 39, 30, 22, 17, 15, 15, 9, 7, 7, 7, 7, 7, 7, 7),
+    8: (264, 132, 79, 62, 47, 39, 32, 30, 23, 21, 16, 16, 14, 14, 14, 14),
+}
+_OCCUPANCY = {   # assumed clusters(cluster, stages, spc) a wave holds
+    "h100_lm": lambda c, st, spc: _H100_LM_CLUSTERS.get(st, [0] * 16)[c - 1],
+    "one_cta_an_sm": lambda c, st, spc: 132 // c,
+    "only_shallow_rings": lambda c, st, spc: 32 // c if st == 4 else 0,
+    "seven_clusters_a_wave": lambda c, st, spc: 7 if st >= 8 else 0,
+    "none": None,
+}
+
+
+@pytest.mark.parametrize("occupancy", sorted(_OCCUPANCY))
+@pytest.mark.parametrize("B,K,S,n_splits", [
+    (8, 8, 1056, None), (1, 8, 4200, None), (64, 8, 1056, None),
+    (1, 1, 100_000, None), (2, 1, 77, None), (3, 8, 1000, 8),
+    (2, 2, 640, 12), (8, 8, 1056, 17), (8, 8, 1056, 33), (1, 1, 700, 40)])
+def test_plan_splits_invariants(occupancy, B, K, S, n_splits):
+    """Cluster of 1..16 CTAs (the grid is (C, K, B), so C divides it); the
+    cluster's CTAs hold the splits, every CTA at least one and at most
+    ``splits_per_cta``; the card can place the cluster; the default plan
+    fits one wave at the assumed occupancy (or, where no plan does, takes
+    one CTA a (batch, kv head)) with one split a CTA and the fewest keys on
+    the busiest SM among the plans that do; an explicit ``n_splits`` is
+    kept as given, with the cluster and ring of the fewest waves, then of
+    the fewest splits a CTA."""
+    fits = _OCCUPANCY[occupancy]
+    plan = plan_splits(B, K, S, n_splits, clusters=fits)
+    fits = fits or (lambda c, st, spc: float("inf"))
+    C, spc = plan.cluster, plan.splits_per_cta
+    assert 1 <= C <= fd_ops.MAX_CLUSTER
+    assert (C - 1) * spc < plan.n_splits <= C * spc
+    assert plan.stages in fd_ops.STAGES and fits(C, plan.stages, spc) >= 1
+    assert plan.n_splits * plan.per_split >= S
+    if n_splits is None:
+        assert spc == 1 and (plan.n_splits - 1) * plan.per_split < S
+        assert B * K <= fits(C, plan.stages, 1) or C == 1
+        assert plan.per_split >= min(S, fd_ops.MIN_SPLIT)
+
+        def busiest(c):
+            return -(-B * K * c // fd_ops.SM_COUNT) * (
+                -(-S // (c * fd_ops.GRANULE)) * fd_ops.GRANULE)
+        if B * K <= fits(C, plan.stages, 1):
+            assert all(busiest(C) <= busiest(c)
+                       for c in range(1, min(16, S // fd_ops.MIN_SPLIT) + 1)
+                       if any(B * K <= fits(c, st, 1)
+                              for st in fd_ops.STAGES))
+    else:
+        assert plan.n_splits == n_splits and C == -(-n_splits // spc)
+        # the fewest waves over every cluster of up to 16 CTAs and ring,
+        # then the fewest splits a CTA, then the deepest ring
+        best = min((-(-B * K // fits(-(-n_splits // k), st, k)), k, -st)
+                   for c in range(1, min(16, n_splits) + 1)
+                   for k in [-(-n_splits // c)] for st in fd_ops.STAGES
+                   if fits(-(-n_splits // k), st, k) >= 1)
+        assert best == (-(-B * K // fits(C, plan.stages, spc)), spc,
+                        -plan.stages)
+
+
+def test_plan_splits_lm_decode_shapes():
+    """The LM decode runs (bf16, G=4, D=80) at the H100's occupancy: (a)
+    B=8, 1056 slots -> 2 CTAs of 528 keys a (batch, kv head), 128 CTAs,
+    one an SM (4 of 264 would put two on most SMs: as many keys on the
+    busiest, and twice the splits), a 16-stage ring (8 consumer warps, 2
+    stages each); (b) B=1, 4200 slots -> 16 CTAs of 264 keys, an 8-stage
+    ring (eight clusters of 16 CTAs of 16 stages would not fit one wave);
+    one wave each. With no occupancy limit (the CPU) the splits and the
+    cluster are the same."""
+    card = dict(clusters=_OCCUPANCY["h100_lm"])
+    assert plan_splits(8, 8, 1056, **card) == fd_ops.Plan(2, 528, 2, 1, 16)
+    assert plan_splits(1, 8, 4200, **card) == fd_ops.Plan(16, 264, 16, 1, 8)
+    assert plan_splits(8, 8, 1056)[:4] == (2, 528, 2, 1)
+    assert plan_splits(1, 8, 4200)[:4] == (16, 264, 16, 1)
+
+
+# ---------------------------------------------------------------------------
+# #6's reduction order: a plain-torch emulation of the CUDA kernel
+# ---------------------------------------------------------------------------
+
+def _emulate_decode_kernel(q, k, v, qp, kp, plan, warps, window=0):
+    """The CUDA kernel's arithmetic in plain torch, f32 from the inputs'
+    values, with ``warps`` consumer warps (``fd_warps``: 8, or 4 for the
+    instantiations whose 8-warp CTA does not fit its shared memory): CTA r
+    of a (batch, kv head)'s cluster takes splits [r·spc, (r+1)·spc) one
+    after another; a split's keys go in stages of 32, stage c to warp c
+    mod ``warps``, each warp an online softmax over its stages (masked keys
+    at the sentinel; keys past the split get p = 0 against the rows the
+    kernel loads there: the next split's, zeros past the cache end); at
+    the split's end the warps merge in warp order (max, then weighted
+    sums); the combine takes the splits in order (max, then weighted sums).
+    Returns the partials (m, l, acc) and the output (B,1,H,D), f32. Where
+    the kernel differs it changes no conclusion: it sums a stage's 32
+    scores and the warps' shuffles in another order."""
+    B, _, H, D = q.shape
+    S, K = k.shape[1], k.shape[2]
+    G, scale = H // K, D ** -0.5
+    qg = q[:, 0].float().reshape(B, K, G, D)
+    kf, vf = k.float(), v.float()
+    n, per, spc = plan.n_splits, plan.per_split, plan.splits_per_cta
+    m = torch.full((B, K, G, n), NEG_INF)
+    l = torch.zeros(B, K, G, n)
+    acc = torch.zeros(B, K, G, n, D)
+    for r in range(plan.cluster):
+        for s in range(r * spc, min(n, (r + 1) * spc)):
+            lo, hi = s * per, min(S, (s + 1) * per)
+            states = [[torch.full((B, K, G), NEG_INF), torch.zeros(B, K, G),
+                       torch.zeros(B, K, G, D)] for _ in range(warps)]
+            for c in range(max(0, -(-(hi - lo) // 32))):
+                state = states[c % warps]
+                keys = lo + 32 * c + torch.arange(32)
+                inside = keys < hi
+                kk = keys.clamp(max=S - 1)
+                kpc = kp[:, kk]
+                dpos = qp[:, None] - kpc
+                keep = inside & (kpc > PAD_LIMIT) & (dpos >= 0)
+                if window > 0:
+                    keep = keep & (dpos < window)
+                sc = torch.einsum("bkgd,bskd->bkgs", qg, kf[:, kk]) * scale
+                sc = torch.where(keep[:, None, None], sc,
+                                 torch.full_like(sc, NEG_INF))
+                mx = torch.maximum(state[0], sc.amax(-1))
+                p = torch.where(inside, torch.exp(sc - mx[..., None]),
+                                torch.zeros_like(sc))
+                corr = torch.exp(state[0] - mx)
+                rows = torch.where((keys < S)[None, :, None, None], vf[:, kk],
+                                   torch.zeros_like(vf[:, kk]))
+                state[1] = state[1] * corr + p.sum(-1)
+                state[2] = state[2] * corr[..., None] + torch.einsum(
+                    "bkgs,bskd->bkgd", p, rows)
+                state[0] = mx
+            m_cta = torch.stack([w[0] for w in states]).amax(0)
+            for w_m, w_l, w_a in states:         # warp order
+                wt = torch.exp(w_m - m_cta)
+                l[..., s] += w_l * wt
+                acc[..., s, :] += w_a * wt[..., None]
+            m[..., s] = m_cta
+    m_max = m.amax(-1)
+    l_tot = torch.zeros(B, K, G)
+    a_tot = torch.zeros(B, K, G, D)
+    for s in range(n):                           # split order
+        w = torch.exp(m[..., s] - m_max)
+        l_tot += l[..., s] * w
+        a_tot += acc[..., s, :] * w[..., None]
+    out = a_tot / l_tot.clamp_min(1e-30)[..., None]
+    return (m, l, acc), out.reshape(B, 1, H, D)
+
+
+_EMU_CASES = {   # B, S, H, K, D, n_splits, block_k, window
+    "default_plan": (2, 300, 8, 2, 32, None, None, 0),
+    "empty_splits": (2, 100, 4, 2, 16, 8, 16, 0),
+    "dead_splits_and_cta": (3, 160, 8, 2, 16, 20, 8, 0),
+    "several_splits_a_cta": (1, 1000, 8, 2, 32, 33, None, 40),
+    # the LM's instantiation (G=4, D=80), splits of 17 stages: each of 8
+    # warps takes two or three
+    "lm_instantiation": (1, 1056, 32, 8, 80, 2, None, 0),
+}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(_EMU_CASES))
+def test_flash_decode_kernel_order_matches_repro(case, dtype):
+    """The kernel's reduction order (emulated, with 8 and with 4 consumer
+    warps) holds repro's decode_ref, and repro's combine_partials on its
+    partials gives its output, at TOL: with empty splits (past the cache),
+    dead splits (pads only, future keys only), a CTA whose two splits are
+    both dead, a row with no valid key at all (every split dead: the mean
+    of v, as softmax gives), several splits a CTA, the LM's instantiation,
+    in f32 and from bf16 values."""
+    B, S, H, K, D, n_splits, block_k, window = _EMU_CASES[case]
+    q, k, v, qp, kp = _decode_case(B, S, H, K, D, seed=S)
+    if case == "dead_splits_and_cta":
+        kp[:, 32:48] = PAD                   # CTA 2: splits 4, 5 pads only
+        kp[:, 64:72] = 10 ** 6               # split 8: future keys only
+        kp[2] = PAD                          # row 2: no valid key
+    if dtype == "bfloat16":
+        q, k, v = (torch.from_numpy(x).bfloat16().float().numpy()
+                   for x in (q, k, v))
+    plan = plan_splits(B, K, S, n_splits, block_k)
+    want = j_decode_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                        q_pos=jnp.asarray(qp), k_pos=jnp.asarray(kp),
+                        window=window)
+    for warps in (8, 4):
+        (m, l, acc), got = _emulate_decode_kernel(
+            *(torch.from_numpy(x) for x in (q, k, v, qp, kp)), plan, warps,
+            window=window)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL,
+                                   rtol=TOL)
+        j_out = j_combine(jnp.asarray(m.numpy()), jnp.asarray(l.numpy()),
+                          jnp.asarray(acc.numpy()))
+        np.testing.assert_allclose(got.numpy(), np.asarray(j_out).reshape(
+            got.shape), atol=TOL, rtol=TOL)
+    live = plan.n_splits * plan.per_split
+    if case == "empty_splits":
+        assert live - plan.per_split >= S     # the last split is empty
+        assert torch.all(m[..., -1] == NEG_INF) and torch.all(l[..., -1] == 0)
+        assert torch.all(acc[..., -1, :] == 0)
+    if case == "dead_splits_and_cta":
+        assert plan.cluster == 10 and plan.splits_per_cta == 2
+        assert torch.all(m[..., [4, 5, 8]] == NEG_INF)
+        assert torch.all(l[:2, ..., [4, 5, 8]] == 8)   # p = exp(0) = 1 each
+    if case == "several_splits_a_cta":
+        assert plan.splits_per_cta == 3
+    if case == "lm_instantiation":
+        assert plan.per_split == 528 and plan.splits_per_cta == 1
 
 
 def test_flash_decode_wrapper_checks_shapes():
