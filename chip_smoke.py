@@ -12,10 +12,15 @@ Phases, each printing one JSON line:
      the main paths' shapes, with masked and sentinel (dst == A) edges,
      under the tolerances stated below; each kernel, its plain version and
      a one-call PyTorch yardstick (``library_ms``, never used by the port)
-     are timed (device time for #1, #2, #5, #6; CUDA events for #3, #4).
-     The edge kernel's backward is checked per output, and two calls must
-     give the same bits; each graph of a batched segment-sum must be
-     bitwise equal to that graph alone, in f32 and bf16;
+     are timed (device time for #1, #2, #4, #5, #6; CUDA events for #3).
+     The edge kernel's backward (#4) is checked per output and for bits over
+     two calls at the training path's shape (B=40: 5 sources x 8 graphs in
+     one trunk pass, pos needing no gradient), at B=8 with dpos and at a
+     ragged shape, and timed at B=40 (its summary row) and B=8 with its
+     kernels a call (at most 3 without dpos, 4 with) and ``torch.matmul``
+     of its six products beside it (``gemm_library_ms``); each graph of a
+     batched segment-sum must be bitwise equal to that graph alone, in f32
+     and bf16;
   3. serve: ``ServeSession`` serves hydragnn-gfm at full width (4 EGNN
      layers at H=866, 5 branches of 3x889 MLPs, fp32, seeded random
      weights) over a bucket grid planned from synthetic five-source
@@ -60,7 +65,9 @@ and the attention sweep: the device time of #5 over masks (beside SDPA on
 the same inputs), and of #6 at LM decode runs (a) and (b), by kernel
 name, over 1 / 2 / 3 / 4 / 9 / 17 / 33 splits and the default plan at
 (a), beside
-SDPA and the bound. ``--sweep`` prints only the sweeps: #1 and #2 beside
+SDPA and the bound. ``--sweep`` prints only the sweeps: #4 by kernel at
+B=40 (no dpos) and B=8 (dpos), #3's forward with a hash of its outputs,
+and one training step's device time and host-clock ms; #1 and #2 beside
 ``index_add_``, that attention sweep, and the LM prefill's device time
 with its teacher-forced bf16 error under the bf16 GEMM reduction setting
 in force. ``--src DIR`` imports the port from another unpacked checkout;
@@ -92,6 +99,7 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 FP32_FLOPS = 67e12                 # H100 SXM fp32, non-tensor
+TF32_FLOPS = 495e12                # H100 SXM TF32 tensor cores, dense
 SS_TOL = 1e-5                      # segment-sum: f32 sums of <= ~60 terms
 EDGE_TOL = 1e-4                    # egnn_edge: 866/1733-term contractions
                                    # grouped differently (node projections)
@@ -291,6 +299,20 @@ def check_segment_sum(torch, dev, g):
     return out
 
 
+def _edge_fwd_bound(B, A, E, H, n_valid):
+    """#3's least time on the card for these inputs: three node-level GEMMs
+    (2·B·A·H² each) and ~8 operations per valid edge and column at the fp32
+    peak, or its bytes at HBM speed, whichever is larger."""
+    ops_count = 3 * 2 * B * A * H * H + 8 * n_valid * H
+    nbytes = 4 * (2 * B * A * H + B * A * 3 + 2 * B * E
+                  + (2 * H + 1) * H + H * H + 2 * H)
+    t_ops = ops_count / FP32_FLOPS * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "operations": ops_count, "bytes": nbytes}
+
+
 def check_egnn_edge(torch, dev, g):
     import numpy as np
 
@@ -320,54 +342,125 @@ def check_egnn_edge(torch, dev, g):
         ms = time_ms(torch, lambda: egnn_edge_agg(h, pos, src, dst, em, phi))
         plain = time_ms(torch, lambda: egnn_edge_agg_ref(h, pos, src, dst, em,
                                                          phi), iters=5)
-        # the kernel's work on these inputs: three node-level GEMMs
-        # (2·B·A·H² each) and ~8 operations per valid edge and column
-        ops_count = 3 * 2 * B * A * H * H + 8 * n_valid * H
-        nbytes = 4 * (2 * B * A * H + B * A * 3 + 2 * B * E
-                      + (2 * H + 1) * H + H * H + 2 * H)
-        t_ops = ops_count / FP32_FLOPS * 1e3
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         out = {"ms": ms, "plain_ms": plain, "library_ms": None,
-               "bound_ms": max(t_ops, t_bytes),
-               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               **_edge_fwd_bound(B, A, E, H, n_valid),
                "shape": [B, A, E, H], "valid_edges": n_valid,
-               "operations": ops_count, "bytes": nbytes,
                "per_edge_form_bound_ms":
                    2 * B * E * 3 * H * H / FP32_FLOPS * 1e3}
     out["max_abs_err"] = worst
     return out
 
 
+def _edge_bwd_inputs(torch, g, dev, B, A, E, H=866):
+    """Seeded leaves (h, pos, fc0 w/b, fc1 w/b), edges and the upstream
+    cotangent of one edge-path call at (B, A, E, H)."""
+    def t(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=g, device=dev)
+                ).requires_grad_(True)
+    w0, b0 = t(2 * H + 1, H, scale=(2 * H + 1) ** -0.5), t(H, scale=0.1)
+    w1, b1 = t(H, H, scale=H ** -0.5), t(H, scale=0.1)
+    h, pos = t(B, A, H), t(B, A, 3, scale=2.0)
+    src, dst, em = edge_case(torch, B, E, A, g, dev)
+    gup = torch.randn((B, A, H), generator=g, device=dev)
+    return [h, pos, w0, b0, w1, b1], (src, dst, em), gup
+
+
+def _edge_bwd_call(torch, leaves, edges, gup, need_dpos):
+    """A closure that calls #4's wrapper (``ops.egnn_edge_bwd``) once on the
+    forward kernel's scratch for these inputs, as the autograd Function
+    does, with the backward's planned blocks; and the routed src/dst."""
+    from repro_torch.kernels.egnn_edge import ops
+    h, pos, w0, b0, w1, b1 = (x.detach() for x in leaves)
+    src, dst, em = edges
+    B, A, H = h.shape
+    E = src.shape[1]
+    sr = torch.where(em, src, A).to(torch.int32).contiguous()
+    dr = torch.where(em, dst, A).to(torch.int32).contiguous()
+    fwd = ops._resolve_blocks(None, None, A, E, H)
+    _, pi, pj, s, deg = ops._launch_fwd(h, pos, sr, dr, w0, b0, w1, b1,
+                                        torch.float32, *fwd)
+    be, bh = ops._resolve_blocks(None, None, A, E, H, bwd=True)
+
+    def call():
+        return ops.egnn_edge_bwd(gup, h, pos, sr, dr, w0, w1, pi, pj, s, deg,
+                                 block_e=be, block_h=bh, need_dpos=need_dpos)
+    return call, sr, dr
+
+
+def _edge_bwd_bounds(B, A, E, H, n_valid, need_dpos):
+    """#4's least time on the card for these inputs: the six node-level
+    products (2·B·A·H² each) as three TF32 tensor-core products (the 3xTF32
+    split) plus ~15 operations per valid edge and column at the fp32 peak
+    (``bound_ms``), the same work all in fp32 FFMA (``bound_ffma_ms``), and
+    the bytes (inputs g, h, Pi, Pj, S, deg, pos, src, dst and the weights
+    read once, outputs written once) at HBM speed; each bound the larger of
+    its operations time and the bytes time."""
+    gemm_ops = 6 * 2 * B * A * H * H
+    edge_ops = 15 * n_valid * H
+    w_bytes = (2 * H + 1) * H + H * H
+    dpos = B * A * 3 if need_dpos else 0
+    nbytes = 4 * (5 * B * A * H + B * A + B * A * 3 + 2 * B * E + w_bytes
+                  + B * A * H + dpos + w_bytes + 2 * H)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_tc = (3 * gemm_ops / TF32_FLOPS + edge_ops / FP32_FLOPS) * 1e3
+    t_ffma = (gemm_ops + edge_ops) / FP32_FLOPS * 1e3
+    return {"bound_ms": max(t_tc, t_bytes),
+            "bound_by": "operations" if t_tc >= t_bytes else "bytes",
+            "bound_ffma_ms": max(t_ffma, t_bytes),
+            "operations": gemm_ops + edge_ops, "bytes": nbytes}
+
+
+def _gemm_library(torch, B, A, H, g, dev):
+    """The six node-level products of #4 as ``torch.matmul`` calls (TF32
+    off, as ``repro_torch`` pins it): a yardstick for the GEMM part only,
+    never used by the port."""
+    M = B * A
+    x = [torch.randn((M, H), generator=g, device=dev) for _ in range(5)]
+    gm, sm, hm, dpi, dpj = x
+    w0i, w0j, w1 = (torch.randn((H, H), generator=g, device=dev)
+                    for _ in range(3))
+
+    def library():
+        gm @ w1.T                               # dS
+        sm.T @ gm                               # dw1
+        dpi @ w0i.T + dpj @ w0j.T               # dh
+        hm.T @ dpi                              # dw0i
+        hm.T @ dpj                              # dw0j
+    return library
+
+
 def check_egnn_edge_bwd(torch, dev, g):
     """The backward kernel through ``egnn_edge_agg``'s autograd Function
-    against ``egnn_edge_bwd_ref``, per output, at the training path's graph
-    shape and a ragged one; two backward calls must give the same bits."""
-    from repro_torch.kernels.egnn_edge import egnn_edge_agg
+    against ``egnn_edge_bwd_ref``, per output, at the training path's shape
+    (B=40: 5 sources x 8 graphs in one trunk pass, pos needing no gradient),
+    at the serve batch's B=8 with dpos, and at a ragged shape; two backward
+    calls must give the same bits. #4 is timed by device time at B=40 and
+    B=8, with its kernels a call (at most 3 without dpos, 4 with)."""
+    from repro_torch.kernels.egnn_edge import egnn_edge_agg, gemm_plan, ops
     from repro_torch.kernels.egnn_edge.ref import egnn_edge_bwd_ref
     H = 866
     names = ("dh", "dpos", "dw0", "db0", "dw1", "db1")
-    cases = [("main", 8, 64, 2048), ("ragged", 3, 40, 1000)]
+    cases = [("train", 40, 64, 2048, False), ("b8", 8, 64, 2048, True),
+             ("ragged", 3, 40, 1000, True)]
     worst, out = 0.0, {}
-    for name, B, A, E in cases:
-        def t(*shape, scale=1.0):
-            return (scale * torch.randn(shape, generator=g, device=dev)
-                    ).requires_grad_(True)
-        w0, b0 = t(2 * H + 1, H, scale=(2 * H + 1) ** -0.5), t(H, scale=0.1)
-        w1, b1 = t(H, H, scale=H ** -0.5), t(H, scale=0.1)
-        h, pos = t(B, A, H), t(B, A, 3, scale=2.0)
-        leaves = [h, pos, w0, b0, w1, b1]
+    for name, B, A, E, need_dpos in cases:
+        leaves, edges, gup = _edge_bwd_inputs(torch, g, dev, B, A, E, H)
+        h, pos, w0, b0, w1, b1 = leaves
+        src, dst, em = edges
         phi = {"fc0": {"w": w0, "b": b0}, "fc1": {"w": w1, "b": b1}}
-        src, dst, em = edge_case(torch, B, E, A, g, dev)
-        gup = torch.randn((B, A, H), generator=g, device=dev)
-        agg = egnn_edge_agg(h, pos, src, dst, em, phi)
+        wrt = leaves if need_dpos else [h, w0, b0, w1, b1]
+        agg = egnn_edge_agg(h, pos if need_dpos else pos.detach(), src, dst,
+                            em, phi)
 
         def bwd():
-            return torch.autograd.grad(agg, leaves, gup, retain_graph=True)
+            return torch.autograd.grad(agg, wrt, gup, retain_graph=True)
         got = bwd()
         again = bwd()
         torch.cuda.synchronize()
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
             fail(f"egnn_edge_bwd {name}: two calls differ bitwise")
+        if not need_dpos:
+            got = got[:1] + (None,) + got[1:]
         sr = torch.where(em, src, A)
         dr = torch.where(em, dst, A)
         d = [x.detach() for x in leaves]
@@ -380,6 +473,8 @@ def check_egnn_edge_bwd(torch, dev, g):
         want = [dh, dpos, torch.cat([dw0i, dw0j, dw0d]), db0[0], dw1, db1[0]]
         errs = {}
         for n, a, b in zip(names, got, want):
+            if a is None:
+                continue
             err = float((a - b).abs().max())
             scale = float(b.abs().max())
             if not err <= BWD_TOL * scale:
@@ -387,36 +482,41 @@ def check_egnn_edge_bwd(torch, dev, g):
                      f"{BWD_TOL}*{scale}")
             errs[n] = err / scale
             worst = max(worst, err)
-        if name != "main":
+        del want, dh, dpos, dw0i, dw0j
+        if name == "ragged":
             out["ragged_rel_err"] = errs
             continue
+        call, _, _ = _edge_bwd_call(torch, leaves, edges, gup, need_dpos)
+        prof = device_profile(torch, call)
+        most = 4 if need_dpos else 3
+        if prof["kernels_per_call"] > most:
+            fail(f"egnn_edge_bwd {name}: {prof['kernels_per_call']} kernels "
+                 f"a call, the design has at most {most}")
         n_valid = int(em.sum())
-        ms = time_ms(torch, bwd)
-        agg_np = egnn_edge_agg(h, pos.detach(), src, dst, em, phi)
-        ms_no_dpos = time_ms(torch, lambda: torch.autograd.grad(
-            agg_np, [h, w0, b0, w1, b1], gup, retain_graph=True))
-        plain_ms = time_ms(torch, plain, iters=5)
-        # six node-level products (2·B·A·H² each) and ~15 operations per
-        # valid edge and column; bytes: inputs (g, h, Pi, Pj, S, deg, pos,
-        # src, dst, weights) read once, outputs written once
-        ops_count = 6 * 2 * B * A * H * H + 15 * n_valid * H
-        w_bytes = (2 * H + 1) * H + H * H
-        nbytes = 4 * (5 * B * A * H + B * A + B * A * 3 + 2 * B * E
-                      + w_bytes                                # inputs
-                      + B * A * H + B * A * 3 + w_bytes + 2 * H)  # outputs
-        t_ops = ops_count / FP32_FLOPS * 1e3
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        out.update({"ms": ms, "ms_no_dpos": ms_no_dpos, "plain_ms": plain_ms,
-                    "library_ms": None,
-                    "library_note": "no one PyTorch call computes this "
-                                    "backward",
-                    "bound_ms": max(t_ops, t_bytes),
-                    "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                    "shape": [B, A, E, H], "valid_edges": n_valid,
-                    "operations": ops_count, "bytes": nbytes,
-                    "rel_err": errs,
-                    "per_edge_form_bound_ms":
-                        8 * 2 * B * E * H * H / FP32_FLOPS * 1e3})
+        case = {"ms": prof["ms"], "by_kernel": prof["by_kernel"],
+                "kernels_per_call": prof["kernels_per_call"],
+                "wall_ms": time_ms(torch, call),
+                "plain_ms": time_ms(torch, plain, iters=3, warm=1),
+                "library_ms": None,
+                "library_note": "no one PyTorch call computes this backward",
+                "gemm_library_ms": device_ms(
+                    torch, _gemm_library(torch, B, A, H, g, dev)),
+                "shape": [B, A, E, H], "dpos": need_dpos,
+                "valid_edges": n_valid, "rel_err": errs,
+                **_edge_bwd_bounds(B, A, E, H, n_valid, need_dpos)}
+        if name == "train":
+            case["w1_splits"] = gemm_plan.w1_splits(B * A, H)
+            plan = gemm_plan.launches(B, A, H)
+            case["gemm_items"] = [gemm_plan.launch_items(x) for x in plan]
+            case["gemm_makespan_ksteps"] = [
+                gemm_plan.makespan(gemm_plan.launch_ksteps(x)) for x in plan]
+            case["gemm_slots"] = (ops.gemm_blocks_per_sm()
+                                  * torch.cuda.get_device_properties(0)
+                                  .multi_processor_count)
+            out.update(case)
+        else:
+            out[name] = case
+        del agg, got, again
     out["max_abs_err"] = worst
     return out
 
@@ -1266,6 +1366,73 @@ def ss_sweep(torch):
     return {"phase": "ss_sweep", **out}
 
 
+def _sha(tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def edge_sweep(torch):
+    """#4 by device time and kernel name at the training path's shape
+    (B=40, no dpos) and at B=8 with dpos, with a hash of its outputs; #3's
+    forward at both shapes with a hash of its outputs (two versions with
+    the same forward source must agree bit for bit); one full-width
+    training step's device time by kernel (``torch.profiler``) and its
+    host-clock ms a step over 5 steps. Inputs from their own seed, so two
+    versions (``--src``) see the same data."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.egnn_edge import ops
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(2)
+    out = {"phase": "edge_sweep"}
+    for name, B, need_dpos in (("b40", 40, False), ("b8", 8, True)):
+        leaves, edges, gup = _edge_bwd_inputs(torch, g, dev, B, 64, 2048)
+        call, sr, dr = _edge_bwd_call(torch, leaves, edges, gup, need_dpos)
+        prof = device_profile(torch, call)
+        out[f"bwd_{name}"] = {
+            "dpos": need_dpos, "ms": prof["ms"],
+            "by_kernel": prof["by_kernel"],
+            "kernels_per_call": prof["kernels_per_call"],
+            "sha256": _sha(x for x in call() if x is not None)}
+        h, pos, w0, b0, w1, b1 = (x.detach() for x in leaves)
+        blocks = ops._resolve_blocks(None, None, 64, 2048, 866)
+
+        def fwd():
+            return ops._launch_fwd(h, pos, sr, dr, w0, b0, w1, b1,
+                                   torch.float32, *blocks)
+        prof = device_profile(torch, fwd)
+        n_valid = int(edges[2].sum())
+        out[f"fwd_{name}"] = {"ms": prof["ms"], "by_kernel": prof["by_kernel"],
+                              "sha256": _sha(fwd()), "valid_edges": n_valid,
+                              **_edge_fwd_bound(B, 64, 2048, 866, n_valid)}
+        out[f"bwd_{name}"].update(
+            valid_edges=n_valid,
+            **_edge_bwd_bounds(B, 64, 2048, 866, n_valid, need_dpos))
+    with _train_session(torch, _train_sources(), 3) as sess:
+        batches = sess._batches()
+        state = sess.state
+        for _ in range(2):
+            state, _ = sess.step_fn(state, batches())
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            state, _ = sess.step_fn(state, batches())
+            torch.cuda.synchronize()
+        step = _device_time_by_kernel(torch, prof)
+        t0 = time.perf_counter()
+        for _ in range(5):
+            state, _ = sess.step_fn(state, batches())
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / 5 * 1e3
+    out["train_step"] = {"device_ms": step["device_us_total"] / 1e3,
+                         "launches": step["launches"], "top": step["top"],
+                         "ms_per_step": step_ms}
+    return out
+
+
 def lm_bf16_probe(torch):
     """The bf16 GEMM reduction setting in force, the device time of one
     kernel-path prefill at run (a) (B=8, S=1024), the teacher-forced bf16
@@ -1420,12 +1587,30 @@ def sweep_in_turns(other: Path):
                     if k.startswith("splits_")}
             elif rec.get("phase") == "lm_bf16":
                 row["decode_ms_per_step"] = rec["decode_ms_per_step"]
+            elif rec.get("phase") == "edge_sweep":
+                for k in ("bwd_b40", "bwd_b8", "fwd_b40", "fwd_b8"):
+                    row[f"egnn_edge_{k}"] = {
+                        x: rec[k][x] for x in ("ms", "by_kernel",
+                                               "kernels_per_call", "sha256",
+                                               "bound_ms", "bound_ffma_ms")
+                        if x in rec[k]}
+                row["train_step_device_ms"] = rec["train_step"]["device_ms"]
+                row["train_step_launches"] = rec["train_step"]["launches"]
+                row["train_step_ms"] = rec["train_step"]["ms_per_step"]
         if r.returncode != 0:
             fail(f"--sweep for {src} exited {r.returncode}")
         summary.append(row)
     emit({"phase": "sweep_summary", "ms_by_turn": summary,
           "flash_attention_bits_equal": len({json.dumps(
-              r["flash_attention_sha256"]) for r in summary}) == 1})
+              r["flash_attention_sha256"]) for r in summary}) == 1,
+          "egnn_edge_fwd_bits_equal": len({
+              (r["egnn_edge_fwd_b40"]["sha256"],
+               r["egnn_edge_fwd_b8"]["sha256"]) for r in summary}) == 1,
+          "egnn_edge_bwd_bits_equal_by_version": {
+              v: len({(r["egnn_edge_bwd_b40"]["sha256"],
+                       r["egnn_edge_bwd_b8"]["sha256"])
+                      for r in summary if r["version"] == v}) == 1
+              for v in ("parent", "change")}})
 
 
 def main():
@@ -1436,11 +1621,11 @@ def main():
                          "decode step, and of #5 over masks and #6 over "
                          "split counts")
     ap.add_argument("--sweep", action="store_true",
-                    help="only build the kernels and print the sweeps (#1 "
-                         "and #2 beside index_add_; #5 beside SDPA over "
-                         "masks, #6 over split counts; the LM prefill's "
-                         "device time and bf16 error), then exit; no "
-                         "contract line")
+                    help="only build the kernels and print the sweeps (#4 "
+                         "and #3 at B=40 and B=8, a training step; #1 and "
+                         "#2 beside index_add_; #5 beside SDPA over masks, "
+                         "#6 over split counts; the LM prefill's device time "
+                         "and bf16 error), then exit; no contract line")
     ap.add_argument("--src", type=Path, default=SRC,
                     help="the src/ directory whose repro_torch to import "
                          "(default: this checkout's), e.g. an unpacked "
@@ -1473,6 +1658,7 @@ def main():
           "cuda": torch.version.cuda, "build_s": build["seconds"],
           "built": build["built"], "src": str(src)})
     if args.sweep:
+        emit(edge_sweep(torch))
         emit(ss_sweep(torch))
         emit(attn_sweep(torch))
         emit(lm_bf16_probe(torch))

@@ -1,58 +1,136 @@
 // Fused EGNN edge message + aggregation, backward, fp32, deterministic.
 //
-// Replaces the Pallas TPU kernel `egnn_edge_fused_bwd` (_edge_bwd_kernel) of
-// src/repro/kernels/egnn_edge/kernel.py. Given g = d loss / d agg (B,A,H)
-// for the forward of csrc/egnn_edge.cu it returns dh (B,A,H), dpos (B,A,3)
-// and the φ_e cotangents dw0 = [dw0i; dw0j; dw0d] (2H+1,H), db0, dw1 (H,H)
-// and db1, all f32. Edges with dst >= A (masked or pad) contribute exactly
-// nothing; gathers clamp src to A-1, as the forward does.
+// Replaces the Pallas TPU kernel `egnn_edge_fused_bwd` (_edge_bwd_kernel,
+// src/repro/kernels/egnn_edge/kernel.py:319). Given g = d loss / d agg
+// (B,A,H) for the forward of csrc/egnn_edge.cu it returns dh (B,A,H), dpos
+// (B,A,3) and the φ_e cotangents dw0 = [dw0i; dw0j; dw0d] (2H+1,H), db0,
+// dw1 (H,H) and db1, all f32. Edges with dst >= A (masked or pad)
+// contribute exactly nothing; gathers clamp src to A-1, as the forward
+// does.
 //
 // The TPU kernel recomputes the per-edge form (z for every edge and column
 // from gathered h rows: ~8·2·B·E·H² operations). The forward's
 // node-projection algebra holds backwards too. With Pi = h·w0i + b0,
 // Pj = h·w0j, z_e = Pi[src_e] + Pj[dst_e] + d²_e·w0d, s_e = silu(z_e),
 // S = per-destination sum of s_e and deg = edges per destination (Pi, Pj,
-// S, deg saved by the forward; node-major, B·A·H f32 each):
+// S, deg saved by the forward; node-major, B·A·H f32 each), a call is
+// three launches (four with dpos):
 //
-//   1. dS = g·w1ᵀ                                (GEMM, K = H)
-//      dw1 = Sᵀ·g,  db1 = degᵀ·g                 (GEMM, K = B·A nodes)
+//   1. gemm_tc: dw1 = Sᵀ·g with db1 = degᵀ·g as its extra row (K = B·A
+//      nodes, cut into `w1_splits` k-ranges), and dS = g·w1ᵀ (K = H);
 //   2. edge kernel, per valid edge e and column c:
 //        dz = dS[dst_e]·silu'(z_e);  dPi[src_e] += dz;  dPj[dst_e] += dz;
-//        dw0d += dz·d²_e;  dd²_e = sum_c dz·w0d (per-warp partials)
-//   3. dpos kernel: dd²_e = sum of its partials in order; dpos[src] +=
-//        2·diff·dd², dpos[dst] -= 2·diff·dd² (skipped when pos needs no
-//        gradient)
-//   4. dh = dPi·w0iᵀ + dPj·w0jᵀ                 (GEMM, two terms, K = H)
-//      dw0i = hᵀ·dPi, dw0j = hᵀ·dPj, db0 = 1ᵀ·dPi   (GEMM, K = B·A)
-//      dw0d = 1ᵀ·(per-graph partials)          (GEMM, K = B)
+//        dw0d += dz·d²_e;  dd²_e = sum_c dz·w0d (per-warp partials, only
+//        when pos needs a gradient);
+//   3. dpos kernel (only when pos needs a gradient): dd²_e = sum of its
+//      partials in order; dpos[src] += 2·diff·dd², dpos[dst] -= 2·diff·dd²;
+//   4. gemm_tc: dw1's split sums (reduce items), dw0i = hᵀ·dPi with
+//      db0 = 1ᵀ·dPi as its extra row, dw0j = hᵀ·dPj (K = B·A),
+//      dh = dPi·w0iᵀ + dPj·w0jᵀ (two terms, K = H), dw0d = 1ᵀ·(per-graph
+//      partials) (K = B).
 //
-// Bound: at (B=8, A=64, E=2048, H=866) the six node-level products do
-// 6·2·B·A·H² ≈ 4.6 GFLOP and the edge kernel ~15 operations per valid edge
-// and column (~0.2 GFLOP at ~13.7k valid edges): ~71 us at the 67 TFLOP/s
-// fp32 non-tensor peak — operations bound it. Plain fp32 FFMA, no TF32.
+// Bound, at the training path's shape (B=40, A=64, E=2048, H=866, ~68.9k
+// valid edges, no dpos): the six node-level products do 6·2·B·A·H² =
+// 23.0 GFLOP, the edge kernel ~15 operations per valid edge and column
+// (0.9 GFLOP). On the tensor cores as three TF32 products (495 TFLOP/s)
+// plus the edge work at the 67 TFLOP/s fp32 peak that is ~0.153 ms; the
+// same work in fp32 FFMA would be ~0.357 ms; the ~72 MB the call must move
+// take ~0.021 ms at 3.35 TB/s. Operations bound it.
 //
-// No float atomics anywhere, so two calls on the same inputs give the same
-// bits. Every output element has one owner thread and a fixed order:
-// the edge kernel gives each (graph, column) one thread per edge group that
-// walks its share of the edges in order into two (A x block_h) shared
-// partials (dPi, dPj), summed in group order; dd²_e spans every column, so
-// each warp (32 columns) writes its own partial for the edge and the dpos
-// kernel sums the partials in warp order, its (node, coordinate) owner
-// threads walking the edges in order. Weight gradients reduce over nodes
-// inside the GEMMs, k in order.
+// What the design does about it:
+//   * The products run on the tensor cores at fp32 accuracy: 3xTF32 on
+//     wgmma in gemm_tc.cuh, the accumulator folded into an f32 sum every
+//     64 k, grouped so that a call is two GEMM launches. dw1's split-K
+//     evens out launch 1 over the SMs (kernels/egnn_edge/gemm_plan.py); the
+//     split partials are summed in split order by launch 4, never with
+//     atomics.
+//   * The edge kernel reads shared memory only in its walks. One CTA per
+//     (32-column tile group of `block_h`, graph) stages the graph's Pi, Pj
+//     and dS column tiles, then compacts the graph's edges, in edge order,
+//     into one list per destination node and one per source node (per-warp
+//     __match_any_sync counts of 8 chunks loaded at once, an exclusive
+//     scan over nodes and warps, a second walk that places each edge with
+//     its d²). The warp that owns node a walks a's destination list:
+//     Pi[src] from shared memory, Pj[a] and dS[a] in registers, dz, dPj[a]
+//     summed in a register; then a's source list, computing the same dz
+//     again from Pj[dst] and dS[dst], dPi[a] in a register. Four listed
+//     edges are computed at once without branches; every sum is written
+//     once. Recomputing dz for the source walk costs two more SFU
+//     operations an edge and column but keeps no dz window, so a CTA needs
+//     ~64 KB and three fit on an SM.
+//
+// Determinism: no float atomics anywhere, so two calls on the same inputs
+// give the same bits. dPi[a] and dPj[a] are summed in edge order alone
+// (block_e and block_h change no bit of them). dw0d's per-graph partial
+// sums each lane's edges (owned nodes, edges in order), then the node-group
+// warps in order; dd²_e's per-warp partials are summed in warp order by the
+// dpos kernel, its (node, coordinate) owner threads walking the edges in
+// order. The products sum k-steps in order, then splits in order. Every
+// order depends on the shapes and the plan alone.
+//
+// sigmoid is 1 / (1 + 2^(-z·log2 e)) through the SFU (__expf, __fdividef):
+// a few ulp from expf, far inside the backward's 1e-4 tolerance.
 #include "common.cuh"
-#include "gemm_f32.cuh"
+#include "gemm_tc.cuh"
 
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int EU = 4;   // edges in flight per thread
+constexpr int EB_WARPS = 8;            // warps of the edge kernel
+constexpr int EB_THREADS = 32 * EB_WARPS;
+constexpr int EU = 4;                  // listed edges in flight a warp
+constexpr size_t kEdgeSmemBudget = 231424;   // budget.SMEM_BUDGET
+
+// Dynamic shared memory of the edge kernel (bytes): the staged column
+// tiles of Pi, Pj and dS when `staged`, the two edge lists, per-warp counts,
+// list offsets, node positions and the warps' dw0d shares. Kept equal to
+// budget.smem_bytes(..., bwd=True).
+static inline size_t edge_bwd_smem(int A, int E, int bh, bool staged) {
+  return (staged ? (size_t)12 * A * bh : 0) + (size_t)16 * E +
+         (size_t)84 * A + 8 + 4 * EB_THREADS;
+}
+
+// The gradient of one edge and column: dS[dst]·silu'(z), z = Pi[src] +
+// Pj[dst] + d²·w0d.
+__device__ __forceinline__ float edge_dz(float pi, float pj, float ds,
+                                         float d2, float wd) {
+  const float z = pi + pj + d2 * wd;
+  const float sig = __fdividef(1.f, 1.f + __expf(-z));
+  return ds * (sig * (1.f + z * (1.f - sig)));
+}
+
+// Load 8 chunks' (dst, clamped src) keys of the warp's edges at once; -1
+// for an edge past E or with dst out of range.
+__device__ __forceinline__ void chunk_keys(const int32_t* dr,
+                                           const int32_t* sr, int A, int E,
+                                           int ch, int ch1, int (&kd)[8],
+                                           int (&ks)[8]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int e = (ch + j) * 32 + lane;
+    const bool in = ch + j < ch1 && e < E;
+    kd[j] = in ? dr[e] : -1;
+    ks[j] = in ? sr[e] : 0;
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const bool valid = kd[j] >= 0 && kd[j] < A;
+    ks[j] = valid ? min(ks[j], A - 1) : -1;
+    kd[j] = valid ? kd[j] : -1;
+  }
+}
 
 // ---------------------------------------------------------------------------
-// Edge kernel: one CTA per (column tile of block_h, graph); blockDim =
-// (block_h, groups), block_h a multiple of 32, so a warp lies in one group
-// and walks the same edges. Per window of block_e edges the CTA stages
-// src (clamped), dst (>= A -> -1) and d² in shared memory.
+// Edge kernel: one CTA per (column tile of block_h, graph). Its 8 warps are
+// block_h/32 column groups (32 columns a warp, a lane a column) times
+// 8/(block_h/32) node groups: node group q owns the nodes q, q + groups, ...
+// The CTA compacts the graph's edges into one list per destination and one
+// per source node, in edge order; then each owner walks its destinations'
+// lists (dz, dPj, dw0d, dd²) and its sources' lists (dz again, dPi).
+// STAGED: Pi, Pj and dS column tiles in shared memory, else read from
+// global memory (graphs whose tiles do not fit).
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(512)
+template <bool STAGED>
+__global__ void __launch_bounds__(EB_THREADS, 3)
 egnn_edge_bwd_kernel(const float* __restrict__ Pi,
                      const float* __restrict__ Pj,
                      const float* __restrict__ dS,
@@ -62,109 +140,199 @@ egnn_edge_bwd_kernel(const float* __restrict__ Pi,
                      const float* __restrict__ w0d, float* __restrict__ dPi,
                      float* __restrict__ dPj, float* __restrict__ dw0d_part,
                      float* __restrict__ dd2_part, int A, int E, int H,
-                     int block_e) {
-  extern __shared__ float smem[];
-  const int block_h = blockDim.x, groups = blockDim.y;
-  float* acc_i = smem;                                   // [G][A][block_h]
-  float* acc_j = acc_i + (size_t)groups * A * block_h;   // [G][A][block_h]
-  float* wpart = acc_j + (size_t)groups * A * block_h;   // [G][block_h]
-  float* d2_s = wpart + groups * block_h;                // [block_e]
-  int* src_s = reinterpret_cast<int*>(d2_s + block_e);   // [block_e]
-  int* dst_s = src_s + block_e;                          // [block_e]
+                     int bh) {
+  extern __shared__ __align__(16) unsigned char eb_smem[];
+  int2* list_d = reinterpret_cast<int2*>(eb_smem);   // [E] (s, d²) by dst
+  int2* list_s = list_d + E;                          // [E] (d, d²) by src
+  float* tiles = reinterpret_cast<float*>(list_s + E);  // [3][A][bh]
+  int* cnt_d = reinterpret_cast<int*>(tiles + (STAGED ? 3 * A * bh : 0));
+  int* cnt_s = cnt_d + EB_WARPS * A;                  // [warps][A]
+  int* off_d = cnt_s + EB_WARPS * A;                  // [A + 1]
+  int* off_s = off_d + A + 1;                         // [A + 1]
+  float* pos_s = reinterpret_cast<float*>(off_s + A + 1);  // [A][3]
+  float* wpart = pos_s + 3 * A;                       // [warps][32]
 
-  const int tid = threadIdx.x, g = threadIdx.y;
-  const int flat = g * block_h + tid, nthreads = groups * block_h;
-  const int c = blockIdx.x * block_h + tid;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int b = blockIdx.y;
-  const bool active = c < H;
-  const int W = (H + 31) / 32;                 // warp column tiles
-  const bool lane0 = (tid & 31) == 0;
-  float* my_i = acc_i + (size_t)g * A * block_h;
-  float* my_j = acc_j + (size_t)g * A * block_h;
-  for (int a = 0; a < A; ++a) {
-    my_i[a * block_h + tid] = 0.f;
-    my_j[a * block_h + tid] = 0.f;
-  }
-
+  const int ncg = bh / 32, nng = EB_WARPS / ncg;
+  const int cg = warp % ncg, ng = warp / ncg;
+  const bool owner = ng < nng;          // a warp past ncg x nng only helps
+  const int c0 = blockIdx.x * bh;       // the tile's first column
+  const int cc = cg * 32 + lane;        // this lane's column in the tile
+  const int c = c0 + cc;
+  const bool active = owner && c < H;
+  // a warp with no column below H has no dd² partial (and no shuffles)
+  const bool warp_cols = owner && c0 + cg * 32 < H;
+  float* dd2 = dd2_part != nullptr && warp_cols
+                   ? dd2_part + ((size_t)b * ((H + 31) / 32) +
+                                 (c0 + cg * 32) / 32) * E
+                   : nullptr;
   const float wd = active ? w0d[c] : 0.f;
-  const size_t node0 = (size_t)b * A * H + (active ? c : 0);
-  const float* pi = Pi + node0;
-  const float* pj = Pj + node0;
-  const float* ds = dS + node0;
-  const float* pb = pos + (size_t)b * A * 3;
+  const size_t node0 = (size_t)b * A * H;
   const int32_t* sr = src + (size_t)b * E;
   const int32_t* dr = dst + (size_t)b * E;
-  // a warp with no column below H has no partial (and skips the shuffles)
-  const bool warp_active = (c & ~31) < H;
-  float* dd2 = dd2_part && warp_active
-                   ? dd2_part + ((size_t)b * W + c / 32) * E : nullptr;
-  float gw = 0.f;                               // this thread's dw0d share
 
-  for (int e0 = 0; e0 < E; e0 += block_e) {
-    const int ne = min(block_e, E - e0);
-    __syncthreads();                       // previous window consumed
-    for (int i = flat; i < ne; i += nthreads) {
-      const int d = dr[e0 + i];
-      const int s = min(sr[e0 + i], A - 1);          // clamped gather
-      const int dc = min(d, A - 1);
-      const float ex = pb[s * 3 + 0] - pb[dc * 3 + 0];
-      const float ey = pb[s * 3 + 1] - pb[dc * 3 + 1];
-      const float ez = pb[s * 3 + 2] - pb[dc * 3 + 2];
-      d2_s[i] = ex * ex + ey * ey + ez * ez;
-      src_s[i] = s;
-      dst_s[i] = (d >= 0 && d < A) ? d : -1;
-    }
-    __syncthreads();
-    const int share = (ne + groups - 1) / groups;
-    const int lo = min(ne, g * share), hi = min(ne, lo + share);
-    for (int i = lo; i < hi; i += EU) {
-      int d[EU], s[EU];
-      float v[EU];
+  // node a's value in this lane's column: row a of a tile (zero past H)
+  const float* pi_t = STAGED ? tiles : Pi + node0 + c0;
+  const float* pj_t = STAGED ? tiles + A * bh : Pj + node0 + c0;
+  const float* ds_t = STAGED ? tiles + 2 * A * bh : dS + node0 + c0;
+  const int ldt = STAGED ? bh : H;
+  const int col = active ? cc : 0;      // inactive lanes read a valid cell
+  if (STAGED) {
+    const float* g3[3] = {Pi, Pj, dS};
 #pragma unroll
-      for (int u = 0; u < EU; ++u) {     // loads of EU edges in flight
-        d[u] = i + u < hi ? dst_s[i + u] : -1;
-        s[u] = d[u] >= 0 ? src_s[i + u] : 0;
-        v[u] = 0.f;
-        if (d[u] >= 0 && active) {
-          const float z = pi[(size_t)s[u] * H] + pj[(size_t)d[u] * H] +
-                          d2_s[i + u] * wd;
-          const float sig = 1.f / (1.f + expf(-z));
-          v[u] = ds[(size_t)d[u] * H] * (sig * (1.f + z * (1.f - sig)));
-        }
+    for (int m = 0; m < 3; ++m)
+      for (int idx = tid; idx < A * bh; idx += EB_THREADS) {
+        const int a = idx / bh, q = idx - a * bh;
+        tiles[m * A * bh + idx] =
+            c0 + q < H ? g3[m][node0 + (size_t)a * H + c0 + q] : 0.f;
+      }
+  }
+  for (int i = tid; i < 3 * A; i += EB_THREADS)
+    pos_s[i] = pos[(size_t)b * A * 3 + i];
+  for (int a = lane; a < A; a += 32) {
+    cnt_d[warp * A + a] = 0;
+    cnt_s[warp * A + a] = 0;
+  }
+  __syncthreads();
+
+  // each warp counts its contiguous share of the graph's 32-edge chunks per
+  // node (src clamped; an edge with dst out of range is in no list)
+  const int nch = (E + 31) / 32, cpw = (nch + EB_WARPS - 1) / EB_WARPS;
+  const int ch0 = min(nch, warp * cpw), ch1 = min(nch, ch0 + cpw);
+  const unsigned lt = (1u << lane) - 1;
+  for (int ch = ch0; ch < ch1; ch += 8) {
+    int kd[8], ks[8];
+    chunk_keys(dr, sr, A, E, ch, ch1, kd, ks);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const unsigned md = __match_any_sync(FULL, kd[j]);
+      const unsigned ms = __match_any_sync(FULL, ks[j]);
+      if (kd[j] >= 0 && (md & lt) == 0) cnt_d[warp * A + kd[j]] += __popc(md);
+      if (ks[j] >= 0 && (ms & lt) == 0) cnt_s[warp * A + ks[j]] += __popc(ms);
+      __syncwarp();
+    }
+  }
+  __syncthreads();
+
+  // list offsets: warp 0 the destination lists, warp 1 the source lists.
+  // Each lane takes a run of nodes; cnt[w][a] becomes warp w's first slot
+  // in node a's list.
+  if (warp < 2) {
+    int* cnt = warp ? cnt_s : cnt_d;
+    int* off = warp ? off_s : off_d;
+    const int per = (A + 31) / 32;
+    const int a0 = min(A, lane * per), a1 = min(A, a0 + per);
+    int run = 0;
+    for (int a = a0; a < a1; ++a)
+      for (int w = 0; w < EB_WARPS; ++w) run += cnt[w * A + a];
+    int incl = run;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(FULL, incl, o);
+      if (lane >= o) incl += v;
+    }
+    int base = incl - run;
+    for (int a = a0; a < a1; ++a) {
+      off[a] = base;
+      for (int w = 0; w < EB_WARPS; ++w) {
+        const int n = cnt[w * A + a];
+        cnt[w * A + a] = base;
+        base += n;
+      }
+    }
+    if (lane == 31) off[A] = incl;
+  }
+  __syncthreads();
+
+  // the same walk again places each edge: lists in edge order
+  for (int ch = ch0; ch < ch1; ch += 8) {
+    int kd[8], ks[8];
+    chunk_keys(dr, sr, A, E, ch, ch1, kd, ks);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const unsigned md = __match_any_sync(FULL, kd[j]);
+      const unsigned ms = __match_any_sync(FULL, ks[j]);
+      if (kd[j] >= 0) {
+        const float ex = pos_s[ks[j] * 3 + 0] - pos_s[kd[j] * 3 + 0];
+        const float ey = pos_s[ks[j] * 3 + 1] - pos_s[kd[j] * 3 + 1];
+        const float ez = pos_s[ks[j] * 3 + 2] - pos_s[kd[j] * 3 + 2];
+        const int d2 = __float_as_int(ex * ex + ey * ey + ez * ez);
+        const int e = (ch + j) * 32 + lane;
+        list_d[cnt_d[warp * A + kd[j]] + __popc(md & lt)] =
+            make_int2(ks[j] | (e << 16), d2);
+        list_s[cnt_s[warp * A + ks[j]] + __popc(ms & lt)] =
+            make_int2(kd[j] | (e << 16), d2);
+      }
+      __syncwarp();
+      if (kd[j] >= 0 && (md & lt) == 0) cnt_d[warp * A + kd[j]] += __popc(md);
+      if (ks[j] >= 0 && (ms & lt) == 0) cnt_s[warp * A + ks[j]] += __popc(ms);
+      __syncwarp();
+    }
+  }
+  __syncthreads();
+
+  float gw = 0.f;                       // this lane's dw0d share
+  for (int a = ng; owner && a < A; a += nng) {
+    // node a's destination list: dz, dPj, dw0d, dd²
+    const float pj = active ? pj_t[a * ldt + col] : 0.f;
+    const float ds = active ? ds_t[a * ldt + col] : 0.f;
+    float acc = 0.f;
+    const int lo = off_d[a], hi = off_d[a + 1];
+    for (int q = lo; q < hi; q += EU) {
+      float dz[EU], d2[EU];
+      int e[EU];
+#pragma unroll
+      for (int u = 0; u < EU; ++u) {   // EU listed edges in flight
+        const int2 ent = list_d[min(q + u, hi - 1)];
+        const int s = ent.x & 0xffff;
+        e[u] = (unsigned)ent.x >> 16;
+        d2[u] = __int_as_float(ent.y);
+        dz[u] = edge_dz(pi_t[s * ldt + col], pj, ds, d2[u], wd);
       }
 #pragma unroll
-      for (int u = 0; u < EU; ++u) {     // then the sums, in edge order
-        if (d[u] < 0) continue;          // the same for the whole warp
-        if (active) {
-          my_i[s[u] * block_h + tid] += v[u];
-          my_j[d[u] * block_h + tid] += v[u];
-          gw = fmaf(v[u], d2_s[i + u], gw);
-        }
+      for (int u = 0; u < EU; ++u) {   // then the sums, in list order
+        if (q + u >= hi) break;        // the same for the whole warp
+        acc += dz[u];
+        gw = fmaf(dz[u], d2[u], gw);
         if (dd2) {
-          float p = v[u] * wd;
+          float p = dz[u] * wd;
 #pragma unroll
           for (int o = 16; o > 0; o >>= 1) p += __shfl_xor_sync(FULL, p, o);
-          if (lane0) dd2[e0 + i + u] = p;
+          if (lane == 0) dd2[e[u]] = p;
         }
       }
     }
-  }
-  wpart[g * block_h + tid] = gw;
-  __syncthreads();
-  for (int a = g; a < A; a += groups) {
-    if (!active) continue;
-    float vi = 0.f, vj = 0.f;
-    for (int q = 0; q < groups; ++q) {
-      vi += acc_i[((size_t)q * A + a) * block_h + tid];
-      vj += acc_j[((size_t)q * A + a) * block_h + tid];
+    if (active) dPj[node0 + (size_t)a * H + c] = acc;
+
+    // node a's source list: the same dz again, dPi
+    const float pi = active ? pi_t[a * ldt + col] : 0.f;
+    acc = 0.f;
+    const int lo2 = off_s[a], hi2 = off_s[a + 1];
+    for (int q = lo2; q < hi2; q += EU) {
+      float dz[EU];
+#pragma unroll
+      for (int u = 0; u < EU; ++u) {
+        const int2 ent = list_s[min(q + u, hi2 - 1)];
+        const int d = ent.x & 0xffff;
+        dz[u] = edge_dz(pi, pj_t[d * ldt + col], ds_t[d * ldt + col],
+                        __int_as_float(ent.y), wd);
+      }
+#pragma unroll
+      for (int u = 0; u < EU; ++u) {
+        if (q + u >= hi2) break;
+        acc += dz[u];
+      }
     }
-    dPi[((size_t)b * A + a) * H + c] = vi;
-    dPj[((size_t)b * A + a) * H + c] = vj;
+    if (active) dPi[node0 + (size_t)a * H + c] = acc;
   }
-  if (g == 0 && active) {
+
+  wpart[warp * 32 + lane] = gw;
+  __syncthreads();
+  if (warp < ncg && c0 + warp * 32 + lane < H) {
     float v = 0.f;
-    for (int q = 0; q < groups; ++q) v += wpart[q * block_h + tid];
-    dw0d_part[(size_t)b * H + c] = v;
+    for (int q = 0; q < nng; ++q) v += wpart[(q * ncg + warp) * 32 + lane];
+    dw0d_part[(size_t)b * H + c0 + warp * 32 + lane] = v;
   }
 }
 
@@ -236,45 +404,66 @@ egnn_edge_dpos_kernel(const float* __restrict__ dd2_part,
 // (2H+1, H) = [w0i; w0j; w0d]; w1 (H,H). Outputs: dh (B,A,H); dw0 (2H+1,H);
 // db0, db1 (H,); dw1 (H,H); dpos (B,A,3) or null (then dd2_part is not
 // used either). Scratch from the caller: dS, dPi, dPj (B,A,H), dw0d_part
-// (B,H) and dd2_part (B, ceil(H/32), E) or null. All f32, contiguous.
-// block_h x groups <= 512.
+// (B,H), dd2_part (B, ceil(H/32), E) or null, and, when w1_splits > 1,
+// w1_part (w1_splits, H+1, H). All f32, contiguous. block_h a multiple of
+// 32 up to 256; A < 32768 and E < 65536 (the packed edge lists).
 extern "C" int egnn_edge_bwd_launch(
     const float* g, const float* h, const float* pos, const int32_t* src,
     const int32_t* dst, const float* w0, const float* w1, const float* Pi,
     const float* Pj, const float* S, const float* deg, float* dh,
     float* dpos, float* dw0, float* db0, float* dw1, float* db1, float* dS,
-    float* dPi, float* dPj, float* dw0d_part, float* dd2_part, int B, int A,
-    int E, int H, int block_e, int block_h, int groups, void* stream) {
+    float* dPi, float* dPj, float* dw0d_part, float* dd2_part,
+    float* w1_part, int B, int A, int E, int H, int block_e, int block_h,
+    int w1_splits, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (block_h < 32 || block_h > EB_THREADS || block_h % 32 || A >= 32768 ||
+      E >= 65536 || block_e < 1 || w1_splits < 1)
+    return (int)cudaErrorInvalidValue;
   const int M = B * A;
   const float* w0i = w0;
   const float* w0j = w0 + (size_t)H * H;
-  const float* w0d = w0 + (size_t)2 * H * H;
+  float* dw0d = dw0 + (size_t)2 * H * H;
   if (dpos == nullptr) dd2_part = nullptr;
 
-  // 1. dS = g·w1ᵀ; dw1 = Sᵀ·g and db1 = degᵀ·g
-  GemmBatch ds_batch{};
-  ds_batch.p[0] = gemm_prob(g, w1, dS, M);
-  cudaError_t err = gemm<false, true>(ds_batch, 1, M, H, H, s);
-  if (err != cudaSuccess) return (int)err;
-  GemmBatch w1_batch{};
-  w1_batch.p[0] = gemm_prob(S, g, dw1, H);
-  w1_batch.p[1] = gemm_prob(deg, g, db1, 1);
-  err = gemm<true, false>(w1_batch, 2, H, H, M, s);
+  // 1. dw1 (+ db1), the longer k-range first, then dS
+  TcLaunch l1{};
+  l1.count = 2;
+  TcProb& w1p = l1.p[0];
+  w1p = tc_prob(true, false, S, g, dw1, H, H, M);
+  w1p.extra = deg;
+  w1p.has_extra = 1;
+  w1p.C_extra = db1;
+  if (w1_splits > 1) {
+    w1p.splits = w1_splits;
+    w1p.C = w1_part;
+  }
+  l1.p[1] = tc_prob(false, true, g, w1, dS, M, H, H);
+  cudaError_t err = gemm_tc(l1, s);
   if (err != cudaSuccess) return (int)err;
 
-  // 2. the edge kernel
-  const size_t smem =
-      ((size_t)groups * (2 * A * block_h + block_h) + block_e) *
-          sizeof(float) +
-      (size_t)2 * block_e * sizeof(int);
-  err = allow_smem(egnn_edge_bwd_kernel, smem);
+  // 2. the edge kernel, its column tiles staged when they fit
+  const bool staged = edge_bwd_smem(A, E, block_h, true) <= kEdgeSmemBudget;
+  const size_t esmem = edge_bwd_smem(A, E, block_h, staged);
+  static bool attr_set[64][2] = {};
+  int dev = 0;
+  err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
+  if (dev < 64 && !attr_set[dev][staged]) {
+    err = staged ? allow_smem(egnn_edge_bwd_kernel<true>, 232448)
+                 : allow_smem(egnn_edge_bwd_kernel<false>, 232448);
+    if (err != cudaSuccess) return (int)err;
+    attr_set[dev][staged] = true;
+  }
   dim3 grid((H + block_h - 1) / block_h, B);
-  dim3 block(block_h, groups);
-  egnn_edge_bwd_kernel<<<grid, block, smem, s>>>(
-      Pi, Pj, dS, pos, src, dst, w0d, dPi, dPj, dw0d_part, dd2_part, A, E, H,
-      block_e);
+  const float* w0d = w0 + (size_t)2 * H * H;
+  if (staged)
+    egnn_edge_bwd_kernel<true><<<grid, EB_THREADS, esmem, s>>>(
+        Pi, Pj, dS, pos, src, dst, w0d, dPi, dPj, dw0d_part, dd2_part, A, E,
+        H, block_h);
+  else
+    egnn_edge_bwd_kernel<false><<<grid, EB_THREADS, esmem, s>>>(
+        Pi, Pj, dS, pos, src, dst, w0d, dPi, dPj, dw0d_part, dd2_part, A, E,
+        H, block_h);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
@@ -291,22 +480,25 @@ extern "C" int egnn_edge_bwd_launch(
     if (err != cudaSuccess) return (int)err;
   }
 
-  // 4. dh = dPi·w0iᵀ + dPj·w0jᵀ; dw0i = hᵀ·dPi, dw0j = hᵀ·dPj,
-  //    db0 = 1ᵀ·dPi; dw0d = 1ᵀ·dw0d_part
-  GemmBatch dh_batch{};
-  dh_batch.p[0] = gemm_prob(dPi, w0i, dh, M);
-  dh_batch.p[0].A[1] = dPj;
-  dh_batch.p[0].B[1] = w0j;
-  dh_batch.p[0].terms = 2;
-  err = gemm<false, true>(dh_batch, 1, M, H, H, s);
-  if (err != cudaSuccess) return (int)err;
-  GemmBatch w0_batch{};
-  w0_batch.p[0] = gemm_prob(h, dPi, dw0, H);
-  w0_batch.p[1] = gemm_prob(h, dPj, dw0 + (size_t)H * H, H);
-  w0_batch.p[2] = gemm_prob(nullptr, dPi, db0, 1);
-  err = gemm<true, false>(w0_batch, 3, H, H, M, s);
-  if (err != cudaSuccess) return (int)err;
-  GemmBatch wd_batch{};
-  wd_batch.p[0] = gemm_prob(nullptr, dw0d_part, dw0 + (size_t)2 * H * H, 1);
-  return (int)gemm<true, false>(wd_batch, 1, 1, H, B, s);
+  // 4. dw1's split sums, then dw0i (+ db0), dw0j, dh and dw0d
+  TcLaunch l2{};
+  if (w1_splits > 1) {
+    l2.red = TcReduce{w1_part, dw1, db1, H, H, w1_splits, 0};
+    l2.red.items = (int)(((size_t)(H + 1) * H + tc::REDUCE_ELEMS - 1) /
+                         tc::REDUCE_ELEMS);
+  }
+  l2.count = 4;
+  l2.p[0] = tc_prob(true, false, h, dPi, dw0, H, H, M);
+  l2.p[0].has_extra = 1;                       // ones: db0 = 1ᵀ·dPi
+  l2.p[0].C_extra = db0;
+  l2.p[1] = tc_prob(true, false, h, dPj, dw0 + (size_t)H * H, H, H, M);
+  TcProb& dhp = l2.p[2];
+  dhp = tc_prob(false, true, dPi, w0i, dh, M, H, H);
+  dhp.A[1] = dPj;
+  dhp.B[1] = w0j;
+  dhp.terms = 2;
+  l2.p[3] = tc_prob(true, false, nullptr, dw0d_part, nullptr, 0, H, B);
+  l2.p[3].has_extra = 1;                       // ones: dw0d = 1ᵀ·parts
+  l2.p[3].C_extra = dw0d;
+  return (int)gemm_tc(l2, s);
 }

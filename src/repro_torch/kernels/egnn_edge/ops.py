@@ -31,6 +31,7 @@ import ctypes
 import torch
 
 from .. import _build
+from . import gemm_plan
 from .budget import check_blocks, plan_blocks, plan_groups
 from .ref import egnn_edge_agg_ref, egnn_edge_bwd_ref
 
@@ -104,10 +105,11 @@ def _launch_fwd(h, pos, sr, dr, w0, b0, w1, b1, cd, block_e, block_h):
 def egnn_edge_bwd(g, h, pos, src, dst, w0, w1, pi, pj, s, deg, *,
                   block_e, block_h, need_dpos=True):
     """Kernel #4 (``csrc/egnn_edge_bwd.cu``): the backward of the fused edge
-    path on the card. ``g`` is the (B, A, H) cotangent of the aggregated
-    output; src/dst (B, E) int32, routed (dst >= A: no contribution); w0 the
-    whole fc0 weight (2H+1, H); pi, pj, s, deg the forward kernel's scratch.
-    Returns ``(dh, dpos, dw0, db0, dw1, db1)`` in f32 — dpos is None unless
+    path on the card, three launches (four with dpos). ``g`` is the
+    (B, A, H) cotangent of the aggregated output; src/dst (B, E) int32,
+    routed (dst >= A: no contribution); w0 the whole fc0 weight (2H+1, H);
+    pi, pj, s, deg the forward kernel's scratch. Returns
+    ``(dh, dpos, dw0, db0, dw1, db1)`` in f32 — dpos is None unless
     ``need_dpos``. CUDA tensors only: its plain version is
     ``ref.egnn_edge_bwd_ref``."""
     if g.device.type != "cuda":
@@ -118,6 +120,7 @@ def egnn_edge_bwd(g, h, pos, src, dst, w0, w1, pi, pj, s, deg, *,
     B, A, H = h.shape
     E = src.shape[1]
     be = min(block_e, max(E, 1))
+    splits = gemm_plan.w1_splits(B * A, H)
     dev, f32 = h.device, torch.float32
     g, h, w0, w1 = (t.contiguous() for t in (g, h, w0, w1))
     dh = torch.empty_like(h)
@@ -130,17 +133,29 @@ def egnn_edge_bwd(g, h, pos, src, dst, w0, w1, pi, pj, s, deg, *,
     dw0d_part = torch.empty((B, H), dtype=f32, device=dev)
     dd2_part = torch.empty((B, -(-H // 32), E), dtype=f32, device=dev) \
         if need_dpos else None
-    lib, fn = _lib("egnn_edge_bwd", "egnn_edge_bwd_launch", 22, 7)
+    w1_part = torch.empty((splits, H + 1, H), dtype=f32, device=dev) \
+        if splits > 1 else None
+    lib, fn = _lib("egnn_edge_bwd", "egnn_edge_bwd_launch", 23, 7)
     code = fn(g.data_ptr(), h.data_ptr(), pos.data_ptr(), src.data_ptr(),
               dst.data_ptr(), w0.data_ptr(), w1.data_ptr(), pi.data_ptr(),
               pj.data_ptr(), s.data_ptr(), deg.data_ptr(), dh.data_ptr(),
               _ptr(dpos), dw0.data_ptr(), db0.data_ptr(), dw1.data_ptr(),
               db1.data_ptr(), ds.data_ptr(), dpi.data_ptr(), dpj.data_ptr(),
-              dw0d_part.data_ptr(), _ptr(dd2_part), B, A, E, H, be, block_h,
-              plan_groups(A, be, block_h, bwd=True), _build.stream_ptr(h))
+              dw0d_part.data_ptr(), _ptr(dd2_part), _ptr(w1_part), B, A, E,
+              H, be, block_h, splits, _build.stream_ptr(h))
     _build.check(lib, code, "egnn_edge_bwd_launch")
     egnn_edge_bwd.launches += 1
     return dh, dpos, dw0, db0, dw1, db1
+
+
+def gemm_blocks_per_sm() -> int:
+    """CTAs of the backward's GEMM kernel that one SM of the current card
+    holds at once (``gemm_plan.SLOTS`` assumes 2)."""
+    lib = _build.load("egnn_edge_bwd")
+    out = ctypes.c_int(0)
+    _build.check(lib, lib.gemm_tc_blocks_per_sm(ctypes.byref(out)),
+                 "gemm_tc_blocks_per_sm")
+    return out.value
 
 
 egnn_edge_bwd.launches = 0

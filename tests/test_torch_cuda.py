@@ -22,6 +22,7 @@ import torch
 
 from repro_torch.configs import get_smoke
 from repro_torch.kernels.egnn_edge import egnn_edge_agg, egnn_edge_agg_ref
+from repro_torch.kernels.egnn_edge import ops as edge_ops
 from repro_torch.kernels.egnn_edge.ops import egnn_edge_bwd
 from repro_torch.kernels.egnn_edge.ref import egnn_edge_bwd_ref
 from repro_torch.kernels.flash_attention import (flash_attention,
@@ -184,11 +185,8 @@ def test_egnn_edge_kernel_matches_plain(cuda, B, A, E, H):
         egnn_edge_agg(h.bfloat16(), pos, src, dst, em, phi)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("B,A,E,H", [(2, 10, 40, 24), (3, 40, 1000, 96),
-                                     (8, 64, 2048, 866)])
-def test_egnn_edge_bwd_kernel_matches_plain(cuda, B, A, E, H):
-    rng = np.random.default_rng(2)
+def _bwd_case(cuda, B, A, E, H, seed=2):
+    rng = np.random.default_rng(seed)
 
     def t(*shape, scale=1.0):
         return torch.from_numpy(
@@ -200,9 +198,19 @@ def test_egnn_edge_bwd_kernel_matches_plain(cuda, B, A, E, H):
     leaves = [h, pos, w0, b0, w1, b1]
     for x in leaves:
         x.requires_grad_(True)
-    phi = {"fc0": {"w": w0, "b": b0}, "fc1": {"w": w1, "b": b1}}
     src, dst, em = _edges(rng, B, E, A, cuda)
     src[:, -3:], dst[:, -3:], em[:, -3:] = 1, A, True   # sentinel, unmasked
+    return leaves, (src, dst, em), g
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,A,E,H", [(2, 10, 40, 24), (3, 40, 1000, 96),
+                                     (8, 64, 2048, 866),
+                                     (40, 64, 2048, 866)])
+def test_egnn_edge_bwd_kernel_matches_plain(cuda, B, A, E, H):
+    leaves, (src, dst, em), g = _bwd_case(cuda, B, A, E, H)
+    h, pos, w0, b0, w1, b1 = leaves
+    phi = {"fc0": {"w": w0, "b": b0}, "fc1": {"w": w1, "b": b1}}
     out = egnn_edge_agg(h, pos, src, dst, em, phi)
     before = egnn_edge_bwd.launches
     got = torch.autograd.grad(out, leaves, g, retain_graph=True)
@@ -222,8 +230,85 @@ def test_egnn_edge_bwd_kernel_matches_plain(cuda, B, A, E, H):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     # pos needing no gradient skips dpos and leaves the rest bitwise as is
     out = egnn_edge_agg(h, pos.detach(), src, dst, em, phi)
-    no_pos = torch.autograd.grad(out, [h, w0, b0, w1, b1], g)
+    no_pos = torch.autograd.grad(out, [h, w0, b0, w1, b1], g,
+                                 retain_graph=True)
     assert all(torch.equal(a, b) for a, b in zip(no_pos, got[:1] + got[2:]))
+    again = torch.autograd.grad(out, [h, w0, b0, w1, b1], g)
+    assert all(torch.equal(a, b) for a, b in zip(no_pos, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,need_dpos", [(40, False), (8, True)])
+def test_egnn_edge_bwd_kernels_a_call(cuda, B, need_dpos):
+    """#4 is at most three kernel launches a call without dpos (GEMMs, edge
+    kernel, GEMMs) and four with, counted by torch.profiler on the card
+    over 4 calls; every kernel is one of its own."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    A, E, H = 64, 2048, 866
+    leaves, (src, dst, em), g = _bwd_case(cuda, B, A, E, H)
+    h, pos, w0, b0, w1, b1 = (x.detach() for x in leaves)
+    sr = torch.where(em, src, A).to(torch.int32)
+    dr = torch.where(em, dst, A).to(torch.int32)
+    _, pi, pj, s, deg = edge_ops._launch_fwd(
+        h, pos, sr, dr, w0, b0, w1, b1, torch.float32,
+        *edge_ops._resolve_blocks(None, None, A, E, H))
+    be, bh = edge_ops._resolve_blocks(None, None, A, E, H, bwd=True)
+
+    def call():
+        return egnn_edge_bwd(g, h, pos, sr, dr, w0, w1, pi, pj, s, deg,
+                             block_e=be, block_h=bh, need_dpos=need_dpos)
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(4):
+            call()
+        torch.cuda.synchronize()
+    counts = {ev.key.split("(")[0].split("<")[0].split()[-1]: ev.count
+              for ev in prof.key_averages()
+              if ev.device_type == DeviceType.CUDA and ev.count}
+    want = {"gemm_tc_kernel": 8, "egnn_edge_bwd_kernel": 4}
+    if need_dpos:
+        want["egnn_edge_dpos_kernel"] = 4
+    assert set(counts) == set(want)
+    assert all(counts[k] <= n for k, n in want.items())
+
+
+@pytest.mark.gpu
+def test_egnn_edge_bwd_bits_independent_of_blocks(cuda):
+    """#4 sums dPi and dPj in edge order alone, so no output moves with
+    block_e, and only dw0d (per-warp shares) with block_h."""
+    A, E, H = 64, 2048, 866
+    leaves, (src, dst, em), g = _bwd_case(cuda, 8, A, E, H)
+    h, pos, w0, b0, w1, b1 = (x.detach() for x in leaves)
+    sr = torch.where(em, src, A).to(torch.int32)
+    dr = torch.where(em, dst, A).to(torch.int32)
+    _, pi, pj, s, deg = edge_ops._launch_fwd(
+        h, pos, sr, dr, w0, b0, w1, b1, torch.float32,
+        *edge_ops._resolve_blocks(None, None, A, E, H))
+
+    def call(be, bh):
+        return egnn_edge_bwd(g, h, pos, sr, dr, w0, w1, pi, pj, s, deg,
+                             block_e=be, block_h=bh)
+    base = call(512, 32)
+    for be in (128, 2048):
+        assert all(torch.equal(a, b) for a, b in zip(base, call(be, 32)))
+    wide = call(512, 64)
+    for i in (0, 1, 3, 4, 5):                     # dh, dpos, db0, dw1, db1
+        assert torch.equal(base[i], wide[i])
+    assert torch.equal(base[2][:2 * H], wide[2][:2 * H])
+    _close(wide[2][2 * H:], base[2][2 * H:], 1e-5)
+
+
+@pytest.mark.gpu
+def test_egnn_edge_bwd_gemm_plan_fits_the_card(cuda):
+    """The GEMM plan's model of the card holds: it keeps gemm_plan.SLOTS
+    CTAs of the tensor-core GEMM resident at once."""
+    from repro_torch.kernels.egnn_edge import gemm_plan
+    slots = (edge_ops.gemm_blocks_per_sm()
+             * torch.cuda.get_device_properties(0).multi_processor_count)
+    assert slots >= gemm_plan.SLOTS
 
 
 @pytest.mark.gpu
