@@ -12,13 +12,18 @@ Phases, each printing one JSON line:
      the main paths' shapes, with masked and sentinel (dst == A) edges,
      under the tolerances stated below; each kernel, its plain version and
      a one-call PyTorch yardstick (``library_ms``, never used by the port)
-     are timed (device time for #1, #2, #4, #5, #6; CUDA events for #3).
-     The edge kernel's backward (#4) is checked per output and for bits over
-     two calls at the training path's shape (B=40: 5 sources x 8 graphs in
-     one trunk pass, pos needing no gradient), at B=8 with dpos and at a
-     ragged shape, and timed at B=40 (its summary row) and B=8 with its
-     kernels a call (at most 3 without dpos, 4 with) and ``torch.matmul``
-     of its six products beside it (``gemm_library_ms``); each graph of a
+     are timed by device time (``torch.profiler``). The edge kernel's
+     forward (#3) is checked at the training path's shape (B=40: 5 sources
+     x 8 graphs in one trunk pass), at B=8 (A=64, and a serve bucket of
+     M = 128), and at a ragged shape, for bits over two calls, per output
+     and scratch (out, Pi, Pj, S, deg) at B=40 and B=8, and timed at both
+     (B=40 its summary row) with its kernels a call (at most 4) and
+     ``torch.matmul`` of its three products beside it
+     (``gemm_library_ms``). Its backward (#4) is checked per output and
+     for bits over two calls at B=40 (pos needing no gradient), at B=8
+     with dpos and at a ragged shape, and timed at B=40 (its summary row)
+     and B=8 with its kernels a call (at most 3 without dpos, 4 with) and
+     ``torch.matmul`` of its six products beside it; each graph of a
      batched segment-sum must be bitwise equal to that graph alone, in f32
      and bf16;
   3. serve: ``ServeSession`` serves hydragnn-gfm at full width (4 EGNN
@@ -64,10 +69,12 @@ served GNN batch, one training step, one LM prefill and one decode step,
 and the attention sweep: the device time of #5 over masks (beside SDPA on
 the same inputs), and of #6 at LM decode runs (a) and (b), by kernel
 name, over 1 / 2 / 3 / 4 / 9 / 17 / 33 splits and the default plan at
-(a), beside
-SDPA and the bound. ``--sweep`` prints only the sweeps: #4 by kernel at
-B=40 (no dpos) and B=8 (dpos), #3's forward with a hash of its outputs,
-and one training step's device time and host-clock ms; #1 and #2 beside
+(a), beside SDPA and the bound. ``--sweep`` prints only the sweeps: #4 by
+kernel at B=40 (no dpos) and B=8 (dpos); #3 by kernel at both, with a
+hash of its outputs and their relative error against a float64 forward
+(and, where the checkout's launcher takes them, its time over split
+counts and column tiles); one training step's device time and host-clock
+ms; #1 and #2 beside
 ``index_add_``, that attention sweep, and the LM prefill's device time
 with its teacher-forced bf16 error under the bf16 GEMM reduction setting
 in force. ``--src DIR`` imports the port from another unpacked checkout;
@@ -300,53 +307,173 @@ def check_segment_sum(torch, dev, g):
 
 
 def _edge_fwd_bound(B, A, E, H, n_valid):
-    """#3's least time on the card for these inputs: three node-level GEMMs
-    (2·B·A·H² each) and ~8 operations per valid edge and column at the fp32
-    peak, or its bytes at HBM speed, whichever is larger."""
-    ops_count = 3 * 2 * B * A * H * H + 8 * n_valid * H
-    nbytes = 4 * (2 * B * A * H + B * A * 3 + 2 * B * E
-                  + (2 * H + 1) * H + H * H + 2 * H)
-    t_ops = ops_count / FP32_FLOPS * 1e3
+    """#3's least time on the card for these inputs: its three node-level
+    products (2·B·A·H² each) as three TF32 tensor-core products each (the
+    3xTF32 split) plus ~8 operations per valid edge and column at the fp32
+    peak (``bound_ms``), the same work all in fp32 FFMA
+    (``bound_ffma_ms``), and the bytes (h, pos, src, dst and the weights
+    read once; out and the scratch the backward reads, Pi, Pj, S and deg,
+    written once) at HBM speed; each bound the larger of its operations
+    time and the bytes time."""
+    gemm_ops = 3 * 2 * B * A * H * H
+    edge_ops = 8 * n_valid * H
+    nbytes = 4 * (B * A * H + B * A * 3 + 2 * B * E + (2 * H + 1) * H
+                  + H * H + 2 * H + 4 * B * A * H + B * A)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    return {"bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "operations": ops_count, "bytes": nbytes}
+    t_tc = (3 * gemm_ops / TF32_FLOPS + edge_ops / FP32_FLOPS) * 1e3
+    t_ffma = (gemm_ops + edge_ops) / FP32_FLOPS * 1e3
+    return {"bound_ms": max(t_tc, t_bytes),
+            "bound_by": "operations" if t_tc >= t_bytes else "bytes",
+            "bound_ffma_ms": max(t_ffma, t_bytes),
+            "operations": gemm_ops + edge_ops, "bytes": nbytes}
+
+
+def _edge_fwd_inputs(torch, g, dev, B, A, E, H=866):
+    """Seeded inputs of one forward call at (B, A, E, H): h, pos, φ_e as
+    ``mlp_init`` draws it (biases of 0.1 scale) and edges."""
+    import numpy as np
+
+    from repro_torch.models.mlp import mlp_init
+    phi = mlp_init(np.random.default_rng(B * 1000 + A), 2 * H + 1, H, H, 1,
+                   device=dev)
+    phi["fc0"]["b"] = 0.1 * torch.randn(H, generator=g, device=dev)
+    phi["fc1"]["b"] = 0.1 * torch.randn(H, generator=g, device=dev)
+    h = torch.randn((B, A, H), generator=g, device=dev)
+    pos = 2.0 * torch.randn((B, A, 3), generator=g, device=dev)
+    return h, pos, *edge_case(torch, B, E, A, g, dev), phi
+
+
+def _edge_fwd_call(torch, h, pos, src, dst, em, phi, splits=None):
+    """A closure that calls #3's launcher (``ops._launch_fwd``) once on
+    routed int32 edges, as the autograd Function does, with the forward's
+    planned blocks; returns (out, Pi, Pj, S, deg)."""
+    from repro_torch.kernels.egnn_edge import ops
+    B, A, H = h.shape
+    E = src.shape[1]
+    sr = torch.where(em, src, A).to(torch.int32).contiguous()
+    dr = torch.where(em, dst, A).to(torch.int32).contiguous()
+    blocks = ops._resolve_blocks(None, None, A, E, H)
+    w = (phi["fc0"]["w"], phi["fc0"]["b"], phi["fc1"]["w"], phi["fc1"]["b"])
+    kw = {} if splits is None else {"splits": splits}
+
+    def call():
+        return ops._launch_fwd(h, pos, sr, dr, *w, torch.float32, *blocks,
+                               **kw)
+    return call
+
+
+def _edge_fwd_plain(torch, h, pos, src, dst, em, phi, dtype=None):
+    """The plain forward's outputs and scratch, (out, Pi, Pj, S, deg), from
+    the node-projection algebra in plain PyTorch (``dtype``: float32, or
+    float64 for an exact yardstick); ``out`` is ``egnn_edge_agg_ref``."""
+    from repro_torch.kernels.egnn_edge import egnn_edge_agg_ref
+    dt = dtype or torch.float32
+    H = h.shape[-1]
+    A = h.shape[1]
+    cast = {k: {n: t.to(dt) for n, t in v.items()} for k, v in phi.items()}
+    h, pos = h.to(dt), pos.to(dt)
+    out = egnn_edge_agg_ref(h, pos, src, dst, em, cast)
+    w0, b0 = cast["fc0"]["w"], cast["fc0"]["b"]
+    pi, pj = h @ w0[:H] + b0, h @ w0[H:2 * H]
+    valid = em & (dst < A)
+    sc, dc = src.clamp(max=A - 1), dst.clamp(max=A - 1)
+
+    def gather(x, i):
+        return torch.take_along_dim(x, i[..., None], dim=1)
+    d2 = ((gather(pos, sc) - gather(pos, dc)) ** 2).sum(-1, keepdim=True)
+    z = gather(pi, sc) + gather(pj, dc) + d2 * w0[2 * H]
+    s_e = z * torch.sigmoid(z) * valid[..., None]
+    idx = torch.where(valid, dst, 0)
+    S = torch.zeros_like(h).scatter_add_(1, idx[..., None].expand_as(s_e),
+                                         s_e)
+    deg = torch.zeros(h.shape[:2], dtype=dt, device=h.device).scatter_add_(
+        1, idx, valid.to(dt))
+    return out, pi, pj, S, deg
+
+
+def _fwd_rel_errs(torch, got, want) -> dict:
+    """Each of (out, Pi, Pj, S, deg)'s largest error over its largest
+    entry."""
+    return {n: float((a.double() - b.double()).abs().max()
+                     / b.double().abs().max().clamp_min(1e-30))
+            for n, a, b in zip(("out", "Pi", "Pj", "S", "deg"), got, want)}
+
+
+def _fwd_gemm_library(torch, B, A, H, g, dev):
+    """#3's three node-level products as ``torch.matmul`` calls (TF32 off,
+    as ``repro_torch`` pins it): a yardstick for the GEMM part only, never
+    used by the port."""
+    hm, sm = (torch.randn((B * A, H), generator=g, device=dev)
+              for _ in range(2))
+    w0i, w0j, w1 = (torch.randn((H, H), generator=g, device=dev)
+                    for _ in range(3))
+
+    def library():
+        hm @ w0i                                # Pi (b0 aside)
+        hm @ w0j                                # Pj
+        sm @ w1                                 # agg (deg ⊗ b1 aside)
+    return library
 
 
 def check_egnn_edge(torch, dev, g):
-    import numpy as np
-
-    from repro_torch.kernels.egnn_edge import egnn_edge_agg, egnn_edge_agg_ref
-    from repro_torch.models.mlp import mlp_init
+    """#3 through ``egnn_edge_agg`` against ``egnn_edge_agg_ref`` at the
+    training path's shape (B=40: 5 sources x 8 graphs in one trunk pass),
+    at the serve batch's B=8 (A=64, and the bucket A=16, E=512: M = 128)
+    and at a ragged shape; two calls must give the same bits. At B=40 and
+    B=8 the launcher's outputs and scratch (out, Pi, Pj, S, deg: what the
+    backward reads) are held per output against the plain versions, and
+    #3 is timed by device time with its kernels a call (at most 4) and
+    ``torch.matmul`` of its three products beside it
+    (``gemm_library_ms``)."""
+    from repro_torch.kernels.egnn_edge import (egnn_edge_agg,
+                                               egnn_edge_agg_ref, gemm_plan)
     H = 866
-    rng = np.random.default_rng(1)
-    phi = mlp_init(rng, 2 * H + 1, H, H, 1, device=dev)
-    phi["fc0"]["b"] = 0.1 * torch.randn(H, generator=g, device=dev)
-    phi["fc1"]["b"] = 0.1 * torch.randn(H, generator=g, device=dev)
-    cases = [("main", 8, 64, 2048), ("ragged", 3, 40, 1000)]
+    cases = [("train", 40, 64, 2048), ("b8", 8, 64, 2048),
+             ("b8_a16", 8, 16, 512), ("ragged", 3, 40, 1000)]
     worst, out = 0.0, {}
     for name, B, A, E in cases:
-        h = torch.randn((B, A, H), generator=g, device=dev)
-        pos = 2.0 * torch.randn((B, A, 3), generator=g, device=dev)
-        src, dst, em = edge_case(torch, B, E, A, g, dev)
+        h, pos, src, dst, em, phi = _edge_fwd_inputs(torch, g, dev, B, A, E)
         got = egnn_edge_agg(h, pos, src, dst, em, phi)
+        again = egnn_edge_agg(h, pos, src, dst, em, phi)
         ref = egnn_edge_agg_ref(h, pos, src, dst, em, phi)
         torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            fail(f"egnn_edge {name}: two calls differ bitwise")
         err, scale = scaled_err(torch, got, ref)
         if not err <= EDGE_TOL * scale:
             fail(f"egnn_edge {name}: max_abs_err {err} > {EDGE_TOL}*{scale}")
         worst = max(worst, err)
-        if name != "main":
+        del got, again, ref
+        if name not in ("train", "b8"):
             continue
+        call = _edge_fwd_call(torch, h, pos, src, dst, em, phi)
+        errs = _fwd_rel_errs(torch, call(), _edge_fwd_plain(
+            torch, h, pos, src, dst, em, phi))
+        for n, e in errs.items():
+            if not e <= EDGE_TOL:
+                fail(f"egnn_edge {name} {n}: relative error {e} > {EDGE_TOL}")
+        prof = device_profile(torch, call)
+        if prof["kernels_per_call"] > 4:
+            fail(f"egnn_edge {name}: {prof['kernels_per_call']} kernels a "
+                 f"call, the design has at most 4")
         n_valid = int(em.sum())
-        ms = time_ms(torch, lambda: egnn_edge_agg(h, pos, src, dst, em, phi))
-        plain = time_ms(torch, lambda: egnn_edge_agg_ref(h, pos, src, dst, em,
-                                                         phi), iters=5)
-        out = {"ms": ms, "plain_ms": plain, "library_ms": None,
-               **_edge_fwd_bound(B, A, E, H, n_valid),
-               "shape": [B, A, E, H], "valid_edges": n_valid,
-               "per_edge_form_bound_ms":
-                   2 * B * E * 3 * H * H / FP32_FLOPS * 1e3}
+        case = {"ms": prof["ms"], "by_kernel": prof["by_kernel"],
+                "kernels_per_call": prof["kernels_per_call"],
+                "wall_ms": time_ms(torch, call),
+                "plain_ms": device_ms(torch, lambda: egnn_edge_agg_ref(
+                    h, pos, src, dst, em, phi), iters=3, warm=1),
+                "library_ms": None,
+                "library_note": "no one PyTorch call computes this forward",
+                "gemm_library_ms": device_ms(
+                    torch, _fwd_gemm_library(torch, B, A, H, g, dev)),
+                "shape": [B, A, E, H], "valid_edges": n_valid,
+                "rel_err": errs,
+                "splits": list(gemm_plan.fwd_splits(B * A, H)),
+                **_edge_fwd_bound(B, A, E, H, n_valid)}
+        if name == "train":
+            out.update(case)
+        else:
+            out[name] = case
     out["max_abs_err"] = worst
     return out
 
@@ -1375,19 +1502,24 @@ def _sha(tensors) -> str:
 
 def edge_sweep(torch):
     """#4 by device time and kernel name at the training path's shape
-    (B=40, no dpos) and at B=8 with dpos, with a hash of its outputs; #3's
-    forward at both shapes with a hash of its outputs (two versions with
-    the same forward source must agree bit for bit); one full-width
-    training step's device time by kernel (``torch.profiler``) and its
-    host-clock ms a step over 5 steps. Inputs from their own seed, so two
-    versions (``--src``) see the same data."""
+    (B=40, no dpos) and at B=8 with dpos, with a hash of its outputs; #3
+    at both shapes by kernel, with a hash of its outputs (and scratch) and
+    the relative error of its output against a float64 forward on the same
+    inputs; where the checkout's #3 takes a plan override, its device time
+    over split counts (proj, fc1) and column tiles; one full-width training
+    step's device time by kernel (``torch.profiler``) and its host-clock ms
+    a step over 5 steps. Inputs from their own seed, so two versions
+    (``--src``) see the same data."""
+    import inspect
+
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.kernels.egnn_edge import ops
+    from repro_torch.kernels.egnn_edge import egnn_edge_agg, ops
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
     g.manual_seed(2)
     out = {"phase": "edge_sweep"}
+    plans = "splits" in inspect.signature(ops._launch_fwd).parameters
     for name, B, need_dpos in (("b40", 40, False), ("b8", 8, True)):
         leaves, edges, gup = _edge_bwd_inputs(torch, g, dev, B, 64, 2048)
         call, sr, dr = _edge_bwd_call(torch, leaves, edges, gup, need_dpos)
@@ -1398,16 +1530,33 @@ def edge_sweep(torch):
             "kernels_per_call": prof["kernels_per_call"],
             "sha256": _sha(x for x in call() if x is not None)}
         h, pos, w0, b0, w1, b1 = (x.detach() for x in leaves)
-        blocks = ops._resolve_blocks(None, None, 64, 2048, 866)
-
-        def fwd():
-            return ops._launch_fwd(h, pos, sr, dr, w0, b0, w1, b1,
-                                   torch.float32, *blocks)
+        phi = {"fc0": {"w": w0, "b": b0}, "fc1": {"w": w1, "b": b1}}
+        fwd = _edge_fwd_call(torch, h, pos, *edges, phi)
         prof = device_profile(torch, fwd)
         n_valid = int(edges[2].sum())
-        out[f"fwd_{name}"] = {"ms": prof["ms"], "by_kernel": prof["by_kernel"],
-                              "sha256": _sha(fwd()), "valid_edges": n_valid,
-                              **_edge_fwd_bound(B, 64, 2048, 866, n_valid)}
+        with torch.no_grad():
+            got = egnn_edge_agg(h, pos, *edges, phi)
+            exact = _edge_fwd_plain(torch, h, pos, *edges, phi,
+                                    torch.float64)[0]
+        out[f"fwd_{name}"] = {
+            "ms": prof["ms"], "by_kernel": prof["by_kernel"],
+            "kernels_per_call": prof["kernels_per_call"],
+            "sha256": _sha(fwd()), "valid_edges": n_valid,
+            "rel_err_vs_f64": float((got.double() - exact).abs().max()
+                                    / exact.abs().max()),
+            **_edge_fwd_bound(B, 64, 2048, 866, n_valid)}
+        del got, exact
+        if plans:
+            by_plan = {}
+            for sp in ((1, 1), (1, 2), (2, 2), (2, 4), (4, 4)):
+                by_plan[f"splits_{sp[0]}_{sp[1]}"] = device_profile(
+                    torch, _edge_fwd_call(torch, h, pos, *edges, phi,
+                                          splits=sp))["by_kernel"]
+            for bh in (32, 64, 128):
+                by_plan[f"block_h_{bh}"] = device_profile(
+                    torch, lambda: egnn_edge_agg(
+                        h, pos, *edges, phi, block_h=bh))["by_kernel"]
+            out[f"fwd_{name}"]["by_plan"] = by_plan
         out[f"bwd_{name}"].update(
             valid_edges=n_valid,
             **_edge_bwd_bounds(B, 64, 2048, 866, n_valid, need_dpos))
@@ -1592,7 +1741,8 @@ def sweep_in_turns(other: Path):
                     row[f"egnn_edge_{k}"] = {
                         x: rec[k][x] for x in ("ms", "by_kernel",
                                                "kernels_per_call", "sha256",
-                                               "bound_ms", "bound_ffma_ms")
+                                               "rel_err_vs_f64", "bound_ms",
+                                               "bound_ffma_ms")
                         if x in rec[k]}
                 row["train_step_device_ms"] = rec["train_step"]["device_ms"]
                 row["train_step_launches"] = rec["train_step"]["launches"]
@@ -1603,9 +1753,11 @@ def sweep_in_turns(other: Path):
     emit({"phase": "sweep_summary", "ms_by_turn": summary,
           "flash_attention_bits_equal": len({json.dumps(
               r["flash_attention_sha256"]) for r in summary}) == 1,
-          "egnn_edge_fwd_bits_equal": len({
-              (r["egnn_edge_fwd_b40"]["sha256"],
-               r["egnn_edge_fwd_b8"]["sha256"]) for r in summary}) == 1,
+          "egnn_edge_fwd_bits_equal_by_version": {
+              v: len({(r["egnn_edge_fwd_b40"]["sha256"],
+                       r["egnn_edge_fwd_b8"]["sha256"])
+                      for r in summary if r["version"] == v}) == 1
+              for v in ("parent", "change")},
           "egnn_edge_bwd_bits_equal_by_version": {
               v: len({(r["egnn_edge_bwd_b40"]["sha256"],
                        r["egnn_edge_bwd_b8"]["sha256"])

@@ -52,7 +52,7 @@ class ArchConfig:
     # kernel tile overrides (0 = plan from the problem shape):
     kernel_block_n: int = 0        # segment_sum node-tile rows
     kernel_block_e: int = 0        # edge window staged in shared memory
-    kernel_block_h: int = 0        # egnn_edge column tile (threads per CTA)
+    kernel_block_h: int = 0        # egnn_edge column tile, 32 columns a warp
     # precision -------------------------------------------------------------
     param_dtype: Any = torch.float32
     compute_dtype: Any = torch.bfloat16

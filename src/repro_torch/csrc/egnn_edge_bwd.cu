@@ -71,9 +71,9 @@
 // sigmoid is 1 / (1 + 2^(-z·log2 e)) through the SFU (__expf, __fdividef):
 // a few ulp from expf, far inside the backward's 1e-4 tolerance.
 #include "common.cuh"
+#include "edge_lists.cuh"
 #include "gemm_tc.cuh"
 
-constexpr unsigned FULL = 0xffffffffu;
 constexpr int EB_WARPS = 8;            // warps of the edge kernel
 constexpr int EB_THREADS = 32 * EB_WARPS;
 constexpr int EU = 4;                  // listed edges in flight a warp
@@ -95,28 +95,6 @@ __device__ __forceinline__ float edge_dz(float pi, float pj, float ds,
   const float z = pi + pj + d2 * wd;
   const float sig = __fdividef(1.f, 1.f + __expf(-z));
   return ds * (sig * (1.f + z * (1.f - sig)));
-}
-
-// Load 8 chunks' (dst, clamped src) keys of the warp's edges at once; -1
-// for an edge past E or with dst out of range.
-__device__ __forceinline__ void chunk_keys(const int32_t* dr,
-                                           const int32_t* sr, int A, int E,
-                                           int ch, int ch1, int (&kd)[8],
-                                           int (&ks)[8]) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int e = (ch + j) * 32 + lane;
-    const bool in = ch + j < ch1 && e < E;
-    kd[j] = in ? dr[e] : -1;
-    ks[j] = in ? sr[e] : 0;
-  }
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const bool valid = kd[j] >= 0 && kd[j] < A;
-    ks[j] = valid ? min(ks[j], A - 1) : -1;
-    kd[j] = valid ? kd[j] : -1;
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -215,34 +193,9 @@ egnn_edge_bwd_kernel(const float* __restrict__ Pi,
   }
   __syncthreads();
 
-  // list offsets: warp 0 the destination lists, warp 1 the source lists.
-  // Each lane takes a run of nodes; cnt[w][a] becomes warp w's first slot
-  // in node a's list.
-  if (warp < 2) {
-    int* cnt = warp ? cnt_s : cnt_d;
-    int* off = warp ? off_s : off_d;
-    const int per = (A + 31) / 32;
-    const int a0 = min(A, lane * per), a1 = min(A, a0 + per);
-    int run = 0;
-    for (int a = a0; a < a1; ++a)
-      for (int w = 0; w < EB_WARPS; ++w) run += cnt[w * A + a];
-    int incl = run;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int v = __shfl_up_sync(FULL, incl, o);
-      if (lane >= o) incl += v;
-    }
-    int base = incl - run;
-    for (int a = a0; a < a1; ++a) {
-      off[a] = base;
-      for (int w = 0; w < EB_WARPS; ++w) {
-        const int n = cnt[w * A + a];
-        cnt[w * A + a] = base;
-        base += n;
-      }
-    }
-    if (lane == 31) off[A] = incl;
-  }
+  // list offsets: warp 0 the destination lists, warp 1 the source lists
+  if (warp < 2)
+    list_offsets<EB_WARPS>(warp ? cnt_s : cnt_d, warp ? off_s : off_d, A);
   __syncthreads();
 
   // the same walk again places each edge: lists in edge order
@@ -438,7 +391,7 @@ extern "C" int egnn_edge_bwd_launch(
     w1p.C = w1_part;
   }
   l1.p[1] = tc_prob(false, true, g, w1, dS, M, H, H);
-  cudaError_t err = gemm_tc(l1, s);
+  cudaError_t err = gemm_tc<tc::MIXED>(l1, s);
   if (err != cudaSuccess) return (int)err;
 
   // 2. the edge kernel, its column tiles staged when they fit
@@ -483,9 +436,7 @@ extern "C" int egnn_edge_bwd_launch(
   // 4. dw1's split sums, then dw0i (+ db0), dw0j, dh and dw0d
   TcLaunch l2{};
   if (w1_splits > 1) {
-    l2.red = TcReduce{w1_part, dw1, db1, H, H, w1_splits, 0};
-    l2.red.items = (int)(((size_t)(H + 1) * H + tc::REDUCE_ELEMS - 1) /
-                         tc::REDUCE_ELEMS);
+    l2.red = tc_reduce(w1_part, dw1, db1, H, H, w1_splits, tc::REDUCE_ELEMS);
   }
   l2.count = 4;
   l2.p[0] = tc_prob(true, false, h, dPi, dw0, H, H, M);
@@ -500,5 +451,14 @@ extern "C" int egnn_edge_bwd_launch(
   l2.p[3] = tc_prob(true, false, nullptr, dw0d_part, nullptr, 0, H, B);
   l2.p[3].has_extra = 1;                       // ones: dw0d = 1ᵀ·parts
   l2.p[3].C_extra = dw0d;
-  return (int)gemm_tc(l2, s);
+  return (int)gemm_tc<tc::MIXED>(l2, s);
+}
+
+// CTAs of the backward's GEMM kernel that one SM holds at once (the plan
+// assumes 1).
+extern "C" int gemm_tc_blocks_per_sm(int* out) {
+  cudaError_t err = allow_smem(gemm_tc_kernel<tc::MIXED>, tc::SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out, gemm_tc_kernel<tc::MIXED>, tc::THREADS, tc::SMEM_BYTES);
 }

@@ -5,13 +5,19 @@
 //
 // op(A) is A (stored M x K, row stride lda) or, with `ta`, the transpose of
 // a stored K x M matrix; op(B) is B (stored K x N) or, with `tb`, the
-// transpose of a stored N x K matrix. `terms` (1 or 2) products share one
-// accumulator: term 0's k-steps, then term 1's. A transposed A may carry
-// one more row, row M of op(A) = `extra` (a K-vector; null: ones), written
-// to `C_extra` — a bias gradient (degᵀ·g, 1ᵀ·dP) rides on the weight
-// gradient's tiles for free. With `splits` > 1 the k-steps are cut into
-// that many contiguous ranges, each written as a partial (splits, M(+1), N)
-// into C; a later launch's reduce items sum them in split order.
+// transpose of a stored N x K matrix. A kernel instantiation takes one
+// family of layouts: MIXED (ta xor tb: the backward's products, #4) or NN
+// (neither: the forward's h·w products, #3). `terms` (1 or 2) products
+// share one accumulator: term 0's k-steps, then term 1's. A transposed A
+// may carry one more row, row M of op(A) = `extra` (a K-vector; null:
+// ones), written to `C_extra` — a bias gradient (degᵀ·g, 1ᵀ·dP) rides on
+// the weight gradient's tiles for free. NN products may carry an epilogue
+// applied to each finished sum: + bias[c] (a column bias), or
+// + row_scale[r]·bias[c] (a row-scaled bias, one fma). With `splits` > 1
+// the k-steps are cut into that many contiguous ranges, each written as a
+// partial (splits, M(+1), N) into C; reduce items (of a later launch) sum
+// them in split order and apply the epilogue there — or the caller's own
+// kernel sums them.
 //
 // Precision: each operand element x is split into two TF32 values,
 // hi = cvt.rna.tf32(x), lo = cvt.rna.tf32(x - hi), and every k-step of 8
@@ -26,13 +32,14 @@
 // Tensor cores: wgmma.mma_async m64n128k8 (tf32), both operands from
 // shared memory. A CTA of two warpgroups computes 128 x 128 outputs, each
 // warpgroup 64 x 128 (64 f32 accumulators a thread), over k-steps of 32.
-// wgmma reads tf32 operands only K-major, and four of the six products
-// read A and B transposed, so both are staged through registers: each
-// thread loads 4 x 4 values of each operand for the k-step after next
-// while the tensor cores work (coalesced: along k where k is contiguous,
-// else along m or n), splits them and stores hi and lo as 16-byte pieces
-// of four K-major tiles in the 128-byte swizzle (chunk c of row r at
-// c ^ (r % 8)), which spreads every warp's stores over all banks.
+// wgmma reads tf32 operands only K-major, and four of the backward's six
+// products read A and B transposed (the forward's read B = w along n), so
+// both are staged through registers: each thread loads 4 x 4 values of
+// each operand for the k-step after next while the tensor cores work
+// (coalesced: along k where k is contiguous, else along m or n), splits
+// them and stores hi and lo as 16-byte pieces of four K-major tiles in the
+// 128-byte swizzle (chunk c of row r at c ^ (r % 8)), which spreads every
+// warp's stores over all banks.
 // Three stages of 64 KB: a stage is filled while the one before it
 // multiplies and the MMAs of the one before that finish (wgmma.wait_group
 // 1), so staging overlaps the tensor cores except at a fold (wait_group
@@ -62,12 +69,15 @@ constexpr int STAGE = 4 * TILE;      // A hi, A lo, B hi, B lo
 constexpr size_t SMEM_BYTES = (size_t)STAGES * STAGE + 1024;  // + alignment
 constexpr int MAX_PROBS = 6;
 constexpr int REDUCE_ELEMS = 65536;  // partial elements a reduce item sums
+enum Layout { MIXED = 0, NN = 1 };   // the products a kernel takes
 }  // namespace tc
 
 struct TcProb {
   const float* A[2];
   const float* B[2];
   const float* extra;  // ta && has_extra: row M of op(A); null: ones
+  const float* bias;       // NN epilogue (splits == 1): + bias[c], or
+  const float* row_scale;  // + row_scale[r]·bias[c]; null: none
   float* C;            // (M, N); splits > 1: (splits, M + has_extra, N)
   float* C_extra;      // (N,): row M (splits == 1)
   int M, N, K, lda, ldb;
@@ -80,7 +90,10 @@ struct TcReduce {      // C(+C_extra) = sum over s of part[s], s in order
   const float* part;   // (splits, M + 1, N) with C_extra, else (splits, M, N)
   float* C;
   float* C_extra;
+  const float* bias;       // the product's epilogue on C, as in TcProb
+  const float* row_scale;
   int M, N, splits, items;
+  int elems;           // partial elements an item sums
 };
 
 struct TcLaunch {
@@ -276,7 +289,15 @@ __device__ __forceinline__ void mma_stage(const unsigned char* st,
   fence_acc(d);
 }
 
-template <bool TA, bool TB>
+// A finished sum of output (r, c) through its product's epilogue.
+__device__ __forceinline__ float epilogue(const float* bias,
+                                          const float* row_scale, int r,
+                                          int c, float x) {
+  if (bias == nullptr) return x;
+  return row_scale != nullptr ? fmaf(row_scale[r], bias[c], x) : x + bias[c];
+}
+
+template <bool TA, bool TB, bool EPI>
 __device__ void tile(const TcProb& P, int item, unsigned char* smem) {
   const int per_split = P.tiles_m * P.tiles_n;
   const int split = item / per_split;
@@ -324,7 +345,8 @@ __device__ void tile(const TcProb& P, int item, unsigned char* smem) {
     if (P.splits > 1)
       P.C[((size_t)split * rows + r) * P.N + c] = x;
     else if (r < P.M)
-      P.C[(size_t)r * P.N + c] = x;
+      P.C[(size_t)r * P.N + c] = EPI ? epilogue(P.bias, P.row_scale, r, c, x)
+                                     : x;
     else
       P.C_extra[c] = x;
   };
@@ -342,20 +364,23 @@ __device__ void tile(const TcProb& P, int item, unsigned char* smem) {
 __device__ void reduce(const TcReduce& R, int item) {
   const size_t n = (size_t)(R.M + (R.C_extra != nullptr)) * R.N;
   const size_t mn = (size_t)R.M * R.N;
-  const size_t lo = (size_t)item * REDUCE_ELEMS;
-  const size_t hi = min(n, lo + REDUCE_ELEMS);
+  const size_t lo = (size_t)item * R.elems;
+  const size_t hi = min(n, lo + R.elems);
   for (size_t i = lo + threadIdx.x; i < hi; i += THREADS) {
     float v = R.part[i];
     for (int s = 1; s < R.splits; ++s) v += R.part[s * n + i];
-    if (i < mn)
+    if (i < mn) {
+      if (R.bias != nullptr)
+        v = epilogue(R.bias, R.row_scale, (int)(i / R.N), (int)(i % R.N), v);
       R.C[i] = v;
-    else
+    } else
       R.C_extra[i - mn] = v;
   }
 }
 
 }  // namespace tc
 
+template <int LAYOUT>
 __global__ void __launch_bounds__(tc::THREADS, 1)
 gemm_tc_kernel(const __grid_constant__ TcLaunch L) {
   extern __shared__ __align__(16) unsigned char tc_raw[];
@@ -372,10 +397,12 @@ gemm_tc_kernel(const __grid_constant__ TcLaunch L) {
   while (p + 1 < L.count && item >= L.item_end[p]) ++p;
   const TcProb& P = L.p[p];
   item -= p ? L.item_end[p - 1] : 0;
-  if (P.ta)
-    tc::tile<true, false>(P, item, smem);
+  if (LAYOUT == tc::NN)
+    tc::tile<false, false, true>(P, item, smem);
+  else if (P.ta)
+    tc::tile<true, false, false>(P, item, smem);
   else
-    tc::tile<false, true>(P, item, smem);
+    tc::tile<false, true, false>(P, item, smem);
 }
 
 // The widest copy (log2 floats: 2, 1 or 0) that a pointer, its row stride
@@ -409,8 +436,27 @@ static inline TcProb tc_prob(bool ta, bool tb, const float* A, const float* B,
   return p;
 }
 
-// Launch `L.count` products (each ta with !tb or !ta with tb) and `L.red`'s
-// reduce items; fills in tiles, item ranges and copy widths.
+// Reduce items summing `splits` partials of an M x N product (and its extra
+// row when C_extra is set), `elems` partial elements an item.
+static inline TcReduce tc_reduce(const float* part, float* C, float* C_extra,
+                                 int M, int N, int splits, int elems) {
+  TcReduce r{};
+  r.part = part;
+  r.C = C;
+  r.C_extra = C_extra;
+  r.M = M;
+  r.N = N;
+  r.splits = splits;
+  r.elems = elems;
+  r.items = (int)(((size_t)(M + (C_extra != nullptr)) * N + elems - 1) /
+                  elems);
+  return r;
+}
+
+// Launch `L.count` products of one LAYOUT (MIXED: each ta with !tb or !ta
+// with tb; NN: neither, with an epilogue) and `L.red`'s reduce items; fills
+// in tiles, item ranges and copy widths.
+template <int LAYOUT>
 static cudaError_t gemm_tc(TcLaunch& L, cudaStream_t s) {
   static bool attr_set[64] = {};
   int dev = 0;
@@ -418,14 +464,19 @@ static cudaError_t gemm_tc(TcLaunch& L, cudaStream_t s) {
   if (err != cudaSuccess) return err;
   if (dev >= 64) return cudaErrorInvalidDevice;
   if (!attr_set[dev]) {
-    err = allow_smem(gemm_tc_kernel, tc::SMEM_BYTES);
+    err = allow_smem(gemm_tc_kernel<LAYOUT>, tc::SMEM_BYTES);
     if (err != cudaSuccess) return err;
     attr_set[dev] = true;
   }
+  if (L.red.items > 0 && L.red.elems < 1) return cudaErrorInvalidValue;
   int items = 0;
   for (int i = 0; i < L.count; ++i) {
     TcProb& p = L.p[i];
-    if (p.ta == p.tb || (p.has_extra && !p.ta)) return cudaErrorInvalidValue;
+    const bool ok = LAYOUT == tc::NN
+                        ? !p.ta && !p.tb && !p.has_extra
+                        : p.ta != p.tb && (p.ta || !p.has_extra) &&
+                              p.bias == nullptr;
+    if (!ok) return cudaErrorInvalidValue;
     p.tiles_m = (p.M + p.has_extra + tc::BM - 1) / tc::BM;
     p.tiles_n = (p.N + tc::BN - 1) / tc::BN;
     p.lvec_a = p.lvec_b = 2;
@@ -437,14 +488,7 @@ static cudaError_t gemm_tc(TcLaunch& L, cudaStream_t s) {
     items += p.tiles_m * p.tiles_n * p.splits;
     L.item_end[i] = items;
   }
-  gemm_tc_kernel<<<L.red.items + items, tc::THREADS, tc::SMEM_BYTES, s>>>(L);
+  gemm_tc_kernel<LAYOUT>
+      <<<L.red.items + items, tc::THREADS, tc::SMEM_BYTES, s>>>(L);
   return cudaGetLastError();
-}
-
-// CTAs of gemm_tc_kernel that one SM holds at once (the plan assumes 1).
-extern "C" int gemm_tc_blocks_per_sm(int* out) {
-  cudaError_t err = allow_smem(gemm_tc_kernel, tc::SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      out, gemm_tc_kernel, tc::THREADS, tc::SMEM_BYTES);
 }

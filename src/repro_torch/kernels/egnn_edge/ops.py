@@ -32,7 +32,7 @@ import torch
 
 from .. import _build
 from . import gemm_plan
-from .budget import check_blocks, plan_blocks, plan_groups
+from .budget import check_blocks, plan_blocks
 from .ref import egnn_edge_agg_ref, egnn_edge_bwd_ref
 
 
@@ -73,9 +73,12 @@ def _check_cuda(what, h, tensors):
         raise ValueError(f"{what} grid: B={h.shape[0]} > 65535")
 
 
-def _launch_fwd(h, pos, sr, dr, w0, b0, w1, b1, cd, block_e, block_h):
-    """The forward kernel on routed int32 src/dst. Returns (out, Pi, Pj, S,
-    deg)."""
+def _launch_fwd(h, pos, sr, dr, w0, b0, w1, b1, cd, block_e, block_h, *,
+                splits=None):
+    """Kernel #3 (``csrc/egnn_edge.cu``) on routed int32 src/dst: three
+    launches a call, four when fc1 is split. Returns (out, Pi, Pj, S, deg).
+    ``splits``: (proj, fc1) k-ranges in place of ``gemm_plan.fwd_splits``'
+    (timing only: they change the bits)."""
     if cd != torch.float32:
         raise TypeError(f"egnn_edge CUDA kernel is float32 only, got "
                         f"compute dtype {cd}")
@@ -87,16 +90,22 @@ def _launch_fwd(h, pos, sr, dr, w0, b0, w1, b1, cd, block_e, block_h):
     E = sr.shape[1]
     h = h.contiguous()
     w0, b0, w1, b1 = (t.contiguous() for t in (w0, b0, w1, b1))
+    proj, fc1 = splits or gemm_plan.fwd_splits(B * A, H)
+    dev, f32 = h.device, torch.float32
     out = torch.empty_like(h)
     pi, pj, s = (torch.empty_like(h) for _ in range(3))
-    deg = torch.empty((B, A), dtype=torch.float32, device=h.device)
+    deg = torch.empty((B, A), dtype=f32, device=dev)
+    part = torch.empty((2, proj, B * A, H), dtype=f32, device=dev) \
+        if proj > 1 else None
+    out_part = torch.empty((fc1, B * A, H), dtype=f32, device=dev) \
+        if fc1 > 1 else None
     be = min(block_e, max(E, 1))
-    lib, fn = _lib("egnn_edge", "egnn_edge_fwd_launch", 13, 7)
+    lib, fn = _lib("egnn_edge", "egnn_edge_fwd_launch", 15, 8)
     code = fn(h.data_ptr(), pos.data_ptr(), sr.data_ptr(), dr.data_ptr(),
               w0.data_ptr(), b0.data_ptr(), w1.data_ptr(), b1.data_ptr(),
               out.data_ptr(), pi.data_ptr(), pj.data_ptr(), s.data_ptr(),
-              deg.data_ptr(), B, A, E, H, be, block_h,
-              plan_groups(A, be, block_h), _build.stream_ptr(h))
+              deg.data_ptr(), _ptr(part), _ptr(out_part), B, A, E, H, be,
+              block_h, proj, fc1, _build.stream_ptr(h))
     _build.check(lib, code, "egnn_edge_fwd_launch")
     egnn_edge_agg.launches += 1
     return out, pi, pj, s, deg
@@ -150,7 +159,7 @@ def egnn_edge_bwd(g, h, pos, src, dst, w0, w1, pi, pj, s, deg, *,
 
 def gemm_blocks_per_sm() -> int:
     """CTAs of the backward's GEMM kernel that one SM of the current card
-    holds at once (``gemm_plan.SLOTS`` assumes 2)."""
+    holds at once (``gemm_plan.SLOTS`` assumes 1)."""
     lib = _build.load("egnn_edge_bwd")
     out = ctypes.c_int(0)
     _build.check(lib, lib.gemm_tc_blocks_per_sm(ctypes.byref(out)),

@@ -164,10 +164,8 @@ def test_segment_sum_kernel_one_launch_per_call(cuda):
     assert segment_sum.launches == before + 1
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("B,A,E,H", [(2, 10, 40, 24), (3, 40, 1000, 96)])
-def test_egnn_edge_kernel_matches_plain(cuda, B, A, E, H):
-    rng = np.random.default_rng(1)
+def _fwd_case(cuda, B, A, E, H, seed=1):
+    rng = np.random.default_rng(seed)
     phi = mlp_init(rng, 2 * H + 1, H, H, 1, device=cuda)
     phi["fc0"]["b"] = torch.from_numpy(
         0.1 * rng.standard_normal(H, np.float32)).to(cuda)
@@ -176,6 +174,16 @@ def test_egnn_edge_kernel_matches_plain(cuda, B, A, E, H):
     h = torch.from_numpy(rng.standard_normal((B, A, H), np.float32)).to(cuda)
     pos = torch.from_numpy(rng.standard_normal((B, A, 3), np.float32)).to(cuda)
     src, dst, em = _edges(rng, B, E, A, cuda)
+    return h, pos, src, dst, em, phi
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,A,E,H", [(2, 10, 40, 24), (3, 40, 1000, 96),
+                                     (8, 64, 2048, 866),
+                                     (40, 64, 2048, 866),
+                                     (8, 16, 512, 866)])   # a serve bucket
+def test_egnn_edge_kernel_matches_plain(cuda, B, A, E, H):
+    h, pos, src, dst, em, phi = _fwd_case(cuda, B, A, E, H)
     before = egnn_edge_agg.launches
     got = egnn_edge_agg(h, pos, src, dst, em, phi)
     assert egnn_edge_agg.launches == before + 1
@@ -183,6 +191,80 @@ def test_egnn_edge_kernel_matches_plain(cuda, B, A, E, H):
     assert torch.equal(got, egnn_edge_agg(h, pos, src, dst, em, phi))
     with pytest.raises(TypeError, match="float32"):
         egnn_edge_agg(h.bfloat16(), pos, src, dst, em, phi)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,A,E,blocks", [
+    (8, 64, 2048, ((2048, 32), (2048, 128), (2048, 256), (300, 64),
+                   (64, 32))),
+    # a graph whose list crowds out a 256-column tile: unstaged tiles, and
+    # windows of 2000 edges beside staged ones
+    (2, 64, 16000, ((16000, 256), (2000, 256), (16000, 32)))])
+def test_egnn_edge_kernel_bits_independent_of_blocks(cuda, B, A, E, blocks):
+    """#3 sums S per node in edge order alone, so no output bit moves with
+    block_h (the column tile, staged or not) or block_e (windows of the
+    edge list, S and deg carried through global memory)."""
+    from repro_torch.kernels.egnn_edge import budget
+    H = 866
+    h, pos, src, dst, em, phi = _fwd_case(cuda, B, A, E, H)
+    base = egnn_edge_agg(h, pos, src, dst, em, phi)
+    _close(base, egnn_edge_agg_ref(h, pos, src, dst, em, phi), 1e-4)
+    staged = set()
+    for be, bh in blocks:
+        staged.add(bool(budget.smem_items(A, min(be, E), bh)["tiles"]))
+        got = egnn_edge_agg(h, pos, src, dst, em, phi, block_e=be,
+                            block_h=bh)
+        assert torch.equal(base, got), (be, bh)
+    if E > 2048:
+        assert staged == {True, False}
+
+
+@pytest.mark.gpu
+def test_egnn_edge_kernel_rows_independent_of_the_batch(cuda):
+    """A graph's rows are the same bits wherever it sits in a batch of one
+    shape (the products' plan depends on B·A and H, not on the rows)."""
+    h, pos, src, dst, em, phi = _fwd_case(cuda, 8, 64, 2048, 866)
+    out = egnn_edge_agg(h, pos, src, dst, em, phi)
+    roll = [torch.roll(x, 3, 0) for x in (h, pos, src, dst, em)]
+    assert torch.equal(torch.roll(out, 3, 0), egnn_edge_agg(*roll, phi))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [40, 8])
+def test_egnn_edge_kernels_a_call(cuda, B):
+    """#3 is at most four kernel launches a call (GEMMs, edge kernel, GEMM
+    and, when fc1 is split, its reduce), counted by torch.profiler on the
+    card over 4 calls; every kernel is one of its own (no FFMA GEMM, no
+    plain version)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.egnn_edge import gemm_plan
+    A, E, H = 64, 2048, 866
+    h, pos, src, dst, em, phi = _fwd_case(cuda, B, A, E, H)
+    sr = torch.where(em, src, A).to(torch.int32)
+    dr = torch.where(em, dst, A).to(torch.int32)
+    w = (phi["fc0"]["w"], phi["fc0"]["b"], phi["fc1"]["w"], phi["fc1"]["b"])
+    blocks = edge_ops._resolve_blocks(None, None, A, E, H)
+
+    def call():
+        return edge_ops._launch_fwd(h, pos, sr, dr, *w, torch.float32,
+                                    *blocks)
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(4):
+            call()
+        torch.cuda.synchronize()
+    counts = {ev.key.split("(")[0].split("<")[0].split()[-1]: ev.count
+              for ev in prof.key_averages()
+              if ev.device_type == DeviceType.CUDA and ev.count}
+    gemms = len(gemm_plan.fwd_launches(B, A, H))
+    assert gemms + 1 <= 4
+    want = {"gemm_tc_kernel": 4 * gemms, "egnn_edge_fwd_kernel": 4}
+    assert set(counts) == set(want), counts
+    assert all(counts[k] <= n for k, n in want.items())
 
 
 def _bwd_case(cuda, B, A, E, H, seed=2):

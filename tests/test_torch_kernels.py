@@ -252,33 +252,48 @@ def test_egnn_edge_plain_matches_repro_model_path():
 
 @pytest.mark.parametrize("H", [24, 256, 512, 866])
 def test_plan_blocks_never_over_budget(H):
+    """Every planned forward fits, launches (check_blocks passes) and stages
+    its Pi/Pj tiles wherever a 32-column tile would let them; one window
+    holds the graph's whole edge list wherever it fits."""
     for A in (8, 16, 64, 128, 512, 1024):
         for E in (1, 40, 256, 2048, 8192):
             be, bh = budget.plan_blocks(A, E, H)
-            assert budget.smem_bytes(A, min(be, E), bh) <= budget.SMEM_BUDGET
-            assert bh % 32 == 0 and be >= 1
+            be_e = min(be, E)
+            items = budget.smem_items(A, be_e, bh)
+            assert budget.smem_bytes(A, be_e, bh) <= budget.SMEM_BUDGET
+            assert bh % 32 == 0 and 32 <= bh <= budget.THREADS and be >= 1
             budget.check_blocks(A, E, H, be, bh)      # planned => valid
-            g = budget.plan_groups(A, min(be, E), bh)
-            assert 1 <= g <= 8 and g * bh <= budget.MAX_THREADS
-            assert budget.smem_bytes(A, min(be, E), bh, g) <= \
-                budget.SMEM_BUDGET
+            assert items["lists"] == 8 * be_e
+            assert items["nodes"] == 48 * A + 4
+            if budget.smem_items(A, be_e, 32)["tiles"]:
+                assert items["tiles"] == 8 * A * bh
+            if 8 * E + 48 * A + 4 <= budget.SMEM_BUDGET:
+                assert be >= E                        # one window
 
 
 def test_over_budget_overrides_raise():
+    # a window of 65536 listed edges (512 KB) cannot launch
     with pytest.raises(budget.SmemBudgetError):
-        budget.check_blocks(1024, 2048, 866, 2048, 512)
+        budget.check_blocks(1024, 65536, 866, 65536, 64)
+    budget.check_blocks(1024, 65536, 866, 2048, 64)   # windows of 2048 can
+    # 8192 nodes' counts alone exceed the budget: no override launches
     with pytest.raises(budget.SmemBudgetError):
-        edge_ops.egnn_edge_agg(torch.zeros(1, 1024, 866),
-                               torch.zeros(1, 1024, 3),
+        edge_ops.egnn_edge_agg(torch.zeros(1, 8192, 8),
+                               torch.zeros(1, 8192, 3),
                                torch.zeros(1, 64, dtype=torch.int32),
                                torch.zeros(1, 64, dtype=torch.int32),
                                torch.ones(1, 64, dtype=torch.bool),
-                               {}, block_e=64, block_h=512)
+                               {}, block_e=64, block_h=32)
     with pytest.raises(budget.SmemBudgetError, match="node-dimension"):
-        budget.plan_blocks(4096, 2048, 866)
+        budget.plan_blocks(8192, 2048, 866)
     with pytest.raises(ValueError, match="multiple of 32"):
         budget.check_blocks(64, 2048, 866, 64, 48)
     with pytest.raises(ValueError, match="multiple of 32"):
         budget.check_blocks(64, 2048, 866, 64, 1024)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        budget.check_blocks(64, 2048, 866, 64, 512)   # 8 warps: 256 columns
     items = budget.smem_items(64, 2048, 64)
-    assert items["acc"] == 4 * 64 * 64 and items["window"] == 12 * 2048
+    assert items == {"lists": 8 * 2048, "nodes": 48 * 64 + 4,
+                     "tiles": 8 * 64 * 64}
+    # tiles that do not fit beside the window are not staged (not counted)
+    assert budget.smem_items(1024, 2048, 64)["tiles"] == 0
