@@ -43,6 +43,24 @@ Phases, each printing one JSON line:
      on the same batch; two 3-step runs from one seed end with bitwise
      equal parameters; ``ServeSession.from_checkpoint`` serves requests
      from the written checkpoint;
+  4b. train_pipeline: the multi-source pre-training path at the same
+     width, over the same 5 sources. (a) MTL-All, ``mixing=1.0`` (loss
+     weights) and ``bucketing=3``, 10 steps: losses finite, 4 + 4 edge
+     kernel launches a step, the bucket shapes met and the pad fraction
+     before and after the trim, one bucketed batch's gradients within
+     ``GRAD_TOL`` of the plain path and its loss within ``GRAD_TOL`` of
+     the untrimmed batch's, two 3-step runs bitwise equal, one step's
+     device time and host-clock ms bucketed beside unbucketed, and #3 and
+     #4 against their plain versions per output at every bucket shape up
+     to (32, 128) at B=40; (b) Baseline-All (``gfm-baseline``, 40 graphs
+     a step from the mixture, bucketed): the same launches, replay
+     bitwise; (c) ``write_store`` of the sources under
+     ``build/chip_smoke/store``: 12 ``PrefetchingBatcher`` batches equal to
+     ``GroupBatcher``'s on the card, a 3-step session fed by it bitwise
+     equal to the in-memory session; (d) a resilient run hit by every
+     fault kind (``SOAK_FAULTS``), then ``resume()`` in a fresh session:
+     params, moments and step bitwise equal to a clean 12-step run; the
+     report's events and each checkpoint write's ms;
   5. lm kernels: flash attention (#5) and flash decode (#6) against their
      plain versions on the card, f32 and bf16, causal with and without a
      window, GQA, ragged lengths, rotated (rolling) positions with pads,
@@ -185,19 +203,24 @@ def device_profile(torch, fn, iters=20, warm=3) -> dict:
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    by_kernel, launches = {}, 0
-    for ev in prof.key_averages():
-        if ev.device_type == DeviceType.CUDA and ev.device_time_total:
-            name = (ev.key.split("(")[0].split("<")[0].split()
-                    or [ev.key])[-1]
-            by_kernel[name] = (by_kernel.get(name, 0.0)
-                               + ev.device_time_total / iters / 1e3)
-            launches += ev.count
+    # a trace with no device event at all is the profiler's drop, not the
+    # call's (its kernels ran in the warm-up): trace again, three at most
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        by_kernel, launches = {}, 0
+        for ev in prof.key_averages():
+            if ev.device_type == DeviceType.CUDA and ev.device_time_total:
+                name = (ev.key.split("(")[0].split("<")[0].split()
+                        or [ev.key])[-1]
+                by_kernel[name] = (by_kernel.get(name, 0.0)
+                                   + ev.device_time_total / iters / 1e3)
+                launches += ev.count
+        if launches:
+            break
     return {"ms": sum(by_kernel.values()), "by_kernel": by_kernel,
             "kernels_per_call": launches / iters}
 
@@ -869,6 +892,364 @@ def train_phase(torch, counters):
                               "loss_rel_err": loss_rel,
                               "tolerance": GRAD_TOL},
             "replay_bitwise": True, "served_from_ckpt": len(served)}
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: the multi-source pre-training path at full width
+# ---------------------------------------------------------------------------
+
+PIPE_STEPS = 10                     # steps of runs (a) and (b)
+SOAK_STEPS = 12                     # accepted steps of the soak (d)
+# the soak's faults, pinned to runner ticks (repro's soak covers the same
+# five kinds): a NaN rollback, a spike rollback, a producer kill, a failed
+# checkpoint write (retried) and a preemption. The guard is repro's soak's:
+# every trip rolls back (max_consecutive_trips=1), so the stream replays,
+# and spike_factor=50 keeps the data's own loss spikes (a step of 33 after
+# ~7 in phase train) from tripping a clean batch over and over
+SOAK_FAULTS = {5: "nan_grad", 8: "corrupt_batch", 10: "kill_producer",
+               11: "ckpt_write_fail", 14: "preempt"}
+
+
+def _pipe_session(torch, sources=None, steps=PIPE_STEPS, *, model="gfm-mtl",
+                  batch=8, batcher=None, **kw):
+    from repro_torch.configs.hydragnn_gfm import CONFIG
+    from repro_torch.engine import Session, SessionConfig
+    scfg = SessionConfig(model=model, arch=CONFIG.replace(
+        segment_sum_impl="fused"), steps=steps, batch_per_task=batch,
+        lr=1e-3, warmup=2, log_every=1, eval_every=10 ** 9, seed=0,
+        verbose=False, **kw)
+    return Session.from_config(scfg, sources=sources, batcher=batcher,
+                               device=DEVICE)
+
+
+def _counted_run(torch, sess, counters):
+    """Run a session with every launch count zeroed just before it; returns
+    (result, launches, wall seconds)."""
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    with sess:
+        result = sess.run()
+    torch.cuda.synchronize()
+    return result, {k: c.launches for k, c in counters.items()}, \
+        time.perf_counter() - t0
+
+
+def _check_run(name, result, launches, steps, per_step):
+    losses = [r["loss"] for r in result.logger.history]
+    if len(losses) != steps or not all(map(math.isfinite, losses)):
+        fail(f"train_pipeline {name}: losses {losses}")
+    want = {"egnn_edge": per_step * steps, "egnn_edge_bwd": per_step * steps,
+            "segment_sum": 0}
+    if launches != want:
+        fail(f"train_pipeline {name}: launch counts {launches}, the design "
+             f"implies {want}")
+    return losses
+
+
+def _replays(torch, make, name):
+    """Two 3-step runs from one seed must end with bitwise equal params."""
+    from repro_torch import interop
+    ends = []
+    for _ in range(2):
+        with make() as s:
+            ends.append(interop.leaves(s.run().params))
+    torch.cuda.synchronize()
+    if not all(torch.equal(ends[0][k], ends[1][k]) for k in ends[0]):
+        fail(f"train_pipeline {name}: two 3-step runs from one seed end "
+             "with different parameters")
+    return True
+
+
+def _state_equal(torch, a, b) -> bool:
+    """Params, both moments and both step counters, bit for bit."""
+    from repro_torch import interop
+    if (a.step, a.opt_state.step) != (b.step, b.opt_state.step):
+        return False
+    return all(torch.equal(interop.leaves(x)[k], v)
+               for x, y in ((a.params, b.params),
+                            (a.opt_state.m, b.opt_state.m),
+                            (a.opt_state.v, b.opt_state.v))
+               for k, v in interop.leaves(y).items())
+
+
+def _on_card(torch, batch):
+    import numpy as np
+    dev = torch.device(DEVICE)
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+            for k, v in batch.items()}
+
+
+def _grads_vs_plain(torch, params, batch, n_tasks, task_weights):
+    """One step's gradients, fused kernels against the plain path
+    (``"jnp"``, autograd), per leaf relative to its largest entry."""
+    from repro_torch import interop
+    from repro_torch.configs.hydragnn_gfm import CONFIG
+    from repro_torch.core.mtl import make_gfm_mtl
+    from repro_torch.engine import multitask_grad_fn
+    grads = {}
+    for impl in ("fused", "jnp"):
+        model = make_gfm_mtl(CONFIG.replace(segment_sum_impl=impl), n_tasks)
+        loss, _, g = multitask_grad_fn(model, n_tasks, task_weights)(
+            params, batch)
+        grads[impl] = (float(loss), interop.leaves(g))
+    worst_leaf, worst = None, 0.0
+    for k, ref in grads["jnp"][1].items():
+        got = grads["fused"][1][k]
+        rel = float((got - ref).abs().max()) / max(float(ref.abs().max()),
+                                                   1e-30)
+        if not rel <= GRAD_TOL:
+            fail(f"train_pipeline grad {k}: relative error {rel} > "
+                 f"{GRAD_TOL}")
+        if rel >= worst:
+            worst_leaf, worst = k, rel
+    loss_rel = abs(grads["fused"][0] - grads["jnp"][0]) / abs(grads["jnp"][0])
+    if not loss_rel <= GRAD_TOL:
+        fail(f"train_pipeline loss fused vs plain: relative error {loss_rel}")
+    return {"worst_leaf": worst_leaf, "rel_err": worst,
+            "loss_rel_err": loss_rel, "loss": grads["fused"][0],
+            "tolerance": GRAD_TOL}
+
+
+def _step_times(torch, step_fn, state, batch, iters=5):
+    """One training step on a placed batch: device time (``device_ms``) and
+    host-clock ms a step with the loss read back each step, as the
+    session's logging does."""
+    dev = device_ms(torch, lambda: step_fn(state, batch), iters=iters,
+                    warm=2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        float(step_fn(state, batch)[1].loss)
+    host = (time.perf_counter() - t0) / iters * 1e3
+    return {"device_ms": dev, "host_ms": host,
+            "shape": list(batch["edge_src"].shape)}
+
+
+def _edge_kernels_at(torch, g, dev, B, A, E, H=866):
+    """#3 and #4 through the autograd Function at a bucket shape against
+    their plain versions: the forward per output and scratch (out, Pi, Pj,
+    S, deg), the backward per gradient (pos needing none, as in training),
+    bits over two calls of each; device time of each call."""
+    from repro_torch.kernels.egnn_edge import (egnn_edge_agg,
+                                               egnn_edge_agg_ref, gemm_plan)
+    from repro_torch.kernels.egnn_edge.ref import egnn_edge_bwd_ref
+    h, pos, src, dst, em, phi = _edge_fwd_inputs(torch, g, dev, B, A, E, H)
+    got = egnn_edge_agg(h, pos, src, dst, em, phi)
+    if not torch.equal(got, egnn_edge_agg(h, pos, src, dst, em, phi)):
+        fail(f"egnn_edge at bucket {(B, A, E)}: two calls differ bitwise")
+    err, scale = scaled_err(torch, got, egnn_edge_agg_ref(h, pos, src, dst,
+                                                          em, phi))
+    if not err <= EDGE_TOL * scale:
+        fail(f"egnn_edge at bucket {(B, A, E)}: max_abs_err {err} > "
+             f"{EDGE_TOL}*{scale}")
+    call = _edge_fwd_call(torch, h, pos, src, dst, em, phi)
+    fwd_errs = _fwd_rel_errs(torch, call(), _edge_fwd_plain(
+        torch, h, pos, src, dst, em, phi))
+    for n, e in fwd_errs.items():
+        if not e <= EDGE_TOL:
+            fail(f"egnn_edge at bucket {(B, A, E)} {n}: relative error {e}")
+    fwd_ms = device_ms(torch, call)
+
+    leaves, edges, gup = _edge_bwd_inputs(torch, g, dev, B, A, E, H)
+    h, pos, w0, b0, w1, b1 = leaves
+    src, dst, em = edges
+    agg = egnn_edge_agg(h, pos.detach(), src, dst, em,
+                        {"fc0": {"w": w0, "b": b0}, "fc1": {"w": w1, "b": b1}})
+    wrt = [h, w0, b0, w1, b1]
+    bwd = [torch.autograd.grad(agg, wrt, gup, retain_graph=True)
+           for _ in range(2)]
+    if not all(torch.equal(a, b) for a, b in zip(*bwd)):
+        fail(f"egnn_edge_bwd at bucket {(B, A, E)}: two calls differ")
+    d = [x.detach() for x in leaves]
+    sr, dr = torch.where(em, src, A), torch.where(em, dst, A)
+    dh, _, dw0i, dw0j, dw0d, db0, dw1, db1 = egnn_edge_bwd_ref(
+        gup, d[0], d[1], sr, dr, d[2][:H], d[2][H:2 * H], d[2][2 * H:],
+        d[3][None], d[4])
+    want = [dh, torch.cat([dw0i, dw0j, dw0d]), db0[0], dw1, db1[0]]
+    bwd_errs = {}
+    for n, a, b in zip(("dh", "dw0", "db0", "dw1", "db1"), bwd[0], want):
+        e = float((a - b).abs().max()) / float(b.abs().max())
+        if not e <= BWD_TOL:
+            fail(f"egnn_edge_bwd at bucket {(B, A, E)} {n}: relative error "
+                 f"{e} > {BWD_TOL}")
+        bwd_errs[n] = e
+    bcall, _, _ = _edge_bwd_call(torch, leaves, edges, gup, False)
+    torch.cuda.synchronize()
+    n_valid = int(em.sum())
+    return {"shape": [B, A, E, H], "fwd_rel_err": fwd_errs,
+            "bwd_rel_err": bwd_errs, "fwd_ms": fwd_ms,
+            "bwd_ms": device_ms(torch, bcall),
+            "fwd_bound_ms": _edge_fwd_bound(B, A, E, H, n_valid)["bound_ms"],
+            "bwd_bound_ms": _edge_bwd_bounds(B, A, E, H, n_valid,
+                                             False)["bound_ms"],
+            "fwd_splits": list(gemm_plan.fwd_splits(B * A, H)),
+            "w1_splits": gemm_plan.w1_splits(B * A, H),
+            "valid_edges": n_valid}
+
+
+def _pad_fractions(batchers, n):
+    """Mean pad fraction (atoms, edges) of the next ``n`` batches of each
+    batcher."""
+    from repro_torch.data.bucketing import pad_fraction
+    out = []
+    for b in batchers:
+        fr = [pad_fraction(b.next_batch()) for _ in range(n)]
+        out.append({k: sum(f[k] for f in fr) / n for k in ("atoms", "edges")})
+    return out
+
+
+def train_pipeline_phase(torch, counters):
+    import shutil
+
+    from repro_torch.data.bucketing import BucketingBatcher
+    from repro_torch.data.loader import GroupBatcher
+    from repro_torch.data.store import (PrefetchingBatcher, ShardedSource,
+                                        write_store)
+    from repro_torch.resilience import (CheckpointPolicy, FaultSchedule,
+                                        GuardConfig, ResilienceConfig)
+    sources = _train_sources()
+    T = len(sources)
+    out = {"phase": "train_pipeline", "config": "hydragnn-gfm",
+           "impl": "fused", "tasks": T}
+
+    # (a) MTL-All, mixing as loss weights, bucketed
+    sess = _pipe_session(torch, sources, mixing=1.0, bucketing=3)
+    spec, task_weights = sess.batcher.spec, sess.task_weights
+    res_a, launches_a, wall_a = _counted_run(torch, sess, counters)
+    losses_a = _check_run("mtl_all", res_a, launches_a, PIPE_STEPS, 4)
+    shapes = sorted(sess.batcher.shapes_seen)
+    before, after = _pad_fractions(
+        [GroupBatcher(sources, 8, seed=0),
+         BucketingBatcher(GroupBatcher(sources, 8, seed=0), spec)],
+        PIPE_STEPS)
+    # one batch, bucketed and as stored
+    cut = _on_card(torch, BucketingBatcher(GroupBatcher(sources, 8, seed=1),
+                                           spec).next_batch())
+    full = GroupBatcher(sources, 8, seed=1).next_batch()
+    grads = _grads_vs_plain(torch, res_a.params, cut, T, task_weights)
+    untrimmed = _grads_vs_plain(torch, res_a.params, _on_card(torch, full), T,
+                                task_weights)["loss"]
+    trim_rel = abs(grads["loss"] - untrimmed) / abs(untrimmed)
+    if not trim_rel <= GRAD_TOL:
+        fail(f"train_pipeline: the bucketed batch's loss {grads['loss']} vs "
+             f"the untrimmed batch's {untrimmed}")
+    times = {"bucketed": _step_times(torch, sess.step_fn, res_a.state, cut),
+             "unbucketed": _step_times(torch, sess.step_fn, res_a.state,
+                                       _on_card(torch, full))}
+    out["mtl_all"] = {
+        "steps": PIPE_STEPS, "batch_per_task": 8, "mixing": 1.0,
+        "task_weights": list(task_weights), "bucketing": 3,
+        "spec": [list(spec.atom_buckets), list(spec.edge_buckets)],
+        "losses": losses_a, "launches": launches_a, "wall_s": wall_a,
+        "shapes_seen": [list(s) for s in shapes],
+        "pad_fraction_before": before, "pad_fraction_after": after,
+        "grad_vs_plain": grads, "trim_loss_rel_err": trim_rel,
+        "step": times,
+        "replay_bitwise": _replays(torch, lambda: _pipe_session(
+            torch, sources, 3, mixing=1.0, bucketing=3), "mtl_all")}
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(1)
+    # every bucket shape of the grid up to (32, 128), one after another at
+    # B=40, the run's own shapes among them
+    small = {(a, e) for a in spec.atom_buckets for e in spec.edge_buckets
+             if a <= 32 and e <= 128}
+    out["kernels_at_buckets"] = [
+        _edge_kernels_at(torch, g, torch.device(DEVICE), 8 * T, a, e)
+        for a, e in sorted(small | set(shapes))]
+    del sess, res_a, cut
+
+    # (b) Baseline-All: one branch, 40 graphs a step from the mixture
+    sess = _pipe_session(torch, sources, model="gfm-baseline", batch=8 * T,
+                         mixing=1.0, bucketing=3)
+    res_b, launches_b, wall_b = _counted_run(torch, sess, counters)
+    out["baseline_all"] = {
+        "steps": PIPE_STEPS, "batch": 8 * T, "mixing": 1.0,
+        "losses": _check_run("baseline_all", res_b, launches_b, PIPE_STEPS,
+                             4),
+        "launches": launches_b, "wall_s": wall_b,
+        "shapes_seen": sorted(list(s) for s in sess.batcher.shapes_seen),
+        "replay_bitwise": _replays(torch, lambda: _pipe_session(
+            torch, sources, 3, model="gfm-baseline", batch=8 * T,
+            mixing=1.0, bucketing=3), "baseline_all")}
+    del sess, res_b
+
+    # (c) the sharded store under build/ (which .gitignore covers)
+    store = ROOT / "build" / "chip_smoke" / "store"
+    shutil.rmtree(store, ignore_errors=True)
+    for i, s in enumerate(sources):
+        write_store(str(store / f"s{i}"), s, shard_size=8)
+    readers = [ShardedSource(str(store / f"s{i}")) for i in range(T)]
+    ref = GroupBatcher(sources, 8, seed=0)
+    with PrefetchingBatcher(readers, 8, seed=0, depth=2,
+                            device=DEVICE) as pb:
+        for i in range(12):
+            got, want = pb.next_batch(), _on_card(torch, ref.next_batch())
+            if sorted(got) != sorted(want) or not all(
+                    got[k].device == want[k].device
+                    and torch.equal(got[k], want[k])
+                    for k in want):
+                fail(f"train_pipeline store: batch {i} differs from the "
+                     "in-memory GroupBatcher's")
+    with _pipe_session(torch, sources, 3, bucketing=3) as mem:
+        want = mem.run().state
+    with PrefetchingBatcher([ShardedSource(str(store / f"s{i}"))
+                             for i in range(T)], 8, seed=0, depth=2,
+                            device=DEVICE) as pb, \
+            _pipe_session(torch, steps=3, batcher=pb, bucketing=3) as st:
+        got = st.run().state
+    if not _state_equal(torch, got, want):
+        fail("train_pipeline store: a session fed by the store ends "
+             "differently from the in-memory session")
+    out["store"] = {"batches_equal": 12, "session_bitwise": True,
+                    "fetches": sum(r.fetches for r in readers)}
+
+    # (d) the soak: every fault class, a preemption, resume(), then bitwise
+    # against a clean run of the same steps
+    soak = ROOT / "build" / "chip_smoke" / "soak"
+    shutil.rmtree(soak, ignore_errors=True)
+
+    def res(faults=None):
+        return ResilienceConfig(
+            ckpt_dir=str(soak), faults=faults, retry_base_delay=0.0,
+            guard=GuardConfig(warmup_steps=2, spike_factor=50.0,
+                              max_consecutive_trips=1),
+            policy=CheckpointPolicy(every_steps=4, keep_last=2),
+            max_ticks=4 * SOAK_STEPS)
+    with _pipe_session(torch, sources, SOAK_STEPS, mixing=1.0, bucketing=3,
+                       resilience=res(FaultSchedule.from_dict(SOAK_FAULTS))
+                       ) as s:
+        faulted = s.run()
+    rep = faulted.resilience
+    with _pipe_session(torch, sources, SOAK_STEPS, mixing=1.0, bucketing=3,
+                       resilience=res()) as s:
+        resumed_at = s.resume()
+        resumed = s.run()
+    with _pipe_session(torch, sources, SOAK_STEPS, mixing=1.0,
+                       bucketing=3) as s:
+        clean = s.run()
+    kinds = {e["kind"] for e in rep["events"]}
+    if not (faulted.preempted and rep["faults_fired"] == len(SOAK_FAULTS)
+            and rep["rollbacks"] >= 2 and rep["io_retries"] >= 1
+            and {"rollback", "pipeline_recovery", "preempt_flush"} <= kinds):
+        fail(f"train_pipeline soak: the faults did not all take effect: "
+             f"{rep}")
+    if not _state_equal(torch, resumed.state, clean.state):
+        fail("train_pipeline soak: the faulted run does not end bitwise "
+             "equal to the clean run")
+    out["soak"] = {"steps": SOAK_STEPS, "faults": SOAK_FAULTS,
+                   "events": rep["events"], "trips": rep["trips"],
+                   "rollbacks": rep["rollbacks"],
+                   "pipeline_recoveries": rep["pipeline_recoveries"],
+                   "io_retries": rep["io_retries"],
+                   "save_ms": rep["save_ms"] + resumed.resilience["save_ms"],
+                   "resumed_at": resumed_at,
+                   "final_step": resumed.state.step,
+                   "bitwise_vs_clean": True}
+    shutil.rmtree(soak, ignore_errors=True)
+    out["launches"] = {k: launches_a[k] + launches_b[k] for k in launches_a}
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1841,23 +2222,30 @@ def main():
         emit(profile_phase(torch))
     serve = serve_phase(torch, N_REQUESTS)
     emit(serve)
-    train = train_phase(torch, {"egnn_edge": edge_ops.egnn_edge_agg,
-                                "egnn_edge_bwd": edge_ops.egnn_edge_bwd,
-                                "segment_sum": ss_ops.segment_sum})
+    gnn_counters = {"egnn_edge": edge_ops.egnn_edge_agg,
+                    "egnn_edge_bwd": edge_ops.egnn_edge_bwd,
+                    "segment_sum": ss_ops.segment_sum}
+    train = train_phase(torch, gnn_counters)
     emit(train)
+    pipe = train_pipeline_phase(torch, gnn_counters)
+    emit(pipe)
     lm = lm_serve_phase(torch, {"flash_attention": fa_ops.flash_attention,
                                 "flash_decode": fd_ops.flash_decode})
     emit(lm)
     if args.profile:
         emit(lm_profile(torch))
     # each path's counts, zeroed just before it: serving (fused and pallas
-    # passes), training, and LM serving (runs (a) and (b))
+    # passes), training, the pre-training pipeline (runs (a) and (b)), and
+    # LM serving (runs (a) and (b))
     lm_runs = (lm["run_a"]["launches"], lm["run_b"]["launches"])
     by_path = {
         "segment_sum": {"serve": serve["pallas"]["launches"]["segment_sum"]},
         "egnn_edge_fused": {"serve": serve["fused"]["launches"]["egnn_edge"],
-                            "train": train["launches"]["egnn_edge"]},
-        "egnn_edge_fused_bwd": {"train": train["launches"]["egnn_edge_bwd"]},
+                            "train": train["launches"]["egnn_edge"],
+                            "train_pipeline": pipe["launches"]["egnn_edge"]},
+        "egnn_edge_fused_bwd": {
+            "train": train["launches"]["egnn_edge_bwd"],
+            "train_pipeline": pipe["launches"]["egnn_edge_bwd"]},
         "flash_attention": {"lm_serve": sum(r["flash_attention"]
                                             for r in lm_runs)},
         "flash_decode": {"lm_serve": sum(r["flash_decode"]

@@ -16,7 +16,9 @@ batch; ``Prefetcher.state()`` returns the snapshot of the last batch the
 CONSUMER received, never crediting read-ahead, and ``restore(state)`` halts
 the producer, discards its read-ahead, rewinds the batcher and restarts.
 Hold ONE Prefetcher for the batcher's lifetime: ``close()`` discards the
-batches already drawn.
+batches already drawn. ``inject_producer_fault`` makes the producer die
+before its next draw (the fault-injection hook of ``repro_torch.resilience``);
+``restore(state())`` then restarts it and the stream goes on unchanged.
 """
 from __future__ import annotations
 
@@ -42,11 +44,21 @@ class DevicePlacer:
         self.stream = torch.cuda.Stream(self.device) if self.cuda else None
 
     def __call__(self, batch: dict):
+        """Leaves already placed (tensors on ``device``, e.g. from a
+        ``PrefetchingBatcher``) pass through as they are."""
         if not self.cuda:
-            return {k: torch.from_numpy(np.asarray(v)).to(self.device)
+            return {k: v.to(self.device) if isinstance(v, torch.Tensor)
+                    else torch.from_numpy(np.asarray(v)).to(self.device)
                     for k, v in batch.items()}, None
+        if any(isinstance(v, torch.Tensor) for v in batch.values()):
+            # placed leaves were made on this thread's current stream (a
+            # PrefetchingBatcher's ready(), a BucketingBatcher's trim): the
+            # side stream's event must cover them too
+            self.stream.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(self.stream):
-            out = {k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory()
+            out = {k: v.to(self.device, non_blocking=True)
+                   if isinstance(v, torch.Tensor) else
+                   torch.from_numpy(np.ascontiguousarray(v)).pin_memory()
                    .to(self.device, non_blocking=True)
                    for k, v in batch.items()}
             done = torch.cuda.Event()
@@ -94,6 +106,7 @@ class Prefetcher:
             self._consumed_state = None
             self._trackable = False
         self._err: BaseException | None = None
+        self._fault: BaseException | None = None
         self._closed = False
         self._start()
 
@@ -117,6 +130,9 @@ class Prefetcher:
     def _produce(self):
         try:
             while not self._stop.is_set():
+                if self._fault is not None:
+                    exc, self._fault = self._fault, None
+                    raise exc
                 b = self.batcher.next_batch()
                 # snapshot after the draw, before placement: restoring to
                 # it replays the stream from the NEXT batch
@@ -125,8 +141,23 @@ class Prefetcher:
                     b = self.transform(b)
                 self._put((b, st))
         except BaseException as e:  # propagate to the consumer
+            if isinstance(e, StopIteration):
+                # re-raised bare from __next__ it would silently end a
+                # for-loop over the Prefetcher: wrap it
+                wrapped = RuntimeError(
+                    "prefetch producer raised StopIteration "
+                    "(exhausted/broken source?)")
+                wrapped.__cause__ = e
+                e = wrapped
             self._err = e
             self._put((self._DONE, None))
+
+    def inject_producer_fault(self, exc: BaseException):
+        """The producer raises ``exc`` before its next draw, as if it had
+        crashed: the consumer sees it from ``next_batch()`` once the
+        batches already queued are drained, and ``restore(state())``
+        recovers the stream in place."""
+        self._fault = exc
 
     def next_batch(self):
         if self._err is not None and self._q.empty():
@@ -144,6 +175,13 @@ class Prefetcher:
         if st is not None:
             self._consumed_state = st
         return item
+
+    # iterator protocol, so a Prefetcher drops into train_loop(batches=...)
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        return self.next_batch()
 
     # -- checkpointing ------------------------------------------------------
 

@@ -14,7 +14,8 @@ EGNN edge kernels (forward and backward) on the card.
 """
 from .registry import build_model, register_model  # noqa: F401
 from .session import Session, SessionConfig, SessionResult  # noqa: F401
-from .state import StepOutput, TrainState  # noqa: F401
-from .step import (TrainStep, make_step, make_train_step,  # noqa: F401
+from .state import GuardState, StepOutput, TrainState  # noqa: F401
+from .step import (TrainStep, make_guarded_step,  # noqa: F401
+                   make_guarded_train_step, make_step, make_train_step,
                    multitask_grad_fn, normalized_task_weights,
                    with_grad_accum)

@@ -2,27 +2,35 @@
 device).
 
 ``Session.from_config(cfg, sources=...).run()`` composes the model registry,
-``GroupBatcher`` feeding through a ``Prefetcher`` whose producer thread
-places batches on the device (pinned memory, a side stream), AdamW with its
-schedule, gradient accumulation, ``EarlyStopping``, ``MetricLogger``, eval
-and checkpointing with the datapipe sidecar — then runs the train loop and
-returns a ``SessionResult``.
+the batcher (``GroupBatcher`` one source a head; a task-major
+``MixingBatcher`` for one branch over several sources, the paper's
+GFM-Baseline-All; a ``BucketingBatcher`` around either), a ``Prefetcher``
+whose producer thread places batches on the device (pinned memory, a side
+stream), AdamW with its schedule, gradient accumulation,
+``EarlyStopping``, ``MetricLogger``, eval and checkpointing with the
+datapipe sidecar — then runs the train loop and returns a
+``SessionResult``. With ``cfg.resilience`` set, ``run()`` is the resilient
+runner (``repro_torch.resilience``): guarded steps, full-state
+checkpoints, rollback, quarantine and fault injection.
 
-The knobs of later slices — ``mixing``, ``bucketing``, ``placement``,
-``resilience`` and a mesh — raise ``NotImplementedError``; ``repro``'s
-``mode``, ``backend`` and ``donate`` (sharding and jit buffer donation)
-have no counterpart on one eager device.
-``device=None`` means ``cuda`` and raises without a GPU; the CPU must be
-asked for (``device="cpu"``).
+The knobs of later slices — ``placement`` and a mesh — raise
+``NotImplementedError``; ``repro``'s ``mode``, ``backend`` and ``donate``
+(sharding and jit buffer donation) have no counterpart on one eager
+device. ``device=None`` means ``cuda`` and raises without a GPU; the CPU
+must be asked for (``device="cpu"``).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Callable
 
+import numpy as np
+
 from repro_torch import resolve_device
 from repro_torch.core.taskpar import MultiTaskModel
-from repro_torch.data.loader import GroupBatcher
+from repro_torch.data.bucketing import BucketingBatcher, BucketSpec
+from repro_torch.data.loader import GroupBatcher, _source_len
+from repro_torch.data.mixing import MixingBatcher, MixingConfig
 from repro_torch.data.prefetch import DevicePlacer, Prefetcher
 from repro_torch.interop import leaves
 from repro_torch.optim import adamw, warmup_cosine
@@ -30,8 +38,8 @@ from repro_torch.train import checkpoint
 from repro_torch.train.loop import EarlyStopping, MetricLogger, train_loop
 
 from .registry import build_model
-from .state import TrainState
-from .step import make_step
+from .state import GuardState, TrainState, prng_key
+from .step import make_guarded_step, make_step
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,10 +63,21 @@ class SessionConfig:
     # input pipeline: assemble + place batches on a background thread
     prefetch: bool = True
     prefetch_depth: int = 2
-    # later slices (must stay None here)
+    # multi-source mixing (data.mixing): None = one source a head. A
+    # MixingConfig, a float (MixingConfig(temperature=...)) or a tuple of
+    # per-source weights. A one-branch model over several sources draws
+    # its batches from the mixture (task-major MixingBatcher); a
+    # multi-task model turns the weights into per-task LOSS weights
+    # (unless task_weights is set)
     mixing: Any = None
+    # size-bucketed batching (data.bucketing): None = one global pad
+    # shape. A BucketSpec, or an int n (plan an n x n grid from the
+    # session's sources); batches are re-padded to their bucket
     bucketing: Any = None
+    # a later slice (must stay None here)
     placement: Any = None
+    # fault tolerance (repro_torch.resilience): a ResilienceConfig makes
+    # run() the resilient runner
     resilience: Any = None
     # misc
     seed: int = 0
@@ -70,10 +89,49 @@ class SessionConfig:
         return dataclasses.replace(self, **kw)
 
 
-_LATER = {"mixing": "multi-source mixing (data.mixing)",
-          "bucketing": "size-bucketed batching (data.bucketing)",
-          "placement": "hierarchical head placement (engine.hier)",
-          "resilience": "fault tolerance (repro.resilience)"}
+def _as_mixing(mixing) -> MixingConfig | None:
+    """SessionConfig.mixing shorthands -> MixingConfig."""
+    if mixing is None or isinstance(mixing, MixingConfig):
+        return mixing
+    if isinstance(mixing, bool):   # bool IS int — reject the likely typo
+        raise TypeError("cfg.mixing=True/False is ambiguous — pass a "
+                        "MixingConfig, a float temperature, or None")
+    if isinstance(mixing, (int, float)):
+        return MixingConfig(temperature=float(mixing))
+    if isinstance(mixing, (tuple, list)):
+        return MixingConfig(weights=tuple(mixing))
+    raise TypeError(f"cfg.mixing: expected MixingConfig | float temperature "
+                    f"| weight tuple | None, got {type(mixing).__name__}")
+
+
+def _as_bucket_spec(bucketing, sources, batcher) -> BucketSpec:
+    """SessionConfig.bucketing shorthands -> BucketSpec (an int plans an
+    n x n grid from the session's sources)."""
+    if isinstance(bucketing, BucketSpec):
+        return bucketing
+    if isinstance(bucketing, bool):   # bool IS int — reject the likely typo
+        raise TypeError("cfg.bucketing=True/False is ambiguous — pass a "
+                        "BucketSpec, an int grid size, or None")
+    if isinstance(bucketing, int):
+        srcs = sources if sources is not None \
+            else getattr(batcher, "sources", None)
+        if srcs is None:
+            raise ValueError("cfg.bucketing=<int> needs sources to plan the "
+                             "grid from; pass an explicit BucketSpec")
+        return BucketSpec.from_sources(srcs, n_atom_buckets=bucketing,
+                                       n_edge_buckets=bucketing)
+    raise TypeError(f"cfg.bucketing: expected BucketSpec | int | None, "
+                    f"got {type(bucketing).__name__}")
+
+
+def _tasks_of(batcher) -> int:
+    """Task rows a batcher's batches carry: a ``GroupBatcher``'s source
+    count, looked for through wrappers (bucketing, prefetch); 1 otherwise
+    (a task-major ``MixingBatcher``)."""
+    b = batcher
+    while not isinstance(b, GroupBatcher) and hasattr(b, "batcher"):
+        b = b.batcher
+    return len(b.sources) if isinstance(b, GroupBatcher) else 1
 
 
 @dataclasses.dataclass
@@ -83,6 +141,11 @@ class SessionResult:
     final_loss: float
     last_metrics: dict
     stopped_early: bool
+    # resilient runs only: the run exited on a (real or simulated)
+    # preemption after flushing a resumable checkpoint
+    preempted: bool = False
+    # resilient runs only: the runner's trip/rollback/recovery report
+    resilience: dict | None = None
 
     @property
     def params(self):
@@ -92,21 +155,24 @@ class SessionResult:
 class Session:
     """One declarative training session; see module docstring.
 
-    sources: list of per-task sample dicts (numpy arrays, task t feeds head
-    t). eval_fn(params) -> dict of scalar metrics, merged into logged rows
-    (put cfg.val_metric in it to early-stop on validation, paper §5.1)."""
+    sources: list of per-task sample dicts (numpy arrays; task t feeds head
+    t) or gather-style readers (``data.store.ShardedSource``). batcher: a
+    ready batcher in place of sources (e.g. a ``PrefetchingBatcher``; its
+    batches may already be on the device). eval_fn(params) -> dict of
+    scalar metrics, merged into logged rows (put cfg.val_metric in it to
+    early-stop on validation, paper §5.1)."""
 
-    def __init__(self, cfg: SessionConfig, *, sources, mesh=None,
-                 eval_fn: Callable | None = None,
+    def __init__(self, cfg: SessionConfig, *, sources=None, batcher=None,
+                 mesh=None, eval_fn: Callable | None = None,
                  task_names: list[str] | None = None,
                  model_kwargs: dict | None = None, device=None):
         if cfg.steps < 1:
             raise ValueError(f"SessionConfig.steps must be >= 1, got "
                              f"{cfg.steps}")
-        for knob, what in _LATER.items():
-            if getattr(cfg, knob) is not None:
-                raise NotImplementedError(
-                    f"cfg.{knob}: {what} is not ported yet")
+        if cfg.placement is not None:
+            raise NotImplementedError(
+                "cfg.placement: hierarchical head placement (engine.hier) "
+                "is not ported yet")
         if mesh is not None:
             raise NotImplementedError(
                 "the port trains on one device: mesh= is not ported yet")
@@ -114,42 +180,99 @@ class Session:
         self.eval_fn = eval_fn
         self.device = resolve_device(device)
 
-        if not isinstance(sources, (list, tuple)):
-            raise TypeError("Session takes a list of per-task sources")
-        n_tasks = len(sources)
+        if batcher is not None:
+            n_tasks = _tasks_of(batcher)
+        else:
+            if sources is None:
+                raise ValueError("Session needs sources or a batcher")
+            if not isinstance(sources, (list, tuple)):
+                raise TypeError("Session takes a list of per-task sources")
+            n_tasks = len(sources)
         self.model = build_model(cfg.model, cfg.arch, n_tasks=n_tasks,
                                  **(model_kwargs or {}))
         if not isinstance(self.model, MultiTaskModel):
             raise NotImplementedError("single-task (LM) models are not "
                                       "ported yet")
-        heads = self.model.n_tasks or n_tasks
-        if heads != n_tasks:
-            raise NotImplementedError(
-                f"model '{cfg.model}' has {heads} branch(es) but got "
-                f"{n_tasks} sources; training one branch on a mixture "
-                "needs cfg.mixing, which is not ported yet")
-        self.batcher = GroupBatcher(list(sources), cfg.batch_per_task,
-                                    seed=cfg.seed)
+        mixing = _as_mixing(cfg.mixing)
+        task_weights = cfg.task_weights
+        if batcher is None:
+            heads = self.model.n_tasks or n_tasks
+            if heads == 1 and len(sources) > 1:
+                # one branch over several sources (GFM-Baseline-All): one
+                # task row drawn from the weighted MIXTURE of all sources
+                if mixing is None:
+                    raise ValueError(
+                        f"model '{cfg.model}' has one branch but got "
+                        f"{len(sources)} sources — set cfg.mixing to train "
+                        "it on the mixture, or pool the sources yourself")
+                batcher = MixingBatcher(list(sources), cfg.batch_per_task,
+                                        mixing=mixing, seed=cfg.seed,
+                                        task_major=True)
+                n_tasks = 1
+            else:
+                if heads != len(sources):
+                    raise ValueError(
+                        f"model '{cfg.model}' has {heads} branches but got "
+                        f"{len(sources)} sources")
+                batcher = GroupBatcher(list(sources), cfg.batch_per_task,
+                                       seed=cfg.seed)
+                if mixing is not None and task_weights is None:
+                    # every head sees ITS source every step, so the batch
+                    # composition is fixed: the mixing weights become
+                    # per-task LOSS weights
+                    sizes = [_source_len(s) for s in sources]
+                    task_weights = tuple(float(w)
+                                         for w in mixing.resolve(sizes))
+        if cfg.bucketing is not None:
+            batcher = BucketingBatcher(
+                batcher, _as_bucket_spec(cfg.bucketing, sources, batcher))
+        self.batcher = batcher
         self.task_names = task_names or [f"task{t}" for t in range(n_tasks)]
         if len(self.task_names) != n_tasks:
             raise ValueError(f"{len(self.task_names)} task_names for "
                              f"{n_tasks} tasks")
-        self.task_weights = cfg.task_weights
+        self.task_weights = task_weights
         lr = warmup_cosine(cfg.lr, cfg.warmup, cfg.steps) if cfg.warmup \
             else cfg.lr
         self.optimizer = adamw(lr, weight_decay=cfg.weight_decay,
                                grad_clip=cfg.grad_clip)
-        self.step_fn = make_step(self.model, self.optimizer,
-                                 accum=cfg.accum,
-                                 task_weights=self.task_weights)
+        # quarantine bookkeeping (repro_torch.resilience): loss-weight-
+        # quarantined task indices and sampling-quarantined source indices
+        # (MixingBatcher sessions)
+        self._quarantined: set[int] = set()
+        self._quarantined_sources: set[int] = set()
+        self._rebuild_step()
         params = self.model.init(cfg.seed, self.device)
-        self.state = TrainState.create(params, self.optimizer)
+        guard0 = GuardState.init() if self._guard_cfg() is not None \
+            else None
+        self.state = TrainState.create(params, self.optimizer,
+                                       rng=prng_key(cfg.seed + 1),
+                                       guard=guard0)
         self._placer = DevicePlacer(self.device)
         # ONE prefetcher for the session's lifetime (created on first run):
         # closing it between runs would discard already-drawn batches
         self._prefetcher = None
         # consumed-position snapshot taken when the prefetcher is closed
         self._dp_snapshot = None
+
+    def _guard_cfg(self):
+        res = self.cfg.resilience
+        return getattr(res, "guard", None) if res is not None else None
+
+    def _rebuild_step(self):
+        """(Re)build the train step from the model, optimizer and task
+        weights: guarded when the session's ResilienceConfig carries a
+        GuardConfig. Called at construction and when quarantine changes
+        the task weights."""
+        gcfg = self._guard_cfg()
+        if gcfg is not None:
+            self.step_fn = make_guarded_step(
+                self.model, self.optimizer, guard=gcfg,
+                accum=self.cfg.accum, task_weights=self.task_weights)
+        else:
+            self.step_fn = make_step(self.model, self.optimizer,
+                                     accum=self.cfg.accum,
+                                     task_weights=self.task_weights)
 
     @classmethod
     def from_config(cls, cfg: SessionConfig, **kw) -> "Session":
@@ -209,6 +332,77 @@ class Session:
             self.batcher.restore(state)
         self._dp_snapshot = None
 
+    # -- fault tolerance (repro_torch.resilience) ---------------------------
+
+    def _inner_batcher(self):
+        b = self.batcher
+        return b.batcher if isinstance(b, BucketingBatcher) else b
+
+    def quarantine_tasks(self, tasks):
+        """Quarantine fidelity sources so they stop influencing the params.
+
+        Multi-head sessions zero the per-task LOSS weight and rebuild the
+        step (the resilient runner also sanitizes the quarantined batch
+        slices: 0 * nan == nan in the backward pass). MixingBatcher
+        sessions zero the source's SAMPLING weight instead. Idempotent;
+        refuses to quarantine every source."""
+        tasks = sorted({int(t) for t in tasks})
+        if not tasks:
+            return
+        inner = self._inner_batcher()
+        if isinstance(inner, MixingBatcher):
+            w = np.asarray(inner.weights, np.float64).copy()
+            for t in tasks:
+                if not 0 <= t < w.size:
+                    raise ValueError(f"source {t} out of range")
+                w[t] = 0.0
+            inner.set_weights(w)   # refuses to zero every source
+            self._quarantined_sources |= set(tasks)
+            return
+        n = len(self.task_names)
+        w = np.ones(n, np.float64) if self.task_weights is None else \
+            np.asarray(self.task_weights, np.float64).copy()
+        for t in tasks:
+            if not 0 <= t < n:
+                raise ValueError(f"task {t} out of range for {n} tasks")
+            w[t] = 0.0
+        if not w.sum() > 0:
+            raise ValueError("cannot quarantine every task")
+        self.task_weights = tuple(float(x) for x in w)
+        self._quarantined |= set(tasks)
+        self._rebuild_step()
+
+    def _reapply_quarantine(self):
+        """A rollback restores a datapipe snapshot that may predate a
+        sampling quarantine, which would resurrect the source's weight:
+        re-zero it. The loss-weight path lives in the step and survives a
+        rollback."""
+        if not self._quarantined_sources:
+            return
+        inner = self._inner_batcher()
+        w = np.asarray(inner.weights, np.float64).copy()
+        w[sorted(self._quarantined_sources)] = 0.0
+        inner.set_weights(w)
+
+    def resume(self, ckpt_dir: str | None = None) -> int:
+        """Rewind this session to the latest checkpoint a resilient run
+        wrote (the full TrainState: params, moments, step, rng, guard; and
+        the datapipe position); the next ``run()`` continues from there to
+        ``cfg.steps``. Returns the resumed step."""
+        from repro_torch.resilience.policy import CheckpointManager
+        d = ckpt_dir if ckpt_dir is not None else \
+            getattr(self.cfg.resilience, "ckpt_dir", None)
+        if not d:
+            raise ValueError("resume() needs cfg.resilience.ckpt_dir or an "
+                             "explicit directory")
+        mgr = CheckpointManager(d, getattr(self.cfg.resilience, "policy",
+                                           None))
+        path, state = mgr.load_latest(template=self.state)
+        self.state = state
+        if checkpoint.has_datapipe(path):
+            self.restore_datapipe(path)
+        return int(state.step)
+
     # -- the loop -----------------------------------------------------------
 
     def _metric_fn(self, out) -> dict:
@@ -232,6 +426,9 @@ class Session:
         return lambda: place.ready(place(self.batcher.next_batch()))
 
     def run(self) -> SessionResult:
+        if self.cfg.resilience is not None:
+            from repro_torch.resilience.runner import run_resilient
+            return run_resilient(self)
         cfg = self.cfg
         early = EarlyStopping(patience=cfg.patience,
                               min_delta=cfg.min_delta) \

@@ -5,7 +5,10 @@
     grad_fn = with_grad_accum(grad_fn, accum)
     step    = make_train_step(grad_fn, optimizer)
 
-``make_step`` composes the pipeline in one call. A ``grad_fn`` has the
+``make_step`` composes the pipeline in one call; ``make_guarded_step`` /
+``make_guarded_train_step`` build the guarded step of
+``repro_torch.resilience`` (``repro.resilience.guard``'s two functions).
+A ``grad_fn`` has the
 signature ``grad_fn(params, batch) -> (loss, metrics, grads)``; a step has
 ``step(state, batch) -> (state, StepOutput)``. PyTorch runs eagerly, so
 there is nothing to compile. Task-parallel plans (``shard_map``,
@@ -13,15 +16,18 @@ hierarchical) belong to a later slice and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
+from fractions import Fraction
 from typing import Any, Callable
 
+import numpy as np
 import torch
 
 from repro_torch.core.taskpar import MultiTaskModel
 from repro_torch.interop import leaves as tree_leaves
 from repro_torch.interop import tree_map, unflatten
+from repro_torch.optim.adamw import global_norm
 
-from .state import StepOutput, TrainState
+from .state import GuardState, StepOutput, TrainState
 
 # step(state, batch) -> (state, StepOutput)
 TrainStep = Callable[[TrainState, Any], tuple[TrainState, StepOutput]]
@@ -103,17 +109,82 @@ def make_train_step(grad_fn: Callable, optimizer) -> TrainStep:
         loss, metrics, grads = grad_fn(state.params, batch)
         new_params, new_opt = optimizer.update(grads, state.opt_state,
                                                state.params)
-        new_state = TrainState(params=new_params, opt_state=new_opt,
-                               step=state.step + 1)
+        new_state = state._replace(params=new_params, opt_state=new_opt,
+                                   step=state.step + 1)
         return new_state, StepOutput(loss=loss, metrics=metrics)
     return step
 
 
-def make_step(model, optimizer, plan=None, *, accum: int = 1,
-              task_weights=None) -> TrainStep:
-    """One call from model + optimizer to a TrainStep on one device.
-    ``plan`` is for the task-parallel plans of a later slice: anything but
-    None raises."""
+def _fma32(a, b, c) -> np.float32:
+    """float32 ``a * b + c`` rounded once (a fused multiply-add). ``repro``'s
+    compiled guard step computes its EMA so on the CPU: XLA rounds
+    ``decay * ema``, then contracts ``rest * loss`` and the add into one
+    FMA. The exact value is a rational; the nearest float32 wins, ties to
+    even."""
+    exact = Fraction(float(a)) * Fraction(float(b)) + Fraction(float(c))
+    r = np.float32(float(exact))
+    if not np.isfinite(r):
+        return r
+    cands = (np.nextafter(r, np.float32(-np.inf)), r,
+             np.nextafter(r, np.float32(np.inf)))
+    return min(cands, key=lambda x: (abs(Fraction(float(x)) - exact),
+                                     int(x.view(np.int32)) & 1))
+
+
+def make_guarded_train_step(grad_fn: Callable, optimizer, gcfg) -> TrainStep:
+    """A grad_fn + optimizer into a guarded TrainStep (``repro``'s
+    ``make_guarded_train_step``). ``gcfg`` is a
+    ``repro_torch.resilience.GuardConfig``; the state must carry a
+    ``GuardState``.
+
+    A step is accepted when the loss and the gradients' global norm are
+    finite and, once ``warmup_steps`` accepted steps have seeded the EMA,
+    ``loss <= spike_factor * |EMA| + spike_slack``. The update runs first
+    (it leaves its inputs untouched); then the loss and the norm come to
+    the host in one read, and the step keeps the new trees or the old ones
+    by reference — no select pass over the parameters. A tripped step
+    returns params, moments AND the step counter unchanged (so the
+    schedule's step stays where it was); tripped losses never enter the
+    EMA. The guard's scalars follow ``repro``'s float32 / int32
+    arithmetic on the host."""
+    spike = np.float32(gcfg.spike_factor)
+    slack = np.float32(gcfg.spike_slack)
+    decay = np.float32(gcfg.ema_decay)
+    rest = np.float32(1.0 - gcfg.ema_decay)
+
+    def step(state: TrainState, batch):
+        g = state.guard
+        loss, metrics, grads = grad_fn(state.params, batch)
+        gnorm = global_norm(grads)
+        new_params, new_opt = optimizer.update(grads, state.opt_state,
+                                               state.params)
+        # the step's one host read: the loss and the global norm together
+        # (one non-finite gradient makes the norm non-finite)
+        lv, gv = torch.stack([loss.float(), gnorm.float()]).cpu().numpy()
+        warm = int(g.good) >= gcfg.warmup_steps
+        threshold = spike * np.abs(g.ema) + slack if warm \
+            else np.float32(np.inf)
+        ok = bool(np.isfinite(lv) and np.isfinite(gv) and lv <= threshold)
+        if ok:
+            ema = _fma32(rest, lv, decay * g.ema) if int(g.good) > 0 else lv
+            guard = GuardState(ema=np.float32(ema),
+                               good=np.int32(g.good + 1), trips=np.int32(0))
+            new_state = state._replace(params=new_params, opt_state=new_opt,
+                                       step=state.step + 1, guard=guard)
+        else:
+            guard = GuardState(ema=g.ema, good=g.good,
+                               trips=np.int32(g.trips + 1))
+            new_state = state._replace(guard=guard)
+        host = lambda x: torch.tensor(np.float32(x))  # noqa: E731
+        metrics = dict(metrics, guard_ok=host(ok),
+                       guard_trips=host(guard.trips), guard_gnorm=gnorm,
+                       guard_threshold=host(threshold))
+        return new_state, StepOutput(loss=loss, metrics=metrics)
+
+    return step
+
+
+def _grad_fn(model, plan, accum, task_weights):
     if plan is not None:
         raise NotImplementedError(
             "sharded (pjit / shard_map) and hierarchical plans are not "
@@ -122,5 +193,21 @@ def make_step(model, optimizer, plan=None, *, accum: int = 1,
         raise NotImplementedError(
             "single-task (LM) models are not ported yet; build a "
             "MultiTaskModel (registry 'gfm-mtl' / 'gfm-baseline')")
-    grad_fn = multitask_grad_fn(model, model.n_tasks, task_weights)
-    return make_train_step(with_grad_accum(grad_fn, accum), optimizer)
+    return with_grad_accum(
+        multitask_grad_fn(model, model.n_tasks, task_weights), accum)
+
+
+def make_step(model, optimizer, plan=None, *, accum: int = 1,
+              task_weights=None) -> TrainStep:
+    """One call from model + optimizer to a TrainStep on one device.
+    ``plan`` is for the task-parallel plans of a later slice: anything but
+    None raises."""
+    return make_train_step(_grad_fn(model, plan, accum, task_weights),
+                           optimizer)
+
+
+def make_guarded_step(model, optimizer, plan=None, *, guard,
+                      accum: int = 1, task_weights=None) -> TrainStep:
+    """``make_step`` with the guard (a ``GuardConfig``) threaded in."""
+    return make_guarded_train_step(
+        _grad_fn(model, plan, accum, task_weights), optimizer, guard)

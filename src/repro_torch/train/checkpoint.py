@@ -1,9 +1,10 @@
 """The numpy side of ``repro``'s checkpoint layout.
 
-One ``.npz`` whose keys are the ``"/"``-joined tree paths (lists/tuples as
-``__i``), plus optional ``.meta.json`` and ``.datapipe.json`` sidecars —
-the files ``repro.train.checkpoint.save`` writes. A checkpoint saved by
-``repro`` loads here, and one saved here loads there, sidecars included.
+One ``.npz`` whose keys are the ``"/"``-joined tree paths (NamedTuples by
+field name, other lists/tuples as ``__i``), plus optional ``.meta.json``
+and ``.datapipe.json`` sidecars — the files
+``repro.train.checkpoint.save`` writes. A checkpoint saved by ``repro``
+loads here, and one saved here loads there, sidecars included.
 Leaves come back as numpy arrays; ``repro_torch.interop.to_torch`` puts
 them on a device.
 
@@ -39,10 +40,15 @@ def _flatten(tree, prefix=""):
     if isinstance(tree, dict):
         for k, v in tree.items():
             out.update(_flatten(v, f"{prefix}{k}/"))
+    elif hasattr(tree, "_fields"):   # NamedTuple (before generic tuple)
+        for k in tree._fields:
+            out.update(_flatten(getattr(tree, k), f"{prefix}{k}/"))
     elif isinstance(tree, (tuple, list)):
         for i, v in enumerate(tree):
             out.update(_flatten(v, f"{prefix}__{i}/"))
     elif tree is not None:
+        # None leaves (an unguarded TrainState's guard) are dropped, as
+        # repro drops them; the template restores them as None
         out[prefix[:-1]] = tree
     return out
 
@@ -143,6 +149,10 @@ def _unflatten_like(tree, flat, prefix):
     if isinstance(tree, dict):
         return {k: _unflatten_like(v, flat, f"{prefix}{k}/")
                 for k, v in tree.items()}
+    if hasattr(tree, "_fields"):
+        return type(tree)(**{k: _unflatten_like(getattr(tree, k), flat,
+                                                f"{prefix}{k}/")
+                             for k in tree._fields})
     if isinstance(tree, (tuple, list)):
         vals = [_unflatten_like(v, flat, f"{prefix}__{i}/")
                 for i, v in enumerate(tree)]

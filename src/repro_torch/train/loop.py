@@ -46,8 +46,9 @@ class MetricLogger:
 def train_loop(step_fn, state, batches, *, steps: int, eval_fn=None,
                eval_every: int = 50, log_every: int | None = None,
                early_stop: EarlyStopping | None = None,
+               logger: MetricLogger | None = None,
                val_metric: str = "val_loss", metric_fn=None,
-               verbose: bool = False):
+               should_stop=None, verbose: bool = False):
     """Run a unified TrainStep for ``steps`` iterations.
 
     step_fn: ``step(state, batch) -> (state, StepOutput)``.
@@ -57,14 +58,20 @@ def train_loop(step_fn, state, batches, *, steps: int, eval_fn=None,
     training loss.
     metric_fn: ``metric_fn(out: StepOutput) -> dict`` of extra scalars to
     log (e.g. named per-task losses).
+    logger: the ``MetricLogger`` to append rows to (a new one if None).
+    should_stop: zero-arg cooperative stop hook polled before every step —
+    True ends the loop cleanly with the state as it is (e.g. a
+    ``repro_torch.resilience.PreemptionHandler``'s ``triggered``).
 
     Only logged steps read the loss back to the host; the others leave the
     device queue running. Returns (state, logger, last StepOutput).
     """
-    logger = MetricLogger()
+    logger = logger or MetricLogger()
     log_every = log_every or eval_every
     out = None
     for i in range(steps):
+        if should_stop is not None and should_stop():
+            break
         batch = batches() if callable(batches) else next(batches)
         state, out = step_fn(state, batch)
         is_eval = (i + 1) % eval_every == 0 or i == 0 or i == steps - 1

@@ -671,3 +671,114 @@ def test_lm_greedy_generate_through_the_kernels(cuda):
     assert flash_decode.launches - fd0 == cfg.n_layers * 5
     want = greedy_generate(params, cfg, prompt, 6, impl="chunked")
     assert torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# the multi-source pre-training path: bucket shapes and placed batches
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,A,E", [(40, 32, 128), (40, 16, 64),
+                                   (40, 24, 128), (40, 32, 64)])
+def test_egnn_edge_kernels_match_plain_at_bucket_shapes(cuda, B, A, E):
+    """#3 and #4 at the bucketed training shapes (5 sources x 8 graphs, or
+    one mixed row of 40, trimmed to A <= 32, E <= 128): each output of the
+    forward and each gradient of the backward against the plain versions,
+    and bits over two calls of each."""
+    H = 866
+    h, pos, src, dst, em, phi = _fwd_case(cuda, B, A, E, H)
+    got = egnn_edge_agg(h, pos, src, dst, em, phi)
+    _close(got, egnn_edge_agg_ref(h, pos, src, dst, em, phi), 1e-4)
+    assert torch.equal(got, egnn_edge_agg(h, pos, src, dst, em, phi))
+    leaves, (src, dst, em), g = _bwd_case(cuda, B, A, E, H)
+    h, pos, w0, b0, w1, b1 = leaves
+    out = egnn_edge_agg(h, pos.detach(), src, dst, em,
+                        {"fc0": {"w": w0, "b": b0}, "fc1": {"w": w1, "b": b1}})
+    wrt = [h, w0, b0, w1, b1]
+    got = torch.autograd.grad(out, wrt, g, retain_graph=True)
+    again = torch.autograd.grad(out, wrt, g, retain_graph=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    sr, dr = torch.where(em, src, A), torch.where(em, dst, A)
+    d = [x.detach() for x in leaves]
+    dh, _, dw0i, dw0j, dw0d, db0, dw1, db1 = egnn_edge_bwd_ref(
+        g, d[0], d[1], sr, dr, d[2][:H], d[2][H:2 * H], d[2][2 * H:],
+        d[3][None], d[4])
+    want = [dh, torch.cat([dw0i, dw0j, dw0d]), db0[0], dw1, db1[0]]
+    for name, a, b in zip(("h", "w0", "b0", "w1", "b1"), got, want):
+        err = float((a - b).abs().max())
+        assert err <= 1e-4 * float(b.abs().max()), (name, err)
+
+
+def _bucketed_sources():
+    from repro_torch.data.synthetic_atoms import generate_all, source_dicts
+    return source_dicts(generate_all(16, max_atoms=64, max_edges=2048,
+                                     seed=0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model", ["gfm-mtl", "gfm-baseline"])
+def test_bucketed_training_grads_match_plain_on_the_card(cuda, model):
+    """One bucketed batch at full width (MTL-All: 5 x 8 graphs; Baseline-All:
+    one mixed row of 40) through the fused kernels against the plain path
+    (``"jnp"``), per leaf within 1e-4 of its largest entry, and the fused
+    gradients bitwise equal over two calls."""
+    from repro_torch import interop
+    from repro_torch.configs.hydragnn_gfm import CONFIG
+    from repro_torch.data.bucketing import BucketingBatcher, BucketSpec
+    from repro_torch.data.loader import GroupBatcher
+    from repro_torch.data.mixing import MixingBatcher
+    from repro_torch.engine import build_model, multitask_grad_fn
+    sources = _bucketed_sources()
+    spec = BucketSpec.from_sources(sources, n_atom_buckets=3,
+                                   n_edge_buckets=3)
+    inner = GroupBatcher(sources, 8, seed=0) if model == "gfm-mtl" else \
+        MixingBatcher(sources, 40, seed=0, task_major=True)
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(cuda)
+             for k, v in BucketingBatcher(inner, spec).next_batch().items()}
+    T = batch["pos"].shape[0]
+    assert batch["pos"].shape[1] * T == 40 and batch["pos"].shape[2] <= 32
+    grads = {}
+    for impl in ("fused", "jnp", "fused"):
+        m = build_model(model, CONFIG.replace(segment_sum_impl=impl),
+                        n_tasks=T)
+        params = m.init(0, cuda)
+        loss, _, g = multitask_grad_fn(m, m.n_tasks)(params, batch)
+        grads.setdefault(impl, []).append((float(loss), interop.leaves(g)))
+    (lf, gf), (lf2, gf2) = grads["fused"]
+    lj, gj = grads["jnp"][0]
+    assert lf == lf2 and all(torch.equal(gf[k], gf2[k]) for k in gf)
+    assert abs(lf - lj) <= 1e-4 * abs(lj)
+    for k, ref in gj.items():
+        assert float((gf[k] - ref).abs().max()) <= \
+            1e-4 * float(ref.abs().max()), k
+
+
+@pytest.mark.gpu
+def test_bucketing_batcher_over_the_cards_placed_batches(cuda, tmp_path):
+    """A ``BucketingBatcher`` over a ``PrefetchingBatcher`` trims batches
+    already on the card: the same values as the numpy trim, on the card,
+    contiguous, with the same ``shapes_seen``."""
+    from repro_torch.data.bucketing import BucketingBatcher, BucketSpec
+    from repro_torch.data.loader import GroupBatcher
+    from repro_torch.data.store import (PrefetchingBatcher, ShardedSource,
+                                        write_store)
+    sources = _bucketed_sources()[:2]
+    for i, s in enumerate(sources):
+        write_store(str(tmp_path / f"s{i}"), s, shard_size=8)
+    spec = BucketSpec.from_sources(sources, n_atom_buckets=3,
+                                   n_edge_buckets=3)
+    ref = BucketingBatcher(GroupBatcher(sources, 2, seed=3), spec)
+    with PrefetchingBatcher([ShardedSource(str(tmp_path / f"s{i}"))
+                             for i in range(2)], 2, seed=3,
+                            device=cuda) as pb:
+        placed = BucketingBatcher(pb, spec)
+        for _ in range(10):
+            got, want = placed.next_batch(), ref.next_batch()
+            assert sorted(got) == sorted(want)
+            for k, v in want.items():
+                assert got[k].device.type == "cuda" and \
+                    got[k].is_contiguous()
+                assert torch.equal(got[k].cpu(), torch.from_numpy(
+                    np.ascontiguousarray(v))), k
+    assert placed.shapes_seen == ref.shapes_seen
+    assert len(placed.shapes_seen) > 1

@@ -60,6 +60,25 @@ def test_entry_points_need_a_gpu_unless_cpu_is_asked_for():
         Session(scfg, sources=sources)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         launch_train.main(["--steps", "1", "--samples", "4", "--batch", "2"])
+    # the entry points that place data: a resilient session and the
+    # store's prefetching batcher
+    import tempfile
+
+    from repro_torch.data.store import (PrefetchingBatcher, ShardedSource,
+                                        write_store)
+    from repro_torch.resilience import ResilienceConfig
+    with tempfile.TemporaryDirectory() as d:
+        rcfg = scfg.replace(resilience=ResilienceConfig(ckpt_dir=d))
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            Session(rcfg, sources=sources)
+        with Session(rcfg, sources=sources, device="cpu") as sess:
+            assert sess.run().resilience["steps"] == 1
+        write_store(d + "/s0", sources[0])
+        readers = [ShardedSource(d + "/s0")]
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            PrefetchingBatcher(readers, 2)
+        with PrefetchingBatcher(readers, 2, device="cpu") as pb:
+            assert pb.next_batch()["pos"].device.type == "cpu"
     with Session(scfg, sources=sources, device="cpu") as sess:
         assert np.isfinite(sess.run().final_loss)
     srv = ServeSession(params, cfg, spec=BucketSpec((16,), (64,)),

@@ -241,14 +241,24 @@ def test_launcher_trains_on_cpu_and_refuses_later_knobs(tmp_path, sources):
     with pytest.raises(SystemExit):
         t_launch.main(["--mode", "lm", "--device", "cpu"])
     base = SessionConfig(model="gfm-mtl", arch=t_gfm.smoke(), steps=1)
-    for knob in ("mixing", "bucketing", "placement", "resilience"):
-        with pytest.raises(NotImplementedError, match=knob):
-            Session(base.replace(**{knob: 2.0}), sources=sources,
-                    device="cpu")
+    # still later: head placement and a mesh
+    with pytest.raises(NotImplementedError, match="placement"):
+        Session(base.replace(placement=2), sources=sources, device="cpu")
     with pytest.raises(NotImplementedError, match="one device"):
         Session(base, sources=sources, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="mixing"):
+    # one branch over several sources needs the mixture, as in repro
+    with pytest.raises(ValueError, match="cfg.mixing"):
         Session(base.replace(model="gfm-baseline"), sources=sources,
                 device="cpu")
+    # mixing, bucketing and resilience build a Session now
+    from repro_torch.data.bucketing import BucketingBatcher
+    from repro_torch.resilience import ResilienceConfig
+    mixed = Session(base.replace(mixing=2.0), sources=sources, device="cpu")
+    assert len(mixed.task_weights) == T
+    assert isinstance(Session(base.replace(bucketing=2), sources=sources,
+                              device="cpu").batcher, BucketingBatcher)
+    guarded = Session(base.replace(resilience=ResilienceConfig(
+        ckpt_dir=str(tmp_path / "res"))), sources=sources, device="cpu")
+    assert guarded.state.guard is not None
     with pytest.raises(NotImplementedError):
         make_step(make_gfm_mtl(t_gfm.smoke(), T), adamw(1e-3), plan="pjit")
