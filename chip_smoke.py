@@ -15,14 +15,16 @@ Phases, each printing one JSON line:
      are timed by device time (``torch.profiler``). The edge kernel's
      forward (#3) is checked at the training path's shape (B=40: 5 sources
      x 8 graphs in one trunk pass), at B=8 (A=64, and a serve bucket of
-     M = 128), and at a ragged shape, for bits over two calls, per output
+     M = 128), at B=4 (a task-parallel rank's shard) and at a ragged
+     shape, for bits over two calls, per output
      and scratch (out, Pi, Pj, S, deg) at B=40 and B=8, and timed at both
      (B=40 its summary row) with its kernels a call (at most 4) and
      ``torch.matmul`` of its three products beside it
-     (``gemm_library_ms``). Its backward (#4) is checked per output and
-     for bits over two calls at B=40 (pos needing no gradient), at B=8
-     with dpos and at a ragged shape, and timed at B=40 (its summary row)
-     and B=8 with its kernels a call (at most 3 without dpos, 4 with) and
+     (``gemm_library_ms``), and at B=4. Its backward (#4) is checked per
+     output and for bits over two calls at B=40 (pos needing no
+     gradient), at B=8 with dpos, at B=4 without and at a ragged shape,
+     and timed at B=40 (its summary row), B=8 and B=4 with its kernels a
+     call (at most 3 without dpos, 4 with) and
      ``torch.matmul`` of its six products beside it; each graph of a
      batched segment-sum must be bitwise equal to that graph alone, in f32
      and bf16;
@@ -61,6 +63,22 @@ Phases, each printing one JSON line:
      fault kind (``SOAK_FAULTS``), then ``resume()`` in a fresh session:
      params, moments and step bitwise equal to a clean 12-step run; the
      report's events and each checkpoint write's ms;
+  4c. train_mtp: multi-task parallelism (the paper's method) at the same
+     width: ranks spawned by ``launch.mesh.run_ranks`` on the one card over
+     gloo (NCCL refuses two ranks on one card), each a ``Session`` of 3
+     steps with the paper's source sizes as task weights. (a) ``hier``:
+     8 ranks, ``placement=8`` — groups (2, 1, 3, 1, 1), per-rank B of 4 or
+     8; (b) ``par``: a (1, 5) mesh, one head a rank; (c) ``base``: a (2, 1)
+     mesh, heads whole. Each: per-task and total losses within rtol 5e-5,
+     atol 1e-6 of the one-process session on the same batches; trunk
+     params bitwise equal across ranks after every step; 4 + 4 edge-kernel
+     launches a step a rank; each rank's params and moments equal to the
+     §4.3 model (``memory_per_device`` x 3 x 4 B) beside
+     ``memory_allocated``. (a) also: two runs bitwise equal, the checkpoint
+     rank 0 writes read back by every rank (its own rows) and bitwise into
+     a one-process session, and per rank the step's device time and
+     host-clock ms and the trunk's and the group's all-reduce ms — ranks
+     that time-share one card, not a scaling result;
   5. lm kernels: flash attention (#5) and flash decode (#6) against their
      plain versions on the card, f32 and bf16, causal with and without a
      window, GQA, ragged lengths, rotated (rolling) positions with pads,
@@ -441,9 +459,9 @@ def _fwd_gemm_library(torch, B, A, H, g, dev):
 def check_egnn_edge(torch, dev, g):
     """#3 through ``egnn_edge_agg`` against ``egnn_edge_agg_ref`` at the
     training path's shape (B=40: 5 sources x 8 graphs in one trunk pass),
-    at the serve batch's B=8 (A=64, and the bucket A=16, E=512: M = 128)
-    and at a ragged shape; two calls must give the same bits. At B=40 and
-    B=8 the launcher's outputs and scratch (out, Pi, Pj, S, deg: what the
+    at the serve batch's B=8 (A=64, and the bucket A=16, E=512: M = 128),
+    at a task-parallel rank's B=4 and at a ragged shape; two calls must
+    give the same bits. At B=40, B=8 and B=4 the launcher's outputs and scratch (out, Pi, Pj, S, deg: what the
     backward reads) are held per output against the plain versions, and
     #3 is timed by device time with its kernels a call (at most 4) and
     ``torch.matmul`` of its three products beside it
@@ -452,7 +470,8 @@ def check_egnn_edge(torch, dev, g):
                                                egnn_edge_agg_ref, gemm_plan)
     H = 866
     cases = [("train", 40, 64, 2048), ("b8", 8, 64, 2048),
-             ("b8_a16", 8, 16, 512), ("ragged", 3, 40, 1000)]
+             ("b4", 4, 64, 2048), ("b8_a16", 8, 16, 512),
+             ("ragged", 3, 40, 1000)]
     worst, out = 0.0, {}
     for name, B, A, E in cases:
         h, pos, src, dst, em, phi = _edge_fwd_inputs(torch, g, dev, B, A, E)
@@ -467,7 +486,7 @@ def check_egnn_edge(torch, dev, g):
             fail(f"egnn_edge {name}: max_abs_err {err} > {EDGE_TOL}*{scale}")
         worst = max(worst, err)
         del got, again, ref
-        if name not in ("train", "b8"):
+        if name not in ("train", "b8", "b4"):
             continue
         call = _edge_fwd_call(torch, h, pos, src, dst, em, phi)
         errs = _fwd_rel_errs(torch, call(), _edge_fwd_plain(
@@ -583,15 +602,16 @@ def check_egnn_edge_bwd(torch, dev, g):
     """The backward kernel through ``egnn_edge_agg``'s autograd Function
     against ``egnn_edge_bwd_ref``, per output, at the training path's shape
     (B=40: 5 sources x 8 graphs in one trunk pass, pos needing no gradient),
-    at the serve batch's B=8 with dpos, and at a ragged shape; two backward
-    calls must give the same bits. #4 is timed by device time at B=40 and
-    B=8, with its kernels a call (at most 3 without dpos, 4 with)."""
+    at the serve batch's B=8 with dpos, at a task-parallel rank's B=4
+    without, and at a ragged shape; two backward calls must give the same
+    bits. #4 is timed by device time at B=40, B=8 and B=4, with its kernels
+    a call (at most 3 without dpos, 4 with)."""
     from repro_torch.kernels.egnn_edge import egnn_edge_agg, gemm_plan, ops
     from repro_torch.kernels.egnn_edge.ref import egnn_edge_bwd_ref
     H = 866
     names = ("dh", "dpos", "dw0", "db0", "dw1", "db1")
     cases = [("train", 40, 64, 2048, False), ("b8", 8, 64, 2048, True),
-             ("ragged", 3, 40, 1000, True)]
+             ("b4", 4, 64, 2048, False), ("ragged", 3, 40, 1000, True)]
     worst, out = 0.0, {}
     for name, B, A, E, need_dpos in cases:
         leaves, edges, gup = _edge_bwd_inputs(torch, g, dev, B, A, E, H)
@@ -1249,6 +1269,309 @@ def train_pipeline_phase(torch, counters):
                    "bitwise_vs_clean": True}
     shutil.rmtree(soak, ignore_errors=True)
     out["launches"] = {k: launches_a[k] + launches_b[k] for k in launches_a}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 4c: multi-task parallelism (the paper's method), ranks on one card
+# ---------------------------------------------------------------------------
+
+MTP_STEPS = 3                       # steps of each rank's run
+MTP_RTOL, MTP_ATOL = 5e-5, 1e-6     # repro's cross-plan parity tolerance
+                                    # (tests/test_parallel_parity.py)
+MTP_ITERS = 3                       # steps a rank times
+MTP_TIMEOUT_S = 600                 # one job of ranks, spawn to exit
+MTP_RUNS = (("hier", 8, True), ("par", 5, False), ("base", 2, False))
+
+
+def _sync(torch, device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _mtp_session(arch, sources, device, *, mesh=None, ckpt=None, **kw):
+    """MTL-All at ``arch``, task weights (and so the placement's load
+    model) from the paper's source sizes."""
+    from repro_torch.data.synthetic_atoms import PAPER_REL_SIZES
+    from repro_torch.engine import Session, SessionConfig
+    scfg = SessionConfig(model="gfm-mtl", arch=arch, steps=MTP_STEPS,
+                         batch_per_task=8, lr=1e-3, warmup=2, log_every=1,
+                         eval_every=10 ** 9, seed=0, verbose=False,
+                         task_weights=tuple(PAPER_REL_SIZES.values()),
+                         ckpt_path=ckpt, **kw)
+    return Session.from_config(scfg, sources=sources, mesh=mesh,
+                               device=device)
+
+
+def _per_task(result, T):
+    return [[r[f"task{t}"] for t in range(T)]
+            for r in result.logger.history]
+
+
+def _rank_device_ms(torch, fn, iters):
+    """This rank's device time of one ``fn`` call from one
+    ``torch.profiler`` trace (no retry: every rank runs the same steps);
+    None when the trace holds no device event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(ev.device_time_total for ev in prof.key_averages()
+                if ev.device_type == DeviceType.CUDA)
+    return total / iters / 1e3 if total else None
+
+
+def _collective_ms(torch, dist, n, device, group=None, size=2, reps=3):
+    """Host-clock ms of one SUM all-reduce of ``n`` floats over ``group``
+    (the world by default), mean of ``reps`` after one warm-up."""
+    if size < 2:
+        return 0.0
+    buf = torch.zeros(n, device=device)
+    dist.all_reduce(buf, group=group)
+    _sync(torch, device)
+    dist.barrier(group=group)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        dist.all_reduce(buf, group=group)
+    _sync(torch, device)
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def _mtp_rank(rank, world, kind, arch, sources, device, ckpt, full):
+    """One rank of phase train_mtp: a ``Session`` under ``kind`` ("hier":
+    ``placement=world``; "par": a (1, world) mesh; "base": a (world, 1)
+    mesh, heads whole) for ``MTP_STEPS`` steps with its launch counts
+    zeroed just before, the trunk's hash after every step, and the bytes
+    of its params and moments. ``full`` adds the step's time, the
+    all-reduces' time, a second run from the seed and the checkpoint the
+    run wrote, read back."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch import interop
+    from repro_torch.core import memory_per_device
+    from repro_torch.data.loader import GroupBatcher
+    from repro_torch.kernels.egnn_edge import ops as edge_ops
+    from repro_torch.kernels.segment_sum import ops as ss_ops
+    from repro_torch.launch.mesh import make_host_mesh, rank_device
+    from repro_torch.train import checkpoint
+    counters = {"egnn_edge": edge_ops.egnn_edge_agg,
+                "egnn_edge_bwd": edge_ops.egnn_edge_bwd,
+                "segment_sum": ss_ops.segment_sum}
+    T = len(sources)
+    mesh = None if kind == "hier" else (
+        make_host_mesh(1, world) if kind == "par" else
+        make_host_mesh(world, 1))
+    kw = {"placement": world} if kind == "hier" else \
+        {"mode": "par" if kind == "par" else "base"}
+
+    def session(ckpt_path=None):
+        return _mtp_session(arch, sources, device, mesh=mesh,
+                            ckpt=ckpt_path, **kw)
+
+    entered = time.monotonic()
+    sess = session(ckpt if full else None)
+    plan, dev = sess.plan, rank_device()
+    hashes, inner = [], sess.step_fn
+
+    def traced(state, batch):
+        state, out = inner(state, batch)
+        hashes.append(_sha(interop.leaves(state.params["shared"]).values()))
+        return state, out
+    sess.step_fn = traced
+    _sync(torch, dev)
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    with sess:
+        res = sess.run()
+    _sync(torch, dev)
+    wall = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+
+    template = sess.model.init(0, device="meta")
+    p_s = sum(x.numel() for x in interop.leaves(template["shared"]).values())
+    p_h = sum(x.numel() for x in
+              interop.leaves(template["heads"]).values()) // T
+    k = len(plan.shard.heads)
+    want = 12 * (memory_per_device(p_s, p_h, T, "base") if kind == "base"
+                 else memory_per_device(p_s, p_h * k, k, "par"))
+    held = sum(x.numel() * x.element_size() for tree in
+               (res.state.params, res.state.opt_state.m,
+                res.state.opt_state.v) for x in interop.leaves(tree).values())
+    out = {"rank": rank, "heads": list(plan.shard.heads),
+           "group": list(plan.shard.ranks),
+           "losses": [r["loss"] for r in res.logger.history],
+           "per_task": _per_task(res, T), "trunk_sha": hashes,
+           "launches": launches, "wall_s": wall, "p_shared": p_s,
+           "p_head": p_h, "state_bytes": held, "state_bytes_model": want}
+    if plan.placement is not None:
+        out["device_counts"] = list(plan.placement.device_counts)
+        out["groups"] = [list(g) for g in plan.placement.groups]
+    if dev.type == "cuda":
+        out["memory_allocated"] = torch.cuda.memory_allocated(dev)
+        out["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+    out["t_enter"] = entered
+    if not full:
+        out["t_exit"] = time.monotonic()
+        return out
+
+    batch = plan.shard_batch(GroupBatcher(sources, 8, seed=1).next_batch())
+    state = res.state
+    dist.barrier()
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    for _ in range(MTP_ITERS):
+        float(inner(state, batch)[1].loss)
+    out["step_host_ms"] = (time.perf_counter() - t0) / MTP_ITERS * 1e3
+    out["step_device_ms"] = _rank_device_ms(
+        torch, lambda: inner(state, batch), MTP_ITERS) \
+        if dev.type == "cuda" else None
+    out["batch_shape"] = list(batch["edge_src"].shape)
+    out["allreduce_trunk_ms"] = _collective_ms(torch, dist, p_s, dev,
+                                               size=world)
+    out["allreduce_heads_ms"] = _collective_ms(
+        torch, dist, p_h * k, dev, group=plan.head_group,
+        size=plan.shard.size)
+
+    again = session()
+    with again:
+        res2 = again.run()
+    a, b = interop.leaves(res.params), interop.leaves(res2.params)
+    out["replay_bitwise"] = all(torch.equal(a[n], b[n]) for n in a)
+    back = interop.leaves(checkpoint.restore_sharded(
+        ckpt, {"params": res.params}, plan)["params"])
+    out["restore_own_rows"] = all(
+        np.array_equal(back[n], a[n].cpu().numpy()) for n in a)
+    whole = interop.leaves(plan.gather_params(res.params))
+    if rank == 0:
+        out["full_sha"] = _sha(v for _, v in sorted(whole.items()))
+    out["t_exit"] = time.monotonic()
+    return out
+
+
+def _close_rows(got, want) -> float:
+    """The largest |got - want| / (atol + rtol |want|); fails above 1."""
+    worst = 0.0
+    for g_row, w_row in zip(got, want, strict=True):
+        for g, w in zip(g_row, w_row, strict=True):
+            worst = max(worst, abs(g - w) / (MTP_ATOL + MTP_RTOL * abs(w)))
+    return worst
+
+
+def train_mtp_phase(torch, device=DEVICE, arch=None):
+    """Phase train_mtp (see the module docstring)."""
+    from repro_torch import interop
+    from repro_torch.configs.hydragnn_gfm import CONFIG
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.train import checkpoint
+    arch = arch or CONFIG.replace(segment_sum_impl="fused")
+    sources = _train_sources()
+    T = len(sources)
+    ref_sess = _mtp_session(arch, sources, device)
+    with ref_sess:
+        ref = ref_sess.run()
+    ref_rows = _per_task(ref, T)
+    ref_losses = [r["loss"] for r in ref.logger.history]
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    ckpt = str(ROOT / "build" / "chip_smoke" / "mtp_hier")
+    out = {"phase": "train_mtp", "config": "hydragnn-gfm", "impl": "fused",
+           "backend": "gloo", "steps": MTP_STEPS, "batch_per_task": 8,
+           "tolerance": {"rtol": MTP_RTOL, "atol": MTP_ATOL},
+           "note": "ranks time-share one card over gloo: times are not a "
+                   "scaling result, and NCCL is not exercised",
+           "reference": {"losses": ref_losses, "per_task": ref_rows}}
+    launches = {"egnn_edge": 0, "egnn_edge_bwd": 0, "segment_sum": 0}
+    # one trunk pass a step, one launch a layer each way (none off the card:
+    # the CPU rehearsal runs the plain versions)
+    per = arch.gnn_layers * MTP_STEPS if device == "cuda" else 0
+    want = {"egnn_edge": per, "egnn_edge_bwd": per, "segment_sum": 0}
+    rdzv = ROOT / "build" / "chip_smoke"
+    rdzv.mkdir(parents=True, exist_ok=True)
+    for kind, world, full in MTP_RUNS:
+        t0, spawned = time.perf_counter(), time.monotonic()
+        try:
+            ranks = run_ranks(_mtp_rank, world, backend="gloo", device=device,
+                              args=(kind, arch, sources, device, ckpt, full),
+                              timeout=MTP_TIMEOUT_S, rdzv_dir=str(rdzv))
+        except Exception as e:                        # noqa: BLE001
+            fail(f"train_mtp {kind}: {e}")
+        wall, back = time.perf_counter() - t0, time.monotonic()
+        name = f"train_mtp {kind}"
+        worst = max(_close_rows(r["per_task"], ref_rows) for r in ranks)
+        if not worst <= 1.0:
+            fail(f"{name}: per-task losses off the single-process "
+                 f"session's by {worst} x the tolerance")
+        worst_total = max(_close_rows([r["losses"]], [ref_losses])
+                          for r in ranks)
+        if not worst_total <= 1.0:
+            fail(f"{name}: total losses off by {worst_total} x tolerance")
+        for i in range(MTP_STEPS):
+            if len({r["trunk_sha"][i] for r in ranks}) != 1:
+                fail(f"{name}: trunk params differ across ranks after step "
+                     f"{i}")
+        for r in ranks:
+            if r["launches"] != want:
+                fail(f"{name} rank {r['rank']}: launch counts "
+                     f"{r['launches']}, the design implies {want}")
+            if r["state_bytes"] != r["state_bytes_model"]:
+                fail(f"{name} rank {r['rank']}: {r['state_bytes']} bytes of "
+                     f"params and moments, the §4.3 model "
+                     f"{r['state_bytes_model']}")
+            for k_ in launches:
+                launches[k_] += r["launches"][k_]
+        heads = [r["heads"] for r in ranks]
+        if kind == "hier" and ranks[0]["device_counts"] != [2, 1, 3, 1, 1]:
+            fail(f"{name}: groups {ranks[0]['device_counts']}, the solver "
+                 "gives (2, 1, 3, 1, 1) for the paper's sizes on 8")
+        if kind == "par" and heads != [[t] for t in range(T)]:
+            fail(f"{name}: heads by rank {heads}, one each expected")
+        if kind == "base" and heads != [list(range(T))] * world:
+            fail(f"{name}: heads by rank {heads}, all on each expected")
+        keep = ("rank", "heads", "group", "state_bytes", "state_bytes_model",
+                "memory_allocated", "max_memory_allocated", "wall_s",
+                "step_host_ms", "step_device_ms", "batch_shape",
+                "allreduce_trunk_ms", "allreduce_heads_ms")
+        # where a job's wall time goes: spawn to the last rank's entry
+        # (interpreters, torch, CUDA contexts, gloo), the ranks' work, and
+        # the last rank's exit to the results (teardown)
+        row = {"world": world, "wall_s": wall,
+               "startup_s": max(r["t_enter"] for r in ranks) - spawned,
+               "ranks_s": max(r["t_exit"] for r in ranks)
+               - max(r["t_enter"] for r in ranks),
+               "teardown_s": back - max(r["t_exit"] for r in ranks),
+               "per_task_err_vs_tol": worst,
+               "loss_err_vs_tol": worst_total,
+               "per_task": ranks[0]["per_task"], "losses": ranks[0]["losses"],
+               "launches_per_rank": want,
+               "p_shared": ranks[0]["p_shared"],
+               "p_head": ranks[0]["p_head"],
+               "ranks": [{k_: r[k_] for k_ in keep if k_ in r}
+                         for r in ranks]}
+        if kind == "hier":
+            row["device_counts"] = ranks[0]["device_counts"]
+        if full:
+            if not all(r["replay_bitwise"] for r in ranks):
+                fail(f"{name}: two runs from one seed differ bitwise")
+            if not all(r["restore_own_rows"] for r in ranks):
+                fail(f"{name}: restore_sharded gave a rank other rows than "
+                     "its own")
+            back = checkpoint.restore(ckpt, {"params": ref.params})
+            one = _mtp_session(arch, sources, device)
+            one.state = one.state._replace(
+                params=interop.to_torch(back["params"], device))
+            sha = _sha(v for _, v in
+                       sorted(interop.leaves(one.state.params).items()))
+            if sha != ranks[0]["full_sha"]:
+                fail(f"{name}: the checkpoint rank 0 wrote does not restore "
+                     "bitwise into a one-process session")
+            row.update(replay_bitwise=True, ckpt_restored_bitwise=True)
+        out[kind] = row
+    out["launches"] = launches
     return out
 
 
@@ -2229,23 +2552,28 @@ def main():
     emit(train)
     pipe = train_pipeline_phase(torch, gnn_counters)
     emit(pipe)
+    mtp = train_mtp_phase(torch)
+    emit(mtp)
     lm = lm_serve_phase(torch, {"flash_attention": fa_ops.flash_attention,
                                 "flash_decode": fd_ops.flash_decode})
     emit(lm)
     if args.profile:
         emit(lm_profile(torch))
     # each path's counts, zeroed just before it: serving (fused and pallas
-    # passes), training, the pre-training pipeline (runs (a) and (b)), and
-    # LM serving (runs (a) and (b))
+    # passes), training, the pre-training pipeline (runs (a) and (b)), the
+    # task-parallel runs (every rank of (a)-(c)), and LM serving (runs (a)
+    # and (b))
     lm_runs = (lm["run_a"]["launches"], lm["run_b"]["launches"])
     by_path = {
         "segment_sum": {"serve": serve["pallas"]["launches"]["segment_sum"]},
         "egnn_edge_fused": {"serve": serve["fused"]["launches"]["egnn_edge"],
                             "train": train["launches"]["egnn_edge"],
-                            "train_pipeline": pipe["launches"]["egnn_edge"]},
+                            "train_pipeline": pipe["launches"]["egnn_edge"],
+                            "train_mtp": mtp["launches"]["egnn_edge"]},
         "egnn_edge_fused_bwd": {
             "train": train["launches"]["egnn_edge_bwd"],
-            "train_pipeline": pipe["launches"]["egnn_edge_bwd"]},
+            "train_pipeline": pipe["launches"]["egnn_edge_bwd"],
+            "train_mtp": mtp["launches"]["egnn_edge_bwd"]},
         "flash_attention": {"lm_serve": sum(r["flash_attention"]
                                             for r in lm_runs)},
         "flash_decode": {"lm_serve": sum(r["flash_decode"]

@@ -38,15 +38,30 @@ def gfm_mtl_init(cfg, n_tasks: int, *, seed: int = 0, device="cpu",
             "heads": hp}
 
 
-def gfm_loss_terms(e_pred, f_pred, batch_t, force_weight=1.0):
+def gfm_loss_terms(e_pred, f_pred, batch_t, force_weight=1.0, norm=None):
     """Masked MSE on energy-per-atom + forces for one task's sub-batch. The
     batch dims are reduced from the right, so task-major inputs (leading T)
-    give one term per task."""
+    give one term per task. ``norm`` (``MultiTaskModel``'s contract): the
+    squared errors are summed and divided by the counts given — the graphs
+    and atoms of the task's whole batch when this is one shard of it."""
     nm = batch_t["node_mask"]
-    e_err = ((e_pred - batch_t["energy"]) ** 2).mean(-1)
-    f_err = (((f_pred - batch_t["forces"]) ** 2) * nm[..., None]).sum(
-        (-3, -2, -1)) / torch.clamp(nm.sum((-2, -1)) * 3.0, min=1.0)
+    f_sq = (((f_pred - batch_t["forces"]) ** 2) * nm[..., None]).sum(
+        (-3, -2, -1))
+    if norm is None:
+        e_err = ((e_pred - batch_t["energy"]) ** 2).mean(-1)
+        f_err = f_sq / torch.clamp(nm.sum((-2, -1)) * 3.0, min=1.0)
+    else:
+        e_err = ((e_pred - batch_t["energy"]) ** 2).sum(-1) / norm["graphs"]
+        f_err = f_sq / torch.clamp(norm["atoms"] * 3.0, min=1.0)
     return e_err + force_weight * f_err, e_err, f_err
+
+
+def gfm_batch_counts(batch):
+    """(T, 2) loss denominators of a task-major batch: graphs and atoms per
+    task row."""
+    nm = batch["node_mask"]
+    graphs = torch.full(nm.shape[:1], float(nm.shape[1]), device=nm.device)
+    return torch.stack([graphs, nm.sum((-2, -1)).float()], dim=1)
 
 
 def trunk_features(shared, batch, *, cfg):
@@ -67,24 +82,30 @@ def make_gfm_mtl(cfg, n_tasks: int, force_weight: float = 1.0,
         return gfm_mtl_init(cfg, n_tasks, seed=seed, device=device,
                             uncertainty=uncertainty)
 
-    def loss_fn(shared, hp, batch):
+    def loss_fn(shared, hp, batch, norm=None):
         # batch leaves are task-major: (T, B, ...)
         feats = trunk_features(shared, batch, cfg=cfg)
         nm = batch["node_mask"]
         e, f = heads.stacked_branches_apply(
             {k: v for k, v in hp.items() if k != "log_sigma2"}, feats, nm,
             cfg=cfg)
-        _, e_err, f_err = gfm_loss_terms(e, f, batch, force_weight)
+        _, e_err, f_err = gfm_loss_terms(e, f, batch, force_weight, norm)
         if uncertainty:
             s = hp["log_sigma2"]
-            ls = (torch.exp(-s[:, 0]) * e_err + s[:, 0]
-                  + torch.exp(-s[:, 1]) * force_weight * f_err + s[:, 1])
+            if norm is None:
+                ls = (torch.exp(-s[:, 0]) * e_err + s[:, 0]
+                      + torch.exp(-s[:, 1]) * force_weight * f_err + s[:, 1])
+            else:        # a shard's part: the constant terms by its share
+                ls = (torch.exp(-s[:, 0]) * e_err
+                      + torch.exp(-s[:, 1]) * force_weight * f_err
+                      + (s[:, 0] + s[:, 1]) * norm["share"])
         else:
             ls = e_err + force_weight * f_err
         return ls, {"energy_mse": e_err, "force_mse": f_err}
 
     return MultiTaskModel(init=init, loss_fn=loss_fn,
-                          name=f"gfm-mtl-{n_tasks}", n_tasks=n_tasks)
+                          name=f"gfm-mtl-{n_tasks}", n_tasks=n_tasks,
+                          batch_counts=gfm_batch_counts)
 
 
 def gfm_eval_fn(cfg):

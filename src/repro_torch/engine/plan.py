@@ -1,0 +1,225 @@
+"""ShardingPlan — one object that owns the parallelism decisions (port of
+``repro.engine.plan``).
+
+A plan bundles the mesh, the multi-task-parallelism config (``MTPConfig``)
+and the backend behind one ``plan.compile(step)`` call. Every rank of a job
+builds the same plan and runs the same program; a rank holds the trunk,
+only its own heads' rows (and their AdamW moments) and its slice of each
+batch:
+
+  * ``mesh=None``                       -> one device (``"jit"``)
+  * ``mesh=..., backend="pjit"``        -> a ``(data, model)`` mesh of
+    ranks, global semantics: each task's loss is normalised over its whole
+    batch, so training equals one device's up to summation order (mode
+    ``"par"``: heads sliced over ``model``; ``"base"``: heads whole, pure
+    DDP)
+  * ``mesh=..., backend="shard_map"``   -> per-shard semantics: each rank
+    normalises over its own rows and the scopes average (``repro``'s
+    explicit ``psum`` scopes; one head per ``model`` rank, uniform task
+    weights)
+  * ``placement=..., backend="hier"``   -> a ``HeadPlacement``: heads on
+    uneven rank groups (``engine.hier``), global semantics
+
+``donate`` is accepted for ``repro``'s signature and has no effect: eager
+PyTorch holds no buffers to donate.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.core.taskpar import (HeadPlacement, MTPConfig, TaskShard,
+                                      dist_global_norm, flat_shard,
+                                      hier_shard, move_heads, take_batch,
+                                      take_heads)
+
+from .state import TrainState
+
+BACKENDS = ("auto", "jit", "pjit", "shard_map", "hier")
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardingPlan:
+    mesh: Any = None                   # DeviceMesh ("data", "model")
+    mtp: MTPConfig | None = None
+    backend: str = "auto"              # auto | jit | pjit | shard_map | hier
+    donate: bool = True                # accepted; no effect (see above)
+    # hierarchical backend: a HeadPlacement (heads -> uneven rank groups,
+    # core.solve_placement) INSTEAD of a mesh — the plan deals the ranks
+    # into per-group sub-groups itself
+    placement: HeadPlacement | None = None
+
+    def __post_init__(self):
+        if self.backend not in BACKENDS:
+            raise ValueError(f"backend '{self.backend}' not in {BACKENDS}")
+        if self.backend in ("pjit", "shard_map") and self.mesh is None:
+            raise ValueError(f"backend '{self.backend}' needs a mesh")
+        if self.backend == "hier" and self.placement is None:
+            raise ValueError("backend='hier' needs a placement (see "
+                             "repro_torch.core.solve_placement / "
+                             "round_robin_placement)")
+        if self.placement is not None:
+            if self.mesh is not None:
+                raise ValueError(
+                    "placement and mesh are exclusive — a hierarchical plan "
+                    "builds its own per-group sub-groups from the ranks")
+            if self.backend not in ("auto", "hier"):
+                raise ValueError(f"placement needs backend 'auto' or "
+                                 f"'hier', got '{self.backend}'")
+
+    @property
+    def resolved_backend(self) -> str:
+        if self.backend != "auto":
+            return self.backend
+        if self.placement is not None:
+            return "hier"
+        return "jit" if self.mesh is None else "pjit"
+
+    @property
+    def distributed(self) -> bool:
+        return self.resolved_backend != "jit"
+
+    @property
+    def n_tasks(self) -> int:
+        if self.placement is not None:
+            return self.placement.n_heads
+        if self.mtp is None:
+            raise ValueError("a mesh plan needs mtp (an MTPConfig)")
+        return self.mtp.n_tasks
+
+    # -- which rows each rank holds ------------------------------------------
+
+    def _mesh_ranks(self) -> np.ndarray:
+        ranks = np.asarray(self.mesh.mesh.tolist())
+        if ranks.ndim != 2 or tuple(self.mesh.mesh_dim_names) != (
+                "data", "model"):
+            raise ValueError("a flat plan's mesh has dims ('data', 'model') "
+                             "(launch.mesh.make_host_mesh)")
+        return ranks
+
+    def shard_of(self, rank: int) -> TaskShard:
+        """What ``rank`` holds under this plan (every rank can ask)."""
+        if self.placement is not None:
+            return hier_shard(self.placement, rank)
+        if self.mtp is None:
+            raise ValueError("a mesh plan needs mtp (an MTPConfig)")
+        ranks = self._mesh_ranks()
+        if self.resolved_backend == "shard_map" and (
+                ranks.shape[1] != self.mtp.n_tasks or self.mtp.mode != "par"):
+            raise ValueError(f"shard_map slices one head to a 'model' rank: "
+                             f"needs mode 'par' and n_tasks == mesh['model'] "
+                             f"({self.mtp.n_tasks} vs {ranks.shape[1]})")
+        return flat_shard(self.mtp, ranks, rank)
+
+    @functools.cached_property
+    def shard(self) -> TaskShard:
+        """This rank's ``TaskShard`` (the whole model on one device)."""
+        if not self.distributed:
+            return TaskShard(heads=tuple(range(self.n_tasks)), ranks=(0,),
+                             index=0)
+        import torch.distributed as dist
+        return self.shard_of(dist.get_rank())
+
+    @functools.cached_property
+    def head_group(self):
+        """This rank's head group: the process group over
+        ``shard.ranks`` (created on every rank, in one order)."""
+        from repro_torch.launch.mesh import make_group_meshes, process_group
+        if self.placement is not None:
+            meshes = make_group_meshes(self.placement)
+            return next(m.group for m in meshes if m.group is not None)
+        if self.mtp.mode == "base":
+            return process_group(self.shard.ranks)
+        return self.mesh.get_group("data")
+
+    def all_heads(self) -> list:
+        """The heads every rank holds, by rank."""
+        import torch.distributed as dist
+        return [self.shard_of(r).heads
+                for r in range(dist.get_world_size())]
+
+    # -- placement helpers ---------------------------------------------------
+
+    def shard_params(self, params):
+        """A full ``{"shared", "heads"}`` tree -> this rank's: the trunk and
+        its heads' rows."""
+        if not self.distributed:
+            return params
+        return {"shared": params["shared"],
+                "heads": take_heads(params["heads"], self.shard.heads)}
+
+    def shard_state(self, state: TrainState) -> TrainState:
+        """A full TrainState -> this rank's: params and both moments keep
+        the trunk and the rank's heads (the optimizer's other fields as
+        they are)."""
+        if not self.distributed:
+            return state
+        opt = state.opt_state
+        opt = opt._replace(m=self.shard_params(opt.m),
+                           v=self.shard_params(opt.v))
+        return state._replace(params=self.shard_params(state.params),
+                              opt_state=opt)
+
+    def slice_batch(self, batch: dict) -> dict:
+        """A task-major batch -> this rank's task rows and B rows (numpy or
+        tensors, where they are)."""
+        if not self.distributed:
+            return batch
+        return take_batch(batch, self.shard, self.n_tasks)
+
+    def shard_batch(self, batch: dict, device=None) -> dict:
+        """This rank's slice of a task-major host batch, placed on
+        ``device`` (default: the rank's device; one device: ``cuda``,
+        raising without a GPU — the CPU must be asked for)."""
+        if device is None:
+            from repro_torch import resolve_device
+            from repro_torch.launch.mesh import rank_device
+            device = rank_device() if self.distributed else resolve_device()
+        return {k: (v if isinstance(v, torch.Tensor) else
+                    torch.from_numpy(np.ascontiguousarray(v))).to(device)
+                for k, v in self.slice_batch(batch).items()}
+
+    def gather_heads(self, trees):
+        """Every head's rows on every rank: this rank's head trees (e.g.
+        params, m and v heads) -> the full ``(n_tasks, ...)`` trees, each
+        head broadcast from the first rank that holds it (a collective:
+        every rank calls it)."""
+        if not self.distributed:
+            return list(trees)
+        import torch.distributed as dist
+        everything = tuple(range(self.n_tasks))
+        world = dist.get_world_size()
+        return move_heads(trees, self.all_heads(), [everything] * world,
+                          dist.get_rank())
+
+    def gather_params(self, params):
+        """This rank's params -> the full tree (a collective)."""
+        if not self.distributed:
+            return params
+        return {"shared": params["shared"],
+                "heads": self.gather_heads([params["heads"]])[0]}
+
+    def norm_fn(self):
+        """The global gradient norm over this plan's reduced grads."""
+        return dist_global_norm(self.shard)
+
+    # -- compilation ---------------------------------------------------------
+
+    def compile(self, step):
+        """The one public way to build a step. Eager PyTorch compiles
+        nothing: a flat plan's step is returned as it is; hierarchical plans
+        take the ``HierStepSpec`` from ``make_step`` and return a
+        ``HierCompiledStep`` (same call signature)."""
+        from .step import HierStepSpec
+        if self.resolved_backend == "hier":
+            from .hier import HierCompiledStep
+            return HierCompiledStep(self, step)
+        if isinstance(step, HierStepSpec):
+            raise TypeError(f"a HierStepSpec can only be compiled by a hier "
+                            f"plan (this plan resolves to "
+                            f"'{self.resolved_backend}')")
+        return step

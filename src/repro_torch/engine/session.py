@@ -13,11 +13,18 @@ datapipe sidecar — then runs the train loop and returns a
 runner (``repro_torch.resilience``): guarded steps, full-state
 checkpoints, rollback, quarantine and fault injection.
 
-The knobs of later slices — ``placement`` and a mesh — raise
-``NotImplementedError``; ``repro``'s ``mode``, ``backend`` and ``donate``
-(sharding and jit buffer donation) have no counterpart on one eager
-device. ``device=None`` means ``cuda`` and raises without a GPU; the CPU
-must be asked for (``device="cpu"``).
+Multi-task parallelism (``engine.plan``): every rank of a
+``torch.distributed`` job (``launch.mesh.init_distributed``) builds the same
+Session. ``Session(mesh=make_host_mesh(d, m))`` trains on a flat ``(data,
+model)`` mesh in ``cfg.mode`` ``"par"`` (heads sliced over ``model``) or
+``"base"`` (heads whole); ``cfg.placement`` (a device count, ``"auto"`` =
+the world size, or a ``HeadPlacement``) trains hierarchically, heads on
+uneven rank groups solved from the per-source load. Every rank runs the
+same seeded batcher and takes its slice (``repro``'s single-controller
+semantics); a rank holds the trunk and only its heads and their moments.
+``cfg.donate`` is accepted and has no effect (eager PyTorch donates
+nothing). ``device=None`` means ``cuda`` (a rank's own device in a job) and
+raises without a GPU; the CPU must be asked for (``device="cpu"``).
 """
 from __future__ import annotations
 
@@ -25,9 +32,10 @@ import dataclasses
 from typing import Any, Callable
 
 import numpy as np
+import torch
 
 from repro_torch import resolve_device
-from repro_torch.core.taskpar import MultiTaskModel
+from repro_torch.core.taskpar import HeadPlacement, MTPConfig, MultiTaskModel
 from repro_torch.data.bucketing import BucketingBatcher, BucketSpec
 from repro_torch.data.loader import GroupBatcher, _source_len
 from repro_torch.data.mixing import MixingBatcher, MixingConfig
@@ -37,6 +45,7 @@ from repro_torch.optim import adamw, warmup_cosine
 from repro_torch.train import checkpoint
 from repro_torch.train.loop import EarlyStopping, MetricLogger, train_loop
 
+from .plan import ShardingPlan
 from .registry import build_model
 from .state import GuardState, TrainState, prng_key
 from .step import make_guarded_step, make_step
@@ -54,6 +63,11 @@ class SessionConfig:
     weight_decay: float = 0.01
     grad_clip: float = 0.0
     accum: int = 1                    # gradient-accumulation microbatches
+    # parallelism (the mesh itself is passed to Session: it is runtime state)
+    mode: str = "par"                 # MTP head sharding: "par" | "base"
+    backend: str = "auto"             # auto | jit | pjit | shard_map | hier
+    # accepted for repro's signature; eager PyTorch donates no buffers
+    donate: bool = True
     # loop control
     log_every: int = 10
     eval_every: int = 50
@@ -74,7 +88,11 @@ class SessionConfig:
     # shape. A BucketSpec, or an int n (plan an n x n grid from the
     # session's sources); batches are re-padded to their bucket
     bucketing: Any = None
-    # a later slice (must stay None here)
+    # hierarchical multi-task parallelism: heads on UNEVEN rank groups,
+    # load-balanced by the per-task loss weights (the mixing weights) as
+    # the per-head load model. None = flat plans. An int n = solve over n
+    # ranks; "auto" = over the job's world size; a HeadPlacement is used
+    # as-is. Exclusive with passing a mesh to Session
     placement: Any = None
     # fault tolerance (repro_torch.resilience): a ResilienceConfig makes
     # run() the resilient runner
@@ -124,6 +142,27 @@ def _as_bucket_spec(bucketing, sources, batcher) -> BucketSpec:
                     f"got {type(bucketing).__name__}")
 
 
+def _resolve_placement(placement, n_tasks, loads, seed) -> HeadPlacement:
+    """SessionConfig.placement shorthands -> HeadPlacement (int n / "auto"
+    run the imbalance-aware solver over n ranks / the world size)."""
+    from repro_torch.core.balancing import solve_placement
+    if isinstance(placement, HeadPlacement):
+        if placement.n_heads != n_tasks:
+            raise ValueError(f"placement covers {placement.n_heads} heads, "
+                             f"session has {n_tasks} tasks")
+        return placement
+    if isinstance(placement, bool):   # bool IS int — reject the likely typo
+        raise TypeError("cfg.placement=True/False is ambiguous — pass a "
+                        "device count, \"auto\", or a HeadPlacement")
+    if placement == "auto":
+        import torch.distributed as dist
+        return solve_placement(dist.get_world_size(), loads, seed=seed)
+    if isinstance(placement, int):
+        return solve_placement(placement, loads, seed=seed)
+    raise TypeError(f"cfg.placement: expected HeadPlacement | int device "
+                    f"count | \"auto\" | None, got {type(placement).__name__}")
+
+
 def _tasks_of(batcher) -> int:
     """Task rows a batcher's batches carry: a ``GroupBatcher``'s source
     count, looked for through wrappers (bucketing, prefetch); 1 otherwise
@@ -160,7 +199,8 @@ class Session:
     ready batcher in place of sources (e.g. a ``PrefetchingBatcher``; its
     batches may already be on the device). eval_fn(params) -> dict of
     scalar metrics, merged into logged rows (put cfg.val_metric in it to
-    early-stop on validation, paper §5.1)."""
+    early-stop on validation, paper §5.1); on a task-parallel plan it sees
+    the full params, on rank 0 only, and every rank logs its result."""
 
     def __init__(self, cfg: SessionConfig, *, sources=None, batcher=None,
                  mesh=None, eval_fn: Callable | None = None,
@@ -169,16 +209,8 @@ class Session:
         if cfg.steps < 1:
             raise ValueError(f"SessionConfig.steps must be >= 1, got "
                              f"{cfg.steps}")
-        if cfg.placement is not None:
-            raise NotImplementedError(
-                "cfg.placement: hierarchical head placement (engine.hier) "
-                "is not ported yet")
-        if mesh is not None:
-            raise NotImplementedError(
-                "the port trains on one device: mesh= is not ported yet")
         self.cfg = cfg
         self.eval_fn = eval_fn
-        self.device = resolve_device(device)
 
         if batcher is not None:
             n_tasks = _tasks_of(batcher)
@@ -231,6 +263,13 @@ class Session:
         if len(self.task_names) != n_tasks:
             raise ValueError(f"{len(self.task_names)} task_names for "
                              f"{n_tasks} tasks")
+        self.plan = self._make_plan(mesh, n_tasks, task_weights)
+        if self.plan.distributed:
+            from repro_torch.launch.mesh import rank_device
+            self.device = rank_device() if device is None else \
+                torch.device(device)
+        else:
+            self.device = resolve_device(device)
         self.task_weights = task_weights
         lr = warmup_cosine(cfg.lr, cfg.warmup, cfg.steps) if cfg.warmup \
             else cfg.lr
@@ -242,7 +281,8 @@ class Session:
         self._quarantined: set[int] = set()
         self._quarantined_sources: set[int] = set()
         self._rebuild_step()
-        params = self.model.init(cfg.seed, self.device)
+        params = self.plan.shard_params(self.model.init(cfg.seed,
+                                                        self.device))
         guard0 = GuardState.init() if self._guard_cfg() is not None \
             else None
         self.state = TrainState.create(params, self.optimizer,
@@ -255,6 +295,49 @@ class Session:
         # consumed-position snapshot taken when the prefetcher is closed
         self._dp_snapshot = None
 
+    def _make_plan(self, mesh, n_tasks, task_weights) -> ShardingPlan:
+        cfg = self.cfg
+        placement = None
+        if cfg.placement is not None:
+            if mesh is not None:
+                raise ValueError(
+                    "cfg.placement and an explicit mesh are exclusive — the "
+                    "hierarchical plan deals the ranks into groups itself")
+            if self._guard_cfg() is not None:
+                raise NotImplementedError(
+                    "guarded stepping (resilience.guard) is not supported "
+                    "on the hierarchical backend yet — drop cfg.placement "
+                    "or the guard")
+            # the solver's load model: the per-task loss weights (the
+            # mixing weights land there); uniform when neither is set
+            loads = tuple(task_weights) if task_weights is not None \
+                else (1.0,) * n_tasks
+            placement = _resolve_placement(cfg.placement, n_tasks, loads,
+                                           cfg.seed)
+        if mesh is not None and getattr(mesh, "mesh_dim_names",
+                                        None) is None:
+            raise TypeError("mesh= takes a DeviceMesh with dims ('data', "
+                            "'model') (launch.mesh.make_host_mesh)")
+        mtp = MTPConfig(n_tasks=n_tasks, mode=cfg.mode)
+        plan = ShardingPlan(mesh=mesh, mtp=mtp, backend=cfg.backend,
+                            donate=cfg.donate, placement=placement)
+        if plan.distributed:
+            import torch.distributed as dist
+            if not (dist.is_available() and dist.is_initialized()):
+                raise RuntimeError(
+                    "a task-parallel plan runs in a torch.distributed job: "
+                    "call launch.mesh.init_distributed on every rank first")
+        if plan.distributed and cfg.resilience is not None:
+            raise NotImplementedError(
+                "the resilient runner's full-state checkpoints of a sharded "
+                "state are not ported: drop cfg.resilience on a "
+                "task-parallel plan")
+        if task_weights is not None and plan.resolved_backend == "shard_map":
+            raise ValueError(
+                "the shard_map backend supports uniform task weights only — "
+                "drop cfg.mixing/task_weights or use backend='pjit'")
+        return plan
+
     def _guard_cfg(self):
         res = self.cfg.resilience
         return getattr(res, "guard", None) if res is not None else None
@@ -266,20 +349,40 @@ class Session:
         the task weights."""
         gcfg = self._guard_cfg()
         if gcfg is not None:
-            self.step_fn = make_guarded_step(
-                self.model, self.optimizer, guard=gcfg,
+            step = make_guarded_step(
+                self.model, self.optimizer, self.plan, guard=gcfg,
                 accum=self.cfg.accum, task_weights=self.task_weights)
         else:
-            self.step_fn = make_step(self.model, self.optimizer,
-                                     accum=self.cfg.accum,
-                                     task_weights=self.task_weights)
+            step = make_step(self.model, self.optimizer, self.plan,
+                             accum=self.cfg.accum,
+                             task_weights=self.task_weights)
+        self.step_fn = self.plan.compile(step)
 
     @classmethod
     def from_config(cls, cfg: SessionConfig, **kw) -> "Session":
         return cls(cfg, **kw)
 
     def n_params(self) -> int:
+        """Parameters this rank holds (the trunk and its heads)."""
         return sum(int(x.numel()) for x in leaves(self.state.params).values())
+
+    def set_placement(self, placement):
+        """Swap a hierarchical session's head->rank-group assignment in
+        place (the shorthands of ``cfg.placement``; every rank calls it).
+        Heads that change owner move with both moments; only the groups
+        whose (heads, ranks) changed build a new step function."""
+        if self.plan.resolved_backend != "hier":
+            raise ValueError("set_placement needs a hierarchical session "
+                             "(cfg.placement)")
+        loads = tuple(self.task_weights) if self.task_weights is not None \
+            else (1.0,) * len(self.task_names)
+        placement = _resolve_placement(placement, len(self.task_names),
+                                       loads, self.cfg.seed)
+        self.state = self.step_fn.update_placement(placement, self.state)
+        self.plan = self.step_fn.plan
+        if self._prefetcher is not None:
+            # read-ahead was sliced for the old placement: draw it again
+            self._prefetcher.restore(self._prefetcher.state())
 
     def close(self):
         """Stop the background prefetcher (if any); batches it had drawn are
@@ -359,6 +462,10 @@ class Session:
             inner.set_weights(w)   # refuses to zero every source
             self._quarantined_sources |= set(tasks)
             return
+        if self.plan.resolved_backend == "shard_map":
+            raise ValueError(
+                "the shard_map backend supports uniform task weights only — "
+                "cannot quarantine a source; use backend='pjit'")
         n = len(self.task_names)
         w = np.ones(n, np.float64) if self.task_weights is None else \
             np.asarray(self.task_weights, np.float64).copy()
@@ -416,14 +523,36 @@ class Session:
         """The batch-drawing callable run() loops over: on the prefetch
         thread, placement overlaps the running step."""
         place = self._placer
+
+        def transform(batch):        # this rank's slice, then the device
+            return place(self.plan.slice_batch(batch))
         if self.cfg.prefetch:
             if self._prefetcher is None:
                 self._prefetcher = Prefetcher(
-                    self.batcher, transform=place,
+                    self.batcher, transform=transform,
                     depth=self.cfg.prefetch_depth)
             pf = self._prefetcher
             return lambda: place.ready(pf.next_batch())
-        return lambda: place.ready(place(self.batcher.next_batch()))
+        return lambda: place.ready(transform(self.batcher.next_batch()))
+
+    def _eval(self):
+        """The eval_fn train_loop calls. On a task-parallel plan a rank
+        holds only its heads, so every rank gathers the full params (a
+        collective), rank 0 evaluates them — ``repro``'s single controller
+        evaluates once — and broadcasts its metrics: every rank logs the
+        same row and reaches the same early-stopping decision."""
+        fn = self.eval_fn
+        if fn is None or not self.plan.distributed:
+            return fn
+        import torch.distributed as dist
+
+        def eval_full(params):
+            full = self.plan.gather_params(params)
+            row = [{k: float(v) for k, v in fn(full).items()}
+                   if dist.get_rank() == 0 else None]
+            dist.broadcast_object_list(row, src=0)
+            return row[0]
+        return eval_full
 
     def run(self) -> SessionResult:
         if self.cfg.resilience is not None:
@@ -435,7 +564,7 @@ class Session:
             if cfg.patience > 0 else None
         state, logger, last_out = train_loop(
             self.step_fn, self.state, self._batches(),
-            steps=cfg.steps, eval_fn=self.eval_fn,
+            steps=cfg.steps, eval_fn=self._eval(),
             eval_every=cfg.eval_every, log_every=cfg.log_every,
             early_stop=early, val_metric=cfg.val_metric,
             metric_fn=self._metric_fn, verbose=cfg.verbose)
@@ -443,12 +572,12 @@ class Session:
         stopped = bool(early and early.bad >= early.patience)
         final_loss = float(last_out.loss)
         if cfg.ckpt_path:
-            checkpoint.save(cfg.ckpt_path, {"params": state.params},
-                            metadata={"model": cfg.model,
-                                      "arch": cfg.arch.name,
-                                      "step": int(state.step),
-                                      "final_loss": final_loss},
-                            datapipe=self.datapipe_state())
+            checkpoint.save_sharded(
+                cfg.ckpt_path, {"params": state.params}, self.plan,
+                metadata={"model": cfg.model, "arch": cfg.arch.name,
+                          "step": int(state.step),
+                          "final_loss": final_loss},
+                datapipe=self.datapipe_state())
         return SessionResult(
             state=state, logger=logger, final_loss=final_loss,
             last_metrics={k: v.cpu().numpy()

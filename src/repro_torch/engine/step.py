@@ -11,26 +11,44 @@
 A ``grad_fn`` has the
 signature ``grad_fn(params, batch) -> (loss, metrics, grads)``; a step has
 ``step(state, batch) -> (state, StepOutput)``. PyTorch runs eagerly, so
-there is nothing to compile. Task-parallel plans (``shard_map``,
-hierarchical) belong to a later slice and raise ``NotImplementedError``.
+there is nothing to compile.
+
+A task-parallel plan (``engine.plan.ShardingPlan`` with a mesh or a
+placement) makes ``make_grad_fn`` the two-scope distributed grad
+(``core.taskpar.mtp_value_and_grad_dist``) over the rank's params and batch
+slice; a hierarchical plan gets a ``HierStepSpec``, built into a step by
+``plan.compile``.
 """
 from __future__ import annotations
 
 from fractions import Fraction
-from typing import Any, Callable
+from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
 
-from repro_torch.core.taskpar import MultiTaskModel
+from repro_torch.core.taskpar import (MultiTaskModel,
+                                      mtp_value_and_grad_dist)
 from repro_torch.interop import leaves as tree_leaves
 from repro_torch.interop import tree_map, unflatten
 from repro_torch.optim.adamw import global_norm
 
+from .plan import ShardingPlan
 from .state import GuardState, StepOutput, TrainState
 
 # step(state, batch) -> (state, StepOutput)
 TrainStep = Callable[[TrainState, Any], tuple[TrainState, StepOutput]]
+
+
+class HierStepSpec(NamedTuple):
+    """The ``make_step`` product for hierarchical plans (backend="hier"):
+    not a callable — a rank's group step depends on the plan's
+    ``HeadPlacement``, so it is built by ``plan.compile()``
+    (``engine.hier.HierCompiledStep``) from these ingredients."""
+    model: Any
+    optimizer: Any
+    accum: int = 1
+    task_weights: Any = None
 
 
 def normalized_task_weights(n_tasks: int, task_weights=None,
@@ -103,12 +121,15 @@ def with_grad_accum(grad_fn: Callable, accum: int) -> Callable:
     return accum_fn
 
 
-def make_train_step(grad_fn: Callable, optimizer) -> TrainStep:
-    """Wrap a grad_fn + optimizer into the unified TrainStep signature."""
+def make_train_step(grad_fn: Callable, optimizer,
+                    norm_fn=global_norm) -> TrainStep:
+    """Wrap a grad_fn + optimizer into the unified TrainStep signature.
+    ``norm_fn``: the global gradient norm (``ShardingPlan.norm_fn`` on a
+    task-parallel plan)."""
     def step(state: TrainState, batch):
         loss, metrics, grads = grad_fn(state.params, batch)
         new_params, new_opt = optimizer.update(grads, state.opt_state,
-                                               state.params)
+                                               state.params, norm_fn)
         new_state = state._replace(params=new_params, opt_state=new_opt,
                                    step=state.step + 1)
         return new_state, StepOutput(loss=loss, metrics=metrics)
@@ -131,7 +152,8 @@ def _fma32(a, b, c) -> np.float32:
                                      int(x.view(np.int32)) & 1))
 
 
-def make_guarded_train_step(grad_fn: Callable, optimizer, gcfg) -> TrainStep:
+def make_guarded_train_step(grad_fn: Callable, optimizer, gcfg,
+                            norm_fn=global_norm) -> TrainStep:
     """A grad_fn + optimizer into a guarded TrainStep (``repro``'s
     ``make_guarded_train_step``). ``gcfg`` is a
     ``repro_torch.resilience.GuardConfig``; the state must carry a
@@ -146,7 +168,7 @@ def make_guarded_train_step(grad_fn: Callable, optimizer, gcfg) -> TrainStep:
     returns params, moments AND the step counter unchanged (so the
     schedule's step stays where it was); tripped losses never enter the
     EMA. The guard's scalars follow ``repro``'s float32 / int32
-    arithmetic on the host."""
+    arithmetic on the host. ``norm_fn`` as in ``make_train_step``."""
     spike = np.float32(gcfg.spike_factor)
     slack = np.float32(gcfg.spike_slack)
     decay = np.float32(gcfg.ema_decay)
@@ -155,9 +177,9 @@ def make_guarded_train_step(grad_fn: Callable, optimizer, gcfg) -> TrainStep:
     def step(state: TrainState, batch):
         g = state.guard
         loss, metrics, grads = grad_fn(state.params, batch)
-        gnorm = global_norm(grads)
+        gnorm = norm_fn(grads)
         new_params, new_opt = optimizer.update(grads, state.opt_state,
-                                               state.params)
+                                               state.params, norm_fn)
         # the step's one host read: the loss and the global norm together
         # (one non-finite gradient makes the norm non-finite)
         lv, gv = torch.stack([loss.float(), gnorm.float()]).cpu().numpy()
@@ -184,30 +206,74 @@ def make_guarded_train_step(grad_fn: Callable, optimizer, gcfg) -> TrainStep:
     return step
 
 
-def _grad_fn(model, plan, accum, task_weights):
-    if plan is not None:
-        raise NotImplementedError(
-            "sharded (pjit / shard_map) and hierarchical plans are not "
-            "ported yet; the port trains on one device (plan=None)")
+def make_grad_fn(model, plan=None, *, task_weights=None) -> Callable:
+    """Backend-aware grad_fn. ``plan``: a ``ShardingPlan`` or None (one
+    device). On a flat task-parallel plan it is the two-scope distributed
+    grad over the rank's params and batch slice: ``"pjit"`` normalises each
+    task's loss over its whole batch, ``"shard_map"`` over each rank's rows
+    (uniform task weights only)."""
+    if plan is not None and not isinstance(plan, ShardingPlan):
+        raise TypeError(f"plan: a ShardingPlan or None, got "
+                        f"{type(plan).__name__}")
     if not isinstance(model, MultiTaskModel):
         raise NotImplementedError(
             "single-task (LM) models are not ported yet; build a "
             "MultiTaskModel (registry 'gfm-mtl' / 'gfm-baseline')")
-    return with_grad_accum(
-        multitask_grad_fn(model, model.n_tasks, task_weights), accum)
+    if plan is None or not plan.distributed:
+        return multitask_grad_fn(model, model.n_tasks, task_weights)
+    if plan.resolved_backend == "hier":
+        raise ValueError("a hier plan's grad is built per group by "
+                         "plan.compile(make_step(...))")
+    per_shard = plan.resolved_backend == "shard_map"
+    if per_shard and task_weights is not None:
+        raise ValueError("the shard_map backend supports uniform task "
+                         "weights only")
+    return mtp_value_and_grad_dist(
+        model, plan.shard, normalized_task_weights(plan.n_tasks,
+                                                   task_weights),
+        head_group=plan.head_group, per_shard=per_shard)
+
+
+def _grad_fn(model, plan, accum, task_weights):
+    if accum > 1 and isinstance(plan, ShardingPlan) and plan.distributed:
+        raise NotImplementedError(
+            "gradient accumulation on a task-parallel plan is not ported: "
+            "use accum=1")
+    return with_grad_accum(make_grad_fn(model, plan,
+                                        task_weights=task_weights), accum)
+
+
+def _norm_fn(plan):
+    return plan.norm_fn() if plan is not None and plan.distributed \
+        else global_norm
 
 
 def make_step(model, optimizer, plan=None, *, accum: int = 1,
-              task_weights=None) -> TrainStep:
-    """One call from model + optimizer to a TrainStep on one device.
-    ``plan`` is for the task-parallel plans of a later slice: anything but
-    None raises."""
+              task_weights=None):
+    """One call from model + optimizer (+ plan) to a TrainStep; run it
+    through ``plan.compile(step)``. A hierarchical plan gets a
+    ``HierStepSpec`` (same ``plan.compile()`` call, the rank's group step
+    built there)."""
+    if isinstance(plan, ShardingPlan) and plan.resolved_backend == "hier":
+        if not isinstance(model, MultiTaskModel):
+            raise TypeError("backend='hier' shards per-task heads — needs a "
+                            "MultiTaskModel")
+        return HierStepSpec(model=model, optimizer=optimizer, accum=accum,
+                            task_weights=task_weights)
     return make_train_step(_grad_fn(model, plan, accum, task_weights),
-                           optimizer)
+                           optimizer, _norm_fn(plan))
 
 
 def make_guarded_step(model, optimizer, plan=None, *, guard,
                       accum: int = 1, task_weights=None) -> TrainStep:
-    """``make_step`` with the guard (a ``GuardConfig``) threaded in."""
+    """``make_step`` with the guard (a ``GuardConfig``) threaded in. A flat
+    task-parallel plan's guard reads the global loss and norm, equal on
+    every rank, so every rank decides alike; a hierarchical plan raises,
+    as ``repro``'s session does."""
+    if isinstance(plan, ShardingPlan) and plan.resolved_backend == "hier":
+        raise NotImplementedError(
+            "guarded stepping (resilience.guard) is not supported on the "
+            "hierarchical backend")
     return make_guarded_train_step(
-        _grad_fn(model, plan, accum, task_weights), optimizer, guard)
+        _grad_fn(model, plan, accum, task_weights), optimizer, guard,
+        _norm_fn(plan))

@@ -1,0 +1,254 @@
+"""Process meshes on ``torch.distributed`` (port of ``repro.launch.mesh``).
+
+One process (rank) stands for one device. ``init_distributed`` joins a
+rank to its job; the mesh builders are functions, so importing this module
+touches no process group:
+
+  * ``make_host_mesh(data, model)`` / ``make_gfm_paper_mesh(n_tasks, dp)``:
+    a ``DeviceMesh`` with dims ``("data", "model")`` — the flat plans'
+    meshes, the task axis as ``model``;
+  * ``make_group_meshes(placement)``: one ``GroupMesh`` per group of a
+    ``HeadPlacement``, ranks dealt contiguously by ``device_counts``, one
+    ``dist.new_group`` per group (every rank creates every group, in the
+    same order, as ``new_group`` requires);
+  * ``make_replica_meshes``: serving replicas as one-head groups;
+  * ``run_ranks(fn, world)``: start ``world`` ranks with ``spawn`` and a
+    file rendezvous, run ``fn(rank, world, *args)`` in each, and return
+    their results — the launcher the tests and ``chip_smoke.py`` use. Its
+    ranks run on ``cuda`` unless the caller passes ``device="cpu"``.
+
+Several ranks may share one GPU only over gloo: NCCL refuses two ranks on
+one card, and ``init_distributed`` raises for that rather than switch
+backends. gloo runs ``all_reduce`` and ``broadcast`` on CUDA tensors by
+staging them through the host.
+"""
+from __future__ import annotations
+
+import datetime
+import os
+import queue
+import shutil
+import tempfile
+import time
+import traceback
+import uuid
+from typing import Callable, NamedTuple
+
+import torch
+
+TIMEOUT_S = 60             # a collective that one rank skips fails here
+
+# per process, as torch.distributed's default group is: one process is one
+# rank, and init_distributed resets both
+_state = {"device": None}
+_groups: dict = {}         # ranks -> process group, created in one order
+
+
+def init_distributed(rank: int, world: int, *, backend: str,
+                     init_method: str, device=None,
+                     timeout: float = TIMEOUT_S) -> torch.device:
+    """Join rank ``rank`` of ``world`` to the job at ``init_method`` (e.g.
+    ``"file:///path/rdzv"`` or ``"tcp://localhost:<port>"``) over
+    ``backend`` (``"gloo"`` or ``"nccl"``). ``device``: ``"cpu"``, or
+    ``"cuda"`` for ``cuda:<rank mod cards>`` (None: ``"cuda"``). Returns
+    the rank's device. A collective that waits longer than ``timeout``
+    seconds fails instead of hanging."""
+    import torch.distributed as dist
+    if device is None:
+        device = "cuda"
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        n = torch.cuda.device_count()
+        if n == 0:
+            raise RuntimeError("device='cuda' but no CUDA device is visible")
+        if backend == "nccl" and world > n:
+            raise ValueError(
+                f"backend 'nccl' with {world} ranks on {n} card(s): NCCL "
+                "refuses two ranks on one card — use backend='gloo'")
+        dev = torch.device("cuda", rank % n if dev.index is None
+                           else dev.index)
+        torch.cuda.set_device(dev)
+    elif backend == "nccl":
+        raise ValueError("backend 'nccl' needs device='cuda'")
+    dist.init_process_group(backend, init_method=init_method,
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=timeout))
+    _state["device"] = dev
+    _groups.clear()
+    return dev
+
+
+def rank_device() -> torch.device:
+    """The device ``init_distributed`` gave this rank."""
+    if _state["device"] is None:
+        raise RuntimeError("init_distributed has not run in this process")
+    return _state["device"]
+
+
+def _mesh(shape, names):
+    from torch.distributed.device_mesh import init_device_mesh
+    return init_device_mesh(rank_device().type, tuple(shape),
+                            mesh_dim_names=tuple(names))
+
+
+def make_host_mesh(data: int, model: int):
+    """A ``(data, model)`` ``DeviceMesh`` over all ranks (row-major)."""
+    return _mesh((data, model), ("data", "model"))
+
+
+def make_gfm_paper_mesh(n_tasks: int = 5, dp: int | None = None):
+    """The paper's process layout: ``dp`` data-parallel ranks x ``n_tasks``
+    head sub-groups (paper: 640 GPUs = 128 x 5 on Frontier). ``dp``
+    defaults to the world size over ``n_tasks``."""
+    import torch.distributed as dist
+    if dp is None:
+        dp = dist.get_world_size() // n_tasks
+    return _mesh((dp, n_tasks), ("data", "model"))
+
+
+class GroupMesh(NamedTuple):
+    """One group's 1-axis ``("data",)`` mesh: its ranks and its process
+    group (``None`` on ranks outside it)."""
+    ranks: tuple
+    group: object
+
+
+def process_group(ranks) -> object:
+    """The process group over ``ranks``, created once per process: every
+    rank must ask for the same groups in the same order."""
+    import torch.distributed as dist
+    ranks = tuple(int(r) for r in ranks)
+    if ranks not in _groups:
+        if len(ranks) == dist.get_world_size():
+            _groups[ranks] = dist.group.WORLD
+        else:
+            _groups[ranks] = dist.new_group(list(ranks))
+    g = _groups[ranks]
+    return g if dist.get_rank() in ranks else None
+
+
+def make_group_meshes(placement) -> list:
+    """Per-group meshes of a hierarchical plan: the ranks are dealt
+    contiguously by ``placement.device_counts``; within a group the batch
+    is data-parallel and the group's head slice is replicated, so the
+    group IS its heads' model shard (the paper's head sub-group). Raises
+    when the job has fewer ranks than the placement needs."""
+    import torch.distributed as dist
+    from repro_torch.core.taskpar import group_ranks
+    world = dist.get_world_size()
+    if placement.n_devices > world:
+        raise ValueError(f"placement needs {placement.n_devices} devices, "
+                         f"the job has {world} ranks — solve the placement "
+                         "against the real world size")
+    return [GroupMesh(ranks=r, group=process_group(r))
+            for r in group_ranks(placement)]
+
+
+def make_replica_meshes(n_replicas: int, *,
+                        devices_per_replica: int = 1) -> list:
+    """Serving scale-out meshes: ``n_replicas`` disjoint groups of
+    ``devices_per_replica`` ranks — a replica is a head group that owns
+    every head — built by ``make_group_meshes``."""
+    from repro_torch.core.taskpar import HeadPlacement
+    if n_replicas < 1 or devices_per_replica < 1:
+        raise ValueError("need >= 1 replica of >= 1 device")
+    return make_group_meshes(HeadPlacement(
+        groups=tuple((g,) for g in range(n_replicas)),
+        device_counts=(devices_per_replica,) * n_replicas))
+
+
+# ---------------------------------------------------------------------------
+# the launcher
+# ---------------------------------------------------------------------------
+
+def _rank_main(rank, world, fn, args, init_method, backend, device,
+               threads, results):
+    try:
+        if threads:
+            torch.set_num_threads(threads)
+        init_distributed(rank, world, backend=backend,
+                         init_method=init_method, device=device)
+        out = fn(rank, world, *args)
+        import torch.distributed as dist
+        dist.barrier()
+        dist.destroy_process_group()
+        results.put((rank, True, out))
+    except BaseException:                     # report, then exit nonzero
+        results.put((rank, False, traceback.format_exc()))
+        raise
+
+
+def run_ranks(fn: Callable, world: int, *, backend: str = "gloo",
+              device=None, args: tuple = (), timeout: float = 300.0,
+              rdzv_dir: str | None = None, threads: int | None = 1) -> list:
+    """Run ``fn(rank, world, *args)`` in ``world`` spawned ranks joined by
+    ``init_distributed`` through a file rendezvous under ``rdzv_dir`` (a
+    new temporary directory by default). ``fn`` and ``args`` must pickle
+    (a module-level function). Returns the ranks' results in rank order.
+    Raises when a rank fails (with its traceback) or the job outlasts
+    ``timeout`` seconds; every rank process is stopped before it returns.
+    ``device``: ``"cpu"``, or ``"cuda"`` (None: ``"cuda"``, raising here
+    when no GPU is available — the CPU must be asked for). On CUDA the
+    kernels are built here first, so ranks only load them. ``threads``:
+    torch's intra-op threads per rank (None: torch's default)."""
+    import multiprocessing as mp
+    from repro_torch import resolve_device
+    device = resolve_device(device)
+    if device.type == "cuda":
+        from repro_torch.kernels import _build
+        _build.build_all()
+    own_dir = rdzv_dir is None
+    rdzv_dir = tempfile.mkdtemp(prefix="rdzv-") if own_dir else rdzv_dir
+    init = os.path.join(os.path.abspath(rdzv_dir),
+                        f"rdzv-{os.getpid()}-{uuid.uuid4().hex}")
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=_rank_main, daemon=True,
+                         args=(r, world, fn, args, f"file://{init}", backend,
+                               device, threads, results))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    out, errors = {}, []
+    try:
+        while len(out) + len(errors) < world:
+            left = deadline - time.monotonic()
+            if left <= 0:
+                raise TimeoutError(f"run_ranks: {world - len(out)} of "
+                                   f"{world} ranks unfinished after "
+                                   f"{timeout} s")
+            try:
+                rank, ok, val = results.get(timeout=min(left, 1.0))
+            except queue.Empty:
+                dead = [p for p in procs if p.exitcode not in (None, 0)]
+                if dead and not errors:
+                    # a rank that died without reporting (killed, crashed)
+                    errors.append(f"rank process exit codes "
+                                  f"{[p.exitcode for p in procs]}")
+                if errors:
+                    break
+                continue
+            if ok:
+                out[rank] = val
+            else:
+                errors.append(f"rank {rank}:\n{val}")
+                break
+        if errors:
+            raise RuntimeError("run_ranks failed:\n" + "\n".join(errors))
+        for p in procs:
+            p.join(max(deadline - time.monotonic(), 1.0))
+        return [out[r] for r in range(world)]
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+        for p in procs:
+            p.join(5)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        if own_dir:
+            shutil.rmtree(rdzv_dir, ignore_errors=True)
+        elif os.path.exists(init):
+            os.unlink(init)

@@ -46,10 +46,12 @@ def adamw(lr, *, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.01,
             v=tree_map(lambda p: torch.zeros(p.shape, dtype=moment_dtype,
                                          device=p.device), params))
 
-    def update(grads, state, params):
+    def update(grads, state, params, norm_fn=global_norm):
+        """``norm_fn(grads)``: the global norm clipping divides by (a
+        task-parallel plan's spans the ranks)."""
         step = state.step + 1
         if grad_clip > 0:
-            gnorm = global_norm(grads)
+            gnorm = norm_fn(grads)
             scale = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-9),
                                 max=1.0)
             grads = tree_map(lambda g: g * scale, grads)

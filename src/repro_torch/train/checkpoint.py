@@ -8,6 +8,10 @@ loads here, and one saved here loads there, sidecars included.
 Leaves come back as numpy arrays; ``repro_torch.interop.to_torch`` puts
 them on a device.
 
+A task-parallel session's rank holds only its heads' rows:
+``save_sharded`` gathers them (a collective) and rank 0 writes the file in
+the same format, and ``restore_sharded`` gives each rank its own rows.
+
 bf16 leaves are stored as ``repro`` stores them, the raw 16-bit patterns
 (``|V2`` in the archive), and restore bit for bit into a bf16 template
 leaf: as ``ml_dtypes.bfloat16`` where that is installed, else as the
@@ -143,6 +147,54 @@ def restore(path: str, template):
                                  f"template {tuple(t.shape)}")
             flat[k] = arr
     return _unflatten_like(template, flat, "")
+
+
+def save_sharded(path: str, tree, plan, metadata: dict | None = None,
+                 datapipe: dict | None = None):
+    """``save`` of a task-parallel rank's tree (a ``{"shared", "heads"}``
+    params tree, or a dict of such trees, e.g. ``{"params": ...}``): every
+    rank calls it; each subtree's head rows are gathered to full
+    ``(n_tasks, ...)`` leaves, rank 0 writes the file, and every rank
+    returns once it is written. Without a distributed plan, ``save``."""
+    if plan is None or not plan.distributed:
+        return save(path, tree, metadata=metadata, datapipe=datapipe)
+    import torch.distributed as dist
+    full = _map_mtl(tree, plan.gather_params)
+    if dist.get_rank() == 0:
+        save(path, full, metadata=metadata, datapipe=datapipe)
+    dist.barrier()
+
+
+def restore_sharded(path: str, template, plan):
+    """``restore`` into a task-parallel rank's own template: a leaf under a
+    ``heads`` subtree takes the rank's rows (``plan.shard.heads``) of the
+    stored ``(n_tasks, ...)`` leaf. Reads only; every rank may call it on
+    its own."""
+    if plan is None or not plan.distributed:
+        return restore(path, template)
+    rows = np.asarray(plan.shard.heads, np.int64)
+    with np.load(_npz_path(path)) as data:
+        flat = {}
+        for k, t in _flatten(template).items():
+            if k not in data.files:
+                raise KeyError(f"checkpoint {path} has no leaf '{k}'")
+            arr = _restore_leaf(data[k], t)
+            if "heads" in k.split("/"):
+                arr = arr[rows]
+            if arr.shape != tuple(t.shape):
+                raise ValueError(f"{k}: checkpoint shape {arr.shape} vs "
+                                 f"template {tuple(t.shape)}")
+            flat[k] = arr
+    return _unflatten_like(template, flat, "")
+
+
+def _map_mtl(tree, fn):
+    """``fn`` over every ``{"shared", "heads"}`` subtree of ``tree``."""
+    if isinstance(tree, dict):
+        if set(tree) == {"shared", "heads"}:
+            return fn(tree)
+        return {k: _map_mtl(v, fn) for k, v in tree.items()}
+    return tree
 
 
 def _unflatten_like(tree, flat, prefix):
