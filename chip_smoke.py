@@ -15,12 +15,12 @@ Phases, each printing one JSON line:
      are timed by device time (``torch.profiler``). The edge kernel's
      forward (#3) is checked at the training path's shape (B=40: 5 sources
      x 8 graphs in one trunk pass), at B=8 (A=64, and a serve bucket of
-     M = 128), at B=4 (a task-parallel rank's shard) and at a ragged
-     shape, for bits over two calls, per output
-     and scratch (out, Pi, Pj, S, deg) at B=40 and B=8, and timed at both
-     (B=40 its summary row) with its kernels a call (at most 4) and
-     ``torch.matmul`` of its three products beside it
-     (``gemm_library_ms``), and at B=4. Its backward (#4) is checked per
+     M = 128), at B=4 (a task-parallel rank's shard, a serve batch split
+     over 2 entries), at B=2 (split over 4) and at a ragged shape, for
+     bits over two calls, per output and scratch (out, Pi, Pj, S, deg) at
+     B=40, 8, 4 and 2, and timed there (B=40 its summary row) with its
+     kernels a call (at most 4) and ``torch.matmul`` of its three
+     products beside it (``gemm_library_ms``). Its backward (#4) is checked per
      output and for bits over two calls at B=40 (pos needing no
      gradient), at B=8 with dpos, at B=4 without and at a ragged shape,
      and timed at B=40 (its summary row), B=8 and B=4 with its kernels a
@@ -36,6 +36,25 @@ Phases, each printing one JSON line:
      ``predict_one``; the kernel's launch count, zeroed just before the
      pass, equals 4 x batches; both passes agree with each other and with
      the plain forward;
+  3b. serve_scaleout: multi-device serving in one process at the same
+     width, one card standing in for a mesh (a device list may name it
+     several times: each entry is a stream of its own). (a) 8 replicas
+     (``make_replica_meshes(8, devices=["cuda"] * 8)``, 8 param copies, 8
+     streams, warmed up concurrently) behind the router serve 160
+     mixed-head requests under ``"fused"``: every row bitwise equal to a
+     single-device ``predict_one``, ``routed`` 160, nothing outstanding,
+     #3 launched 4 x batches; structures/s and p50/p99 beside the serve
+     phase's fused pass, as information; (b) two replicas, each crashed
+     by an injected ``batcher.add`` fault: the trigger fails, the next
+     request fails over bitwise right, with both dead submit raises
+     ``ServeClosedError``, ``restart_workers()`` returns 2 and serving is
+     bitwise right again; (c) a burst of 40 with ``max_wait_ms=100`` closed
+     at once: every future resolves without error, a later submit raises;
+     (d) ``ServeSession(mesh=)`` with a batch's rows split over 2 and 4
+     entries, under ``"fused"`` and ``"pallas"``: rows bitwise equal to
+     the session's own ``predict_one`` and within ``SERVE_TOL`` of one
+     device (whether bitwise is recorded), ``max_batch=6`` on 4 entries
+     raises, #3 (fused) or #2 (pallas) launched 4 x entries x batches;
   4. train: ``Session`` trains hydragnn-gfm at full width under
      ``"fused"`` for 10 steps (5 synthetic sources, 8 graphs each per step,
      A=64, E=2048, AdamW, a checkpoint). Every loss is finite; the forward
@@ -174,7 +193,8 @@ LM_TOL_BF16 = 5e-2                 # ... bf16 compute, x max|ref logit|:
 BF16_FLOPS = 989e12                # H100 SXM bf16 tensor cores, dense
 N_REQUESTS = 80                    # mixed-head requests per serving pass
 TRAIN_STEPS = 10
-DEVICE = "cuda"                    # the train and lm_serve phases' device
+DEVICE = "cuda"                    # the serve_scaleout, train and lm_serve
+                                   # phases' device
 
 
 def fail(msg: str):
@@ -460,9 +480,11 @@ def check_egnn_edge(torch, dev, g):
     """#3 through ``egnn_edge_agg`` against ``egnn_edge_agg_ref`` at the
     training path's shape (B=40: 5 sources x 8 graphs in one trunk pass),
     at the serve batch's B=8 (A=64, and the bucket A=16, E=512: M = 128),
-    at a task-parallel rank's B=4 and at a ragged shape; two calls must
-    give the same bits. At B=40, B=8 and B=4 the launcher's outputs and scratch (out, Pi, Pj, S, deg: what the
-    backward reads) are held per output against the plain versions, and
+    at B=4 (a task-parallel rank's, and a serve batch split over 2
+    entries) and B=2 (split over 4), and at a ragged shape; two calls must
+    give the same bits. At B=40, 8, 4 and 2 the launcher's outputs and
+    scratch (out, Pi, Pj, S, deg: what the backward reads) are held per
+    output against the plain versions, and
     #3 is timed by device time with its kernels a call (at most 4) and
     ``torch.matmul`` of its three products beside it
     (``gemm_library_ms``)."""
@@ -470,8 +492,8 @@ def check_egnn_edge(torch, dev, g):
                                                egnn_edge_agg_ref, gemm_plan)
     H = 866
     cases = [("train", 40, 64, 2048), ("b8", 8, 64, 2048),
-             ("b4", 4, 64, 2048), ("b8_a16", 8, 16, 512),
-             ("ragged", 3, 40, 1000)]
+             ("b4", 4, 64, 2048), ("b2", 2, 64, 2048),
+             ("b8_a16", 8, 16, 512), ("ragged", 3, 40, 1000)]
     worst, out = 0.0, {}
     for name, B, A, E in cases:
         h, pos, src, dst, em, phi = _edge_fwd_inputs(torch, g, dev, B, A, E)
@@ -486,7 +508,7 @@ def check_egnn_edge(torch, dev, g):
             fail(f"egnn_edge {name}: max_abs_err {err} > {EDGE_TOL}*{scale}")
         worst = max(worst, err)
         del got, again, ref
-        if name not in ("train", "b8", "b4"):
+        if name not in ("train", "b8", "b4", "b2"):
             continue
         call = _edge_fwd_call(torch, h, pos, src, dst, em, phi)
         errs = _fwd_rel_errs(torch, call(), _edge_fwd_plain(
@@ -695,6 +717,22 @@ def check_egnn_edge_bwd(torch, dev, g):
 # phase 3: serving at full width
 # ---------------------------------------------------------------------------
 
+def serve_rel_err(a, b) -> float:
+    """The largest difference of served rows ``a`` from ``b``, energies and
+    forces, each over max(1, |b|)."""
+    e = max(abs(x["energy"] - y["energy"]) /
+            max(1.0, abs(y["energy"])) for x, y in zip(a, b))
+    f = max(float(abs(x["forces"] - y["forces"]).max()) /
+            max(1.0, float(abs(y["forces"]).max())) for x, y in zip(a, b))
+    return max(e, f)
+
+
+def rows_bitwise(a, b) -> bool:
+    return all(x["energy"] == y["energy"] and
+               x["forces"].shape == y["forces"].shape and
+               bool((x["forces"] == y["forces"]).all()) for x, y in zip(a, b))
+
+
 def serve_pass(torch, impl, params, spec, samples, heads, counters):
     from repro_torch.configs.hydragnn_gfm import CONFIG
     from repro_torch.serve import ServeSession
@@ -735,16 +773,15 @@ def serve_pass(torch, impl, params, spec, samples, heads, counters):
                                 for k in ("p50_ms", "p99_ms")}}
 
 
-def serve_phase(torch, n_requests):
+def serve_inputs(n_requests):
+    """The serving phases' seeded inputs: five synthetic sources, the bucket
+    grid planned from them, hydragnn-gfm params (seed 0) and
+    ``n_requests`` mixed-head requests, source by source in turn."""
     from repro_torch.configs.hydragnn_gfm import CONFIG
     from repro_torch.core.mtl import gfm_mtl_init
     from repro_torch.data.bucketing import BucketSpec
     from repro_torch.data.synthetic_atoms import (generate_mixture,
                                                   source_dicts)
-    from repro_torch.kernels.egnn_edge import ops as edge_ops
-    from repro_torch.kernels.segment_sum import ops as ss_ops
-    from repro_torch.serve import ServeSession
-
     sources = source_dicts(generate_mixture(200, max_atoms=64,
                                             max_edges=2048, seed=0))
     spec = BucketSpec.from_sources(sources)
@@ -756,6 +793,16 @@ def serve_phase(torch, n_requests):
         j = (i // len(sources)) % s["species"].shape[0]
         samples.append({k: v[j] for k, v in s.items()})
         heads.append(t)
+    return spec, params, samples, heads
+
+
+def serve_phase(torch, n_requests):
+    from repro_torch.configs.hydragnn_gfm import CONFIG
+    from repro_torch.kernels.egnn_edge import ops as edge_ops
+    from repro_torch.kernels.segment_sum import ops as ss_ops
+    from repro_torch.serve import ServeSession
+
+    spec, params, samples, heads = serve_inputs(n_requests)
     counters = {"egnn_edge": edge_ops.egnn_edge_agg,
                 "segment_sum": ss_ops.segment_sum}
     res_f, info_f = serve_pass(torch, "fused", params, spec, samples, heads,
@@ -771,14 +818,7 @@ def serve_phase(torch, n_requests):
         fail(f"pallas pass launch counts {info_p['launches']} vs "
              f"{info_p['batches']} batches")
 
-    def worst(a, b):
-        e = max(abs(x["energy"] - y["energy"]) /
-                max(1.0, abs(y["energy"])) for x, y in zip(a, b))
-        f = max(float(abs(x["forces"] - y["forces"]).max()) /
-                max(1.0, float(abs(y["forces"]).max())) for x, y in zip(a, b))
-        return max(e, f)
-
-    fused_vs_pallas = worst(res_f, res_p)
+    fused_vs_pallas = serve_rel_err(res_f, res_p)
     if not fused_vs_pallas <= SERVE_TOL:
         fail(f"fused vs pallas serve results differ: {fused_vs_pallas}")
     # the plain forward (one-hot segment-sum, no kernel) on a few requests
@@ -787,7 +827,7 @@ def serve_phase(torch, n_requests):
                       spec=spec, max_batch=8, device="cuda") as plain:
         res_plain = [plain.predict_one(samples[i], head=heads[i])
                      for i in idx]
-    vs_plain = worst([res_f[i] for i in idx], res_plain)
+    vs_plain = serve_rel_err([res_f[i] for i in idx], res_plain)
     if not vs_plain <= SERVE_TOL:
         fail(f"fused serve results differ from the plain forward: {vs_plain}")
     return {"phase": "serve", "config": "hydragnn-gfm", "heads":
@@ -796,6 +836,222 @@ def serve_phase(torch, n_requests):
             "fused": info_f, "pallas": info_p,
             "fused_vs_pallas_rel_err": fused_vs_pallas,
             "fused_vs_plain_rel_err": vs_plain, "tolerance": SERVE_TOL}
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: serving scale-out at full width
+# ---------------------------------------------------------------------------
+
+SCALEOUT_REQUESTS = 160              # mixed-head requests of (a) and (d)
+SCALEOUT_REPLICAS = 8                # (a): replicas on the one card
+SHARD_WAYS = (2, 4)                  # (d): mesh entries a batch splits over
+
+
+def _served(futs) -> list:
+    return [f.result(timeout=600) for f in futs]
+
+
+def _crash_replica(rep, r, sample):
+    """Crash replica ``r`` as tests/test_serve_scaleout.py does: its next
+    ``batcher.add`` raises and the worker's handler closes its queue; the
+    trigger request must fail. Waits until the queue is closed."""
+    def boom(req):
+        raise RuntimeError(f"injected fault in replica {r}")
+    rep.replicas[r].batcher.add = boom
+    err = rep.submit(sample, head=r % rep.n_heads).exception(timeout=600)
+    if not isinstance(err, RuntimeError):
+        fail(f"serve_scaleout (b): replica {r}'s trigger gave {err!r}")
+    deadline = time.monotonic() + 60.0
+    while not rep.replicas[r].queue.closed:
+        if time.monotonic() > deadline:
+            fail(f"serve_scaleout (b): replica {r}'s queue never closed")
+        time.sleep(0.005)
+
+
+def serve_scaleout_phase(torch, serve, counters):
+    """Multi-device serving on the one card at full width: (a) 8 replicas
+    (8 streams, 8 param copies) behind the router; (b) failover, every
+    replica dead, ``restart_workers``; (c) close under load; (d) rows split
+    over 2 and 4 entries under ``"fused"`` and ``"pallas"``. ``counters``
+    are zeroed just before (a)'s and each (d) run's requests."""
+    from repro_torch import interop
+    from repro_torch.configs.hydragnn_gfm import CONFIG
+    from repro_torch.launch.mesh import make_replica_meshes
+    from repro_torch.serve import (ReplicaServeSession, ServeClosedError,
+                                   ServeSession)
+    spec, params, samples, heads = serve_inputs(SCALEOUT_REQUESTS)
+    cards = lambda n: [DEVICE] * n                       # noqa: E731
+    single = {}
+    for impl in ("fused", "pallas"):
+        with ServeSession(params, CONFIG.replace(segment_sum_impl=impl),
+                          spec=spec, max_batch=8, device=DEVICE) as one:
+            single[impl] = [one.predict_one(s, head=h)
+                            for s, h in zip(samples, heads)]
+    refs = single["fused"]
+    cfg = CONFIG.replace(segment_sum_impl="fused")
+    out = {"phase": "serve_scaleout", "config": "hydragnn-gfm",
+           "requests": SCALEOUT_REQUESTS, "tolerance": SERVE_TOL}
+
+    # (a) replicas
+    rep = ReplicaServeSession(
+        params, cfg, spec=spec, max_batch=8, max_wait_ms=20.0,
+        meshes=make_replica_meshes(SCALEOUT_REPLICAS,
+                                   devices=cards(SCALEOUT_REPLICAS)))
+    with rep:
+        t0 = time.perf_counter()
+        shapes = rep.warmup()
+        warm_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        firsts = [next(iter(interop.leaves(s._entries[0].shared).values()))
+                  for s in rep.replicas]
+        storages = {t.untyped_storage().data_ptr() for t in firsts}
+        streams = {s._entries[0].stream for s in rep.replicas}
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        res = _served(rep.submit_many(samples, heads))
+        wall = time.perf_counter() - t0
+        launches = {k: c.launches for k, c in counters.items()}
+        st = rep.stats()
+    c = st["counters"]
+    checks = {
+        "rows_bitwise_vs_single": rows_bitwise(res, refs),
+        "routed": c["routed"] == SCALEOUT_REQUESTS,
+        "outstanding_zero": st["scheduler"]["outstanding"]
+        == [0] * SCALEOUT_REPLICAS,
+        "param_storages": len(storages) == SCALEOUT_REPLICAS,
+        "streams": len(streams) == SCALEOUT_REPLICAS,
+        "launches": launches["egnn_edge"] == 4 * c["batches"] > 0
+        and launches["segment_sum"] == 0,
+        "shapes": shapes <= spec.n_shapes * SCALEOUT_REPLICAS}
+    if not all(checks.values()):
+        fail(f"serve_scaleout (a): {checks}, launches {launches}, "
+             f"{c['batches']} batches")
+    fused = serve["fused"]
+    out["a_replicas"] = {
+        "replicas": SCALEOUT_REPLICAS, "impl": "fused", "checks": checks,
+        "batches": c["batches"], "launches": launches, "shapes": shapes,
+        "warmup_s": warm_s, "wall_s": wall,
+        "requests_per_s": SCALEOUT_REQUESTS / wall,
+        "e2e_ms": {k: st["latency"]["e2e"][k] for k in ("p50_ms", "p99_ms")},
+        "compute_ms": {k: st["latency"]["compute"][k]
+                       for k in ("p50_ms", "p99_ms")},
+        "plan": st["plan"],
+        "serve_fused_pass": {k: fused[k] for k in ("requests", "wall_s",
+                                                   "requests_per_s",
+                                                   "e2e_ms")}}
+
+    # (b) failover, every replica dead, recovery
+    rep = ReplicaServeSession(params, cfg, spec=spec, max_batch=8,
+                              max_wait_ms=1.0,
+                              meshes=make_replica_meshes(2, devices=cards(2)))
+    with rep:
+        sm, h = samples[0], heads[0]            # head 0: replica 0's key
+        _crash_replica(rep, 0, sm)
+        got = rep.submit(sm, head=h).result(timeout=600)
+        failover_ok = rows_bitwise([got], [refs[0]]) and \
+            0 in rep.scheduler.dead and rep.metrics.counters["failovers"] >= 1
+        _crash_replica(rep, 1, sm)
+        try:
+            rep.submit(sm, head=h)
+            all_dead_raises = False
+        except ServeClosedError:
+            all_dead_raises = True
+        restarted = rep.restart_workers()
+        after = _served(rep.submit_many(samples[:16], heads[:16]))
+        recovered_ok = rows_bitwise(after, refs[:16])
+        st = rep.stats()
+    checks = {"failover_bitwise": failover_ok,
+              "all_dead_raises": all_dead_raises,
+              "restarted": restarted == 2,
+              "recovered_bitwise": recovered_ok}
+    if not all(checks.values()):
+        fail(f"serve_scaleout (b): {checks}")
+    out["b_failover"] = {"replicas": 2, "checks": checks,
+                         "failovers": st["counters"]["failovers"],
+                         "worker_failures": st["counters"]["worker_failures"],
+                         "worker_restarts": st["counters"]["worker_restarts"]}
+
+    # (c) close under load
+    rep = ReplicaServeSession(
+        params, cfg, spec=spec, max_batch=8, max_wait_ms=100.0,
+        meshes=make_replica_meshes(SCALEOUT_REPLICAS,
+                                   devices=cards(SCALEOUT_REPLICAS)))
+    burst = rep.submit_many(samples[:40], heads[:40])
+    t0 = time.perf_counter()
+    rep.close()
+    close_s = time.perf_counter() - t0
+    try:
+        rep.submit(samples[0], head=heads[0])
+        after_close = "accepted"
+    except ServeClosedError as e:
+        after_close = type(e).__name__
+    checks = {"all_done": all(f.done() for f in burst),
+              "all_ok": all(f.exception() is None for f in burst),
+              "rows_bitwise": rows_bitwise([f.result() for f in burst
+                                            if f.exception() is None],
+                                           refs[:40]),
+              "after_close": after_close == "ServeClosedError"}
+    if not all(checks.values()):
+        fail(f"serve_scaleout (c): {checks}")
+    out["c_close"] = {"requests": 40, "checks": checks, "close_s": close_s}
+
+    # (d) a bin's rows split over a mesh of entries on the card
+    out["d_sharded"] = []
+    for impl, counter in (("fused", "egnn_edge"), ("pallas", "segment_sum")):
+        cfg_i = CONFIG.replace(segment_sum_impl=impl)
+        for n in SHARD_WAYS:
+            mesh = make_replica_meshes(1, devices_per_replica=n,
+                                       devices=cards(n))[0]
+            with ServeSession(params, cfg_i, spec=spec, max_batch=8,
+                              mesh=mesh, max_wait_ms=20.0) as sh:
+                sh.warmup()
+                torch.cuda.synchronize()
+                for c in counters.values():
+                    c.launches = 0
+                t0 = time.perf_counter()
+                res = _served(sh.submit_many(samples, heads))
+                wall = time.perf_counter() - t0
+                launches = {k: c.launches for k, c in counters.items()}
+                st = sh.stats()
+                own = [sh.predict_one(s, head=h)
+                       for s, h in zip(samples, heads)]
+            try:
+                ServeSession(params, cfg_i, spec=spec, max_batch=6,
+                             mesh=make_replica_meshes(
+                                 1, devices_per_replica=4,
+                                 devices=cards(4))[0])
+                uneven_raises = False
+            except ValueError:
+                uneven_raises = True
+            b = st["counters"]["batches"]
+            other = "segment_sum" if counter == "egnn_edge" else "egnn_edge"
+            vs_single = serve_rel_err(res, single[impl])
+            checks = {"rows_bitwise_vs_own": rows_bitwise(res, own),
+                      "within_tol_of_single": vs_single <= SERVE_TOL,
+                      "plan": st["plan"]["mode"] == "sharded"
+                      and st["plan"]["devices"] == n,
+                      "launches": launches[counter] == 4 * n * b > 0
+                      and launches[other] == 0,
+                      "uneven_raises": uneven_raises}
+            if not all(checks.values()):
+                fail(f"serve_scaleout (d) {impl} n={n}: {checks}, "
+                     f"launches {launches}, {b} batches, vs single "
+                     f"{vs_single}")
+            out["d_sharded"].append({
+                "impl": impl, "entries": n, "rows_a_chunk": 8 // n,
+                "checks": checks, "batches": b, "launches": launches,
+                "bitwise_vs_single": rows_bitwise(res, single[impl]),
+                "rel_err_vs_single": vs_single, "wall_s": wall,
+                "requests_per_s": SCALEOUT_REQUESTS / wall,
+                "e2e_ms": {k: st["latency"]["e2e"][k]
+                           for k in ("p50_ms", "p99_ms")}})
+    out["launches"] = {
+        "egnn_edge": out["a_replicas"]["launches"]["egnn_edge"] + sum(
+            d["launches"]["egnn_edge"] for d in out["d_sharded"]),
+        "segment_sum": sum(d["launches"]["segment_sum"]
+                           for d in out["d_sharded"])}
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2548,6 +2804,8 @@ def main():
     gnn_counters = {"egnn_edge": edge_ops.egnn_edge_agg,
                     "egnn_edge_bwd": edge_ops.egnn_edge_bwd,
                     "segment_sum": ss_ops.segment_sum}
+    scaleout = serve_scaleout_phase(torch, serve, gnn_counters)
+    emit(scaleout)
     train = train_phase(torch, gnn_counters)
     emit(train)
     pipe = train_pipeline_phase(torch, gnn_counters)
@@ -2560,13 +2818,17 @@ def main():
     if args.profile:
         emit(lm_profile(torch))
     # each path's counts, zeroed just before it: serving (fused and pallas
-    # passes), training, the pre-training pipeline (runs (a) and (b)), the
-    # task-parallel runs (every rank of (a)-(c)), and LM serving (runs (a)
-    # and (b))
+    # passes), serving scale-out (runs (a) and (d)), training, the
+    # pre-training pipeline (runs (a) and (b)), the task-parallel runs
+    # (every rank of (a)-(c)), and LM serving (runs (a) and (b))
     lm_runs = (lm["run_a"]["launches"], lm["run_b"]["launches"])
     by_path = {
-        "segment_sum": {"serve": serve["pallas"]["launches"]["segment_sum"]},
+        "segment_sum": {"serve": serve["pallas"]["launches"]["segment_sum"],
+                        "serve_scaleout":
+                        scaleout["launches"]["segment_sum"]},
         "egnn_edge_fused": {"serve": serve["fused"]["launches"]["egnn_edge"],
+                            "serve_scaleout":
+                            scaleout["launches"]["egnn_edge"],
                             "train": train["launches"]["egnn_edge"],
                             "train_pipeline": pipe["launches"]["egnn_edge"],
                             "train_mtp": mtp["launches"]["egnn_edge"]},

@@ -6,6 +6,10 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <mutex>
+#include <set>
+#include <utility>
+
 extern "C" const char* error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
@@ -31,4 +35,22 @@ static cudaError_t allow_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
+}
+
+// allow_smem once per kernel and device. Several host threads may make a
+// kernel's first launch on one card at once (serving replicas, each on its
+// own stream), so the record of what was set sits behind a mutex.
+static inline cudaError_t allow_smem_once(const void* kernel, size_t bytes) {
+  static std::mutex mu;
+  static std::set<std::pair<const void*, int>> done;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  if (done.count({kernel, dev})) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err == cudaSuccess) done.insert({kernel, dev});
+  return err;
 }

@@ -289,16 +289,10 @@ extern "C" int egnn_edge_fwd_launch(const float* h, const float* pos,
   const bool staged = edge_fwd_smem(A, be, block_h, true) <= kEdgeSmemBudget;
   const size_t esmem = edge_fwd_smem(A, be, block_h, staged);
   if (esmem > kEdgeSmemBudget) return (int)cudaErrorInvalidValue;
-  static bool attr_set[64][2] = {};
-  int dev = 0;
-  err = cudaGetDevice(&dev);
+  err = allow_smem_once(staged ? (const void*)egnn_edge_fwd_kernel<true>
+                                : (const void*)egnn_edge_fwd_kernel<false>,
+                         232448);
   if (err != cudaSuccess) return (int)err;
-  if (dev < 64 && !attr_set[dev][staged]) {
-    err = staged ? allow_smem(egnn_edge_fwd_kernel<true>, 232448)
-                 : allow_smem(egnn_edge_fwd_kernel<false>, 232448);
-    if (err != cudaSuccess) return (int)err;
-    attr_set[dev][staged] = true;
-  }
   dim3 grid((H + block_h - 1) / block_h, B);
   if (staged)
     egnn_edge_fwd_kernel<true><<<grid, EF_THREADS, esmem, s>>>(

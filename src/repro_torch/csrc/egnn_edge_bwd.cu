@@ -397,16 +397,10 @@ extern "C" int egnn_edge_bwd_launch(
   // 2. the edge kernel, its column tiles staged when they fit
   const bool staged = edge_bwd_smem(A, E, block_h, true) <= kEdgeSmemBudget;
   const size_t esmem = edge_bwd_smem(A, E, block_h, staged);
-  static bool attr_set[64][2] = {};
-  int dev = 0;
-  err = cudaGetDevice(&dev);
+  err = allow_smem_once(staged ? (const void*)egnn_edge_bwd_kernel<true>
+                                : (const void*)egnn_edge_bwd_kernel<false>,
+                         232448);
   if (err != cudaSuccess) return (int)err;
-  if (dev < 64 && !attr_set[dev][staged]) {
-    err = staged ? allow_smem(egnn_edge_bwd_kernel<true>, 232448)
-                 : allow_smem(egnn_edge_bwd_kernel<false>, 232448);
-    if (err != cudaSuccess) return (int)err;
-    attr_set[dev][staged] = true;
-  }
   dim3 grid((H + block_h - 1) / block_h, B);
   const float* w0d = w0 + (size_t)2 * H * H;
   if (staged)

@@ -458,16 +458,9 @@ static inline TcReduce tc_reduce(const float* part, float* C, float* C_extra,
 // in tiles, item ranges and copy widths.
 template <int LAYOUT>
 static cudaError_t gemm_tc(TcLaunch& L, cudaStream_t s) {
-  static bool attr_set[64] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  cudaError_t err =
+      allow_smem_once((const void*)gemm_tc_kernel<LAYOUT>, tc::SMEM_BYTES);
   if (err != cudaSuccess) return err;
-  if (dev >= 64) return cudaErrorInvalidDevice;
-  if (!attr_set[dev]) {
-    err = allow_smem(gemm_tc_kernel<LAYOUT>, tc::SMEM_BYTES);
-    if (err != cudaSuccess) return err;
-    attr_set[dev] = true;
-  }
   if (L.red.items > 0 && L.red.elems < 1) return cudaErrorInvalidValue;
   int items = 0;
   for (int i = 0; i < L.count; ++i) {

@@ -35,6 +35,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_count_lock = threading.Lock()
 
 
 def sources() -> list[str]:
@@ -125,3 +126,12 @@ def stream_ptr(t) -> int:
     """The raw handle of PyTorch's current stream on ``t``'s device."""
     import torch
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def count_launch(wrapper):
+    """Add one to ``wrapper.launches``, the count a kernel's wrapper keeps.
+    Several host threads may launch at once (serving replicas), and ``+=``
+    on an attribute is a read, an add and a write that they can
+    interleave, so the count sits behind a lock."""
+    with _count_lock:
+        wrapper.launches += 1

@@ -107,7 +107,7 @@ def _launch_fwd(h, pos, sr, dr, w0, b0, w1, b1, cd, block_e, block_h, *,
               deg.data_ptr(), _ptr(part), _ptr(out_part), B, A, E, H, be,
               block_h, proj, fc1, _build.stream_ptr(h))
     _build.check(lib, code, "egnn_edge_fwd_launch")
-    egnn_edge_agg.launches += 1
+    _build.count_launch(egnn_edge_agg)
     return out, pi, pj, s, deg
 
 
@@ -153,7 +153,7 @@ def egnn_edge_bwd(g, h, pos, src, dst, w0, w1, pi, pj, s, deg, *,
               dw0d_part.data_ptr(), _ptr(dd2_part), _ptr(w1_part), B, A, E,
               H, be, block_h, splits, _build.stream_ptr(h))
     _build.check(lib, code, "egnn_edge_bwd_launch")
-    egnn_edge_bwd.launches += 1
+    _build.count_launch(egnn_edge_bwd)
     return dh, dpos, dw0, db0, dw1, db1
 
 

@@ -59,7 +59,7 @@ def _launch(q, k, v, q_pos, k_pos, causal, window, scale):
         float(scale), int(causal), int(window), _DTYPES[q.dtype],
         _build.stream_ptr(q))
     _build.check(lib, code, "flash_attention_launch")
-    flash_attention.launches += 1
+    _build.count_launch(flash_attention)
     return out
 
 

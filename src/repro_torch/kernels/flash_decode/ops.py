@@ -203,7 +203,7 @@ def _launch(q, k, v, q_pos, k_pos, window, scale, plan: Plan):
         q_pos.stride(0), float(scale), int(window), _DTYPES[q.dtype],
         _build.stream_ptr(q))
     _build.check(lib, code, "flash_decode_launch")
-    flash_decode.launches += 1
+    _build.count_launch(flash_decode)
     return out
 
 

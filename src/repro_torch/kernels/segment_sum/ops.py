@@ -165,7 +165,7 @@ def _launch(messages, dst, n_nodes, p: Plan):
                                   p.chunks, p.vec, _DTYPES[m.dtype],
                                   _build.stream_ptr(m))
     _build.check(lib, code, "segment_sum_launch")
-    segment_sum.launches += 1
+    _build.count_launch(segment_sum)
     return out[0] if squeeze else out
 
 

@@ -1,8 +1,8 @@
 """Process meshes on ``torch.distributed`` (port of ``repro.launch.mesh``).
 
-One process (rank) stands for one device. ``init_distributed`` joins a
-rank to its job; the mesh builders are functions, so importing this module
-touches no process group:
+In training, one process (rank) stands for one device. ``init_distributed``
+joins a rank to its job; the mesh builders are functions, so importing
+this module touches no process group:
 
   * ``make_host_mesh(data, model)`` / ``make_gfm_paper_mesh(n_tasks, dp)``:
     a ``DeviceMesh`` with dims ``("data", "model")`` — the flat plans'
@@ -11,7 +11,8 @@ touches no process group:
     ``HeadPlacement``, ranks dealt contiguously by ``device_counts``, one
     ``dist.new_group`` per group (every rank creates every group, in the
     same order, as ``new_group`` requires);
-  * ``make_replica_meshes``: serving replicas as one-head groups;
+  * ``make_replica_meshes``: serving meshes, cut from a list of devices
+    (not ranks): serving runs in one process, see its docstring;
   * ``run_ranks(fn, world)``: start ``world`` ranks with ``spawn`` and a
     file rendezvous, run ``fn(rank, world, *args)`` in each, and return
     their results — the launcher the tests and ``chip_smoke.py`` use. Its
@@ -144,17 +145,53 @@ def make_group_meshes(placement) -> list:
             for r in group_ranks(placement)]
 
 
-def make_replica_meshes(n_replicas: int, *,
-                        devices_per_replica: int = 1) -> list:
-    """Serving scale-out meshes: ``n_replicas`` disjoint groups of
-    ``devices_per_replica`` ranks — a replica is a head group that owns
-    every head — built by ``make_group_meshes``."""
-    from repro_torch.core.taskpar import HeadPlacement
+class ServeMesh(NamedTuple):
+    """One serving replica's 1-axis ``("data",)`` mesh: the devices a
+    batch's rows are split over, in order (``ServeSession(mesh=)``)."""
+    devices: tuple
+
+    @property
+    def shape(self) -> dict:
+        return {"data": len(self.devices)}
+
+
+def make_replica_meshes(n_replicas: int, *, devices_per_replica: int = 1,
+                        devices=None) -> list:
+    """Serving scale-out meshes: cut a device list, contiguously, into
+    ``n_replicas`` one-axis ``ServeMesh``es of ``devices_per_replica``
+    entries each (``repro.launch.mesh.make_replica_meshes``).
+
+    ``devices``: the list to cut (``torch.device``s or strings). None takes
+    every visible CUDA card and raises without one — a CPU run passes
+    ``devices=["cpu"] * n``. Too few devices raise. The list may name one
+    device more than once, which ``repro`` has no counterpart for: each
+    entry gets a CUDA stream of its own (``ServeSession``), so one H100
+    stands in for a mesh of several.
+
+    Serving needs no process group. A replica never exchanges a tensor
+    with another (it holds every head), a sharded batch's rows are
+    independent, and the router is a host-side object, so one process
+    drives every device, each entry through its own stream: no
+    cross-process futures, and no rank start-up (interpreters, CUDA
+    contexts, a rendezvous) before the first request."""
     if n_replicas < 1 or devices_per_replica < 1:
         raise ValueError("need >= 1 replica of >= 1 device")
-    return make_group_meshes(HeadPlacement(
-        groups=tuple((g,) for g in range(n_replicas)),
-        device_counts=(devices_per_replica,) * n_replicas))
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass devices=['cpu', ...] to "
+                "serve on the CPU (device='cpu' in the other entry points)")
+        devs = [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    else:
+        devs = [torch.device(d) for d in devices]
+    need = n_replicas * devices_per_replica
+    if len(devs) < need:
+        raise ValueError(f"{n_replicas} replicas of {devices_per_replica} "
+                         f"need {need} devices, {len(devs)} given")
+    k = devices_per_replica
+    return [ServeMesh(tuple(devs[r * k:(r + 1) * k]))
+            for r in range(n_replicas)]
 
 
 # ---------------------------------------------------------------------------

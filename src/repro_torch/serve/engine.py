@@ -24,16 +24,27 @@ rows, so a batch and a lone request (``predict_one``) run the same shapes
 through the same kernels, and each row's result is bitwise the same: the
 forward is row-independent and every kernel sums in a fixed order.
 
-Batches move host -> device as ``non_blocking`` copies from pinned memory;
-results come back with ``.cpu()``. One injected ``clock`` is the time base
-of queue, batcher and metrics. ``close()`` stops admissions, drains every
+A multi-device session is one more PLAN, not more shapes: ``mesh=`` (a
+``launch.mesh.ServeMesh``) splits each batch's rows over the mesh's
+entries, the params copied once per distinct device, so the budget stays
+the bucket grid; ``serve.scaleout`` runs one session per replica on top.
+
+The worker runs each batch's host -> device copies (``non_blocking``, from
+pinned memory), forward and ``.cpu()`` on the session's own CUDA stream,
+one per mesh entry, so sessions on one card overlap instead of queueing on
+the default stream; ``predict_one`` runs the same kernels at the same
+shapes on the caller's stream. One injected ``clock`` is the time base of
+queue, batcher and metrics. ``close()`` stops admissions, drains every
 queued or binned request through the forward, joins the worker and is an
-idempotent no-op on re-entry.
+idempotent no-op on re-entry; ``restart_worker()`` brings a crashed worker
+back.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -63,6 +74,43 @@ def _head_slices(head_params, n_heads: int) -> list:
     return [take(fwd, t) for t in range(n_heads)]
 
 
+def _row_chunks(batch: dict, n: int) -> list:
+    """An assembled batch's rows cut into ``n`` contiguous chunks, one per
+    mesh entry (one chunk, all rows, on a single device): ``repro``'s
+    ``serve_batch_spec`` rule
+    (``repro/configs/sharding.py:143-153``, rows data-parallel over the
+    serving mesh) with the params replicated. ``ServeSession`` refuses a
+    ``max_batch`` that does not tile, so the rule's replicate case never
+    arises."""
+    rows = next(iter(batch.values())).shape[0] // n
+    return [{k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}
+            for i in range(n)]
+
+
+class _Entry(NamedTuple):
+    """One mesh entry: its device, its stream (None on the CPU) and the
+    params on that device (shared by the entries of one device)."""
+    device: torch.device
+    stream: object
+    shared: dict
+    heads: list
+
+
+def _pinned(device) -> torch.device:
+    """``device`` with the CUDA index made explicit (``cuda`` -> the
+    current card), so entries naming one card compare equal. A CUDA entry
+    without a GPU raises, as ``resolve_device`` does."""
+    d = torch.device(device)
+    if d.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("the serving mesh names a CUDA device and no "
+                               "CUDA device is available; name 'cpu' "
+                               "entries (device='cpu') to serve on the CPU")
+        if d.index is None:
+            d = torch.device("cuda", torch.cuda.current_device())
+    return d
+
+
 class ServeSession:
     """High-throughput property-prediction serving for one trained model.
 
@@ -74,8 +122,18 @@ class ServeSession:
         (arch.max_atoms, arch.max_edges).
     max_batch / max_wait_ms / queue_depth / max_queue_wait_ms /
     admission_timeout_ms / adaptive / clock: as in ``repro``.
-    mesh: multi-device serving belongs to a later slice; not None raises.
-    device: where the forward runs; None = ``cuda`` (raises without a GPU).
+    mesh: a ``ServeMesh`` (``launch.mesh.make_replica_meshes``), or None.
+        One entry pins the session to that device. With n > 1 entries each
+        batch's rows are split into n contiguous chunks, one per entry, on
+        the entry's own stream, and gathered in row order; ``max_batch``
+        must tile evenly. Rows stay bitwise equal to this session's
+        ``predict_one`` (same plan); against a single-device session they
+        agree within float32 rounding, not bitwise: a chunk of
+        max_batch / n rows may sum in another order (#3 plans its split-K
+        from the rows it gets).
+    device: where the forward runs when ``mesh`` is None; None = ``cuda``
+        (raises without a GPU). With a mesh, its entries name the devices
+        and ``device`` must be None.
     """
 
     def __init__(self, params: dict, arch, *, spec: BucketSpec | None = None,
@@ -86,17 +144,33 @@ class ServeSession:
                  mesh=None, adaptive: bool = False,
                  metrics: ServeMetrics | None = None,
                  clock=time.monotonic, seed: int = 0, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (rows sharded over several devices) is not ported "
-                "yet; this ServeSession serves on one device")
         if not (isinstance(params, dict) and
                 {"shared", "heads"} <= set(params)):
             raise ValueError('params must be the MultiTaskModel layout '
                              '{"shared": ..., "heads": ...}')
-        self.device = resolve_device(device)
-        params = interop.to_torch(params, self.device)
-        fwd_heads = {k: v for k, v in params["heads"].items()
+        if mesh is None:
+            devices = (resolve_device(device),)
+        elif device is not None:
+            raise ValueError("pass mesh= or device=, not both: the mesh's "
+                             "entries name the devices")
+        else:
+            devices = tuple(mesh.devices)
+        devices = tuple(_pinned(d) for d in devices)
+        if not devices:
+            raise ValueError("the serving mesh has no device")
+        self.plan_devices = len(devices)
+        if max_batch % self.plan_devices:
+            raise ValueError(
+                f"max_batch={max_batch} must tile evenly over the "
+                f"{self.plan_devices}-device serving mesh (rows are "
+                f"data-parallel)")
+        copies: dict = {}       # one params copy per distinct device
+        for d in devices:
+            if d not in copies:
+                copies[d] = interop.to_torch(params, d)
+                if d.type == "cuda":    # the copies land before any stream
+                    torch.cuda.synchronize(d)
+        fwd_heads = {k: v for k, v in copies[devices[0]]["heads"].items()
                      if k not in _NON_FORWARD_HEAD_KEYS}
         leaves = list(interop.leaves(fwd_heads).values())
         n_heads = int(leaves[0].shape[0])
@@ -111,26 +185,32 @@ class ServeSession:
         self.spec = spec
         self.n_heads = n_heads
         self.max_batch = max_batch
+        self.device = devices[0]
         self._clock = clock
-        self._shared = params["shared"]
-        self._heads = _head_slices(params["heads"], n_heads)
+        heads = {d: _head_slices(p["heads"], n_heads)
+                 for d, p in copies.items()}
+        self._entries = [
+            _Entry(d, torch.cuda.Stream(device=d) if d.type == "cuda"
+                   else None, copies[d]["shared"], heads[d])
+            for d in devices]
         self.metrics = metrics if metrics is not None else \
             ServeMetrics(seed=seed, clock=clock)
-        max_wait = max_wait_ms * 1e-3
-        policy = AdaptivePolicy(max_batch=max_batch, max_wait=max_wait) \
+        # retained so restart_worker() can rebuild the queue/batcher pair
+        self._queue_depth = queue_depth
+        self._max_queue_wait = None if max_queue_wait_ms is None \
+            else max_queue_wait_ms * 1e-3
+        self._admission_timeout = None if admission_timeout_ms is None \
+            else admission_timeout_ms * 1e-3
+        self._max_wait = max_wait_ms * 1e-3
+        # measurement state: survives restart_worker(), only the batcher it
+        # advises is rebuilt
+        self._policy = AdaptivePolicy(max_batch=max_batch,
+                                      max_wait=self._max_wait) \
             if adaptive else None
-        self.queue = RequestQueue(
-            spec, depth=queue_depth, n_heads=n_heads, clock=clock,
-            metrics=self.metrics,
-            max_queue_wait=None if max_queue_wait_ms is None
-            else max_queue_wait_ms * 1e-3,
-            admission_timeout=None if admission_timeout_ms is None
-            else admission_timeout_ms * 1e-3)
-        self.batcher = SizeBinnedBatcher(max_batch=max_batch,
-                                         max_wait=max_wait, clock=clock,
-                                         policy=policy)
-        self._policy = policy
+        self.queue = self._make_queue()
+        self.batcher = self._make_batcher()
         self._exec: dict[tuple, object] = {}   # (bucket, head) -> callable
+        self._exec_lock = threading.Lock()
         self._shapes_compiled: set = set()
         self._closed = False
         self._worker_error: BaseException | None = None
@@ -141,6 +221,18 @@ class ServeSession:
         self._worker = threading.Thread(target=self._serve_loop,
                                         name="serve-worker", daemon=True)
         self._worker.start()
+
+    def _make_queue(self) -> RequestQueue:
+        return RequestQueue(self.spec, depth=self._queue_depth,
+                            n_heads=self.n_heads, clock=self._clock,
+                            metrics=self.metrics,
+                            max_queue_wait=self._max_queue_wait,
+                            admission_timeout=self._admission_timeout)
+
+    def _make_batcher(self) -> SizeBinnedBatcher:
+        return SizeBinnedBatcher(max_batch=self.max_batch,
+                                 max_wait=self._max_wait,
+                                 clock=self._clock, policy=self._policy)
 
     # -- construction helpers -----------------------------------------------
 
@@ -173,10 +265,10 @@ class ServeSession:
         return self.queue.submit_many(samples, heads)
 
     def predict_one(self, sample: dict, head: int = 0) -> dict:
-        """Synchronous single-request forward on the same padded shape a
-        batched run uses (one real row, ``max_batch - 1`` inert pad rows) —
-        the parity reference for the batched-and-scattered path. Bypasses
-        the queue/worker."""
+        """Synchronous single-request forward on the same padded shape and
+        plan a batched run uses (one real row, ``max_batch - 1`` inert pad
+        rows), on the caller's stream — the parity reference for the
+        batched-and-scattered path. Bypasses the queue/worker."""
         from .batching import assemble
         from .queue import Request, _as_sample
         canon, n_atoms, n_edges = _as_sample(sample)
@@ -185,13 +277,14 @@ class ServeSession:
                       n_atoms=n_atoms, n_edges=n_edges, future=None,
                       t_submit=self._clock())
         ab = assemble([req], bucket, self.max_batch)
-        e, f = self._executable(bucket, head)(ab.batch)
+        e, f = self._executable(bucket, head)(ab.batch, own_streams=False)
         return {"energy": float(e[0]), "forces": f[0, :n_atoms]}
 
     def warmup(self, buckets=None) -> int:
         """Run the forward once (head 0) on every given bucket shape
-        (default: the full grid) so first requests meet warm caches and
-        built kernels. Returns the number of shapes seen afterwards."""
+        (default: the full grid), on the session's streams, so first
+        requests meet warm caches and built kernels. Returns the number of
+        shapes seen afterwards."""
         if buckets is None:
             buckets = [(a, e) for a in self.spec.atom_buckets
                        for e in self.spec.edge_buckets]
@@ -206,6 +299,11 @@ class ServeSession:
             self._executable((a_pad, e_pad), 0)(dummy)
         return len(self._shapes_compiled)
 
+    def jit_functions(self):
+        """The session's forward callables (``repro``'s jit seam). PyTorch
+        runs eagerly, so there is no jit cache behind them."""
+        return (self._predict,)
+
     def stats(self) -> dict:
         """Metrics snapshot + shape-cache occupancy (plain dict)."""
         out = self.metrics.snapshot()
@@ -215,8 +313,12 @@ class ServeSession:
             "budget": self.spec.n_shapes * self.n_heads,
             "compile_budget": self.spec.n_shapes,
         }
-        out["plan"] = {"mode": "single", "devices": 1,
-                       "device": str(self.device)}
+        if self.plan_devices == 1:
+            out["plan"] = {"mode": "single", "devices": 1,
+                           "device": str(self.device)}
+        else:
+            out["plan"] = {"mode": "sharded", "devices": self.plan_devices,
+                           "device": [str(e.device) for e in self._entries]}
         if self._policy is not None:
             out["adaptive"] = self._policy.snapshot()
         return out
@@ -243,39 +345,65 @@ class ServeSession:
 
     # -- forward ---------------------------------------------------------------
 
-    def _to_device(self, batch: dict) -> dict:
+    @staticmethod
+    def _to_device(batch: dict, device: torch.device) -> dict:
         out = {}
         for k, v in batch.items():
             t = torch.from_numpy(np.ascontiguousarray(v))
-            if self.device.type == "cuda":
-                t = t.pin_memory().to(self.device, non_blocking=True)
+            if device.type == "cuda":
+                t = t.pin_memory().to(device, non_blocking=True)
             out[k] = t
         return out
 
-    def _forward(self, head_params, batch: dict):
+    @staticmethod
+    def _on(entry: _Entry, own_streams: bool):
+        """Where an entry's work is queued: its own stream, or the caller's
+        current stream on its device."""
+        if entry.device.type != "cuda":
+            return contextlib.nullcontext()
+        if own_streams:
+            return torch.cuda.stream(entry.stream)
+        return torch.cuda.device(entry.device)
+
+    def _predict(self, head: int, batch: dict, own_streams: bool = True):
+        """The forward of one assembled batch under ``head``: each mesh
+        entry's rows copied in, run and copied out on its stream (every
+        entry's forward is queued before the first copy back waits), the
+        rows gathered in order. Returns host (energy, forces)."""
+        chunks = _row_chunks(batch, len(self._entries))
+        outs = []
         with torch.inference_mode():
-            tb = self._to_device(batch)
-            feats = gnn.egnn_apply(self._shared, tb, cfg=self.arch)
-            e, f = heads_mod.branch_apply(head_params, feats,
-                                          tb["node_mask"], cfg=self.arch)
-            return e.cpu().numpy(), f.cpu().numpy()
+            for ent, chunk in zip(self._entries, chunks):
+                with self._on(ent, own_streams):
+                    tb = self._to_device(chunk, ent.device)
+                    feats = gnn.egnn_apply(ent.shared, tb, cfg=self.arch)
+                    outs.append(heads_mod.branch_apply(
+                        ent.heads[head], feats, tb["node_mask"],
+                        cfg=self.arch))
+            host = []
+            for ent, (e, f) in zip(self._entries, outs):
+                with self._on(ent, own_streams):
+                    host.append((e.cpu().numpy(), f.cpu().numpy()))
+        return (np.concatenate([e for e, _ in host]),
+                np.concatenate([f for _, f in host]))
 
     def _executable(self, bucket: tuple, head: int):
-        """The per-(bucket, head) cache entry: the forward with this head's
-        parameter slice bound. Counts a compilation only when the bucket
-        SHAPE is new — other heads on a seen shape reuse it."""
+        """The per-(bucket, head) cache entry: the forward with this head
+        bound. Counts a compilation only when the bucket SHAPE is new —
+        other heads on a seen shape reuse it. The worker, ``warmup`` and
+        ``predict_one`` may ask from three threads at once."""
         key = (bucket, head)
-        fn = self._exec.get(key)
-        if fn is None:
-            if bucket not in self._shapes_compiled:
-                self._shapes_compiled.add(bucket)
-                self.metrics.inc("compilations")
-            hp = self._heads[head]
+        with self._exec_lock:
+            fn = self._exec.get(key)
+            if fn is None:
+                if bucket not in self._shapes_compiled:
+                    self._shapes_compiled.add(bucket)
+                    self.metrics.inc("compilations")
 
-            def fn(batch, _h=hp):
-                return self._forward(_h, batch)
+                def fn(batch, own_streams=True, _h=head):
+                    return self._predict(_h, batch, own_streams)
 
-            self._exec[key] = fn
+                self._exec[key] = fn
         return fn
 
     # -- worker ---------------------------------------------------------------
@@ -285,8 +413,8 @@ class ServeSession:
             raise ServeClosedError("ServeSession is closed")
         if self._worker_error is not None:
             raise ServeClosedError(
-                "serve worker died — session is closed to new work"
-            ) from self._worker_error
+                "serve worker died — session is closed to new work "
+                "(restart_worker() recovers it)") from self._worker_error
 
     def _execute(self, ab: AssembledBatch):
         """Run one assembled batch and scatter rows to futures."""
@@ -369,3 +497,28 @@ class ServeSession:
                 req.future.set_exception(err)
             self.metrics.inc("failed", len(pending))
             raise
+
+    # -- recovery -------------------------------------------------------------
+
+    def restart_worker(self) -> bool:
+        """Recover from a dead worker: clear the fail-fast state and stand
+        up a fresh queue + batcher + worker thread. The shape cache, the
+        params and the streams are kept, so recovery rebuilds nothing on
+        the device. The crashed worker's pending futures were already
+        failed — nothing is replayed. Returns True if a restart happened
+        (False: the worker was healthy)."""
+        if self._closed:
+            raise ServeClosedError("ServeSession is closed")
+        if self._worker_error is None and self._worker.is_alive():
+            return False
+        self._worker.join(timeout=5.0)
+        self._worker_error = None
+        self._inflight = []
+        self.queue = self._make_queue()
+        self.batcher = self._make_batcher()
+        self._closing = threading.Event()
+        self._worker = threading.Thread(target=self._serve_loop,
+                                        name="serve-worker", daemon=True)
+        self._worker.start()
+        self.metrics.inc("worker_restarts")
+        return True

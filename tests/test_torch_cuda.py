@@ -16,6 +16,11 @@ summed in another order); in bf16, per element, that plus 2^-7 |ref|: both
 sides compute in f32 from the same bf16 inputs and round once to bf16,
 which moves a value by at most 1 ulp, at most 2^-7 of it.
 """
+import os
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -782,3 +787,114 @@ def test_bucketing_batcher_over_the_cards_placed_batches(cuda, tmp_path):
                     np.ascontiguousarray(v))), k
     assert placed.shapes_seen == ref.shapes_seen
     assert len(placed.shapes_seen) > 1
+
+
+FIRST_LAUNCHES = r"""
+import threading
+import torch
+from repro_torch.kernels.egnn_edge import egnn_edge_agg
+from repro_torch.models.mlp import mlp_init
+import numpy as np
+
+dev = torch.device("cuda")
+B, A, E, H = 4, 64, 2048, 866
+g = torch.Generator(device=dev).manual_seed(0)
+h = torch.randn((B, A, H), generator=g, device=dev)
+pos = torch.randn((B, A, 3), generator=g, device=dev)
+src = torch.randint(0, A, (B, E), generator=g, device=dev)
+dst = torch.randint(0, A, (B, E), generator=g, device=dev)
+em = torch.rand((B, E), generator=g, device=dev) < 0.8
+phi = mlp_init(np.random.default_rng(0), 2 * H + 1, H, H, 1, device=dev)
+torch.cuda.synchronize()
+n = 8
+barrier = threading.Barrier(n)
+outs, errors = [None] * n, []
+
+def run(i):
+    try:
+        stream = torch.cuda.Stream(device=dev)
+        barrier.wait()
+        with torch.inference_mode(), torch.cuda.stream(stream):
+            outs[i] = egnn_edge_agg(h, pos, src, dst, em, phi)
+        stream.synchronize()
+    except Exception as e:
+        errors.append(repr(e))
+
+egnn_edge_agg.launches = 0
+threads = [threading.Thread(target=run, args=(i,)) for i in range(n)]
+for t in threads:
+    t.start()
+for t in threads:
+    t.join(timeout=300)
+assert not errors, errors
+assert egnn_edge_agg.launches == n, egnn_edge_agg.launches
+with torch.inference_mode():
+    want = egnn_edge_agg(h, pos, src, dst, em, phi)
+torch.cuda.synchronize()
+assert all(torch.equal(o, want) for o in outs)
+print("ok")
+"""
+
+
+@pytest.mark.gpu
+def test_edge_forward_first_launches_from_8_threads(cuda):
+    """#3's first launches in a fresh process come from 8 threads at once,
+    each on its own stream (as replica workers warm up together): every
+    launch runs, is counted, and gives the bits one launch alone gives."""
+    src = Path(__file__).resolve().parents[1] / "src"
+    env = dict(os.environ, PYTHONPATH=str(src))
+    r = subprocess.run([sys.executable, "-c", FIRST_LAUNCHES], env=env,
+                       capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stdout.strip().splitlines()[-1] == "ok"
+
+
+@pytest.mark.gpu
+def test_replicas_and_sharded_rows_on_one_card(cuda):
+    """Replicas on four streams of one card, and rows split over two: each
+    row bitwise equal to its session's predict_one, launches 4 x batches
+    (x chunks when sharded) of #3."""
+    from repro_torch.data.bucketing import BucketSpec
+    from repro_torch.data.synthetic_atoms import generate_mixture, source_dicts
+    from repro_torch.core.mtl import gfm_mtl_init
+    from repro_torch.launch.mesh import make_replica_meshes
+    from repro_torch.serve import ReplicaServeSession, ServeSession
+    cfg = get_smoke("hydragnn-gfm").replace(segment_sum_impl="fused",
+                                            gnn_layers=4,
+                                            compute_dtype=torch.float32)
+    sources = source_dicts(generate_mixture(40, max_atoms=16, max_edges=64))
+    spec = BucketSpec((8, 16), (32, 64))
+    params = gfm_mtl_init(cfg, len(sources), seed=0)
+    jobs = [(t, {k: v[i % v.shape[0]] for k, v in sources[t].items()})
+            for t in range(len(sources)) for i in range(4)]
+    with ServeSession(params, cfg, spec=spec, max_batch=4) as one:
+        refs = [one.predict_one(sm, head=t) for t, sm in jobs]
+    with ReplicaServeSession(
+            params, cfg, spec=spec, max_batch=4, max_wait_ms=2.0,
+            meshes=make_replica_meshes(4, devices=["cuda"] * 4)) as rep:
+        rep.warmup()
+        egnn_edge_agg.launches = 0
+        outs = [f.result(timeout=120) for f in
+                [rep.submit(sm, head=t) for t, sm in jobs]]
+        batches = rep.stats()["counters"]["batches"]
+        assert egnn_edge_agg.launches == cfg.gnn_layers * batches
+        assert len({s._entries[0].stream for s in rep.replicas}) == 4
+    for o, r in zip(outs, refs):
+        assert o["energy"] == r["energy"]
+        assert np.array_equal(o["forces"], r["forces"])
+    mesh = make_replica_meshes(1, devices_per_replica=2,
+                               devices=["cuda"] * 2)[0]
+    with ServeSession(params, cfg, spec=spec, max_batch=4, mesh=mesh,
+                      max_wait_ms=2.0) as sh:
+        sh.warmup()
+        egnn_edge_agg.launches = 0
+        outs = [f.result(timeout=120) for f in
+                [sh.submit(sm, head=t) for t, sm in jobs]]
+        batches = sh.stats()["counters"]["batches"]
+        assert egnn_edge_agg.launches == 2 * cfg.gnn_layers * batches
+        for (t, sm), o, r in zip(jobs, outs, refs):
+            own = sh.predict_one(sm, head=t)
+            assert o["energy"] == own["energy"]
+            assert np.array_equal(o["forces"], own["forces"])
+            _close(torch.from_numpy(o["forces"]),
+                   torch.from_numpy(r["forces"]), 1e-4)

@@ -31,9 +31,9 @@ def test_port_imports_without_jax_or_repro():
     r = subprocess.run([sys.executable, "-c", SCRIPT], env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    # every submodule was imported, the training and LM serving slices'
-    # among them
-    assert int(r.stdout.strip()) >= 57
+    # every submodule was imported, the training, LM serving and serving
+    # scale-out slices' among them
+    assert int(r.stdout.strip()) >= 58
 
 
 def test_entry_points_need_a_gpu_unless_cpu_is_asked_for():
@@ -88,6 +88,60 @@ def test_entry_points_need_a_gpu_unless_cpu_is_asked_for():
                                "pos": np.eye(3, dtype=np.float32)})
     assert np.isfinite(out["energy"])
     assert srv.stats()["plan"]["device"] == "cpu"
+    # multi-device serving: the serving meshes, a sharded session and
+    # replicas
+    from repro_torch.launch.mesh import ServeMesh, make_replica_meshes
+    from repro_torch.serve import ReplicaServeSession
+    spec = BucketSpec((16,), (64,))
+    one = {"species": np.ones(3, np.int32),
+           "pos": np.eye(3, dtype=np.float32)}
+    with pytest.raises(RuntimeError, match="devices=\\['cpu'"):
+        make_replica_meshes(2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServeSession(params, cfg, spec=spec,
+                     mesh=ServeMesh((torch.device("cuda"),) * 2))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ReplicaServeSession(params, cfg, meshes=[None, None], spec=spec)
+    mesh = make_replica_meshes(1, devices_per_replica=2,
+                               devices=["cpu"] * 2)[0]
+    with ServeSession(params, cfg, spec=spec, mesh=mesh) as sharded:
+        out = sharded.submit(one).result(timeout=60)
+    assert np.isfinite(out["energy"])
+    assert sharded.stats()["plan"]["mode"] == "sharded"
+    with ReplicaServeSession(
+            params, cfg, spec=spec,
+            meshes=make_replica_meshes(2, devices=["cpu"] * 2)) as rep:
+        out = rep.submit(one).result(timeout=60)
+    assert np.isfinite(out["energy"])
+    with ReplicaServeSession(params, cfg, meshes=[None], spec=spec,
+                             device="cpu") as rep:
+        assert np.isfinite(rep.predict_one(one)["energy"])
+
+
+RANKS = r"""
+import operator
+from repro_torch.launch.mesh import run_ranks
+try:
+    run_ranks(operator.add, 2, timeout=120)
+except RuntimeError as e:
+    assert "device='cpu'" in str(e), e
+else:
+    raise SystemExit("run_ranks ran without a GPU and without device='cpu'")
+print(run_ranks(operator.add, 2, device="cpu", timeout=120))
+"""
+
+
+def test_run_ranks_needs_a_gpu_unless_cpu_is_asked_for():
+    """``run_ranks`` refuses before it spawns a rank, and runs two gloo
+    ranks on the CPU when asked (a script of its own: the ranks are
+    spawned processes)."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU: device=None legitimately runs there")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    r = subprocess.run([sys.executable, "-c", RANKS], env=env,
+                       capture_output=True, text=True, timeout=240)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stdout.strip().splitlines()[-1] == "[2, 3]"
 
 
 def test_lm_entry_points_need_a_gpu_unless_cpu_is_asked_for():

@@ -152,12 +152,6 @@ def test_from_checkpoint_serves_repro_checkpoint(served, tmp_path):
     np.testing.assert_array_equal(a["forces"], b["forces"])
 
 
-def test_mesh_is_not_ported(served):
-    params, _ = served
-    with pytest.raises(NotImplementedError, match="mesh"):
-        ServeSession(params, CFG, spec=SPEC, mesh=object(), device="cpu")
-
-
 def test_same_structures_and_bucket_grid_as_repro():
     kw = dict(max_atoms=64, max_edges=2048, seed=3)
     want = j_atoms.generate_mixture(25, **kw)
