@@ -16,7 +16,8 @@ Phases, each printing one JSON line:
      forward (#3) is checked at the training path's shape (B=40: 5 sources
      x 8 graphs in one trunk pass), at B=8 (A=64, and a serve bucket of
      M = 128), at B=4 (a task-parallel rank's shard, a serve batch split
-     over 2 entries), at B=2 (split over 4) and at a ragged shape, for
+     over 2 entries), at B=2 (split over 4), at the training bucket (40,
+     32, 128) and at a ragged shape, for
      bits over two calls, per output and scratch (out, Pi, Pj, S, deg) at
      B=40, 8, 4 and 2, and timed there (B=40 its summary row) with its
      kernels a call (at most 4) and ``torch.matmul`` of its three
@@ -98,6 +99,30 @@ Phases, each printing one JSON line:
      a one-process session, and per rank the step's device time and
      host-clock ms and the trunk's and the group's all-reduce ms — ranks
      that time-share one card, not a scaling result;
+  4d. gnn_bf16: hydragnn-gfm at full width in bf16 compute (fp32 params,
+     ``compute_dtype=torch.bfloat16``) through the bf16 variants of #3 and
+     #4. Kernels, in phase 2's turn: #3 in bf16 (``check_egnn_edge``
+     with the compute dtype) against ``egnn_edge_agg_ref`` at bf16 within
+     ``EDGE_BF16_TOL`` at phase 2's shapes (B=40, 8, 4 and 2 at A=64,
+     E=2048, the buckets (8, 16, 512) and (40, 32, 128), a ragged shape),
+     bits over two calls, launched on its own counter
+     (``egnn_edge_agg.bf16``), the kernel's and the plain version's error
+     against a float64 forward, and at B=40/8/4/2 its f32 scratch and
+     device time beside the plain version, the f32 #3 and
+     ``torch.matmul`` bf16 of its three products; #4 on bf16 g, h and
+     weights at B=40 (no dpos) and B=8 (dpos), through the autograd
+     Function on a bf16 h leaf within ``BWD_TOL`` of the plain version,
+     and its launch bitwise equal to #4's f32 launch on the upcast values,
+     timed beside it. Then (b) 80 requests served
+     under ``"fused"`` and ``"pallas"``: rows bitwise equal to
+     ``predict_one``, within ``EDGE_BF16_TOL`` of the plain (``"jnp"``)
+     bf16 forward, the bf16 #3 launched 4 x batches (no f32 launch), the
+     distance from phase 3's f32 rows recorded; (c) 10 steps of 5 x 8
+     graphs: losses finite, 4 + 4 bf16 edge launches a step, one step's
+     gradients within ``EDGE_BF16_TOL`` of the plain bf16 path (x max(1,
+     max|ref|)) and each leaf within ``BF16_GRAD_NORM_TOL`` of its own
+     size, two 3-step runs bitwise equal, params fp32,
+     ``ServeSession.from_checkpoint`` serving in bf16;
   5. lm kernels: flash attention (#5) and flash decode (#6) against their
      plain versions on the card, f32 and bf16, causal with and without a
      window, GQA, ragged lengths, rotated (rolling) positions with pads,
@@ -191,6 +216,24 @@ LM_TOL_BF16 = 5e-2                 # ... bf16 compute, x max|ref logit|:
                                    # 2/4/8 layers (max |logit| ~4.9), ~0.11
                                    # at 24 by sqrt(L); tolerance ~0.25
 BF16_FLOPS = 989e12                # H100 SXM bf16 tensor cores, dense
+EDGE_BF16_TOL = 4e-2               # bf16 compute, x max(1, |ref|): #3,
+                                   # served rows, grads per leaf (and
+                                   # the loss, relative); repro's own bf16
+                                   # tolerance (tests/test_egnn_paper_
+                                   # shape.py): kernel and plain version
+                                   # round to bf16 at other points (the
+                                   # kernel's z is f32, the plain one's
+                                   # bf16 per edge)
+BF16_GRAD_NORM_TOL = 0.1           # bf16 compute, each gradient leaf's
+                                   # |fused - plain| / |plain| (2-norms), as
+                                   # well: a leaf of small gradients is held
+                                   # to its own size. Read up to 2.1e-2 on
+                                   # an H100 (heads/force/fc2/w); on the
+                                   # CPU the port's leaves up to 4.5e-2
+                                   # from repro's at bf16, repro's own bf16
+                                   # from its f32 up to 3.9e-2 (tests/
+                                   # test_torch_bf16.py); a zero or wrong
+                                   # leaf reads ~1
 N_REQUESTS = 80                    # mixed-head requests per serving pass
 TRAIN_STEPS = 10
 DEVICE = "cuda"                    # the serve_scaleout, train and lm_serve
@@ -367,21 +410,25 @@ def check_segment_sum(torch, dev, g):
     return out
 
 
-def _edge_fwd_bound(B, A, E, H, n_valid):
+def _edge_fwd_bound(B, A, E, H, n_valid, bf16=False):
     """#3's least time on the card for these inputs: its three node-level
-    products (2·B·A·H² each) as three TF32 tensor-core products each (the
-    3xTF32 split) plus ~8 operations per valid edge and column at the fp32
+    products (2·B·A·H² each) on the tensor cores, in f32 compute as three
+    TF32 products each (the 3xTF32 split), in bf16 (``bf16``) once each at
+    the bf16 rate, plus ~8 operations per valid edge and column at the fp32
     peak (``bound_ms``), the same work all in fp32 FFMA
     (``bound_ffma_ms``), and the bytes (h, pos, src, dst and the weights
     read once; out and the scratch the backward reads, Pi, Pj, S and deg,
-    written once) at HBM speed; each bound the larger of its operations
+    written once; h, the weights and out in the compute dtype, the rest
+    4 bytes a value) at HBM speed; each bound the larger of its operations
     time and the bytes time."""
     gemm_ops = 3 * 2 * B * A * H * H
     edge_ops = 8 * n_valid * H
-    nbytes = 4 * (B * A * H + B * A * 3 + 2 * B * E + (2 * H + 1) * H
-                  + H * H + 2 * H + 4 * B * A * H + B * A)
+    cd_bytes = 2 if bf16 else 4
+    nbytes = cd_bytes * (2 * B * A * H + (2 * H + 1) * H + H * H + 2 * H) \
+        + 4 * (B * A * 3 + 2 * B * E + 3 * B * A * H + B * A)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_tc = (3 * gemm_ops / TF32_FLOPS + edge_ops / FP32_FLOPS) * 1e3
+    t_gemm = gemm_ops / BF16_FLOPS if bf16 else 3 * gemm_ops / TF32_FLOPS
+    t_tc = (t_gemm + edge_ops / FP32_FLOPS) * 1e3
     t_ffma = (gemm_ops + edge_ops) / FP32_FLOPS * 1e3
     return {"bound_ms": max(t_tc, t_bytes),
             "bound_by": "operations" if t_tc >= t_bytes else "bytes",
@@ -406,8 +453,9 @@ def _edge_fwd_inputs(torch, g, dev, B, A, E, H=866):
 
 def _edge_fwd_call(torch, h, pos, src, dst, em, phi, splits=None):
     """A closure that calls #3's launcher (``ops._launch_fwd``) once on
-    routed int32 edges, as the autograd Function does, with the forward's
-    planned blocks; returns (out, Pi, Pj, S, deg)."""
+    routed int32 edges, as the autograd Function does, in h's dtype (the
+    φ_e leaves already in it, so the call casts nothing), with the
+    forward's planned blocks; returns (out, Pi, Pj, S, deg)."""
     from repro_torch.kernels.egnn_edge import ops
     B, A, H = h.shape
     E = src.shape[1]
@@ -418,8 +466,7 @@ def _edge_fwd_call(torch, h, pos, src, dst, em, phi, splits=None):
     kw = {} if splits is None else {"splits": splits}
 
     def call():
-        return ops._launch_fwd(h, pos, sr, dr, *w, torch.float32, *blocks,
-                               **kw)
+        return ops._launch_fwd(h, pos, sr, dr, *w, h.dtype, *blocks, **kw)
     return call
 
 
@@ -460,13 +507,15 @@ def _fwd_rel_errs(torch, got, want) -> dict:
             for n, a, b in zip(("out", "Pi", "Pj", "S", "deg"), got, want)}
 
 
-def _fwd_gemm_library(torch, B, A, H, g, dev):
-    """#3's three node-level products as ``torch.matmul`` calls (TF32 off,
-    as ``repro_torch`` pins it): a yardstick for the GEMM part only, never
+def _fwd_gemm_library(torch, B, A, H, g, dev, dtype=None):
+    """#3's three node-level products as ``torch.matmul`` calls in
+    ``dtype`` (f32 with TF32 off, bf16 with f32 reduction, as
+    ``repro_torch`` pins them): a yardstick for the GEMM part only, never
     used by the port."""
-    hm, sm = (torch.randn((B * A, H), generator=g, device=dev)
+    dt = dtype or torch.float32
+    hm, sm = (torch.randn((B * A, H), generator=g, device=dev).to(dt)
               for _ in range(2))
-    w0i, w0j, w1 = (torch.randn((H, H), generator=g, device=dev)
+    w0i, w0j, w1 = (torch.randn((H, H), generator=g, device=dev).to(dt)
                     for _ in range(3))
 
     def library():
@@ -476,64 +525,108 @@ def _fwd_gemm_library(torch, B, A, H, g, dev):
     return library
 
 
-def check_egnn_edge(torch, dev, g):
-    """#3 through ``egnn_edge_agg`` against ``egnn_edge_agg_ref`` at the
-    training path's shape (B=40: 5 sources x 8 graphs in one trunk pass),
-    at the serve batch's B=8 (A=64, and the bucket A=16, E=512: M = 128),
-    at B=4 (a task-parallel rank's, and a serve batch split over 2
-    entries) and B=2 (split over 4), and at a ragged shape; two calls must
-    give the same bits. At B=40, 8, 4 and 2 the launcher's outputs and
-    scratch (out, Pi, Pj, S, deg: what the backward reads) are held per
-    output against the plain versions, and
-    #3 is timed by device time with its kernels a call (at most 4) and
-    ``torch.matmul`` of its three products beside it
-    (``gemm_library_ms``)."""
+EDGE_CASES = [("train", 40, 64, 2048), ("b8", 8, 64, 2048),
+              ("b4", 4, 64, 2048), ("b2", 2, 64, 2048),
+              ("b8_a16", 8, 16, 512), ("bucket", 40, 32, 128),
+              ("ragged", 3, 40, 1000)]
+EDGE_TIMED = ("train", "b8", "b4", "b2")
+
+
+def check_egnn_edge(torch, dev, g, cd=None):
+    """#3 through ``egnn_edge_agg`` in the compute dtype ``cd`` (None: f32;
+    bf16 within ``EDGE_BF16_TOL``) against ``egnn_edge_agg_ref`` in it at
+    ``EDGE_CASES``: the training path's shape (B=40: 5 sources x 8 graphs
+    in one trunk pass), the serve batch's B=8 (A=64, and the bucket A=16,
+    E=512: M = 128), B=4 (a task-parallel rank's, and a serve batch split
+    over 2 entries), B=2 (split over 4), the training bucket (40, 32, 128)
+    and a ragged shape. Two calls must give the same bits, each launching
+    the kernel of its dtype once (``egnn_edge_agg.launches``, or
+    ``.bf16``). In bf16 the kernel's and the plain version's error against
+    a float64 forward on the same bf16 values are recorded. At
+    ``EDGE_TIMED`` the launcher's scratch (Pi, Pj, S, deg: what the
+    backward reads) and, in f32, its output are held per output against
+    the plain versions (in bf16 that float64 forward) within ``EDGE_TOL``,
+    and #3 is timed by device time with its kernels a call (at most 4; 3
+    in bf16), beside ``torch.matmul`` of its three products in its dtype
+    (``gemm_library_ms``) and, in bf16, the f32 #3 (``f32_ms``)."""
     from repro_torch.kernels.egnn_edge import (egnn_edge_agg,
                                                egnn_edge_agg_ref, gemm_plan)
     H = 866
-    cases = [("train", 40, 64, 2048), ("b8", 8, 64, 2048),
-             ("b4", 4, 64, 2048), ("b2", 2, 64, 2048),
-             ("b8_a16", 8, 16, 512), ("ragged", 3, 40, 1000)]
+    bf16 = cd == torch.bfloat16
+    tol = EDGE_BF16_TOL if bf16 else EDGE_TOL
+    kw = {"compute_dtype": cd} if bf16 else {}
     worst, out = 0.0, {}
-    for name, B, A, E in cases:
-        h, pos, src, dst, em, phi = _edge_fwd_inputs(torch, g, dev, B, A, E)
-        got = egnn_edge_agg(h, pos, src, dst, em, phi)
-        again = egnn_edge_agg(h, pos, src, dst, em, phi)
-        ref = egnn_edge_agg_ref(h, pos, src, dst, em, phi)
+    for name, B, A, E in EDGE_CASES:
+        h32, pos, src, dst, em, phi = _edge_fwd_inputs(torch, g, dev, B, A, E)
+        h = h32.bfloat16() if bf16 else h32
+        before = (egnn_edge_agg.launches, egnn_edge_agg.bf16.launches)
+        got = egnn_edge_agg(h, pos, src, dst, em, phi, **kw)
+        again = egnn_edge_agg(h, pos, src, dst, em, phi, **kw)
+        if (egnn_edge_agg.launches - before[0],
+                egnn_edge_agg.bf16.launches - before[1]) != \
+                ((0, 2) if bf16 else (2, 0)):
+            fail(f"egnn_edge {cd} {name}: a call launched another kernel "
+                 f"than #3 in its compute dtype")
+        ref = egnn_edge_agg_ref(h, pos, src, dst, em, phi, **kw)
         torch.cuda.synchronize()
-        if not torch.equal(got, again):
-            fail(f"egnn_edge {name}: two calls differ bitwise")
+        if got.dtype != h.dtype or not torch.equal(got, again):
+            fail(f"egnn_edge {cd} {name}: out in {got.dtype}, or two calls "
+                 f"differ bitwise")
         err, scale = scaled_err(torch, got, ref)
-        if not err <= EDGE_TOL * scale:
-            fail(f"egnn_edge {name}: max_abs_err {err} > {EDGE_TOL}*{scale}")
+        if not err <= tol * scale:
+            fail(f"egnn_edge {cd} {name}: max_abs_err {err} > {tol}*{scale}")
         worst = max(worst, err)
+        case = {"shape": [B, A, E, H], "max_abs_err": err}
+        # φ_e's leaves in the compute dtype, as the op casts them (so the
+        # timed launch casts nothing); in bf16 the float64 forward runs on
+        # those values
+        cphi = {k: {n: t.to(h.dtype) for n, t in v.items()}
+                for k, v in phi.items()}
+        if bf16:
+            exact = _edge_fwd_plain(torch, h, pos, src, dst, em, cphi,
+                                    dtype=torch.float64)
+            e64 = float(exact[0].abs().max().clamp_min(1.0))
+            case["kernel_vs_f64"] = float(
+                (got.double() - exact[0]).abs().max()) / e64
+            case["plain_vs_f64"] = float(
+                (ref.double() - exact[0]).abs().max()) / e64
         del got, again, ref
-        if name not in ("train", "b8", "b4", "b2"):
+        if name not in EDGE_TIMED:
+            out[name] = case
             continue
-        call = _edge_fwd_call(torch, h, pos, src, dst, em, phi)
-        errs = _fwd_rel_errs(torch, call(), _edge_fwd_plain(
-            torch, h, pos, src, dst, em, phi))
+        call = _edge_fwd_call(torch, h, pos, src, dst, em, cphi)
+        errs = _fwd_rel_errs(torch, call(), exact if bf16 else
+                             _edge_fwd_plain(torch, h, pos, src, dst, em,
+                                             phi))
+        if bf16:
+            del errs["out"]            # bf16: held above within tol
         for n, e in errs.items():
             if not e <= EDGE_TOL:
-                fail(f"egnn_edge {name} {n}: relative error {e} > {EDGE_TOL}")
+                fail(f"egnn_edge {cd} {name} {n}: relative error {e} > "
+                     f"{EDGE_TOL}")
         prof = device_profile(torch, call)
-        if prof["kernels_per_call"] > 4:
-            fail(f"egnn_edge {name}: {prof['kernels_per_call']} kernels a "
-                 f"call, the design has at most 4")
+        most = 3 if bf16 else 4
+        if prof["kernels_per_call"] > most:
+            fail(f"egnn_edge {cd} {name}: {prof['kernels_per_call']} "
+                 f"kernels a call, the design has at most {most}")
         n_valid = int(em.sum())
-        case = {"ms": prof["ms"], "by_kernel": prof["by_kernel"],
-                "kernels_per_call": prof["kernels_per_call"],
-                "wall_ms": time_ms(torch, call),
-                "plain_ms": device_ms(torch, lambda: egnn_edge_agg_ref(
-                    h, pos, src, dst, em, phi), iters=3, warm=1),
-                "library_ms": None,
-                "library_note": "no one PyTorch call computes this forward",
-                "gemm_library_ms": device_ms(
-                    torch, _fwd_gemm_library(torch, B, A, H, g, dev)),
-                "shape": [B, A, E, H], "valid_edges": n_valid,
-                "rel_err": errs,
-                "splits": list(gemm_plan.fwd_splits(B * A, H)),
-                **_edge_fwd_bound(B, A, E, H, n_valid)}
+        case.update({
+            "ms": prof["ms"], "by_kernel": prof["by_kernel"],
+            "kernels_per_call": prof["kernels_per_call"],
+            "wall_ms": time_ms(torch, call),
+            "plain_ms": device_ms(torch, lambda: egnn_edge_agg_ref(
+                h, pos, src, dst, em, phi, **kw), iters=3, warm=1),
+            "library_ms": None,
+            "library_note": "no one PyTorch call computes this forward",
+            "gemm_library_ms": device_ms(torch, _fwd_gemm_library(
+                torch, B, A, H, g, dev, cd)),
+            "valid_edges": n_valid, "rel_err": errs,
+            **_edge_fwd_bound(B, A, E, H, n_valid, bf16)})
+        if bf16:
+            case["f32_ms"] = device_ms(torch, _edge_fwd_call(
+                torch, h32, pos, src, dst, em, phi))
+        else:
+            case["splits"] = list(gemm_plan.fwd_splits(B * A, H))
         if name == "train":
             out.update(case)
         else:
@@ -578,22 +671,34 @@ def _edge_bwd_call(torch, leaves, edges, gup, need_dpos):
     return call, sr, dr
 
 
-def _edge_bwd_bounds(B, A, E, H, n_valid, need_dpos):
-    """#4's least time on the card for these inputs: the six node-level
-    products (2·B·A·H² each) as three TF32 tensor-core products (the 3xTF32
-    split) plus ~15 operations per valid edge and column at the fp32 peak
-    (``bound_ms``), the same work all in fp32 FFMA (``bound_ffma_ms``), and
-    the bytes (inputs g, h, Pi, Pj, S, deg, pos, src, dst and the weights
-    read once, outputs written once) at HBM speed; each bound the larger of
-    its operations time and the bytes time."""
-    gemm_ops = 6 * 2 * B * A * H * H
+def _edge_bwd_bounds(B, A, E, H, n_valid, need_dpos, bf16=False):
+    """#4's least time on the card for these inputs: its six node-level
+    products (2·B·A·H² each) on the tensor cores in the fewest passes that
+    give each to the f32 contract, plus ~15 operations per valid edge and
+    column at the fp32 peak (``bound_ms``); the same work all in fp32 FFMA
+    (``bound_ffma_ms``); and the bytes (inputs g, h, Pi, Pj, S, deg, pos,
+    src, dst and the weights read once, g, h and the weights 2 bytes a
+    value in bf16, outputs written once, f32) at HBM speed; each bound the
+    larger of its operations time and the bytes time. On f32 inputs a
+    product takes three TF32 passes (the 3xTF32 split). On bf16 g, h and
+    weights (``bf16``) a bf16 value's TF32 lo part is zero: the five
+    products that mix an f32 operand with a bf16 one (S·g, h·dPi, h·dPj,
+    dPi·w0i, dPj·w0j) need two TF32 passes each, and g·w1ᵀ (bf16 by bf16)
+    one pass at the bf16 rate; the kernel runs three TF32 passes of each
+    all the same (its bits are the f32 launch's)."""
+    prod = 2 * B * A * H * H
+    gemm_ops = 6 * prod
     edge_ops = 15 * n_valid * H
     w_bytes = (2 * H + 1) * H + H * H
     dpos = B * A * 3 if need_dpos else 0
-    nbytes = 4 * (5 * B * A * H + B * A + B * A * 3 + 2 * B * E + w_bytes
-                  + B * A * H + dpos + w_bytes + 2 * H)
+    in_bytes = 2 if bf16 else 4
+    nbytes = in_bytes * (2 * B * A * H + w_bytes) + 4 * (
+        3 * B * A * H + B * A + B * A * 3 + 2 * B * E + B * A * H + dpos
+        + w_bytes + 2 * H)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_tc = (3 * gemm_ops / TF32_FLOPS + edge_ops / FP32_FLOPS) * 1e3
+    t_gemm = (5 * 2 * prod / TF32_FLOPS + prod / BF16_FLOPS if bf16
+              else 3 * gemm_ops / TF32_FLOPS)
+    t_tc = (t_gemm + edge_ops / FP32_FLOPS) * 1e3
     t_ffma = (gemm_ops + edge_ops) / FP32_FLOPS * 1e3
     return {"bound_ms": max(t_tc, t_bytes),
             "bound_by": "operations" if t_tc >= t_bytes else "bytes",
@@ -733,10 +838,11 @@ def rows_bitwise(a, b) -> bool:
                bool((x["forces"] == y["forces"]).all()) for x, y in zip(a, b))
 
 
-def serve_pass(torch, impl, params, spec, samples, heads, counters):
+def serve_pass(torch, impl, params, spec, samples, heads, counters,
+               cfg=None):
     from repro_torch.configs.hydragnn_gfm import CONFIG
     from repro_torch.serve import ServeSession
-    cfg = CONFIG.replace(segment_sum_impl=impl)
+    cfg = (cfg or CONFIG).replace(segment_sum_impl=impl)
     with ServeSession(params, cfg, spec=spec, max_batch=8, max_wait_ms=20.0,
                       device="cuda") as srv:
         t0 = time.perf_counter()
@@ -835,7 +941,8 @@ def serve_phase(torch, n_requests):
                                             list(spec.edge_buckets)],
             "fused": info_f, "pallas": info_p,
             "fused_vs_pallas_rel_err": fused_vs_pallas,
-            "fused_vs_plain_rel_err": vs_plain, "tolerance": SERVE_TOL}
+            "fused_vs_plain_rel_err": vs_plain, "tolerance": SERVE_TOL}, \
+        res_f
 
 
 # ---------------------------------------------------------------------------
@@ -1058,10 +1165,10 @@ def serve_scaleout_phase(torch, serve, counters):
 # phase 4: training at full width
 # ---------------------------------------------------------------------------
 
-def _train_session(torch, sources, steps, ckpt=None):
+def _train_session(torch, sources, steps, ckpt=None, cfg=None):
     from repro_torch.configs.hydragnn_gfm import CONFIG
     from repro_torch.engine import Session, SessionConfig
-    cfg = CONFIG.replace(segment_sum_impl="fused")
+    cfg = (cfg or CONFIG).replace(segment_sum_impl="fused")
     scfg = SessionConfig(model="gfm-mtl", arch=cfg, steps=steps,
                          batch_per_task=8, lr=1e-3, warmup=2, log_every=1,
                          eval_every=10 ** 9, seed=0, ckpt_path=ckpt,
@@ -1257,35 +1364,52 @@ def _on_card(torch, batch):
             for k, v in batch.items()}
 
 
-def _grads_vs_plain(torch, params, batch, n_tasks, task_weights):
+def _grads_vs_plain(torch, params, batch, n_tasks, task_weights, cfg=None,
+                    tol=GRAD_TOL, what="train_pipeline", floor=1e-30,
+                    norm_tol=None):
     """One step's gradients, fused kernels against the plain path
-    (``"jnp"``, autograd), per leaf relative to its largest entry."""
+    (``"jnp"``, autograd), per leaf relative to max(``floor``, its largest
+    entry) within ``tol``, and with ``norm_tol`` also each leaf's
+    |fused - plain| / |plain| (2-norms) within it; ``rel_to_max`` is the
+    largest error over the leaf's largest entry, ``norm_rel_err`` the
+    largest norm ratio."""
     from repro_torch import interop
     from repro_torch.configs.hydragnn_gfm import CONFIG
     from repro_torch.core.mtl import make_gfm_mtl
     from repro_torch.engine import multitask_grad_fn
     grads = {}
     for impl in ("fused", "jnp"):
-        model = make_gfm_mtl(CONFIG.replace(segment_sum_impl=impl), n_tasks)
+        model = make_gfm_mtl((cfg or CONFIG).replace(segment_sum_impl=impl),
+                             n_tasks)
         loss, _, g = multitask_grad_fn(model, n_tasks, task_weights)(
             params, batch)
         grads[impl] = (float(loss), interop.leaves(g))
-    worst_leaf, worst = None, 0.0
+    worst_leaf, worst, to_max = None, 0.0, 0.0
+    norm_leaf, norm_worst = None, 0.0
     for k, ref in grads["jnp"][1].items():
         got = grads["fused"][1][k]
-        rel = float((got - ref).abs().max()) / max(float(ref.abs().max()),
-                                                   1e-30)
-        if not rel <= GRAD_TOL:
-            fail(f"train_pipeline grad {k}: relative error {rel} > "
-                 f"{GRAD_TOL}")
+        err, top = float((got - ref).abs().max()), float(ref.abs().max())
+        rel = err / max(top, floor)
+        if not rel <= tol:
+            fail(f"{what} grad {k}: error {rel} > {tol} x max({floor}, "
+                 f"max |ref|)")
         if rel >= worst:
             worst_leaf, worst = k, rel
+        to_max = max(to_max, err / max(top, 1e-30))
+        nrel = float((got.double() - ref.double()).norm()
+                     / ref.double().norm().clamp_min(1e-300))
+        if norm_tol is not None and not nrel <= norm_tol:
+            fail(f"{what} grad {k}: |fused - plain| / |plain| {nrel} > "
+                 f"{norm_tol}")
+        if nrel >= norm_worst:
+            norm_leaf, norm_worst = k, nrel
     loss_rel = abs(grads["fused"][0] - grads["jnp"][0]) / abs(grads["jnp"][0])
-    if not loss_rel <= GRAD_TOL:
-        fail(f"train_pipeline loss fused vs plain: relative error {loss_rel}")
-    return {"worst_leaf": worst_leaf, "rel_err": worst,
+    if not loss_rel <= tol:
+        fail(f"{what} loss fused vs plain: relative error {loss_rel}")
+    return {"worst_leaf": worst_leaf, "rel_err": worst, "rel_to_max": to_max,
+            "norm_worst_leaf": norm_leaf, "norm_rel_err": norm_worst,
             "loss_rel_err": loss_rel, "loss": grads["fused"][0],
-            "tolerance": GRAD_TOL}
+            "tolerance": tol, "scale_floor": floor, "norm_tol": norm_tol}
 
 
 def _step_times(torch, step_fn, state, batch, iters=5):
@@ -1829,6 +1953,248 @@ def train_mtp_phase(torch, device=DEVICE, arch=None):
         out[kind] = row
     out["launches"] = launches
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 4d: the bf16 GNN path at full width
+# ---------------------------------------------------------------------------
+
+def check_egnn_edge_bwd_bf16(torch, dev, g):
+    """#4 on bf16 g, h and weights, at B=40 without dpos (training) and B=8
+    with. Through ``egnn_edge_agg(compute_dtype=bf16)``'s autograd Function
+    on a bf16 h leaf and f32 φ_e leaves, as the trunk calls it: one launch
+    counted on ``egnn_edge_bwd.bf16``, dh in bf16 and the rest in f32, each
+    per output within ``BWD_TOL`` of its largest entry against the plain
+    version on the same bf16 values (dh also within the half ulp of its
+    rounding to bf16), two calls bitwise. The wrapper's own launch
+    (``ops.egnn_edge_bwd``) on those values is bitwise equal to #4's f32
+    launch on their f32 copies and gives the autograd cotangents' bits;
+    device time of both launches beside the plain version and
+    ``torch.matmul`` (fp32) of its six products."""
+    from repro_torch.kernels.egnn_edge import egnn_edge_agg, ops
+    from repro_torch.kernels.egnn_edge.ref import egnn_edge_bwd_ref
+    H, bf16 = 866, torch.bfloat16
+    names = ("dh", "dpos", "dw0", "db0", "dw1", "db1")
+    worst, out = 0.0, {}
+    for name, B, A, E, need_dpos in (("train", 40, 64, 2048, False),
+                                     ("b8", 8, 64, 2048, True)):
+        leaves, (src, dst, em), gup = _edge_bwd_inputs(torch, g, dev, B, A, E,
+                                                       H)
+        h = leaves[0].detach().bfloat16().requires_grad_(True)
+        pos, w0, b0, w1, b1 = leaves[1:]
+        phi = {"fc0": {"w": w0, "b": b0}, "fc1": {"w": w1, "b": b1}}
+        wrt = [h, pos, w0, b0, w1, b1] if need_dpos else [h, w0, b0, w1, b1]
+        agg = egnn_edge_agg(h, pos if need_dpos else pos.detach(), src, dst,
+                            em, phi, compute_dtype=bf16)
+        gb = gup.bfloat16()
+
+        def bwd():
+            return torch.autograd.grad(agg, wrt, gb, retain_graph=True)
+        before = (ops.egnn_edge_bwd.launches, ops.egnn_edge_bwd.bf16.launches)
+        got, again = bwd(), bwd()
+        if (ops.egnn_edge_bwd.launches,
+                ops.egnn_edge_bwd.bf16.launches) != (before[0], before[1] + 2):
+            fail(f"egnn_edge_bwd_bf16 {name}: a bf16 call launched another "
+                 f"kernel than the bf16 backward")
+        torch.cuda.synchronize()
+        if agg.dtype != bf16 or [x.dtype for x in got] != \
+                [x.dtype for x in wrt]:
+            fail(f"egnn_edge_bwd_bf16 {name}: out in {agg.dtype}, "
+                 f"cotangents in {[x.dtype for x in got]}")
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"egnn_edge_bwd_bf16 {name}: two calls differ bitwise")
+        if not need_dpos:
+            got = got[:1] + (None,) + got[1:]
+        # the plain version and the wrapper's own launch on the values the
+        # autograd Function passes: bf16 g, h and weights, the forward's
+        # f32 scratch
+        hd, w0b, b0b, w1b, b1b = (x.detach().bfloat16()
+                                  for x in (h, w0, b0, w1, b1))
+        pos = pos.detach()
+        sr = torch.where(em, src, A).to(torch.int32).contiguous()
+        dr = torch.where(em, dst, A).to(torch.int32).contiguous()
+        _, pi, pj, s, deg = ops._launch_fwd(
+            hd, pos, sr, dr, w0b, b0b, w1b, b1b, bf16,
+            *ops._resolve_blocks(None, None, A, E, H))
+
+        def plain():
+            return egnn_edge_bwd_ref(gb, hd, pos, sr, dr, w0b[:H],
+                                     w0b[H:2 * H], w0b[2 * H:], b0b[None],
+                                     w1b)
+        dh, dpos, dw0i, dw0j, dw0d, db0, dw1, db1 = plain()
+        errs = {}
+        for n, a, b in zip(names, got, (dh, dpos, torch.cat(
+                [dw0i, dw0j, dw0d]), db0[0], dw1, db1[0])):
+            if a is None:
+                continue
+            b = b.float()
+            diff = (a.float() - b).abs()
+            scale = float(b.abs().max())
+            lim = BWD_TOL * scale
+            # dh comes back in its primal's dtype: its rounding to bf16
+            # moves it by at most 2^-8 of itself
+            over = diff > (lim * (1 + 2.0 ** -8) + 2.0 ** -8 * b.abs()
+                           if n == "dh" else lim)
+            if bool(over.any()):
+                fail(f"egnn_edge_bwd_bf16 {name} {n}: max_abs_err "
+                     f"{float(diff.max())} > {BWD_TOL}*{scale}"
+                     + (" + its bf16 rounding" if n == "dh" else ""))
+            errs[n] = float(diff.max()) / scale
+            worst = max(worst, float(diff.max()))
+        del dh, dpos, dw0i, dw0j
+        kw = {"need_dpos": need_dpos, **dict(zip(
+            ("block_e", "block_h"),
+            ops._resolve_blocks(None, None, A, E, H, bwd=True)))}
+
+        def call():
+            return ops.egnn_edge_bwd(gb, hd, pos, sr, dr, w0b, w1b, pi, pj, s,
+                                     deg, **kw)
+        up = [x.float() for x in (gb, hd, w0b, w1b)]
+
+        def call32():
+            return ops.egnn_edge_bwd(up[0], up[1], pos, sr, dr, up[2], up[3],
+                                     pi, pj, s, deg, **kw)
+        direct, want = call(), call32()
+        torch.cuda.synchronize()
+        bitwise = {n: a is None or torch.equal(a, b)
+                   for n, a, b in zip(names, direct, want)}
+        if not all(bitwise.values()):
+            diff = {n: float((a - b).abs().max()) for n, a, b in
+                    zip(names, direct, want) if a is not None}
+            fail(f"egnn_edge_bwd_bf16 {name}: not bitwise equal to the f32 "
+                 f"launch on the upcast values: {bitwise}, max |diff| "
+                 f"{diff}")
+        if not all(a is None or torch.equal(a, b.to(a.dtype))
+                   for a, b in zip(got, direct)):
+            fail(f"egnn_edge_bwd_bf16 {name}: the autograd cotangents are "
+                 f"not the wrapper's launch's bits (dh rounded to bf16)")
+        prof = device_profile(torch, call)
+        most = 4 if need_dpos else 3
+        if prof["kernels_per_call"] > most:
+            fail(f"egnn_edge_bwd_bf16 {name}: {prof['kernels_per_call']} "
+                 f"kernels a call, the design has at most {most}")
+        n_valid = int(em.sum())
+        case = {"ms": prof["ms"], "by_kernel": prof["by_kernel"],
+                "kernels_per_call": prof["kernels_per_call"],
+                "wall_ms": time_ms(torch, call),
+                "f32_ms": device_ms(torch, call32),
+                "plain_ms": time_ms(torch, plain, iters=3, warm=1),
+                "library_ms": None,
+                "library_note": "no one PyTorch call computes this backward",
+                "gemm_library_ms": device_ms(
+                    torch, _gemm_library(torch, B, A, H, g, dev)),
+                "shape": [B, A, E, H], "dpos": need_dpos,
+                "valid_edges": n_valid, "bitwise_vs_f32_upcast": True,
+                "rel_err": errs,
+                **_edge_bwd_bounds(B, A, E, H, n_valid, need_dpos,
+                                   bf16=True)}
+        if name == "train":
+            out.update(case)
+        else:
+            out[name] = case
+        del agg, got, again, direct, want
+    out["max_abs_err"] = worst
+    return out
+
+
+def gnn_bf16_phase(torch, serve_rows, counters):
+    """Phase gnn_bf16 (the module docstring): hydragnn-gfm at full width in
+    bf16 compute, (b) served under ``"fused"`` and ``"pallas"``, (c)
+    trained under ``"fused"``; the kernel checks (a) are
+    ``check_egnn_edge(cd=bf16)`` and ``check_egnn_edge_bwd_bf16``.
+    ``counters`` are zeroed just before each pass and run."""
+    from repro_torch import interop
+    from repro_torch.configs.hydragnn_gfm import CONFIG
+    from repro_torch.data.loader import GroupBatcher
+    from repro_torch.serve import ServeSession
+    cfg = CONFIG.replace(compute_dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+
+    # (b) serving
+    spec, params, samples, heads = serve_inputs(N_REQUESTS)
+    res, info = {}, {}
+    for impl in ("fused", "pallas"):
+        res[impl], info[impl] = serve_pass(torch, impl, params, spec, samples,
+                                           heads, counters, cfg=cfg)
+    lf, lp = info["fused"]["launches"], info["pallas"]["launches"]
+    if not (lf["egnn_edge_bf16"] == 4 * info["fused"]["batches"] > 0
+            and lf["egnn_edge"] == lf["segment_sum"] == 0):
+        fail(f"gnn_bf16 fused serve launch counts {lf} vs "
+             f"{info['fused']['batches']} batches")
+    if not (lp["segment_sum"] == 4 * info["pallas"]["batches"] > 0
+            and lp["egnn_edge"] == lp["egnn_edge_bf16"] == 0):
+        fail(f"gnn_bf16 pallas serve launch counts {lp} vs "
+             f"{info['pallas']['batches']} batches")
+    idx = list(range(0, N_REQUESTS, max(1, N_REQUESTS // 8)))
+    with ServeSession(params, cfg.replace(segment_sum_impl="jnp"), spec=spec,
+                      max_batch=8, device=DEVICE) as plain:
+        res_plain = [plain.predict_one(samples[i], head=heads[i])
+                     for i in idx]
+    vs_plain = {impl: serve_rel_err([res[impl][i] for i in idx], res_plain)
+                for impl in res}
+    for impl, e in vs_plain.items():
+        if not e <= EDGE_BF16_TOL:
+            fail(f"gnn_bf16 {impl} serve rows differ from the plain bf16 "
+                 f"forward: {e} > {EDGE_BF16_TOL}")
+    serve = {"fused": info["fused"], "pallas": info["pallas"],
+             "vs_plain_rel_err": vs_plain,
+             "fused_vs_pallas_rel_err": serve_rel_err(res["fused"],
+                                                      res["pallas"]),
+             "vs_f32_serve_rel_err": serve_rel_err(res["fused"], serve_rows),
+             "rows_bitwise_vs_predict_one": True}
+    torch.cuda.empty_cache()
+
+    # (c) training
+    sources = _train_sources()
+    ckpt = str(ROOT / "build" / "chip_smoke" / "gfm_train_bf16")
+    result, launches, wall = _counted_run(
+        torch, _train_session(torch, sources, TRAIN_STEPS, ckpt, cfg=cfg),
+        counters)
+    losses = [r["loss"] for r in result.logger.history]
+    if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
+        fail(f"gnn_bf16 train: losses {losses}")
+    want = {"egnn_edge": 0, "egnn_edge_bwd": 0, "segment_sum": 0,
+            "egnn_edge_bf16": 4 * TRAIN_STEPS,
+            "egnn_edge_bwd_bf16": 4 * TRAIN_STEPS}
+    if launches != want:
+        fail(f"gnn_bf16 train launch counts {launches}, design implies "
+             f"{want}")
+    batch = _on_card(torch, GroupBatcher(sources, 8, seed=1).next_batch())
+    grads = _grads_vs_plain(torch, result.params, batch, len(sources), None,
+                            cfg=cfg, tol=EDGE_BF16_TOL, what="gnn_bf16",
+                            floor=1.0, norm_tol=BF16_GRAD_NORM_TOL)
+    ends = []
+    for _ in range(2):
+        with _train_session(torch, sources, 3, cfg=cfg) as s:
+            ends.append(interop.leaves(s.run().params))
+    torch.cuda.synchronize()
+    if not all(torch.equal(ends[0][k], ends[1][k]) for k in ends[0]):
+        fail("gnn_bf16 train: two 3-step runs from one seed end with "
+             "different parameters")
+    if not all(v.dtype == torch.float32 for v in ends[0].values()):
+        fail("gnn_bf16 train: parameters left fp32")
+    jobs = [({k: s[k][i] for k in ("species", "pos", "edge_src", "edge_dst",
+                                   "node_mask", "edge_mask")}, t)
+            for t, s in enumerate(sources) for i in range(2)]
+    counters["egnn_edge_bf16"].launches = 0
+    with ServeSession.from_checkpoint(ckpt, cfg.replace(
+            segment_sum_impl="fused"), max_batch=8, device=DEVICE) as srv:
+        served = [f.result(timeout=600) for f in
+                  [srv.submit(x, head=t) for x, t in jobs]]
+    if not (all(math.isfinite(r["energy"]) and
+                bool(torch.isfinite(torch.from_numpy(r["forces"])).all())
+                for r in served)
+            and counters["egnn_edge_bf16"].launches > 0):
+        fail("gnn_bf16: serving the trained checkpoint in bf16 gave "
+             "non-finite results or launched no bf16 kernel")
+    train = {"steps": TRAIN_STEPS, "graphs_per_step": 8 * len(sources),
+             "losses": losses, "launches": launches, "wall_s": wall,
+             "grad_vs_plain": grads, "replay_bitwise": True,
+             "served_from_ckpt": len(served)}
+    return {"phase": "gnn_bf16", "config": "hydragnn-gfm",
+            "compute_dtype": "bfloat16", "param_dtype": "float32",
+            "tolerance": EDGE_BF16_TOL, "serve": serve, "train": train,
+            "wall_s": time.perf_counter() - t0}
 
 
 # ---------------------------------------------------------------------------
@@ -2787,6 +3153,13 @@ def main():
     eb = check_egnn_edge_bwd(torch, dev, g)
     emit({"phase": "kernel", "name": "egnn_edge_fused_bwd",
           "tolerance": BWD_TOL, **eb})
+    eg16 = check_egnn_edge(torch, dev, g, torch.bfloat16)
+    emit({"phase": "kernel", "name": "egnn_edge_fused_bf16",
+          "tolerance": EDGE_BF16_TOL, **eg16})
+    eb16 = check_egnn_edge_bwd_bf16(torch, dev, g)
+    emit({"phase": "kernel", "name": "egnn_edge_fused_bwd_bf16",
+          "tolerance": {"vs_plain": BWD_TOL,
+                        "vs_f32_launch_on_upcast": "bitwise"}, **eb16})
     fa = check_flash_attention(torch, dev, g)
     emit({"phase": "kernel", "name": "flash_attention",
           "tolerance": {"f32": ATTN_TOL_F32, "bf16_rtol": ATTN_RTOL_BF16},
@@ -2799,7 +3172,7 @@ def main():
     if args.profile:
         emit(attn_sweep(torch))
         emit(profile_phase(torch))
-    serve = serve_phase(torch, N_REQUESTS)
+    serve, serve_rows = serve_phase(torch, N_REQUESTS)
     emit(serve)
     gnn_counters = {"egnn_edge": edge_ops.egnn_edge_agg,
                     "egnn_edge_bwd": edge_ops.egnn_edge_bwd,
@@ -2808,6 +3181,12 @@ def main():
     emit(scaleout)
     train = train_phase(torch, gnn_counters)
     emit(train)
+    bf16_counters = {**gnn_counters,
+                     "egnn_edge_bf16": edge_ops.egnn_edge_agg.bf16,
+                     "egnn_edge_bwd_bf16": edge_ops.egnn_edge_bwd.bf16}
+    gnn16 = gnn_bf16_phase(torch, serve_rows, bf16_counters)
+    emit(gnn16)
+    del serve_rows
     pipe = train_pipeline_phase(torch, gnn_counters)
     emit(pipe)
     mtp = train_mtp_phase(torch)
@@ -2820,12 +3199,15 @@ def main():
     # each path's counts, zeroed just before it: serving (fused and pallas
     # passes), serving scale-out (runs (a) and (d)), training, the
     # pre-training pipeline (runs (a) and (b)), the task-parallel runs
-    # (every rank of (a)-(c)), and LM serving (runs (a) and (b))
+    # (every rank of (a)-(c)), the bf16 GNN path (its serving passes and
+    # its training run), and LM serving (runs (a) and (b))
     lm_runs = (lm["run_a"]["launches"], lm["run_b"]["launches"])
+    s16, t16 = gnn16["serve"], gnn16["train"]["launches"]
     by_path = {
         "segment_sum": {"serve": serve["pallas"]["launches"]["segment_sum"],
                         "serve_scaleout":
-                        scaleout["launches"]["segment_sum"]},
+                        scaleout["launches"]["segment_sum"],
+                        "gnn_bf16": s16["pallas"]["launches"]["segment_sum"]},
         "egnn_edge_fused": {"serve": serve["fused"]["launches"]["egnn_edge"],
                             "serve_scaleout":
                             scaleout["launches"]["egnn_edge"],
@@ -2836,6 +3218,10 @@ def main():
             "train": train["launches"]["egnn_edge_bwd"],
             "train_pipeline": pipe["launches"]["egnn_edge_bwd"],
             "train_mtp": mtp["launches"]["egnn_edge_bwd"]},
+        "egnn_edge_fused_bf16": {
+            "gnn_bf16": s16["fused"]["launches"]["egnn_edge_bf16"]
+            + t16["egnn_edge_bf16"]},
+        "egnn_edge_fused_bwd_bf16": {"gnn_bf16": t16["egnn_edge_bwd_bf16"]},
         "flash_attention": {"lm_serve": sum(r["flash_attention"]
                                             for r in lm_runs)},
         "flash_decode": {"lm_serve": sum(r["flash_decode"]
@@ -2856,6 +3242,14 @@ def main():
          "source": "src/repro_torch/csrc/egnn_edge_bwd.cu",
          "replaces": "src/repro/kernels/egnn_edge/kernel.py:319",
          "launches": launches["egnn_edge_fused_bwd"], **eb},
+        {"name": "egnn_edge_fused_bf16", "route": "cuda",
+         "source": "src/repro_torch/csrc/egnn_edge.cu",
+         "replaces": "src/repro/kernels/egnn_edge/kernel.py:156",
+         "launches": launches["egnn_edge_fused_bf16"], **eg16},
+        {"name": "egnn_edge_fused_bwd_bf16", "route": "cuda",
+         "source": "src/repro_torch/csrc/egnn_edge_bwd.cu",
+         "replaces": "src/repro/kernels/egnn_edge/kernel.py:319",
+         "launches": launches["egnn_edge_fused_bwd_bf16"], **eb16},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:102",

@@ -1,4 +1,5 @@
-// Fused EGNN edge message + aggregation, forward, fp32, deterministic.
+// Fused EGNN edge message + aggregation, forward, fp32 or bf16 compute,
+// deterministic.
 //
 // Replaces the Pallas TPU kernel `egnn_edge_fused` (_edge_kernel) of
 // src/repro/kernels/egnn_edge/kernel.py, which computes per graph b
@@ -31,7 +32,9 @@
 // walk ~8 operations per valid edge and column (0.47 GFLOP). As three TF32
 // tensor-core products (495 TFLOP/s) plus the walk at the 67 TFLOP/s fp32
 // peak that is ~0.077 ms; all in fp32 FFMA ~0.179 ms; the ~39 MB the call
-// must move take ~0.012 ms. Operations bound it.
+// must move take ~0.012 ms. Operations bound it. In bf16 the products run
+// once each at the bf16 tensor-core peak (989 TFLOP/s), the walk as
+// before: ~0.019 ms.
 //
 // A call is at most 4 kernels, 3 when fc1 is not split:
 //   1. gemm_tc (csrc/gemm_tc.cuh, NN layout): Pi and Pj on the tensor cores
@@ -67,8 +70,20 @@
 //
 // sigmoid is 1 / (1 + 2^(-z·log2 e)) through the SFU (__expf, __fdividef):
 // a few ulp from expf, far inside the forward's 1e-4 tolerance.
+//
+// bf16 compute (egnn_edge_fwd_bf16_launch): h and the φ_e weights arrive in
+// bf16 (the wrapper casts the leaves as repro's _split_phi_e does, biases
+// included) and the three products run on bf16 tensor cores
+// (csrc/gemm_bf16.cuh: wgmma k16, f32 accumulators, no split). Where it
+// rounds: Pi and Pj are f32 sums of bf16 products (+ b0 in f32), the edge
+// kernel runs unchanged in f32 on them (z, d² and silu in f32, S summed in
+// f32), fc1 reads S rounded once to bf16, and out is rounded once to bf16.
+// repro's Pallas kernel (kernel.py:118-145) rounds z and d² to bf16 per edge
+// and feeds silu(z) in bf16 to fc1 per edge, then sums the f32 messages;
+// tests/test_torch_bf16.py bounds the whole difference on the CPU.
 #include "common.cuh"
 #include "edge_lists.cuh"
+#include "gemm_bf16.cuh"
 #include "gemm_tc.cuh"
 
 constexpr int EF_WARPS = 8;            // warps of the edge kernel
@@ -95,14 +110,14 @@ static inline size_t edge_fwd_smem(int A, int be, int bh, bool staged) {
 // reads back the Pi and Pj tiles its CTA wrote, and a window reads the
 // S and deg the previous window wrote.
 // ---------------------------------------------------------------------------
-template <bool STAGED>
+template <bool STAGED, typename WT>
 __global__ void __launch_bounds__(EF_THREADS, 4)
 egnn_edge_fwd_kernel(const float* __restrict__ part, int psplits,
                      const float* __restrict__ b0, float* Pi, float* Pj,
                      const float* __restrict__ pos,
                      const int32_t* __restrict__ src,
                      const int32_t* __restrict__ dst,
-                     const float* __restrict__ w0d, float* S, float* deg,
+                     const WT* __restrict__ w0d, float* S, float* deg,
                      int A, int E, int H, int bh, int block_e) {
   extern __shared__ __align__(16) unsigned char ef_smem[];
   int2* list = reinterpret_cast<int2*>(ef_smem);        // [block_e] (s, d²)
@@ -121,7 +136,7 @@ egnn_edge_fwd_kernel(const float* __restrict__ part, int psplits,
   const int c = c0 + cc;
   const bool active = owner && c < H;
   const bool counter = owner && blockIdx.x == 0 && cg == 0 && lane == 0;
-  const float wd = active ? w0d[c] : 0.f;
+  const float wd = active ? to_f32(w0d[c]) : 0.f;
   const size_t node0 = (size_t)b * A * H;
   const size_t MH = (size_t)gridDim.y * A * H;    // one partial
   const int32_t* sr = src + (size_t)b * E;
@@ -240,6 +255,36 @@ egnn_edge_fwd_kernel(const float* __restrict__ part, int psplits,
   }
 }
 
+// The edge kernel of one call, its column tiles staged when they fit; w0d
+// (w0's last row) in the compute dtype.
+template <typename WT>
+static cudaError_t edge_fwd(const float* part, int proj_splits,
+                            const float* b0, float* Pi, float* Pj,
+                            const float* pos, const int32_t* src,
+                            const int32_t* dst, const WT* w0d, float* S,
+                            float* deg, int B, int A, int E, int H,
+                            int block_e, int block_h, cudaStream_t s) {
+  const int be = min(block_e, max(E, 1));
+  const bool staged = edge_fwd_smem(A, be, block_h, true) <= kEdgeSmemBudget;
+  const size_t esmem = edge_fwd_smem(A, be, block_h, staged);
+  if (esmem > kEdgeSmemBudget) return cudaErrorInvalidValue;
+  cudaError_t err =
+      allow_smem_once(staged ? (const void*)egnn_edge_fwd_kernel<true, WT>
+                             : (const void*)egnn_edge_fwd_kernel<false, WT>,
+                      232448);
+  if (err != cudaSuccess) return err;
+  dim3 grid((H + block_h - 1) / block_h, B);
+  if (staged)
+    egnn_edge_fwd_kernel<true, WT><<<grid, EF_THREADS, esmem, s>>>(
+        part, proj_splits, b0, Pi, Pj, pos, src, dst, w0d, S, deg, A, E, H,
+        block_h, be);
+  else
+    egnn_edge_fwd_kernel<false, WT><<<grid, EF_THREADS, esmem, s>>>(
+        part, proj_splits, b0, Pi, Pj, pos, src, dst, w0d, S, deg, A, E, H,
+        block_h, be);
+  return cudaGetLastError();
+}
+
 // h (B,A,H), pos (B,A,3) f32; src/dst (B,E) int32, dst >= A for edges that
 // contribute nothing; w0 the whole fc0 weight (2H+1, H) = [w0i; w0j; w0d];
 // b0, b1 (H,); w1 (H,H); out (B,A,H). Scratch from the caller: Pi, Pj, S
@@ -284,25 +329,9 @@ extern "C" int egnn_edge_fwd_launch(const float* h, const float* pos,
   cudaError_t err = gemm_tc<tc::NN>(l1, s);
   if (err != cudaSuccess) return (int)err;
 
-  // 2. the edge kernel, its column tiles staged when they fit
-  const int be = min(block_e, max(E, 1));
-  const bool staged = edge_fwd_smem(A, be, block_h, true) <= kEdgeSmemBudget;
-  const size_t esmem = edge_fwd_smem(A, be, block_h, staged);
-  if (esmem > kEdgeSmemBudget) return (int)cudaErrorInvalidValue;
-  err = allow_smem_once(staged ? (const void*)egnn_edge_fwd_kernel<true>
-                                : (const void*)egnn_edge_fwd_kernel<false>,
-                         232448);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((H + block_h - 1) / block_h, B);
-  if (staged)
-    egnn_edge_fwd_kernel<true><<<grid, EF_THREADS, esmem, s>>>(
-        part, proj_splits, b0, Pi, Pj, pos, src, dst, w0d, S, deg, A, E, H,
-        block_h, be);
-  else
-    egnn_edge_fwd_kernel<false><<<grid, EF_THREADS, esmem, s>>>(
-        part, proj_splits, b0, Pi, Pj, pos, src, dst, w0d, S, deg, A, E, H,
-        block_h, be);
-  err = cudaGetLastError();
+  // 2. the edge kernel
+  err = edge_fwd(part, proj_splits, b0, Pi, Pj, pos, src, dst, w0d, S, deg,
+                 B, A, E, H, block_e, block_h, s);
   if (err != cudaSuccess) return (int)err;
 
   // 3. agg = S·w1 + deg ⊗ b1, or its partials
@@ -327,4 +356,49 @@ extern "C" int egnn_edge_fwd_launch(const float* h, const float* pos,
   l3.red.bias = b1;
   l3.red.row_scale = deg;
   return (int)gemm_tc<tc::NN>(l3, s);
+}
+
+// The bf16 forward (compute dtype bf16): h (B,A,H), w0 (2H+1, H), b0, b1
+// (H,) and w1 (H,H) bf16; out (B,A,H) bf16. Pi, Pj, S (B,A,H) and deg
+// (B,A) stay f32 scratch, which the backward reads. Three launches, none
+// split:
+// gemm_bf16 (Pi = h·w0i + b0, Pj = h·w0j), the edge kernel (unchanged, on
+// f32 Pi and Pj), gemm_bf16 (out = bf16(S·w1 + deg ⊗ b1), S rounded to
+// bf16 as it is staged).
+extern "C" int egnn_edge_fwd_bf16_launch(
+    const void* h, const float* pos, const int32_t* src, const int32_t* dst,
+    const void* w0, const void* b0, const void* w1, const void* b1,
+    void* out, float* Pi, float* Pj, float* S, float* deg,
+    int B, int A, int E, int H, int block_e, int block_h, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (block_h < 32 || block_h > EF_THREADS || block_h % 32 || block_e < 1 ||
+      A < 1)
+    return (int)cudaErrorInvalidValue;
+  const int M = B * A;
+  const __nv_bfloat16* w0i = static_cast<const __nv_bfloat16*>(w0);
+  const __nv_bfloat16* w0j = w0i + (size_t)H * H;
+  const __nv_bfloat16* w0d = w0i + (size_t)2 * H * H;
+
+  // 1. Pi (+ b0) and Pj
+  BfLaunch l1{};
+  l1.count = 2;
+  l1.p[0] = bf_prob(h, false, w0i, Pi, false, M, H, H);
+  l1.p[0].bias = static_cast<const __nv_bfloat16*>(b0);
+  l1.p[1] = bf_prob(h, false, w0j, Pj, false, M, H, H);
+  cudaError_t err = gemm_bf16(l1, s);
+  if (err != cudaSuccess) return (int)err;
+
+  // 2. the edge kernel
+  err = edge_fwd(nullptr, 1, nullptr, Pi, Pj, pos, src, dst, w0d, S, deg, B,
+                 A, E, H, block_e, block_h, s);
+  if (err != cudaSuccess) return (int)err;
+
+  // 3. out = S·w1 + deg ⊗ b1, rounded to bf16
+  BfLaunch l2{};
+  l2.count = 1;
+  l2.p[0] = bf_prob(S, true, static_cast<const __nv_bfloat16*>(w1), out,
+                    true, M, H, H);
+  l2.p[0].bias = static_cast<const __nv_bfloat16*>(b1);
+  l2.p[0].row_scale = deg;
+  return (int)gemm_bf16(l2, s);
 }

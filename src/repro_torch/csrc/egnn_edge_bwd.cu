@@ -6,7 +6,11 @@
 // (B,A,3) and the φ_e cotangents dw0 = [dw0i; dw0j; dw0d] (2H+1,H), db0,
 // dw1 (H,H) and db1, all f32. Edges with dst >= A (masked or pad)
 // contribute exactly nothing; gathers clamp src to A-1, as the forward
-// does.
+// does. Under bf16 compute g, h and the weights arrive in bf16 (`in_bf16`)
+// and are read as they are, converted to f32 where gemm_tc.cuh stages them;
+// the math stays in f32 (repro's chain rule, kernel.py:245-287, and the
+// gradient of csrc/egnn_edge.cu's bf16 forward, whose z is f32), so the
+// outputs are the bits of this backward on their f32 copies.
 //
 // The TPU kernel recomputes the per-edge form (z for every edge and column
 // from gathered h rows: ~8·2·B·E·H² operations). The forward's
@@ -107,7 +111,7 @@ __device__ __forceinline__ float edge_dz(float pi, float pj, float ds,
 // STAGED: Pi, Pj and dS column tiles in shared memory, else read from
 // global memory (graphs whose tiles do not fit).
 // ---------------------------------------------------------------------------
-template <bool STAGED>
+template <bool STAGED, typename WT>
 __global__ void __launch_bounds__(EB_THREADS, 3)
 egnn_edge_bwd_kernel(const float* __restrict__ Pi,
                      const float* __restrict__ Pj,
@@ -115,7 +119,7 @@ egnn_edge_bwd_kernel(const float* __restrict__ Pi,
                      const float* __restrict__ pos,
                      const int32_t* __restrict__ src,
                      const int32_t* __restrict__ dst,
-                     const float* __restrict__ w0d, float* __restrict__ dPi,
+                     const WT* __restrict__ w0d, float* __restrict__ dPi,
                      float* __restrict__ dPj, float* __restrict__ dw0d_part,
                      float* __restrict__ dd2_part, int A, int E, int H,
                      int bh) {
@@ -145,7 +149,7 @@ egnn_edge_bwd_kernel(const float* __restrict__ Pi,
                    ? dd2_part + ((size_t)b * ((H + 31) / 32) +
                                  (c0 + cg * 32) / 32) * E
                    : nullptr;
-  const float wd = active ? w0d[c] : 0.f;
+  const float wd = active ? to_f32(w0d[c]) : 0.f;
   const size_t node0 = (size_t)b * A * H;
   const int32_t* sr = src + (size_t)b * E;
   const int32_t* dr = dst + (size_t)b * E;
@@ -352,29 +356,56 @@ egnn_edge_dpos_kernel(const float* __restrict__ dd2_part,
     dpos[(size_t)b * A * 3 + p] = acc[p];
 }
 
+// The edge kernel of one call; w0d (w0's last row) in the compute dtype.
+template <typename WT>
+static cudaError_t edge_bwd(bool staged, size_t esmem, dim3 grid,
+                            const float* Pi, const float* Pj,
+                            const float* dS, const float* pos,
+                            const int32_t* src, const int32_t* dst,
+                            const WT* w0d, float* dPi, float* dPj,
+                            float* dw0d_part, float* dd2_part, int A, int E,
+                            int H, int bh, cudaStream_t s) {
+  cudaError_t err =
+      allow_smem_once(staged ? (const void*)egnn_edge_bwd_kernel<true, WT>
+                             : (const void*)egnn_edge_bwd_kernel<false, WT>,
+                      232448);
+  if (err != cudaSuccess) return err;
+  if (staged)
+    egnn_edge_bwd_kernel<true, WT><<<grid, EB_THREADS, esmem, s>>>(
+        Pi, Pj, dS, pos, src, dst, w0d, dPi, dPj, dw0d_part, dd2_part, A, E,
+        H, bh);
+  else
+    egnn_edge_bwd_kernel<false, WT><<<grid, EB_THREADS, esmem, s>>>(
+        Pi, Pj, dS, pos, src, dst, w0d, dPi, dPj, dw0d_part, dd2_part, A, E,
+        H, bh);
+  return cudaGetLastError();
+}
+
 // g, h, Pi, Pj, S (B,A,H); deg (B,A); pos (B,A,3) f32; src/dst (B,E) int32
 // with dst >= A for edges that contribute nothing; w0 the whole fc0 weight
-// (2H+1, H) = [w0i; w0j; w0d]; w1 (H,H). Outputs: dh (B,A,H); dw0 (2H+1,H);
+// (2H+1, H) = [w0i; w0j; w0d]; w1 (H,H). With `in_bf16` g, h, w0 and w1
+// are bf16, else f32. Outputs: dh (B,A,H); dw0 (2H+1,H);
 // db0, db1 (H,); dw1 (H,H); dpos (B,A,3) or null (then dd2_part is not
 // used either). Scratch from the caller: dS, dPi, dPj (B,A,H), dw0d_part
 // (B,H), dd2_part (B, ceil(H/32), E) or null, and, when w1_splits > 1,
 // w1_part (w1_splits, H+1, H). All f32, contiguous. block_h a multiple of
 // 32 up to 256; A < 32768 and E < 65536 (the packed edge lists).
 extern "C" int egnn_edge_bwd_launch(
-    const float* g, const float* h, const float* pos, const int32_t* src,
-    const int32_t* dst, const float* w0, const float* w1, const float* Pi,
+    const void* g, const void* h, const float* pos, const int32_t* src,
+    const int32_t* dst, const void* w0, const void* w1, const float* Pi,
     const float* Pj, const float* S, const float* deg, float* dh,
     float* dpos, float* dw0, float* db0, float* dw1, float* db1, float* dS,
     float* dPi, float* dPj, float* dw0d_part, float* dd2_part,
     float* w1_part, int B, int A, int E, int H, int block_e, int block_h,
-    int w1_splits, void* stream) {
+    int w1_splits, int in_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (block_h < 32 || block_h > EB_THREADS || block_h % 32 || A >= 32768 ||
       E >= 65536 || block_e < 1 || w1_splits < 1)
     return (int)cudaErrorInvalidValue;
   const int M = B * A;
-  const float* w0i = w0;
-  const float* w0j = w0 + (size_t)H * H;
+  const void* w0i = w0;
+  const void* w0j =
+      static_cast<const char*>(w0) + (size_t)H * H * (in_bf16 ? 2 : 4);
   float* dw0d = dw0 + (size_t)2 * H * H;
   if (dpos == nullptr) dd2_part = nullptr;
 
@@ -383,6 +414,7 @@ extern "C" int egnn_edge_bwd_launch(
   l1.count = 2;
   TcProb& w1p = l1.p[0];
   w1p = tc_prob(true, false, S, g, dw1, H, H, M);
+  w1p.b_bf16 = in_bf16;
   w1p.extra = deg;
   w1p.has_extra = 1;
   w1p.C_extra = db1;
@@ -391,27 +423,22 @@ extern "C" int egnn_edge_bwd_launch(
     w1p.C = w1_part;
   }
   l1.p[1] = tc_prob(false, true, g, w1, dS, M, H, H);
+  l1.p[1].a_bf16 = l1.p[1].b_bf16 = in_bf16;
   cudaError_t err = gemm_tc<tc::MIXED>(l1, s);
   if (err != cudaSuccess) return (int)err;
 
   // 2. the edge kernel, its column tiles staged when they fit
   const bool staged = edge_bwd_smem(A, E, block_h, true) <= kEdgeSmemBudget;
   const size_t esmem = edge_bwd_smem(A, E, block_h, staged);
-  err = allow_smem_once(staged ? (const void*)egnn_edge_bwd_kernel<true>
-                                : (const void*)egnn_edge_bwd_kernel<false>,
-                         232448);
-  if (err != cudaSuccess) return (int)err;
   dim3 grid((H + block_h - 1) / block_h, B);
-  const float* w0d = w0 + (size_t)2 * H * H;
-  if (staged)
-    egnn_edge_bwd_kernel<true><<<grid, EB_THREADS, esmem, s>>>(
-        Pi, Pj, dS, pos, src, dst, w0d, dPi, dPj, dw0d_part, dd2_part, A, E,
-        H, block_h);
+  if (in_bf16)
+    err = edge_bwd(staged, esmem, grid, Pi, Pj, dS, pos, src, dst,
+                   static_cast<const __nv_bfloat16*>(w0) + (size_t)2 * H * H,
+                   dPi, dPj, dw0d_part, dd2_part, A, E, H, block_h, s);
   else
-    egnn_edge_bwd_kernel<false><<<grid, EB_THREADS, esmem, s>>>(
-        Pi, Pj, dS, pos, src, dst, w0d, dPi, dPj, dw0d_part, dd2_part, A, E,
-        H, block_h);
-  err = cudaGetLastError();
+    err = edge_bwd(staged, esmem, grid, Pi, Pj, dS, pos, src, dst,
+                   static_cast<const float*>(w0) + (size_t)2 * H * H, dPi,
+                   dPj, dw0d_part, dd2_part, A, E, H, block_h, s);
   if (err != cudaSuccess) return (int)err;
 
   // 3. dpos
@@ -437,10 +464,12 @@ extern "C" int egnn_edge_bwd_launch(
   l2.p[0].has_extra = 1;                       // ones: db0 = 1ᵀ·dPi
   l2.p[0].C_extra = db0;
   l2.p[1] = tc_prob(true, false, h, dPj, dw0 + (size_t)H * H, H, H, M);
+  l2.p[0].a_bf16 = l2.p[1].a_bf16 = in_bf16;
   TcProb& dhp = l2.p[2];
   dhp = tc_prob(false, true, dPi, w0i, dh, M, H, H);
   dhp.A[1] = dPj;
   dhp.B[1] = w0j;
+  dhp.b_bf16 = in_bf16;
   dhp.terms = 2;
   l2.p[3] = tc_prob(true, false, nullptr, dw0d_part, nullptr, 0, H, B);
   l2.p[3].has_extra = 1;                       // ones: dw0d = 1ᵀ·parts

@@ -19,6 +19,13 @@
 // them in split order and apply the epilogue there — or the caller's own
 // kernel sums them.
 //
+// Operands are f32 or bf16 (a_bf16, b_bf16: #4 takes the trunk's bf16 h,
+// the cotangent g of a bf16 output and the bf16 weights as they are), read
+// as they lie and converted to f32 in registers where they are staged; a
+// bf16 value is exact in f32 and in TF32 (its lo part below is zero), so a
+// product of bf16 operands gives the bits of the same product of their f32
+// copies. No MMA is skipped for a zero lo part.
+//
 // Precision: each operand element x is split into two TF32 values,
 // hi = cvt.rna.tf32(x), lo = cvt.rna.tf32(x - hi), and every k-step of 8
 // runs lo·hi, hi·lo, hi·hi (small terms first). The dropped lo·lo term and
@@ -73,8 +80,8 @@ enum Layout { MIXED = 0, NN = 1 };   // the products a kernel takes
 }  // namespace tc
 
 struct TcProb {
-  const float* A[2];
-  const float* B[2];
+  const void* A[2];        // f32, or bf16 with a_bf16
+  const void* B[2];        // f32, or bf16 with b_bf16
   const float* extra;  // ta && has_extra: row M of op(A); null: ones
   const float* bias;       // NN epilogue (splits == 1): + bias[c], or
   const float* row_scale;  // + row_scale[r]·bias[c]; null: none
@@ -82,7 +89,8 @@ struct TcProb {
   float* C_extra;      // (N,): row M (splits == 1)
   int M, N, K, lda, ldb;
   int terms, ta, tb, has_extra, splits;
-  int lvec_a, lvec_b;  // log2 of the floats a load of k-contiguous rows moves
+  int a_bf16, b_bf16;
+  int lvec_a, lvec_b;  // log2 of the values a load of k-contiguous rows moves
   int tiles_m, tiles_n;
 };
 
@@ -178,40 +186,48 @@ __device__ __forceinline__ void piece(int i, int& r, int& kc) {
 }
 
 // An operand as rows x K: element (row, k) at X[row·ld + k] (KCONTIG) or
-// X[k·ld + row]; `rows` rows are stored, and row `extra_row` (-1: none) is
-// `extra` (null: ones). Values past K are zero.
+// X[k·ld + row], f32 or (bf) bf16; `rows` rows are stored, and row
+// `extra_row` (-1: none) is `extra` (null: ones; with bf, ones only). Values
+// past K are zero. The loaded words are kept as they arrive (f32 bits; a
+// bf16 value zero-extended, or two bf16 values packed when `packed`:
+// bf, KCONTIG and lvec >= 1), so that nothing waits on a load before
+// store_op converts them, after the next k-step's MMAs are issued.
 template <bool KCONTIG>
-__device__ __forceinline__ void load_op(const float* __restrict__ X, int ld,
-                                        int lvec, int row0, int rows,
+__device__ __forceinline__ void load_op(const void* __restrict__ X, bool bf,
+                                        int ld, int lvec, int row0, int rows,
                                         int k0, int K, const float* extra,
-                                        int extra_row, float (&v)[4][4]) {
+                                        int extra_row,
+                                        uint32_t (&v)[4][4]) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     int r, kc;
     piece<KCONTIG>(i, r, kc);
     const int gr = row0 + r, k = k0 + 4 * kc;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) v[i][j] = 0.f;
+    for (int j = 0; j < 4; ++j) v[i][j] = 0u;
     if (gr == extra_row) {
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        if (k + j < K) v[i][j] = extra != nullptr ? extra[k + j] : 1.f;
-    } else if (gr < rows) {
+        if (k + j < K) {
+          const uint32_t e =
+              __float_as_uint(extra != nullptr ? extra[k + j] : 1.f);
+          v[i][j] = bf ? e >> 16 : e;
+        }
+    } else if (gr < rows && bf) {
+      const uint16_t* x16 = static_cast<const uint16_t*>(X);
       if (KCONTIG) {
-        const float* src = X + (size_t)gr * ld + k;
+        const uint16_t* src = x16 + (size_t)gr * ld + k;
         if (lvec == 2) {
           if (k < K) {
-            const float4 x = *reinterpret_cast<const float4*>(src);
-            v[i][0] = x.x; v[i][1] = x.y; v[i][2] = x.z; v[i][3] = x.w;
+            const uint2 x = *reinterpret_cast<const uint2*>(src);
+            v[i][0] = x.x;
+            v[i][1] = x.y;
           }
         } else if (lvec == 1) {
 #pragma unroll
           for (int j = 0; j < 4; j += 2)
-            if (k + j < K) {
-              const float2 x = *reinterpret_cast<const float2*>(src + j);
-              v[i][j] = x.x;
-              v[i][j + 1] = x.y;
-            }
+            if (k + j < K)
+              v[i][j / 2] = *reinterpret_cast<const uint32_t*>(src + j);
         } else {
 #pragma unroll
           for (int j = 0; j < 4; ++j)
@@ -220,26 +236,68 @@ __device__ __forceinline__ void load_op(const float* __restrict__ X, int ld,
       } else {
 #pragma unroll
         for (int j = 0; j < 4; ++j)
-          if (k + j < K) v[i][j] = X[(size_t)(k + j) * ld + gr];
+          if (k + j < K) v[i][j] = x16[(size_t)(k + j) * ld + gr];
+      }
+    } else if (gr < rows) {
+      const float* x32 = static_cast<const float*>(X);
+      if (KCONTIG) {
+        const float* src = x32 + (size_t)gr * ld + k;
+        if (lvec == 2) {
+          if (k < K) {
+            const uint4 x = *reinterpret_cast<const uint4*>(src);
+            v[i][0] = x.x; v[i][1] = x.y; v[i][2] = x.z; v[i][3] = x.w;
+          }
+        } else if (lvec == 1) {
+#pragma unroll
+          for (int j = 0; j < 4; j += 2)
+            if (k + j < K) {
+              const uint2 x = *reinterpret_cast<const uint2*>(src + j);
+              v[i][j] = x.x;
+              v[i][j + 1] = x.y;
+            }
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (k + j < K) v[i][j] = __float_as_uint(src[j]);
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (k + j < K)
+            v[i][j] = __float_as_uint(x32[(size_t)(k + j) * ld + gr]);
       }
     }
   }
 }
 
-// Split the pieces and store hi and lo into a K-major tile pair.
+// The pieces' words as f32 values, split; hi and lo stored into a K-major
+// tile pair.
 template <bool KCONTIG>
 __device__ __forceinline__ void store_op(unsigned char* hi_tile,
-                                         const float (&v)[4][4]) {
+                                         const uint32_t (&v)[4][4], bool bf,
+                                         int lvec) {
+  const bool packed = bf && KCONTIG && lvec >= 1;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     int r, kc;
     piece<KCONTIG>(i, r, kc);
     const int off = r * 128 + ((kc ^ (r & 7)) << 4);
+    float x[4];
+    if (packed) {
+      x[0] = __uint_as_float(v[i][0] << 16);
+      x[1] = __uint_as_float(v[i][0] & 0xffff0000u);
+      x[2] = __uint_as_float(v[i][1] << 16);
+      x[3] = __uint_as_float(v[i][1] & 0xffff0000u);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        x[j] = __uint_as_float(bf ? v[i][j] << 16 : v[i][j]);
+    }
     uint4 hi, lo;
-    split(v[i][0], hi.x, lo.x);
-    split(v[i][1], hi.y, lo.y);
-    split(v[i][2], hi.z, lo.z);
-    split(v[i][3], hi.w, lo.w);
+    split(x[0], hi.x, lo.x);
+    split(x[1], hi.y, lo.y);
+    split(x[2], hi.z, lo.z);
+    split(x[3], hi.w, lo.w);
     *reinterpret_cast<uint4*>(hi_tile + off) = hi;
     *reinterpret_cast<uint4*>(hi_tile + TILE + off) = lo;
   }
@@ -247,20 +305,23 @@ __device__ __forceinline__ void store_op(unsigned char* hi_tile,
 
 template <bool TA, bool TB>
 __device__ __forceinline__ void load_step(const TcProb& P, int step, int nk,
-                                          int m0, int n0, float (&va)[4][4],
-                                          float (&vb)[4][4]) {
+                                          int m0, int n0,
+                                          uint32_t (&va)[4][4],
+                                          uint32_t (&vb)[4][4]) {
   const int term = step / nk, k0 = (step - term * nk) * BK;
-  load_op<!TA>(P.A[term], P.lda, P.lvec_a, m0, P.M, k0, P.K, P.extra,
-               P.has_extra ? P.M : -1, va);
-  load_op<TB>(P.B[term], P.ldb, P.lvec_b, n0, P.N, k0, P.K, nullptr, -1, vb);
+  load_op<!TA>(P.A[term], P.a_bf16, P.lda, P.lvec_a, m0, P.M, k0, P.K,
+               P.extra, P.has_extra ? P.M : -1, va);
+  load_op<TB>(P.B[term], P.b_bf16, P.ldb, P.lvec_b, n0, P.N, k0, P.K,
+              nullptr, -1, vb);
 }
 
 template <bool TA, bool TB>
 __device__ __forceinline__ void store_step(unsigned char* st,
-                                           const float (&va)[4][4],
-                                           const float (&vb)[4][4]) {
-  store_op<!TA>(st, va);
-  store_op<TB>(st + 2 * TILE, vb);
+                                           const TcProb& P,
+                                           const uint32_t (&va)[4][4],
+                                           const uint32_t (&vb)[4][4]) {
+  store_op<!TA>(st, va, P.a_bf16, P.lvec_a);
+  store_op<TB>(st + 2 * TILE, vb, P.b_bf16, P.lvec_b);
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
@@ -316,10 +377,10 @@ __device__ void tile(const TcProb& P, int item, unsigned char* smem) {
   float d[64], acc[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = 0.f;
-  float va[4][4], vb[4][4];
+  uint32_t va[4][4], vb[4][4];
   if (steps > 0) {
     load_step<TA, TB>(P, s0, nk, m0, n0, va, vb);
-    store_step<TA, TB>(smem, va, vb);
+    store_step<TA, TB>(smem, P, va, vb);
   }
   if (steps > 1) load_step<TA, TB>(P, s0 + 1, nk, m0, n0, va, vb);
   for (int s = 0; s < steps; ++s) {
@@ -334,7 +395,7 @@ __device__ void tile(const TcProb& P, int item, unsigned char* smem) {
       wgmma_wait<1>();               // step s-1's MMAs are done
     }
     if (s + 1 < steps)
-      store_step<TA, TB>(smem + ((s + 1) % STAGES) * STAGE, va, vb);
+      store_step<TA, TB>(smem + ((s + 1) % STAGES) * STAGE, P, va, vb);
     if (s + 2 < steps) load_step<TA, TB>(P, s0 + s + 2, nk, m0, n0, va, vb);
   }
 
@@ -405,20 +466,22 @@ gemm_tc_kernel(const __grid_constant__ TcLaunch L) {
     tc::tile<false, true, false>(P, item, smem);
 }
 
-// The widest copy (log2 floats: 2, 1 or 0) that a pointer, its row stride
-// and its contiguous extent allow.
-static inline int tc_lvec(const float* p, int ld, int extent) {
+// The widest copy (log2 values: at most `max_l`, else 1 or 0) that a
+// pointer of `esize`-byte values, its row stride and its contiguous extent
+// allow.
+static inline int tc_lvec(const void* p, int ld, int extent, int esize,
+                          int max_l = 2) {
   const uintptr_t a = reinterpret_cast<uintptr_t>(p);
-  for (int l = 2; l > 0; --l) {
+  for (int l = max_l; l > 0; --l) {
     const int v = 1 << l;
-    if (a % (4 * v) == 0 && ld % v == 0 && extent % v == 0) return l;
+    if (a % (esize * v) == 0 && ld % v == 0 && extent % v == 0) return l;
   }
   return 0;
 }
 
 // A product for `gemm_tc`: C = op(A)·op(B) with op(A) M x K, op(B) K x N,
 // row strides from the stored shapes.
-static inline TcProb tc_prob(bool ta, bool tb, const float* A, const float* B,
+static inline TcProb tc_prob(bool ta, bool tb, const void* A, const void* B,
                              float* C, int M, int N, int K) {
   TcProb p{};
   p.A[0] = A;
@@ -465,18 +528,21 @@ static cudaError_t gemm_tc(TcLaunch& L, cudaStream_t s) {
   int items = 0;
   for (int i = 0; i < L.count; ++i) {
     TcProb& p = L.p[i];
-    const bool ok = LAYOUT == tc::NN
-                        ? !p.ta && !p.tb && !p.has_extra
-                        : p.ta != p.tb && (p.ta || !p.has_extra) &&
-                              p.bias == nullptr;
+    const bool ok = (LAYOUT == tc::NN
+                         ? !p.ta && !p.tb && !p.has_extra
+                         : p.ta != p.tb && (p.ta || !p.has_extra) &&
+                               p.bias == nullptr) &&
+                    !(p.a_bf16 && p.extra != nullptr);   // bf16: ones only
     if (!ok) return cudaErrorInvalidValue;
     p.tiles_m = (p.M + p.has_extra + tc::BM - 1) / tc::BM;
     p.tiles_n = (p.N + tc::BN - 1) / tc::BN;
     p.lvec_a = p.lvec_b = 2;
     for (int t = 0; t < p.terms; ++t) {
       if (p.A[t] != nullptr)
-        p.lvec_a = min(p.lvec_a, tc_lvec(p.A[t], p.lda, p.ta ? p.M : p.K));
-      p.lvec_b = min(p.lvec_b, tc_lvec(p.B[t], p.ldb, p.tb ? p.K : p.N));
+        p.lvec_a = min(p.lvec_a, tc_lvec(p.A[t], p.lda, p.ta ? p.M : p.K,
+                                         p.a_bf16 ? 2 : 4));
+      p.lvec_b = min(p.lvec_b, tc_lvec(p.B[t], p.ldb, p.tb ? p.K : p.N,
+                                       p.b_bf16 ? 2 : 4));
     }
     items += p.tiles_m * p.tiles_n * p.splits;
     L.item_end[i] = items;

@@ -128,6 +128,15 @@ def stream_ptr(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+class LaunchCount:
+    """The launch count of a kernel variant whose wrapper launches more
+    than one (``egnn_edge_agg.bf16``): an object ``count_launch`` adds to,
+    like a wrapper's own ``launches``."""
+
+    def __init__(self):
+        self.launches = 0
+
+
 def count_launch(wrapper):
     """Add one to ``wrapper.launches``, the count a kernel's wrapper keeps.
     Several host threads may launch at once (serving replicas), and ``+=``

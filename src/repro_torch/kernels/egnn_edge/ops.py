@@ -10,19 +10,26 @@ device:
   * CPU tensors: the plain versions in ``ref.py``, ``egnn_edge_agg_ref``
     forward and ``egnn_edge_bwd_ref`` backward.
 
-There is no fallback: a CUDA call the kernels do not take (a dtype other
-than float32, mixed devices) raises. The forward keeps only node-major
-tensors for the backward: its inputs and, on the card, its scratch Pi, Pj,
-S (B·A·H f32 each) and deg (B·A), which the backward would otherwise
-recompute — never an edge-major (B,E,H) message or (B,E,2H+1) concat.
+The compute dtype is float32 or bfloat16 on the card. As in ``repro``
+(``_split_phi_e``), h and every φ_e leaf are cast to it, and the output is
+in it. A bf16 call launches the bf16 forward (``egnn_edge_fwd_bf16_launch``:
+bf16 tensor-core products, f32 scratch) and the backward on the bf16 h, g
+and weights as they are (f32 math); each cotangent comes back in its
+primal's dtype. There is no fallback: a CUDA call the kernels do not take
+(another dtype, float16 included; mixed devices) raises. The forward keeps
+only node-major tensors for the backward: its inputs and, on the card, its
+scratch Pi, Pj, S (B·A·H f32 each) and deg (B·A), which the backward would
+otherwise recompute — never an edge-major (B,E,H) message or (B,E,2H+1)
+concat.
 
 Block planning mirrors ``repro``: ``None`` plans ``(block_e, block_h)``
 against the shared-memory model in ``budget.py``, each direction on its
 own; explicit overrides apply to both directions and are validated against
 each direction the call runs, raising ``SmemBudgetError`` when over budget
 — on every device, so a CPU run rejects what the card could not launch.
-``egnn_edge_agg.launches`` counts forward kernel launches,
-``egnn_edge_bwd.launches`` backward ones.
+``egnn_edge_agg.launches`` counts the f32 forward's launches and
+``egnn_edge_agg.bf16.launches`` the bf16 forward's; ``egnn_edge_bwd``
+counts the backward's the same way.
 """
 from __future__ import annotations
 
@@ -63,9 +70,13 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
+
+
 def _check_cuda(what, h, tensors):
-    if h.dtype != torch.float32:
-        raise TypeError(f"{what} CUDA kernel is float32 only, got {h.dtype}")
+    if h.dtype not in COMPUTE_DTYPES:
+        raise TypeError(f"{what} CUDA kernel computes in float32 or "
+                        f"bfloat16, got {h.dtype}")
     dev = h.device
     if any(t.device != dev for t in tensors):
         raise ValueError(f"{what}: every input must be on {dev}")
@@ -75,31 +86,44 @@ def _check_cuda(what, h, tensors):
 
 def _launch_fwd(h, pos, sr, dr, w0, b0, w1, b1, cd, block_e, block_h, *,
                 splits=None):
-    """Kernel #3 (``csrc/egnn_edge.cu``) on routed int32 src/dst: three
-    launches a call, four when fc1 is split. Returns (out, Pi, Pj, S, deg).
-    ``splits``: (proj, fc1) k-ranges in place of ``gemm_plan.fwd_splits``'
-    (timing only: they change the bits)."""
-    if cd != torch.float32:
-        raise TypeError(f"egnn_edge CUDA kernel is float32 only, got "
-                        f"compute dtype {cd}")
+    """Kernel #3 (``csrc/egnn_edge.cu``) on routed int32 src/dst, in the
+    compute dtype ``cd`` (h and the φ_e leaves cast to it): in f32 three
+    launches a call, four when fc1 is split; in bf16 three, unsplit
+    (``csrc/gemm_bf16.cuh``). Returns (out, Pi, Pj, S, deg): out
+    in ``cd``, the scratch in f32. ``splits``: (proj, fc1) k-ranges in
+    place of ``gemm_plan.fwd_splits``' (f32 only; timing only: they change
+    the bits)."""
+    if cd not in COMPUTE_DTYPES:
+        raise TypeError(f"egnn_edge CUDA kernel computes in float32 or "
+                        f"bfloat16, got compute dtype {cd}")
+    h = h.to(cd).contiguous()
     _check_cuda("egnn_edge", h, (pos, sr, dr, w0, b0, w1, b1))
-    if w0.dtype != torch.float32:
-        raise TypeError(f"egnn_edge CUDA kernel takes float32 weights, "
-                        f"got {w0.dtype}")
+    w0, b0, w1, b1 = (t.to(cd).contiguous() for t in (w0, b0, w1, b1))
     B, A, H = h.shape
     E = sr.shape[1]
-    h = h.contiguous()
-    w0, b0, w1, b1 = (t.contiguous() for t in (w0, b0, w1, b1))
-    proj, fc1 = splits or gemm_plan.fwd_splits(B * A, H)
     dev, f32 = h.device, torch.float32
     out = torch.empty_like(h)
-    pi, pj, s = (torch.empty_like(h) for _ in range(3))
+    pi, pj, s = (torch.empty((B, A, H), dtype=f32, device=dev)
+                 for _ in range(3))
     deg = torch.empty((B, A), dtype=f32, device=dev)
+    be = min(block_e, max(E, 1))
+    if cd == torch.bfloat16:
+        if splits not in (None, (1, 1)):
+            raise ValueError(f"the bf16 forward is unsplit, got {splits}")
+        lib, fn = _lib("egnn_edge", "egnn_edge_fwd_bf16_launch", 13, 6)
+        code = fn(h.data_ptr(), pos.data_ptr(), sr.data_ptr(), dr.data_ptr(),
+                  w0.data_ptr(), b0.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+                  out.data_ptr(), pi.data_ptr(), pj.data_ptr(), s.data_ptr(),
+                  deg.data_ptr(), B, A, E, H, be, block_h,
+                  _build.stream_ptr(h))
+        _build.check(lib, code, "egnn_edge_fwd_bf16_launch")
+        _build.count_launch(egnn_edge_agg.bf16)
+        return out, pi, pj, s, deg
+    proj, fc1 = splits or gemm_plan.fwd_splits(B * A, H)
     part = torch.empty((2, proj, B * A, H), dtype=f32, device=dev) \
         if proj > 1 else None
     out_part = torch.empty((fc1, B * A, H), dtype=f32, device=dev) \
         if fc1 > 1 else None
-    be = min(block_e, max(E, 1))
     lib, fn = _lib("egnn_edge", "egnn_edge_fwd_launch", 15, 8)
     code = fn(h.data_ptr(), pos.data_ptr(), sr.data_ptr(), dr.data_ptr(),
               w0.data_ptr(), b0.data_ptr(), w1.data_ptr(), b1.data_ptr(),
@@ -117,43 +141,49 @@ def egnn_edge_bwd(g, h, pos, src, dst, w0, w1, pi, pj, s, deg, *,
     path on the card, three launches (four with dpos). ``g`` is the
     (B, A, H) cotangent of the aggregated output; src/dst (B, E) int32,
     routed (dst >= A: no contribution); w0 the whole fc0 weight (2H+1, H);
-    pi, pj, s, deg the forward kernel's scratch. Returns
-    ``(dh, dpos, dw0, db0, dw1, db1)`` in f32 — dpos is None unless
-    ``need_dpos``. CUDA tensors only: its plain version is
+    pi, pj, s, deg the forward kernel's f32 scratch. g, h, w0 and w1 are
+    all float32 or all bfloat16 (the compute dtype's, read as they are).
+    Returns ``(dh, dpos, dw0, db0, dw1, db1)`` in f32 — dpos is None
+    unless ``need_dpos``. CUDA tensors only: its plain version is
     ``ref.egnn_edge_bwd_ref``."""
     if g.device.type != "cuda":
         raise ValueError("egnn_edge_bwd launches the CUDA kernel; CPU "
                          "tensors take ref.egnn_edge_bwd_ref")
     _check_cuda("egnn_edge_bwd", h, (g, pos, src, dst, w0, w1, pi, pj, s,
                                      deg))
+    if any(t.dtype != h.dtype for t in (g, w0, w1)):
+        raise TypeError(f"egnn_edge_bwd: g, h, w0 and w1 share one dtype, "
+                        f"got {[t.dtype for t in (g, h, w0, w1)]}")
+    bf16 = h.dtype == torch.bfloat16
     B, A, H = h.shape
     E = src.shape[1]
     be = min(block_e, max(E, 1))
     splits = gemm_plan.w1_splits(B * A, H)
     dev, f32 = h.device, torch.float32
     g, h, w0, w1 = (t.contiguous() for t in (g, h, w0, w1))
-    dh = torch.empty_like(h)
+    dh = torch.empty((B, A, H), dtype=f32, device=dev)
     dpos = torch.empty((B, A, 3), dtype=f32, device=dev) if need_dpos \
         else None
     dw0 = torch.empty((2 * H + 1, H), dtype=f32, device=dev)
     dw1 = torch.empty((H, H), dtype=f32, device=dev)
     db0, db1 = (torch.empty(H, dtype=f32, device=dev) for _ in range(2))
-    ds, dpi, dpj = (torch.empty_like(h) for _ in range(3))
+    ds, dpi, dpj = (torch.empty((B, A, H), dtype=f32, device=dev)
+                    for _ in range(3))
     dw0d_part = torch.empty((B, H), dtype=f32, device=dev)
     dd2_part = torch.empty((B, -(-H // 32), E), dtype=f32, device=dev) \
         if need_dpos else None
     w1_part = torch.empty((splits, H + 1, H), dtype=f32, device=dev) \
         if splits > 1 else None
-    lib, fn = _lib("egnn_edge_bwd", "egnn_edge_bwd_launch", 23, 7)
+    lib, fn = _lib("egnn_edge_bwd", "egnn_edge_bwd_launch", 23, 8)
     code = fn(g.data_ptr(), h.data_ptr(), pos.data_ptr(), src.data_ptr(),
-              dst.data_ptr(), w0.data_ptr(), w1.data_ptr(), pi.data_ptr(),
-              pj.data_ptr(), s.data_ptr(), deg.data_ptr(), dh.data_ptr(),
-              _ptr(dpos), dw0.data_ptr(), db0.data_ptr(), dw1.data_ptr(),
-              db1.data_ptr(), ds.data_ptr(), dpi.data_ptr(), dpj.data_ptr(),
-              dw0d_part.data_ptr(), _ptr(dd2_part), _ptr(w1_part), B, A, E,
-              H, be, block_h, splits, _build.stream_ptr(h))
+              dst.data_ptr(), w0.data_ptr(), w1.data_ptr(), pi.data_ptr(), pj.data_ptr(), s.data_ptr(), deg.data_ptr(),
+              dh.data_ptr(), _ptr(dpos), dw0.data_ptr(), db0.data_ptr(),
+              dw1.data_ptr(), db1.data_ptr(), ds.data_ptr(), dpi.data_ptr(),
+              dpj.data_ptr(), dw0d_part.data_ptr(), _ptr(dd2_part),
+              _ptr(w1_part), B, A, E, H, be, block_h, splits, int(bf16),
+              _build.stream_ptr(h))
     _build.check(lib, code, "egnn_edge_bwd_launch")
-    _build.count_launch(egnn_edge_bwd)
+    _build.count_launch(egnn_edge_bwd.bf16 if bf16 else egnn_edge_bwd)
     return dh, dpos, dw0, db0, dw1, db1
 
 
@@ -168,6 +198,7 @@ def gemm_blocks_per_sm() -> int:
 
 
 egnn_edge_bwd.launches = 0
+egnn_edge_bwd.bf16 = _build.LaunchCount()
 
 
 class _EdgeAgg(torch.autograd.Function):
@@ -192,9 +223,10 @@ class _EdgeAgg(torch.autograd.Function):
         sr = sr.to(torch.int32).contiguous()
         dr = dr.to(torch.int32).contiguous()
         pos32 = pos.to(torch.float32).contiguous()
-        out, pi, pj, s, deg = _launch_fwd(h.to(cd), pos32, sr, dr, w0, b0, w1,
-                                          b1, cd, *fwd_blocks)
-        ctx.save_for_backward(h, pos32, sr, dr, w0, w1, pi, pj, s, deg)
+        hc, w0c, b0c, w1c, b1c = (t.to(cd) for t in (h, w0, b0, w1, b1))
+        out, pi, pj, s, deg = _launch_fwd(hc, pos32, sr, dr, w0c, b0c, w1c,
+                                          b1c, cd, *fwd_blocks)
+        ctx.save_for_backward(hc, pos32, sr, dr, w0c, w1c, pi, pj, s, deg)
         return out
 
     @staticmethod
@@ -213,8 +245,8 @@ class _EdgeAgg(torch.autograd.Function):
         else:
             h, pos, sr, dr, w0, w1, pi, pj, s, deg = ctx.saved_tensors
             dh, dpos, dw0, db0, dw1, db1 = egnn_edge_bwd(
-                g.to(torch.float32), h.to(cd), pos, sr, dr, w0, w1, pi, pj, s,
-                deg, block_e=ctx.bwd_blocks[0], block_h=ctx.bwd_blocks[1],
+                g.to(cd), h, pos, sr, dr, w0, w1, pi, pj, s, deg,
+                block_e=ctx.bwd_blocks[0], block_h=ctx.bwd_blocks[1],
                 need_dpos=need_dpos)
         grads = (dh, dpos if need_dpos else None, dw0, db0, dw1, db1)
         return tuple(None if x is None else x.to(dt)
@@ -245,3 +277,4 @@ def egnn_edge_agg(h, pos, src, dst, edge_mask, phi_e, *, compute_dtype=None,
 
 
 egnn_edge_agg.launches = 0
+egnn_edge_agg.bf16 = _build.LaunchCount()

@@ -8,7 +8,10 @@ so it also runs where only the port is installed:
 
 Tolerances: 1e-5 x max(1, |ref|) for segment-sum (f32 sums in another
 order); 1e-4 x max(1, |ref|) for the fused edge kernel (node projections
-group the 2H+1- and H-term contractions differently); 1e-4 x max|ref| per
+group the 2H+1- and H-term contractions differently), 4e-2 x max(1, |ref|)
+in bf16 compute (``repro``'s own bf16 tolerance: the kernel and the plain
+version round to bf16 at other points); its bf16 backward is bitwise
+equal to its f32 one on the upcast values; 1e-4 x max|ref| per
 output for its backward (the same regrouping, and weight gradients summed
 over up to B·A nodes in another order). Attention kernels (#5 flash
 attention, #6 flash decode): 2e-5 x max(1, |ref|) in f32 (online softmax
@@ -192,10 +195,59 @@ def test_egnn_edge_kernel_matches_plain(cuda, B, A, E, H):
     before = egnn_edge_agg.launches
     got = egnn_edge_agg(h, pos, src, dst, em, phi)
     assert egnn_edge_agg.launches == before + 1
+    before_f32 = before
     _close(got, egnn_edge_agg_ref(h, pos, src, dst, em, phi), 1e-4)
     assert torch.equal(got, egnn_edge_agg(h, pos, src, dst, em, phi))
-    with pytest.raises(TypeError, match="float32"):
-        egnn_edge_agg(h.bfloat16(), pos, src, dst, em, phi)
+    # bf16 is a compute dtype of the kernels, float16 is none
+    before = egnn_edge_agg.bf16.launches
+    assert egnn_edge_agg(h.bfloat16(), pos, src, dst, em, phi).dtype == \
+        torch.bfloat16
+    assert egnn_edge_agg.bf16.launches == before + 1
+    assert egnn_edge_agg.launches == before_f32 + 2
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        egnn_edge_agg(h.half(), pos, src, dst, em, phi)
+
+
+# bf16 #3 against its plain version in bf16, x max(1, |ref|): repro's own
+# bf16 tolerance (both round to bf16, at other points: the kernel's z is
+# f32, the plain version's bf16 per edge)
+EDGE_BF16_TOL = 4e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,A,E,H", [(2, 10, 40, 24), (3, 40, 1000, 96),
+                                     (8, 64, 2048, 866),
+                                     (40, 64, 2048, 866),
+                                     (8, 16, 512, 866)])   # a serve bucket
+def test_egnn_edge_bf16_kernel_matches_plain(cuda, B, A, E, H):
+    """#3 in bf16 compute (h bf16, the φ_e leaves f32 cast by the op)
+    launches the bf16 forward alone, is within EDGE_BF16_TOL of
+    ``egnn_edge_agg_ref`` at bf16 and gives the same bits twice; its
+    scratch is f32."""
+    h, pos, src, dst, em, phi = _fwd_case(cuda, B, A, E, H)
+    h = h.bfloat16()
+    f32, bf16 = egnn_edge_agg.launches, egnn_edge_agg.bf16.launches
+    got = egnn_edge_agg(h, pos, src, dst, em, phi,
+                        compute_dtype=torch.bfloat16)
+    assert got.dtype == torch.bfloat16
+    assert (egnn_edge_agg.launches, egnn_edge_agg.bf16.launches) == \
+        (f32, bf16 + 1)
+    ref = egnn_edge_agg_ref(h, pos, src, dst, em, phi,
+                            compute_dtype=torch.bfloat16)
+    _close(got.float(), ref.float(), EDGE_BF16_TOL)
+    assert torch.equal(got, egnn_edge_agg(h, pos, src, dst, em, phi,
+                                          compute_dtype=torch.bfloat16))
+    sr = torch.where(em, src, A).to(torch.int32)
+    dr = torch.where(em, dst, A).to(torch.int32)
+    w = (phi["fc0"]["w"], phi["fc0"]["b"], phi["fc1"]["w"], phi["fc1"]["b"])
+    _, pi, pj, s, deg = edge_ops._launch_fwd(
+        h, pos, sr, dr, *w, torch.bfloat16,
+        *edge_ops._resolve_blocks(None, None, A, E, H))
+    assert all(t.dtype == torch.float32 for t in (pi, pj, s, deg))
+    with pytest.raises(ValueError, match="unsplit"):
+        edge_ops._launch_fwd(h, pos, sr, dr, *w, torch.bfloat16,
+                             *edge_ops._resolve_blocks(None, None, A, E, H),
+                             splits=(2, 1))
 
 
 @pytest.mark.gpu
@@ -386,6 +438,77 @@ def test_egnn_edge_bwd_bits_independent_of_blocks(cuda):
         assert torch.equal(base[i], wide[i])
     assert torch.equal(base[2][:2 * H], wide[2][:2 * H])
     _close(wide[2][2 * H:], base[2][2 * H:], 1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,A,E,H,need_dpos", [(40, 64, 2048, 866, False),
+                                               (8, 64, 2048, 866, True),
+                                               (3, 40, 1000, 96, True)])
+def test_egnn_edge_bwd_bf16_bitwise_equals_f32_on_upcast(cuda, B, A, E, H,
+                                                         need_dpos):
+    """#4 on bf16 g, h and weights (read as they are, converted where they
+    are staged) gives the bits of #4's f32 launch on their f32 copies: the
+    f32 math is the same, and a bf16 value is exact in f32 and TF32. Each
+    launch counts on its own counter."""
+    leaves, (src, dst, em), g = _bwd_case(cuda, B, A, E, H)
+    h, pos, w0, b0, w1, b1 = (x.detach() for x in leaves)
+    hb, gb, w0b, b0b, w1b, b1b = (x.bfloat16() for x in (h, g, w0, b0, w1,
+                                                         b1))
+    sr = torch.where(em, src, A).to(torch.int32)
+    dr = torch.where(em, dst, A).to(torch.int32)
+    _, pi, pj, s, deg = edge_ops._launch_fwd(
+        hb, pos, sr, dr, w0b, b0b, w1b, b1b, torch.bfloat16,
+        *edge_ops._resolve_blocks(None, None, A, E, H))
+    be, bh = edge_ops._resolve_blocks(None, None, A, E, H, bwd=True)
+    f32, bf16 = egnn_edge_bwd.launches, egnn_edge_bwd.bf16.launches
+    got = egnn_edge_bwd(gb, hb, pos, sr, dr, w0b, w1b, pi, pj, s, deg,
+                        block_e=be, block_h=bh, need_dpos=need_dpos)
+    assert (egnn_edge_bwd.launches, egnn_edge_bwd.bf16.launches) == \
+        (f32, bf16 + 1)
+    want = egnn_edge_bwd(gb.float(), hb.float(), pos, sr, dr, w0b.float(),
+                         w1b.float(), pi, pj, s, deg, block_e=be, block_h=bh,
+                         need_dpos=need_dpos)
+    assert egnn_edge_bwd.launches == f32 + 1
+    for a, b in zip(got, want):
+        assert (a is None and b is None) or torch.equal(a, b)
+    with pytest.raises(TypeError, match="one dtype"):
+        egnn_edge_bwd(gb.float(), hb, pos, sr, dr, w0b, w1b, pi, pj, s, deg,
+                      block_e=be, block_h=bh)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,A,E,H", [(3, 40, 1000, 96), (40, 64, 2048, 866)])
+def test_egnn_edge_bwd_bf16_through_autograd_matches_plain(cuda, B, A, E, H):
+    """#4 in bf16 compute through ``egnn_edge_agg``'s autograd Function, as
+    the trunk calls it (a bf16 h leaf, f32 φ_e leaves, a bf16 cotangent):
+    one bf16 backward launch, each cotangent in its primal's dtype and
+    within 1e-4 x max|ref| of the plain version on the same bf16 values,
+    dh also within the half ulp of its rounding to bf16."""
+    leaves, (src, dst, em), g = _bwd_case(cuda, B, A, E, H)
+    h = leaves[0].detach().bfloat16().requires_grad_(True)
+    pos, w0, b0, w1, b1 = leaves[1:]
+    phi = {"fc0": {"w": w0, "b": b0}, "fc1": {"w": w1, "b": b1}}
+    out = egnn_edge_agg(h, pos, src, dst, em, phi,
+                        compute_dtype=torch.bfloat16)
+    assert out.dtype == torch.bfloat16
+    wrt = [h, pos, w0, b0, w1, b1]
+    f32, bf16 = egnn_edge_bwd.launches, egnn_edge_bwd.bf16.launches
+    got = torch.autograd.grad(out, wrt, g.bfloat16())
+    assert (egnn_edge_bwd.launches, egnn_edge_bwd.bf16.launches) == \
+        (f32, bf16 + 1)
+    assert [x.dtype for x in got] == [x.dtype for x in wrt]
+    w0b, b0b, w1b = (x.detach().bfloat16() for x in (w0, b0, w1))
+    dh, dpos, dw0i, dw0j, dw0d, db0, dw1, db1 = egnn_edge_bwd_ref(
+        g.bfloat16(), h.detach(), pos.detach(), torch.where(em, src, A),
+        torch.where(em, dst, A), w0b[:H], w0b[H:2 * H], w0b[2 * H:],
+        b0b[None], w1b)
+    want = [dh, dpos, torch.cat([dw0i, dw0j, dw0d]), db0[0], dw1, db1[0]]
+    for name, a, b in zip(("h", "pos", "w0", "b0", "w1", "b1"), got, want):
+        b = b.float()
+        lim = 1e-4 * float(b.abs().max())
+        if name == "h":
+            lim = lim * (1 + 2.0 ** -8) + 2.0 ** -8 * b.abs()
+        assert bool(((a.float() - b).abs() <= lim).all()), name
 
 
 @pytest.mark.gpu
@@ -790,12 +913,15 @@ def test_bucketing_batcher_over_the_cards_placed_batches(cuda, tmp_path):
 
 
 FIRST_LAUNCHES = r"""
+import sys
 import threading
 import torch
 from repro_torch.kernels.egnn_edge import egnn_edge_agg
 from repro_torch.models.mlp import mlp_init
 import numpy as np
 
+cd = getattr(torch, sys.argv[1])          # the compute dtype
+count = egnn_edge_agg if cd == torch.float32 else egnn_edge_agg.bf16
 dev = torch.device("cuda")
 B, A, E, H = 4, 64, 2048, 866
 g = torch.Generator(device=dev).manual_seed(0)
@@ -815,21 +941,22 @@ def run(i):
         stream = torch.cuda.Stream(device=dev)
         barrier.wait()
         with torch.inference_mode(), torch.cuda.stream(stream):
-            outs[i] = egnn_edge_agg(h, pos, src, dst, em, phi)
+            outs[i] = egnn_edge_agg(h, pos, src, dst, em, phi,
+                                    compute_dtype=cd)
         stream.synchronize()
     except Exception as e:
         errors.append(repr(e))
 
-egnn_edge_agg.launches = 0
+count.launches = 0
 threads = [threading.Thread(target=run, args=(i,)) for i in range(n)]
 for t in threads:
     t.start()
 for t in threads:
     t.join(timeout=300)
 assert not errors, errors
-assert egnn_edge_agg.launches == n, egnn_edge_agg.launches
+assert count.launches == n, count.launches
 with torch.inference_mode():
-    want = egnn_edge_agg(h, pos, src, dst, em, phi)
+    want = egnn_edge_agg(h, pos, src, dst, em, phi, compute_dtype=cd)
 torch.cuda.synchronize()
 assert all(torch.equal(o, want) for o in outs)
 print("ok")
@@ -841,10 +968,22 @@ def test_edge_forward_first_launches_from_8_threads(cuda):
     """#3's first launches in a fresh process come from 8 threads at once,
     each on its own stream (as replica workers warm up together): every
     launch runs, is counted, and gives the bits one launch alone gives."""
+    _first_launches("float32")
+
+
+@pytest.mark.gpu
+def test_edge_forward_bf16_first_launches_from_8_threads(cuda):
+    """The same for the bf16 forward (its own GEMM kernel's first
+    shared-memory opt-in under ``allow_smem_once``), counted on
+    ``egnn_edge_agg.bf16``."""
+    _first_launches("bfloat16")
+
+
+def _first_launches(dtype):
     src = Path(__file__).resolve().parents[1] / "src"
     env = dict(os.environ, PYTHONPATH=str(src))
-    r = subprocess.run([sys.executable, "-c", FIRST_LAUNCHES], env=env,
-                       capture_output=True, text=True, timeout=600)
+    r = subprocess.run([sys.executable, "-c", FIRST_LAUNCHES, dtype],
+                       env=env, capture_output=True, text=True, timeout=600)
     assert r.returncode == 0, r.stderr[-3000:]
     assert r.stdout.strip().splitlines()[-1] == "ok"
 
