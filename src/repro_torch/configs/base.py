@@ -2,7 +2,8 @@
 
 ``repro.configs.base`` imports jax for its dtypes, so the port keeps its own
 dataclass holding only the fields its ported paths read: the EGNN trunk and
-the MTL heads, and the decoder-only LM trunk (GQA ``attn``/``swa`` blocks).
+the MTL heads, and the decoder-only LM trunk (GQA ``attn``/``swa`` blocks,
+per-block rematerialisation in training).
 Field names and defaults match the reference; MoE, MLA, SSM and
 encoder-decoder fields come with their slices."""
 from __future__ import annotations
@@ -56,6 +57,9 @@ class ArchConfig:
     # precision -------------------------------------------------------------
     param_dtype: Any = torch.float32
     compute_dtype: Any = torch.bfloat16
+    # training: recompute each LM block's activations in the backward
+    # (``repro``'s per-block ``jax.checkpoint``; torch.utils.checkpoint)
+    remat: bool = True
 
     @property
     def hd(self) -> int:

@@ -17,4 +17,4 @@ CONFIG = ArchConfig(
 def smoke() -> ArchConfig:
     return CONFIG.replace(gnn_hidden=64, gnn_layers=2, head_hidden=32,
                           head_layers=2, max_atoms=16, max_edges=64,
-                          n_tasks=3)
+                          n_tasks=3, remat=False)

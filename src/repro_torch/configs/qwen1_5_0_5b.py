@@ -12,4 +12,4 @@ CONFIG = ArchConfig(
 
 def smoke() -> ArchConfig:
     return CONFIG.replace(n_layers=2, d_model=128, n_heads=4, n_kv_heads=4,
-                          head_dim=32, d_ff=256, vocab=512)
+                          head_dim=32, d_ff=256, vocab=512, remat=False)

@@ -1,21 +1,23 @@
-"""Two-level hierarchical MTL model (port of the GFM half of
-``repro.core.mtl``).
+"""Two-level hierarchical MTL models (port of ``repro.core.mtl``).
 
 Level 1: one branch per data source; level 2: each branch = {energy head,
 force head}. ``make_gfm_mtl`` is GFM-MTL-All (shared EGNN + per-source
 branches); with n_tasks=1 it is GFM-Baseline-All's single branch.
+``make_lm_multitask`` carries the technique onto the LM architectures: a
+shared transformer trunk + per-source LM heads.
 
-The trunk is shared, so ``loss_fn`` runs it ONCE over all T·B graphs of a
-task-major batch and applies each task's branch to its own rows (batched
-over tasks), where ``repro`` vmaps the whole model over tasks. Every kernel
-on the path is row-independent, so the two forms compute the same function;
-one trunk pass makes each fused-edge kernel launch once per layer and step.
+The trunk is shared, so ``loss_fn`` runs it ONCE over all T·B rows of a
+task-major batch and applies each task's branch or head to its own rows
+(batched over tasks), where ``repro`` vmaps the whole model over tasks.
+Every kernel on the path is row-independent, so the two forms compute the
+same function; one trunk pass makes each kernel launch once per layer and
+step.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models import gnn, heads
+from repro_torch.models import gnn, heads, transformer
 
 from .taskpar import MultiTaskModel
 
@@ -121,3 +123,54 @@ def gfm_eval_fn(cfg):
             torch.clamp(nm.sum() * 3.0, min=1.0)
         return e_mae, f_mae
     return ev
+
+
+# ---------------------------------------------------------------------------
+# LM multi-task: shared transformer trunk + per-source vocab heads
+# ---------------------------------------------------------------------------
+
+def _xent(logits, labels):
+    """Per-position ``logsumexp - gold`` of f32 logits (..., V)."""
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    return torch.logsumexp(logits, -1) - gold
+
+
+def softmax_xent(logits, labels):
+    """logits: (..., V) f32; labels: (...) int. Mean over all positions."""
+    return _xent(logits, labels).mean()
+
+
+def make_lm_multitask(cfg, impl="chunked") -> MultiTaskModel:
+    """``init(seed, device)`` -> ``{"shared": lm params, "heads": {"w":
+    (T, d, V)}}`` (``lm_init``'s tree with its ``task_heads`` as the
+    heads). ``loss_fn`` over ``{"tokens", "labels": (T, B, S)}``: each
+    task's mean cross-entropy of its own head's logits, the head cast to
+    the hidden dtype and the products summed in f32 (the padded vocab
+    slots unmasked, as ``repro`` computes them)."""
+    if cfg.n_tasks <= 1:
+        raise ValueError(f"lm-mtl needs cfg.n_tasks > 1, got {cfg.n_tasks}")
+
+    def init(seed=0, device="cpu"):
+        p = transformer.lm_init(transformer.init_generator(seed, device),
+                                cfg, device)
+        return {"shared": p, "heads": {"w": p.pop("task_heads")["w"]}}
+
+    def loss_fn(shared, hp, batch, norm=None):
+        if norm is not None:
+            raise NotImplementedError(
+                "lm-mtl on a global-semantics task-parallel plan (loss "
+                "denominators over a task's ranks) is not ported: "
+                "ROADMAP.md, queue 1, item 9b")
+        toks = batch["tokens"]
+        T, B, S = toks.shape
+        x = transformer.embed_inputs(shared, toks.reshape(T * B, S), cfg)
+        h, _, _ = transformer.run_trunk(
+            shared, x, cfg=cfg, positions=torch.arange(S, device=x.device),
+            mode="train", impl=impl)
+        h = h.reshape(T, B, S, h.shape[-1])
+        logits = torch.einsum("tbsd,tdv->tbsv", h.float(),
+                              hp["w"].to(h.dtype).float())
+        return _xent(logits, batch["labels"]).mean((1, 2)), {}
+
+    return MultiTaskModel(init=init, loss_fn=loss_fn,
+                          name=f"lm-mtl-{cfg.name}", n_tasks=cfg.n_tasks)

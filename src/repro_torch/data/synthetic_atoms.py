@@ -209,3 +209,13 @@ def source_dicts(data: dict[str, SourceData], *, keys=(
     batchers take (one dict of numpy arrays per source, insertion order
     preserved)."""
     return [{k: getattr(sd, k) for k in keys} for sd in data.values()]
+
+
+def to_batch_dict(sd: SourceData, idx: np.ndarray, device="cpu") -> dict:
+    """Samples ``idx`` of one source as a flat batch of tensors on
+    ``device`` (``repro``'s ``to_batch_dict``, which places them with
+    JAX)."""
+    keys = ("species", "pos", "edge_src", "edge_dst", "node_mask",
+            "edge_mask", "energy", "forces")
+    return {k: torch.from_numpy(np.ascontiguousarray(getattr(sd, k)[idx]))
+            .to(device) for k in keys}

@@ -4,7 +4,10 @@ device).
 ``Session.from_config(cfg, sources=...).run()`` composes the model registry,
 the batcher (``GroupBatcher`` one source a head; a task-major
 ``MixingBatcher`` for one branch over several sources, the paper's
-GFM-Baseline-All; a ``BucketingBatcher`` around either), a ``Prefetcher``
+GFM-Baseline-All; for a single-task model — ``"lm"``, a fine-tuning
+``SingleTaskModel`` — a ``SingleBatcher`` over one source or a flat
+``MixingBatcher`` over several; a ``BucketingBatcher`` around any), a
+``Prefetcher``
 whose producer thread places batches on the device (pinned memory, a side
 stream), AdamW with its schedule, gradient accumulation,
 ``EarlyStopping``, ``MetricLogger``, eval and checkpointing with the
@@ -37,7 +40,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core.taskpar import HeadPlacement, MTPConfig, MultiTaskModel
 from repro_torch.data.bucketing import BucketingBatcher, BucketSpec
-from repro_torch.data.loader import GroupBatcher, _source_len
+from repro_torch.data.loader import GroupBatcher, SingleBatcher, _source_len
 from repro_torch.data.mixing import MixingBatcher, MixingConfig
 from repro_torch.data.prefetch import DevicePlacer, Prefetcher
 from repro_torch.interop import leaves
@@ -195,7 +198,12 @@ class Session:
     """One declarative training session; see module docstring.
 
     sources: list of per-task sample dicts (numpy arrays; task t feeds head
-    t) or gather-style readers (``data.store.ShardedSource``). batcher: a
+    t) or gather-style readers (``data.store.ShardedSource``); for a
+    single-task model one sample dict (or a list of them with
+    ``cfg.mixing``). A single-task model trains on one device: a mesh or
+    ``cfg.placement`` raises. model: a built ``MultiTaskModel`` or
+    ``SingleTaskModel`` in place of the registry's ``cfg.model`` (e.g. a
+    fine-tuning model). batcher: a
     ready batcher in place of sources (e.g. a ``PrefetchingBatcher``; its
     batches may already be on the device). eval_fn(params) -> dict of
     scalar metrics, merged into logged rows (put cfg.val_metric in it to
@@ -204,7 +212,7 @@ class Session:
 
     def __init__(self, cfg: SessionConfig, *, sources=None, batcher=None,
                  mesh=None, eval_fn: Callable | None = None,
-                 task_names: list[str] | None = None,
+                 task_names: list[str] | None = None, model=None,
                  model_kwargs: dict | None = None, device=None):
         if cfg.steps < 1:
             raise ValueError(f"SessionConfig.steps must be >= 1, got "
@@ -217,17 +225,22 @@ class Session:
         else:
             if sources is None:
                 raise ValueError("Session needs sources or a batcher")
-            if not isinstance(sources, (list, tuple)):
-                raise TypeError("Session takes a list of per-task sources")
-            n_tasks = len(sources)
-        self.model = build_model(cfg.model, cfg.arch, n_tasks=n_tasks,
-                                 **(model_kwargs or {}))
-        if not isinstance(self.model, MultiTaskModel):
-            raise NotImplementedError("single-task (LM) models are not "
-                                      "ported yet")
+            n_tasks = len(sources) if isinstance(sources, (list, tuple)) \
+                else 1
+        self.model = model if model is not None else \
+            build_model(cfg.model, cfg.arch, n_tasks=n_tasks,
+                        **(model_kwargs or {}))
+        # batching follows the BUILT model's flavour
+        multitask = isinstance(self.model, MultiTaskModel)
         mixing = _as_mixing(cfg.mixing)
         task_weights = cfg.task_weights
-        if batcher is None:
+        if batcher is None and not multitask:
+            batcher = self._single_batcher(sources, mixing)
+            n_tasks = 1
+        elif batcher is None:
+            if not isinstance(sources, (list, tuple)):
+                raise TypeError(f"multi-task model '{cfg.model}' takes a "
+                                "list of per-task sources")
             heads = self.model.n_tasks or n_tasks
             if heads == 1 and len(sources) > 1:
                 # one branch over several sources (GFM-Baseline-All): one
@@ -263,7 +276,7 @@ class Session:
         if len(self.task_names) != n_tasks:
             raise ValueError(f"{len(self.task_names)} task_names for "
                              f"{n_tasks} tasks")
-        self.plan = self._make_plan(mesh, n_tasks, task_weights)
+        self.plan = self._make_plan(mesh, n_tasks, task_weights, multitask)
         if self.plan.distributed:
             from repro_torch.launch.mesh import rank_device
             self.device = rank_device() if device is None else \
@@ -295,9 +308,31 @@ class Session:
         # consumed-position snapshot taken when the prefetcher is closed
         self._dp_snapshot = None
 
-    def _make_plan(self, mesh, n_tasks, task_weights) -> ShardingPlan:
+    def _single_batcher(self, sources, mixing):
+        """A single-task model's flat batches: one source through a
+        ``SingleBatcher``; several, with ``cfg.mixing``, composed from all
+        of them by a flat ``MixingBatcher`` (one head over mixed data)."""
+        cfg = self.cfg
+        if isinstance(sources, (list, tuple)):
+            if mixing is not None and len(sources) > 1:
+                return MixingBatcher(list(sources), cfg.batch_per_task,
+                                     mixing=mixing, seed=cfg.seed)
+            if len(sources) != 1:
+                raise ValueError(
+                    f"single-task model '{cfg.model}' got {len(sources)} "
+                    "sources; use a multi-task model (e.g. 'lm-mtl'), pass "
+                    "one source, or set cfg.mixing to train one head on the "
+                    "mixture")
+            sources = sources[0]
+        return SingleBatcher(sources, cfg.batch_per_task, seed=cfg.seed)
+
+    def _make_plan(self, mesh, n_tasks, task_weights,
+                   multitask=True) -> ShardingPlan:
         cfg = self.cfg
         placement = None
+        if cfg.placement is not None and not multitask:
+            raise ValueError("cfg.placement shards per-task heads — needs a "
+                             "multi-task model")
         if cfg.placement is not None:
             if mesh is not None:
                 raise ValueError(
@@ -318,7 +353,8 @@ class Session:
                                         None) is None:
             raise TypeError("mesh= takes a DeviceMesh with dims ('data', "
                             "'model') (launch.mesh.make_host_mesh)")
-        mtp = MTPConfig(n_tasks=n_tasks, mode=cfg.mode)
+        mtp = MTPConfig(n_tasks=n_tasks, mode=cfg.mode) if multitask \
+            else None
         plan = ShardingPlan(mesh=mesh, mtp=mtp, backend=cfg.backend,
                             donate=cfg.donate, placement=placement)
         if plan.distributed:
@@ -462,6 +498,10 @@ class Session:
             inner.set_weights(w)   # refuses to zero every source
             self._quarantined_sources |= set(tasks)
             return
+        if not isinstance(self.model, MultiTaskModel):
+            raise ValueError("quarantine_tasks needs per-task loss weights "
+                             "(a multi-task model) or a MixingBatcher "
+                             "session")
         if self.plan.resolved_backend == "shard_map":
             raise ValueError(
                 "the shard_map backend supports uniform task weights only — "

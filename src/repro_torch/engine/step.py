@@ -1,9 +1,13 @@
-"""Unified train-step construction (port of the single-device path of
-``repro.engine.step``):
+"""Unified train-step construction (port of ``repro.engine.step``):
 
-    grad_fn = multitask_grad_fn(model, n_tasks, task_weights)
-    grad_fn = with_grad_accum(grad_fn, accum)
+    grad_fn = make_grad_fn(model, plan)          # either model flavour
+    grad_fn = with_grad_accum(grad_fn, accum, axis)
     step    = make_train_step(grad_fn, optimizer)
+
+Models come in two flavours: ``MultiTaskModel`` (``core.taskpar``: params
+``{"shared", "heads"}``, per-task losses over a task-major batch — the
+paper's technique) and ``SingleTaskModel`` (flat params, a scalar loss over
+a flat batch — the LM path and downstream fine-tuning).
 
 ``make_step`` composes the pipeline in one call; ``make_guarded_step`` /
 ``make_guarded_train_step`` build the guarded step of
@@ -40,6 +44,15 @@ from .state import GuardState, StepOutput, TrainState
 TrainStep = Callable[[TrainState, Any], tuple[TrainState, StepOutput]]
 
 
+class SingleTaskModel(NamedTuple):
+    """init(seed, device) -> params; loss_fn(params, batch) -> scalar
+    loss. ``init`` takes a seed (or a generator) and a device, as
+    ``MultiTaskModel``'s does."""
+    init: Callable
+    loss_fn: Callable
+    name: str = "single"
+
+
 class HierStepSpec(NamedTuple):
     """The ``make_step`` product for hierarchical plans (backend="hier"):
     not a callable — a rank's group step depends on the plan's
@@ -58,14 +71,30 @@ def normalized_task_weights(n_tasks: int, task_weights=None,
     return (tw / tw.sum()).to(device)
 
 
+def _requires_grad(params):
+    leaves = {k: v.detach().requires_grad_(True)
+              for k, v in tree_leaves(params).items()}
+    return leaves, unflatten(params, leaves)
+
+
+def single_grad_fn(model: SingleTaskModel) -> Callable:
+    """grad_fn of a ``SingleTaskModel``: the loss and every parameter's
+    gradient, no metrics."""
+    def grad_fn(params, batch):
+        leaves, p = _requires_grad(params)
+        with torch.enable_grad():
+            loss = model.loss_fn(p, batch)
+            grads = torch.autograd.grad(loss, list(leaves.values()))
+        return loss.detach(), {}, unflatten(params, dict(zip(leaves, grads)))
+    return grad_fn
+
+
 def multitask_grad_fn(model: MultiTaskModel, n_tasks: int,
                       task_weights=None) -> Callable:
     on_device = {}                  # the weights, copied once per device
 
     def grad_fn(params, batch):
-        leaves = {k: v.detach().requires_grad_(True)
-                  for k, v in tree_leaves(params).items()}
-        p = unflatten(params, leaves)
+        leaves, p = _requires_grad(params)
         with torch.enable_grad():
             per_task, metrics = model.loss_fn(p["shared"], p["heads"], batch)
             dev = per_task.device
@@ -86,21 +115,24 @@ def multitask_grad_fn(model: MultiTaskModel, n_tasks: int,
     return grad_fn
 
 
-def with_grad_accum(grad_fn: Callable, accum: int) -> Callable:
-    """Microbatch a grad_fn over a task-major ``(T, B, ...)`` batch: split
-    B into ``accum`` slices and average losses, metrics and grads over the
-    slices, in slice order. A leaf with no batch dim (ndim <= 1, e.g.
+def with_grad_accum(grad_fn: Callable, accum: int, axis: int = 1
+                    ) -> Callable:
+    """Microbatch a grad_fn: split the batch into ``accum`` slices along
+    ``axis`` (1 for task-major ``(T, B, ...)`` batches, 0 for flat ones;
+    ``repro``'s default is 0, the port keeps 1, which its multi-task
+    callers rely on) and average losses, metrics and grads over the
+    slices, in slice order. A leaf with no batch dim (ndim <= axis, e.g.
     per-task weights) goes whole to every slice."""
     if accum <= 1:
         return grad_fn
 
     def split(x):
-        if x.dim() <= 1:
+        if x.dim() <= axis:
             return [x] * accum
-        b = x.shape[1]
+        b = x.shape[axis]
         if b % accum:
             raise ValueError(f"batch dim {b} not divisible by accum={accum}")
-        return torch.chunk(x, accum, dim=1)
+        return torch.chunk(x, accum, dim=axis)
 
     def accum_fn(params, batch):
         parts = {k: split(v) for k, v in batch.items()}
@@ -216,9 +248,11 @@ def make_grad_fn(model, plan=None, *, task_weights=None) -> Callable:
         raise TypeError(f"plan: a ShardingPlan or None, got "
                         f"{type(plan).__name__}")
     if not isinstance(model, MultiTaskModel):
-        raise NotImplementedError(
-            "single-task (LM) models are not ported yet; build a "
-            "MultiTaskModel (registry 'gfm-mtl' / 'gfm-baseline')")
+        if plan is not None and plan.distributed:
+            raise NotImplementedError(
+                "a single-task model on a task-parallel plan (data "
+                "parallelism) is not ported: ROADMAP.md, queue 1, item 9b")
+        return single_grad_fn(model)
     if plan is None or not plan.distributed:
         return multitask_grad_fn(model, model.n_tasks, task_weights)
     if plan.resolved_backend == "hier":
@@ -239,8 +273,10 @@ def _grad_fn(model, plan, accum, task_weights):
         raise NotImplementedError(
             "gradient accumulation on a task-parallel plan is not ported: "
             "use accum=1")
+    axis = 1 if isinstance(model, MultiTaskModel) else 0
     return with_grad_accum(make_grad_fn(model, plan,
-                                        task_weights=task_weights), accum)
+                                        task_weights=task_weights), accum,
+                           axis)
 
 
 def _norm_fn(plan):

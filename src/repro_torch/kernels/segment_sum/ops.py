@@ -7,8 +7,10 @@ CUDA tensor the kernel does not take (dtype, shape) raises.
 
 Masked edges are routed to the ``n_nodes`` sentinel, so they contribute
 nothing — the ``>= n_nodes`` pad contract shared with ``repro``.
-``segment_sum.launches`` counts kernel launches: one per CUDA call, none
-for an empty output.
+``segment_sum.launches`` counts the launches of batched (B,E,F) calls
+(``segment_sum_batched``'s port) and ``segment_sum.two_d.launches`` those of
+(E,F) calls (``segment_sum_2d``'s: the embedding's backward,
+``models.common.embed``): one per CUDA call, none for an empty output.
 
 The kernel has no backward, as ``repro``'s Pallas segment-sum has no
 ``custom_vjp``: a CUDA call on messages that require grad raises instead of
@@ -82,10 +84,14 @@ def plan(n_nodes: int, E: int, F: int, *, batch: int = 1, itemsize: int = 4,
     leave over half of the H100's 132 SMs idle. ``block_n`` defaults to
     one node a CTA, doubled while at least three CTAs an SM remain (the
     walk is then shared by more nodes); ``block_e`` to the whole edge
-    list, up to 2048. None of these changes any sum's order. Then, until
-    the CTA fits ``smem_limit``: halve a default window, split the columns
-    finer, halve a default node block; an explicit block that still does
-    not fit raises ``SmemBudgetError``."""
+    list, up to 2048. None of these changes any sum's order. A list
+    longer than that window carries ``vec`` f32 partial sums a thread and
+    node between windows; when that carry is what does not fit and the
+    whole list does in one window, the default window becomes the whole
+    list (no carry: the embedding's backward, 8192 ids into 152064 rows).
+    Then, until the CTA fits ``smem_limit``: halve a default window, split
+    the columns finer, halve a default node block; an explicit block that
+    still does not fit raises ``SmemBudgetError``."""
     n, e = max(n_nodes, 1), max(E, 1)
     vec = vec_width(F, itemsize, align)
     nvec = max(1, F // vec)
@@ -106,10 +112,12 @@ def plan(n_nodes: int, E: int, F: int, *, batch: int = 1, itemsize: int = 4,
         chunks += 1
     lanes = -(-nvec // chunks)
 
-    def need():
+    def need(be):
         threads = -(-lanes // 32) * 32
         return smem_bytes(bn, be, threads, carry=vec if E > be else 0)
-    while need() > smem_limit:
+    if block_e is None and need(be) > smem_limit >= need(e):
+        be = e
+    while need(be) > smem_limit:
         if block_e is None and be > 32:
             be //= 2
         elif lanes > 32:
@@ -124,7 +132,7 @@ def plan(n_nodes: int, E: int, F: int, *, batch: int = 1, itemsize: int = 4,
                 hint = f"; autotune_blocks suggests {auto}"
             raise SmemBudgetError(
                 f"segment_sum blocks (block_n={block_n}, block_e={block_e}) "
-                f"need {need()} bytes of shared memory at (n_nodes="
+                f"need {need(be)} bytes of shared memory at (n_nodes="
                 f"{n_nodes}, E={E}, F={F}), over the {smem_limit}-byte "
                 f"budget{hint}")
     if -(-n // bn) > MAX_GRID_YZ or batch > MAX_GRID_YZ:
@@ -165,7 +173,7 @@ def _launch(messages, dst, n_nodes, p: Plan):
                                   p.chunks, p.vec, _DTYPES[m.dtype],
                                   _build.stream_ptr(m))
     _build.check(lib, code, "segment_sum_launch")
-    _build.count_launch(segment_sum)
+    _build.count_launch(segment_sum.two_d if squeeze else segment_sum)
     return out[0] if squeeze else out
 
 
@@ -209,3 +217,4 @@ def segment_sum(messages, dst, n_nodes: int, *, edge_mask=None,
 
 
 segment_sum.launches = 0
+segment_sum.two_d = _build.LaunchCount()

@@ -20,7 +20,6 @@ from __future__ import annotations
 import argparse
 import json
 
-import numpy as np
 import torch
 
 from repro_torch import resolve_device
@@ -45,12 +44,8 @@ def main(argv=None):
     cfg = get(args.arch) if args.width == "full" else get_smoke(args.arch)
     if cfg.family == "gnn":
         raise SystemExit(f"{args.arch} is not a language model")
-    if dev.type == "cuda":
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(args.seed)
-    else:
-        gen = np.random.default_rng(args.seed)
-    params = transformer.lm_init(gen, cfg, device=dev)
+    params = transformer.lm_init(transformer.init_generator(args.seed, dev),
+                                 cfg, device=dev)
     prompt = make_lm_source(args.seed + 1, args.batch, args.prompt_len,
                             cfg.vocab)["tokens"]
     timings = {}

@@ -126,29 +126,37 @@ def embedding_init(rng, vocab: int, d: int, dtype=torch.float32,
 
 
 class _Embed(torch.autograd.Function):
-    """``table[ids]`` whose backward is a one-hot product, the same fixed
-    summation order on every device. Indexing's own backward accumulates
-    with ``index_put_``, which on CUDA adds with float atomics in no fixed
-    order — training would not replay bitwise."""
+    """``table[ids]`` whose backward sums the rows of g into the table by
+    id with kernel #1 (``kernels.segment_sum``: f32 sums in token order,
+    no atomics; its plain one-hot product on the CPU), the same order on
+    every run; with ``plain`` it takes the one-hot product on any device.
+    Indexing's own backward accumulates with ``index_put_``, which on CUDA
+    adds with float atomics in no fixed order — training would not replay
+    bitwise."""
 
     @staticmethod
-    def forward(ctx, table, ids):
+    def forward(ctx, table, ids, plain):
         ctx.save_for_backward(ids)
-        ctx.vocab = table.shape[0]
+        ctx.vocab, ctx.plain = table.shape[0], plain
         return table[ids]
 
     @staticmethod
     def backward(ctx, g):
+        from ..kernels.segment_sum import segment_sum, segment_sum_ref
         (ids,) = ctx.saved_tensors
-        onehot = F.one_hot(ids.reshape(-1), ctx.vocab).to(g.dtype)
-        return onehot.T @ g.reshape(-1, g.shape[-1]), None
+        fn = segment_sum_ref if ctx.plain else segment_sum
+        return fn(g.reshape(-1, g.shape[-1]), ids.reshape(-1),
+                  ctx.vocab), None, None
 
 
-def embed(params: Params, ids: torch.Tensor, compute_dtype=None):
+def embed(params: Params, ids: torch.Tensor, compute_dtype=None, *,
+          plain: bool = False):
+    """``table[ids]`` in ``compute_dtype``; ``plain`` keeps kernel #1 out
+    of its backward (the parity oracle's path)."""
     t = params["table"]
     if compute_dtype is not None:
         t = t.to(compute_dtype)
-    return _Embed.apply(t, ids.long())
+    return _Embed.apply(t, ids.long(), plain)
 
 
 def unembed(params: Params, x: torch.Tensor) -> torch.Tensor:

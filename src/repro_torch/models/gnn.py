@@ -14,7 +14,8 @@ Message aggregation (``segment_sum_impl``), same four names as ``repro``:
   * ``"scatter"`` — ``index_put_(accumulate=True)`` of the masked messages
     (the analogue of the XLA scatter-add);
   * ``"jnp"``     — one-hot membership matmul, the parity oracle
-    (``kernels.segment_sum.ref``);
+    (``kernels.segment_sum.ref``), also in the species embedding's
+    backward, which the other paths sum with kernel #1;
   * ``"pallas"``  — the segment-sum kernel (``kernels.segment_sum``: CUDA
     kernel on the card, its plain version on the CPU);
   * ``"fused"``   — gather -> d² -> φ_e -> masked segment-sum in the fused
@@ -98,7 +99,7 @@ def egnn_apply(params: Params, batch: dict, *, cfg, impl=None):
     nm, em = batch["node_mask"], batch["edge_mask"]
     A = species.shape[1]
     nmf = nm[..., None].to(cd)
-    h = embed(params["embed"], species, cd) * nmf
+    h = embed(params["embed"], species, cd, plain=impl == "jnp") * nmf
 
     def gather(x, idx):
         return torch.take_along_dim(x, idx[..., None].long(), dim=1)

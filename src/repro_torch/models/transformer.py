@@ -14,9 +14,10 @@ frontends) raise ``NotImplementedError``: ROADMAP.md, queue 1.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from ..interop import tree_map
+from ..interop import leaves, tree_map, unflatten
 from .attention import gqa_apply, gqa_cache_init, gqa_init
 from .common import (Params, dense, dense_init, embed, embedding_init,
                      layernorm, normal_init, ones_init, rmsnorm, unembed,
@@ -107,6 +108,20 @@ def _pattern_split(cfg):
     return unit, reps, rem
 
 
+def init_generator(seed, device="cpu"):
+    """The draws of an LM init from ``seed``: a seeded CUDA generator on
+    the card (full-width weights drawn there, no host copy), a numpy
+    generator elsewhere. A generator passed as ``seed`` is returned as it
+    is."""
+    if not isinstance(seed, (int, np.integer)):
+        return seed
+    if torch.device(device).type == "cuda":
+        g = torch.Generator(device=device)
+        g.manual_seed(int(seed))
+        return g
+    return np.random.default_rng(int(seed))
+
+
 def lm_init(rng, cfg, device="cpu") -> Params:
     """``repro``'s parameter tree. ``rng`` is a ``np.random.Generator`` or
     a seeded ``torch.Generator`` (which draws on its own device: the way to
@@ -152,26 +167,54 @@ def _restack(per_rep: list, views: list, stacked: dict) -> dict:
     return out
 
 
+def _remat(cfg, mode):
+    """Whether a block's activations are recomputed in the backward
+    (``repro``'s ``_maybe_remat``): ``cfg.remat`` in training, when a
+    backward will run."""
+    return cfg.remat and mode == "train" and torch.is_grad_enabled()
+
+
+def _block(bp, x, *, remat, **kw):
+    if not remat:
+        return block_apply(bp, x, **kw)
+    from torch.utils.checkpoint import checkpoint
+    return checkpoint(block_apply, bp, x, use_reentrant=False, **kw)
+
+
+def _unstack(tree: Params, reps: int) -> list:
+    """A stacked block tree -> one tree a repetition."""
+    flat = {k: v.unbind(0) for k, v in leaves(tree).items()}
+    return [unflatten(tree, {k: v[r] for k, v in flat.items()})
+            for r in range(reps)]
+
+
 def run_trunk(params: Params, x, *, cfg, positions, mode="train",
               caches=None, impl="chunked"):
     """x: (B,S,d) embedded inputs -> (hidden, new_caches, aux). aux (the
-    MoE balance term) is 0 for the ported blocks."""
+    MoE balance term) is 0 for the ported blocks. With ``cfg.remat`` a
+    training pass keeps only each block's input and recomputes the block
+    in the backward."""
     unit, reps, rem = _pattern_split(cfg)
+    remat = _remat(cfg, mode)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_caches: Params = {}
     if reps > 0:
         per_unit = [[] for _ in unit]
         views = [[] for _ in unit] if mode == "decode" else None
+        # one unbind a stacked leaf: its backward stacks the reps' grads
+        # once, where indexing would add a zeroed full-size grad per rep
+        per_rep = [_unstack(params["scan"][f"u{u}"], reps)
+                   for u in range(len(unit))]
         for r in range(reps):
             for u, btype in enumerate(unit):
-                bp = tree_map(lambda a: a[r], params["scan"][f"u{u}"])
+                bp = per_rep[u][r]
                 c = None
                 if mode == "decode":
                     c = {k: a[r] for k, a in caches["scan"][u].items()}
                     views[u].append(dict(c))
-                x, nc, _ = block_apply(bp, x, btype=btype, cfg=cfg,
-                                       positions=positions, cache=c,
-                                       mode=mode, impl=impl)
+                x, nc, _ = _block(bp, x, remat=remat, btype=btype, cfg=cfg,
+                                  positions=positions, cache=c, mode=mode,
+                                  impl=impl)
                 per_unit[u].append(nc)
         if mode in ("prefill", "decode"):
             new_caches["scan"] = tuple(
@@ -180,9 +223,9 @@ def run_trunk(params: Params, x, *, cfg, positions, mode="train",
                 for u in range(len(unit)))
     for i, btype in enumerate(rem):
         c = caches["rem"][f"r{i}"] if (caches and "rem" in caches) else None
-        x, nc, _ = block_apply(params["rem"][f"r{i}"], x, btype=btype,
-                               cfg=cfg, positions=positions, cache=c,
-                               mode=mode, impl=impl)
+        x, nc, _ = _block(params["rem"][f"r{i}"], x, remat=remat,
+                          btype=btype, cfg=cfg, positions=positions, cache=c,
+                          mode=mode, impl=impl)
         if nc is not None:
             new_caches.setdefault("rem", {})[f"r{i}"] = nc
     x = _norm(cfg)(params["ln_f"], x)
@@ -201,8 +244,7 @@ def _mask_pad_vocab(logits, cfg):
     """Padded vocab slots get -1e30 so softmax/argmax ignore them."""
     if cfg.padded_vocab > cfg.vocab:
         vid = torch.arange(cfg.padded_vocab, device=logits.device)
-        return torch.where(vid < cfg.vocab, logits,
-                           torch.full_like(logits, -1e30))
+        return logits.masked_fill(vid >= cfg.vocab, -1e30)
     return logits
 
 

@@ -1,5 +1,7 @@
-"""Training-loop utilities (port of ``repro.train.loop``, GFM side):
+"""Training-loop utilities (port of ``repro.train.loop``):
 
+  * ``make_lm_loss`` — the single-task LM loss of the ``"lm"`` registry
+    model;
   * ``EarlyStopping`` — paper §5.1 stopping criterion; watches the
     validation metric when an eval_fn provides one (``val_metric`` row key)
     and the training loss otherwise;
@@ -12,6 +14,26 @@ from __future__ import annotations
 import json
 import time
 from dataclasses import dataclass, field
+
+
+def make_lm_loss(cfg, impl="chunked"):
+    """loss_fn(params, batch) -> the mean next-token cross-entropy of
+    ``{"tokens", "labels": (B, S)}`` over the padded vocab's f32 logits.
+    Encoder-decoder (``memory``, ``src_embed``) and modality (``media``)
+    batches raise: those blocks are not ported (ROADMAP.md, queue 1, item
+    11), and no ported block has a MoE balance term."""
+    from repro_torch.core.mtl import softmax_xent
+    from repro_torch.models import transformer
+
+    def loss_fn(params, batch):
+        if batch.get("src_embed") is not None:
+            raise transformer._unported("encoder-decoder inputs "
+                                        "(src_embed)")
+        logits, _, _ = transformer.lm_apply(
+            params, batch["tokens"], cfg=cfg, media=batch.get("media"),
+            memory=batch.get("memory"), mode="train", impl=impl)
+        return softmax_xent(logits, batch["labels"])
+    return loss_fn
 
 
 @dataclass

@@ -172,6 +172,45 @@ def test_segment_sum_kernel_one_launch_per_call(cuda):
     assert segment_sum.launches == before + 1
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+def test_embed_backward_runs_on_segment_sum_2d(cuda, dtype, tol):
+    """The embedding's backward (``models.common.embed``) on the card: one
+    (E, F) launch of the segment-sum kernel (counted on ``two_d``, not on
+    the batched count), against the plain version, the same bits twice;
+    with E past the 2048-id window the plan takes the whole list in one
+    window, bitwise equal to a carried 2048-id window."""
+    from repro_torch.models import common
+    rng = np.random.default_rng(7)
+    V, d, shape = 3000, 256, (4, 1024)
+    ids = torch.from_numpy((np.minimum(rng.zipf(1.2, shape), V) - 1)
+                           .astype(np.int32)).to(cuda)
+    g = torch.from_numpy(rng.standard_normal(shape + (d,), np.float32)) \
+        .to(cuda).to(dtype)
+    grads = []
+    for _ in range(2):
+        t = torch.zeros((V, d), device=cuda, dtype=dtype,
+                        requires_grad=True)
+        two_d, batched = segment_sum.two_d.launches, segment_sum.launches
+        common.embed({"table": t}, ids).backward(g)
+        assert segment_sum.two_d.launches == two_d + 1
+        assert segment_sum.launches == batched
+        grads.append(t.grad)
+    assert torch.equal(grads[0], grads[1])
+    ref = segment_sum_ref(g.reshape(-1, d), ids.reshape(-1).long(), V)
+    _close(grads[0].float(), ref.float(), tol)
+    # the plain path ("jnp" trunk) launches nothing: the one-hot product
+    t = torch.zeros((V, d), device=cuda, dtype=dtype, requires_grad=True)
+    two_d = segment_sum.two_d.launches
+    common.embed({"table": t}, ids, plain=True).backward(g)
+    assert segment_sum.two_d.launches == two_d
+    assert torch.equal(t.grad, ref)
+    flat = ids.reshape(-1)
+    assert torch.equal(segment_sum(g.reshape(-1, d), flat, V),
+                       segment_sum(g.reshape(-1, d), flat, V, block_e=2048))
+
+
 def _fwd_case(cuda, B, A, E, H, seed=1):
     rng = np.random.default_rng(seed)
     phi = mlp_init(rng, 2 * H + 1, H, H, 1, device=cuda)

@@ -155,7 +155,7 @@ def test_segment_sum_kernel_path_refuses_grad():
     assert torch.equal(cpu.grad, torch.ones_like(cpu))
 
 
-def test_embed_backward_is_a_one_hot_product():
+def test_embed_backward_sums_rows_by_id_through_segment_sum():
     rng = np.random.default_rng(0)
     table = torch.from_numpy(rng.standard_normal((64, 9)).astype(np.float32))
     ids = torch.from_numpy(rng.integers(0, 64, (5, 7)).astype(np.int32))
@@ -167,6 +167,35 @@ def test_embed_backward_is_a_one_hot_product():
     want = torch.zeros_like(table).index_add_(0, ids.reshape(-1).long(),
                                               g.reshape(-1, 9))
     torch.testing.assert_close(t.grad, want, rtol=1e-6, atol=1e-6)
+
+
+def test_embed_plain_backward_is_the_one_hot_product(monkeypatch):
+    """``plain=True`` (the ``"jnp"`` trunk's) sums the cotangent with
+    ``segment_sum_ref`` and never reaches the kernel wrapper; the default
+    reaches it once, with the same bits on the CPU."""
+    from repro_torch.kernels import segment_sum as ss_pkg
+    calls, real = [], ss_pkg.segment_sum
+
+    def spy(*a, **kw):
+        calls.append(1)
+        return real(*a, **kw)
+    monkeypatch.setattr(ss_pkg, "segment_sum", spy)
+    rng = np.random.default_rng(1)
+    table = torch.from_numpy(rng.standard_normal((40, 6)).astype(np.float32))
+    ids = torch.from_numpy(rng.integers(0, 40, (3, 50)).astype(np.int32))
+    g = torch.from_numpy(rng.standard_normal((3, 50, 6)).astype(np.float32))
+    grads = {}
+    for plain in (False, True):
+        t = table.clone().requires_grad_(True)
+        out = common.embed({"table": t}, ids, plain=plain)
+        assert torch.equal(out, table[ids.long()])
+        out.backward(g)
+        grads[plain] = t.grad
+    assert calls == [1]
+    want = ss_pkg.segment_sum_ref(g.reshape(-1, 6), ids.reshape(-1).long(),
+                                  40)
+    assert torch.equal(grads[True], want)
+    assert torch.equal(grads[False], want)
 
 
 # ---------------------------------------------------------------------------

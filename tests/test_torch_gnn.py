@@ -51,6 +51,30 @@ def test_egnn_apply_matches_repro_fused(smoke_model, impl):
                                err_msg=impl)
 
 
+@pytest.mark.parametrize("impl", gnn.SEGMENT_SUM_IMPLS)
+def test_species_embedding_backward_takes_kernel_1_but_on_jnp(smoke_model,
+                                                              impl,
+                                                              monkeypatch):
+    """The trunk's species embedding sums its cotangent through the
+    segment-sum wrapper (kernel #1 on the card) on every path but the
+    parity oracle ``"jnp"``, which keeps every kernel out."""
+    from repro_torch.kernels import segment_sum as ss_pkg
+    calls, real = [], ss_pkg.segment_sum
+
+    def spy(*a, **kw):
+        calls.append(a[0].shape)
+        return real(*a, **kw)
+    monkeypatch.setattr(ss_pkg, "segment_sum", spy)
+    _, _, tp, _, tb, _ = smoke_model
+    table = tp["shared"]["embed"]["table"].clone().requires_grad_(True)
+    shared = dict(tp["shared"], embed={"table": table})
+    gnn.egnn_apply(shared, tb, cfg=t_gfm.smoke(), impl=impl).sum().backward()
+    B, A = tb["species"].shape
+    assert calls == ([] if impl == "jnp"
+                     else [(B * A, t_gfm.smoke().gnn_hidden)])
+    assert bool(torch.isfinite(table.grad).all())
+
+
 def test_egnn_apply_follows_cfg_impl_and_rejects_unknown(smoke_model):
     _, _, tp, _, tb, _ = smoke_model
     cfg = t_gfm.smoke()

@@ -36,6 +36,37 @@ def test_port_imports_without_jax_or_repro():
     assert int(r.stdout.strip()) >= 58
 
 
+EXAMPLES = SRC.parent / "examples"
+PORT_EXAMPLES = ("quickstart_torch", "pretrain_gfm_torch", "serve_gfm_torch",
+                 "finetune_downstream_torch", "multitask_lm_torch",
+                 "serve_lm_torch")
+
+EXAMPLE_SCRIPT = r"""
+import importlib.util, sys
+sys.modules["jax"] = None            # any `import jax` now raises
+for path in sys.argv[1:]:
+    spec = importlib.util.spec_from_file_location("ex", path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+leaked = sorted(k for k, m in sys.modules.items() if m is not None and (
+    k == "repro" or k.startswith("repro.") or k.split(".")[0] == "jax"))
+assert not leaked, leaked
+print(len(sys.argv) - 1)
+"""
+
+
+def test_port_examples_import_without_jax_or_repro():
+    """The six ``examples/*_torch.py`` import only ``repro_torch`` (each
+    module loaded, its ``main`` not run)."""
+    paths = [str(EXAMPLES / f"{n}.py") for n in PORT_EXAMPLES]
+    assert sorted(p.stem for p in EXAMPLES.glob("*_torch.py")) == \
+        sorted(PORT_EXAMPLES)
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    r = subprocess.run([sys.executable, "-c", EXAMPLE_SCRIPT, *paths],
+                       env=env, capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert int(r.stdout.strip()) == 6
+
+
 def test_entry_points_need_a_gpu_unless_cpu_is_asked_for():
     if torch.cuda.is_available():
         pytest.skip("this host has a GPU: device=None legitimately runs there")

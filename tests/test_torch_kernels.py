@@ -145,6 +145,30 @@ def test_segment_sum_plan_fills_the_card_at_the_main_shapes():
             ss_ops.SM_COUNT
 
 
+def test_segment_sum_plan_takes_the_whole_list_when_the_carry_overflows():
+    """The embedding's backward (qwen1.5-0.5b: 8 x 1024 token ids into a
+    152064-row table, d=1024, bf16): a 2048-id window would carry 4 f32
+    partial sums a thread and node, 1.5 MB at 384 nodes and 256 lanes, so
+    the plan takes all 8192 ids in one window and carries nothing, where
+    shrinking the window to fit the carry would leave 32 ids and 32
+    lanes: 3,168 one-warp CTAs walking 256 windows each."""
+    V, E, F = 152064, 8192, 1024
+    p = ss_ops.plan(V, E, F, itemsize=2)
+    assert p == ss_ops.Plan(block_n=384, block_e=E, vec=4, lanes=256,
+                            chunks=1)
+    assert _plan_smem(p, E) == ss_ops.smem_bytes(384, E, 256) <= \
+        budget.SMEM_BUDGET
+    assert -(-V // p.block_n) == 396           # 3 CTAs an SM
+    # in f32 too; an explicit window is kept (and carries)
+    assert ss_ops.plan(V, E, F).block_e == E
+    q = ss_ops.plan(V, E, F, itemsize=2, block_e=2048)
+    assert q.block_e == 2048 and _plan_smem(q, E) <= budget.SMEM_BUDGET
+    # a list too long for one window keeps the old order of shrinking
+    assert ss_ops.plan(V, 100_000, F, itemsize=2).block_e < 2048
+    # graph shapes are untouched: their lists fit the 2048-id window
+    assert ss_ops.plan(64, 2560, 866).block_e == 2048
+
+
 @pytest.mark.parametrize("F,itemsize,align,vec", [
     (866, 4, 8, 2), (867, 4, 8, 1), (866, 4, 4, 1), (866, 2, 8, 2),
     (868, 2, 8, 4), (868, 2, 4, 2), (867, 2, 8, 1), (8, 8, 8, 1)])

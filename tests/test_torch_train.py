@@ -238,8 +238,11 @@ def test_launcher_trains_on_cpu_and_refuses_later_knobs(tmp_path, sources):
                           str(tmp_path / "ck")])
     assert np.isfinite(loss)
     assert t_ckpt.load_metadata(str(tmp_path / "ck"))["step"] == 3
+    # the LM modes train (tests/test_torch_lm_train.py); on a GNN arch
+    # they refuse
     with pytest.raises(SystemExit):
-        t_launch.main(["--mode", "lm", "--device", "cpu"])
+        t_launch.main(["--mode", "lm", "--arch", "hydragnn-gfm",
+                       "--device", "cpu"])
     base = SessionConfig(model="gfm-mtl", arch=t_gfm.smoke(), steps=1)
     # head placement and a mesh need a torch.distributed job and a
     # DeviceMesh (tests/test_torch_taskpar.py runs them in one)
