@@ -146,7 +146,8 @@ Phases, each printing one JSON line:
      their ratio recorded as information;
   5. lm kernels: flash attention (#5) and flash decode (#6) against their
      plain versions on the card, f32 and bf16, causal with and without a
-     window, GQA, ragged lengths, rotated (rolling) positions with pads,
+     window, GQA (G = 1, 2, 3, 4, 8, 16), head dims 16 to 192, ragged
+     lengths, rotated (rolling) positions with pads,
      and for #6 splits with no valid key and splits past the cache end;
      timed beside ``scaled_dot_product_attention`` (``library_ms``, never
      used by the port);
@@ -175,6 +176,29 @@ Phases, each printing one JSON line:
      the embedding's shape, bitwise equal at the carried plan, timed beside
      it, the f32 one-hot plain version, the bf16 one-hot product the
      backward was before, ``index_add_`` and the byte bound;
+  6c. lm_moe: the MoE family at full width, weights drawn on the card
+     from a seed, bf16 compute: granite-moe-3b-a800m (32 layers, d=1536,
+     24/8 heads of 64, 40 experts top-8 of width 512, fp32 weights) and
+     deepseek-v2-236b (d=5120, 128 heads, MLA latent 512 / q 1536, rope
+     64 + nope 128, 160 experts top-6 of width 1536 plus 2 shared, bf16
+     weights) cut to 4 layers served and 1 trained. Each is served by
+     ``greedy_generate(impl="pallas")`` (B=8, a 1024-token prompt, 32 new)
+     twice, bitwise equal, launches counted from zero (#5 once a layer a
+     prefill; #6 once a layer a decode step on granite's GQA, never on
+     deepseek's absorbed MLA decode); its teacher-forced logits (prefill
+     + 8 decode steps) on the kernel path within ``LM_TOL_BF16`` of the
+     plain path's; its decode steps (#6, or MLA's absorbed form over the
+     latent cache) within ``LM_TOL_BF16`` of the full forward of the same
+     tokens (#5; MLA up-projected), capacity made ample (E/k) so that no
+     grouping drops a token; one prefill and one decode step profiled,
+     device time beside the host clock. Then ``lm`` trains 3 steps of B=2
+     x 1024 (``impl="chunked"``, per-block remat, the donated AdamW
+     update: the state is held once), twice from one seed, bitwise; #1
+     once a step, held on one step's embedding cotangent
+     (``_check_embed``) and timed at that shape beside ``index_add_``;
+     peak memory; one step profiled. Phase 5 holds #5 at the MLA
+     prefill (B=8, S=1024, H=K=128, D=192, bf16 and f32) and granite's
+     (24/8 heads, D=64) and #6 at granite's decode (G=3, cache 1056);
   7. the ``kernels`` summary line (#1 ``segment_sum_2d`` apart from #2
      ``segment_sum`` since #1 runs every embedding's backward), the
      ``nvidia-smi`` line, and the final ``{"ok": true, "device": ...}``
@@ -2754,6 +2778,305 @@ def lm_train_phase(torch, counters):
 
 
 # ---------------------------------------------------------------------------
+# phase 6c: the MoE family at full width
+# ---------------------------------------------------------------------------
+
+MOE_SERVE = (8, 1024, 32)           # B, prompt, new tokens: lm_serve's (a)
+MOE_TF_STEPS = 8                    # teacher-forced decode steps
+MOE_ND = (2, 248, 8)                # decode vs the full forward: B, prefill,
+                                    # decode steps (the full forward's 2 x
+                                    # 256 tokens are one 512-token group)
+MOE_TRAIN_B = 2                     # x LM_S tokens a step
+MOE_TRAIN_STEPS = 3
+DEEPSEEK_LAYERS = (4, 1)            # served, trained (of 60: 7.9 GB a layer)
+
+
+def _moe_configs():
+    """(name, served config, trained config): granite-moe at its full depth,
+    deepseek-v2 at full width cut to ``DEEPSEEK_LAYERS``."""
+    from repro_torch.configs import deepseek_v2_236b, granite_moe_3b_a800m
+    g, d = granite_moe_3b_a800m.CONFIG, deepseek_v2_236b.CONFIG
+    return [(g.name, g, g),
+            (d.name, d.replace(n_layers=DEEPSEEK_LAYERS[0]),
+             d.replace(n_layers=DEEPSEEK_LAYERS[1]))]
+
+
+def _zero(torch, counters):
+    _sync(torch, DEVICE)
+    for c in counters.values():
+        c.launches = 0
+
+
+def _moe_generate(torch, params, cfg, prompt, n_new, counters, want):
+    """One ``greedy_generate(impl="pallas")`` with the counts zeroed just
+    before it: tokens, logits and the run's numbers."""
+    from repro_torch.train.serve import greedy_generate
+    torch.cuda.reset_peak_memory_stats()
+    _zero(torch, counters)
+    timings = {}
+    toks, logits = greedy_generate(params, cfg, prompt, n_new,
+                                   impl="pallas", device=DEVICE,
+                                   return_logits=True, timings=timings)
+    launches = {k: c.launches for k, c in counters.items()}
+    B, S = prompt.shape
+    if not (toks.shape == (B, n_new) and bool(torch.isfinite(logits).all())
+            and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab):
+        fail(f"lm_moe {cfg.name}: bad tokens or non-finite logits")
+    if launches != want:
+        fail(f"lm_moe {cfg.name} serve: launches {launches}, the design "
+             f"implies {want}")
+    return toks, logits, {
+        "batch": B, "prompt": S, "new": n_new, "launches": launches,
+        "prefill_s": timings["prefill_s"],
+        "prefill_tok_per_s": B * S / timings["prefill_s"],
+        "decode_s": timings["decode_s"],
+        "decode_ms_per_step": timings["decode_s"] / (n_new - 1) * 1e3,
+        "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+
+
+def _profiled(torch, fn):
+    """One call of ``fn`` after a warm-up: its device time (kernels,
+    ``torch.profiler``), the kernels that take most of it, and the host
+    clock around one synchronised call."""
+    prof = device_profile(torch, fn, iters=1, warm=1)
+    _sync(torch, DEVICE)
+    t0 = time.perf_counter()
+    fn()
+    _sync(torch, DEVICE)
+    top = sorted(prof["by_kernel"].items(), key=lambda kv: -kv[1])[:6]
+    return {"device_ms": prof["ms"],
+            "host_ms": (time.perf_counter() - t0) * 1e3,
+            "kernels": prof["kernels_per_call"], "top_kernels_ms": dict(top)}
+
+
+def _moe_serve(torch, cfg, counters):
+    """Serve ``cfg`` at full width: two bitwise-equal runs, the kernel
+    path's teacher-forced logits against the plain path's, the decode
+    against the full forward, and one profiled prefill and decode step."""
+    from repro_torch import interop
+    from repro_torch.models import transformer
+    from repro_torch.train.serve import (extend_caches, make_decode_step,
+                                         make_prefill_step)
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    params = transformer.lm_init(gen, cfg, device=dev)
+    _sync(torch, DEVICE)
+    out = {"layers": cfg.n_layers, "init_s": time.perf_counter() - t0,
+           "params": sum(x.numel() for x in interop.leaves(params).values()),
+           "param_bytes": sum(x.numel() * x.element_size()
+                              for x in interop.leaves(params).values())}
+    L = cfg.n_layers
+    B, S, new = MOE_SERVE
+    # #6 takes GQA's decode; MLA decodes absorbed, by plain products
+    want = {k: 0 for k in counters}
+    want.update(flash_attention=L,
+                flash_decode=0 if "mla" in cfg.block_pattern
+                else L * (new - 1))
+    prompt = _lm_prompts(cfg, B, S, seed=1)
+    toks_a, logits_a, run_a = _moe_generate(torch, params, cfg, prompt, new,
+                                            counters, want)
+    toks_b, logits_b, run_b = _moe_generate(torch, params, cfg, prompt, new,
+                                            counters, want)
+    if not (torch.equal(toks_a, toks_b) and torch.equal(logits_a,
+                                                        logits_b)):
+        fail(f"lm_moe {cfg.name}: two kernel-path runs differ bitwise")
+    out.update(run_a=run_a, run_b=run_b, replay_bitwise=True)
+    del logits_a, logits_b
+
+    # the kernel path's teacher-forced logits against the plain path's
+    tf = _lm_prompts(cfg, B, S, extra=MOE_TF_STEPS, seed=1)
+    got, _ = _teacher_forced(torch, params, cfg, tf, S, "pallas")
+    ref, _ = _teacher_forced(torch, params, cfg, tf, S, "chunked")
+    scale = float(ref.abs().max())
+    err = float((got - ref).abs().max())
+    out["teacher_forced"] = {
+        "steps": MOE_TF_STEPS, "bf16_max_abs_err": err,
+        "bf16_max_abs_logit": scale, "bf16_tolerance": LM_TOL_BF16 * scale,
+        "per_step": (got - ref).abs().amax(dim=(1, 2)).tolist(),
+        "argmax_agreement": float((got.argmax(-1) == ref.argmax(-1))
+                                  .float().mean())}
+    if not err <= LM_TOL_BF16 * scale:
+        fail(f"lm_moe {cfg.name} teacher-forced bf16 logits: max_abs_err "
+             f"{err} > {LM_TOL_BF16}*{scale}")
+    del got, ref
+
+    # decode (GQA through #6, MLA absorbed over the latent cache) against
+    # the full forward of the same tokens (MLA up-projected, through #5).
+    # Capacity is made ample (E / k: no token drops) in both, since the
+    # full forward routes 512-token groups and a decode step a group of B
+    nd = cfg.replace(capacity_factor=cfg.n_experts / cfg.top_k)
+    Bn, Sn, Tn = MOE_ND
+    toks = _lm_prompts(cfg, Bn, Sn, extra=Tn, seed=3).to(dev)
+    with torch.no_grad():
+        full = transformer.lm_apply(params, toks, cfg=nd, impl="pallas")[0]
+    full = full[:, Sn - 1:, :cfg.vocab].transpose(0, 1)
+    dec, _ = _teacher_forced(torch, params, nd, toks, Sn, "pallas")
+    scale = float(full.abs().max())
+    err = float((dec - full).abs().max())
+    out["decode_vs_full_forward"] = {
+        "batch": Bn, "prefill": Sn, "steps": Tn,
+        "capacity_factor": nd.capacity_factor, "bf16_max_abs_err": err,
+        "bf16_max_abs_logit": scale, "bf16_tolerance": LM_TOL_BF16 * scale,
+        "argmax_agreement": float((dec.argmax(-1) == full.argmax(-1))
+                                  .float().mean())}
+    if not err <= LM_TOL_BF16 * scale:
+        fail(f"lm_moe {cfg.name} decode vs the full forward: max_abs_err "
+             f"{err} > {LM_TOL_BF16}*{scale}")
+    del full, dec
+
+    # one profiled prefill and decode step at run (a)'s shape
+    prefill = make_prefill_step(cfg, "pallas")
+    decode = make_decode_step(cfg, "pallas")
+    ptoks = prompt.to(dev)
+    out["prefill_profile"] = _profiled(torch, lambda: prefill(params, ptoks))
+    _, caches = prefill(params, ptoks)
+    caches = extend_caches(caches, cfg, S + 1)
+    nxt = toks_a[:, :1]
+    out["decode_profile"] = _profiled(
+        torch, lambda: decode(params, nxt, caches, S))
+    del params, caches
+    _free(torch)
+    return out
+
+
+def _moe_train(torch, cfg, counters):
+    """Train ``lm`` on ``cfg`` (``impl="chunked"``, per-block remat, the
+    donated AdamW update: the state is held once) for ``MOE_TRAIN_STEPS``
+    steps of B=2 x 1024, twice from one seed (bitwise), #1 on one step's
+    embedding cotangent against its plain versions, and one profiled
+    step."""
+    from repro_torch import interop
+    from repro_torch.data.lm_data import make_lm_source
+    from repro_torch.engine import (ShardingPlan, TrainState, build_model,
+                                    make_step, single_grad_fn)
+    from repro_torch.optim.adamw import adamw
+    from repro_torch.train.loop import train_loop
+    dev = torch.device(DEVICE)
+    model = build_model("lm", cfg)
+    opt = adamw(3e-4, donate=True)
+    step = ShardingPlan().compile(make_step(model, opt))
+    B, n = MOE_TRAIN_B, MOE_TRAIN_STEPS
+    src = make_lm_source(5, B * n, LM_S, cfg.vocab, alpha=1.05)
+    batches = [{k: torch.from_numpy(v[i * B:(i + 1) * B]).to(dev)
+                for k, v in src.items()} for i in range(n)]
+
+    def run():
+        state = TrainState.create(model.init(0, dev), opt)
+        _zero(torch, counters)
+        t0 = time.perf_counter()
+        state, logger, _ = train_loop(step, state, iter(batches), steps=n,
+                                      log_every=1, eval_every=10 ** 9)
+        _sync(torch, DEVICE)
+        return state, [r["loss"] for r in logger.history], \
+            {k: c.launches for k, c in counters.items()}, \
+            time.perf_counter() - t0
+
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    state, losses, launches, wall = run()
+    peak = torch.cuda.max_memory_allocated()
+    if len(losses) != n or not all(map(math.isfinite, losses)):
+        fail(f"lm_moe {cfg.name} train: losses {losses}")
+    want = {k: 0 for k in counters}
+    want["segment_sum_2d"] = n
+    if launches != want:
+        fail(f"lm_moe {cfg.name} train: launches {launches}, the design "
+             f"implies {want} (one embedding backward a step)")
+    out = {"layers": cfg.n_layers, "batch": B, "seq": LM_S, "steps": n,
+           "params": sum(x.numel() for x in
+                         interop.leaves(state.params).values()),
+           "losses": losses, "launches": launches, "wall_s": wall,
+           "peak_mem_bytes": peak,
+           "state_bytes": sum(x.numel() * x.element_size() for t in (
+               state.params, state.opt_state.m, state.opt_state.v)
+               for x in interop.leaves(t).values())}
+    ends = {k: v.cpu() for k, v in interop.leaves(state.params).items()}
+    del state
+    _free(torch)
+    state, losses_b, _, _ = run()
+    if losses_b != losses or not all(
+            torch.equal(v.cpu(), ends[k])
+            for k, v in interop.leaves(state.params).items()):
+        fail(f"lm_moe {cfg.name} train: two {n}-step runs from one seed "
+             "differ")
+    out["replay_bitwise"] = True
+    del ends
+    # #1 on one step's own embedding cotangent, at this config's shape
+    (_, _, grads), calls = _capture_embed(
+        lambda: single_grad_fn(model)(state.params, batches[0]))
+    del grads
+    out["embed_grad"] = _check_embed(torch, calls, f"lm_moe {cfg.name}")
+    g, ids, V, _ = calls[0]
+    del calls
+    _free(torch)
+    out["segment_sum_2d"] = _embed_times(torch, g, ids, V)
+    del g, ids
+    _free(torch)
+    batch = batches[0]
+    out["step_profile"] = _profiled(
+        torch, lambda: float(step(state, batch)[1].loss))
+    del state
+    _free(torch)
+    return out
+
+
+def _embed_times(torch, g, ids, V):
+    """#1 at a training path's embedding shape beside its plain version
+    (the f32 one-hot product), ``index_add_`` and the byte bound; CUDA
+    events over back-to-back calls."""
+    from repro_torch.kernels.segment_sum import ops, segment_sum_ref
+    E, D = g.shape
+    ids32, ids64 = ids.to(torch.int32), ids.long()
+    nbytes = E * D * g.element_size() + 4 * E + V * D * g.element_size()
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = E * D / FP32_FLOPS * 1e3
+    return {"shape": [E, V, D], "dtype": str(g.dtype).replace("torch.", ""),
+            "plan": dict(ops.plan(V, E, D, itemsize=g.element_size())
+                         ._asdict()),
+            "timer": "cuda events",
+            "ms": time_ms(torch, lambda: ops.segment_sum(g, ids32, V),
+                          iters=20),
+            "plain_ms": time_ms(torch, lambda: segment_sum_ref(g, ids, V),
+                                iters=3, warm=1),
+            "library_ms": time_ms(torch, lambda: torch.zeros(
+                (V, D), dtype=g.dtype, device=g.device).index_add_(
+                    0, ids64, g), iters=20),
+            "library": "index_add_ (with its zero fill)",
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes}
+
+
+def lm_moe_phase(torch, counters):
+    """granite-moe-3b-a800m at full width and depth (32 layers, d=1536,
+    24/8 heads of 64, 40 experts top-8 of width 512, fp32 weights, bf16
+    compute) and deepseek-v2-236b at full width (d=5120, 128 heads, MLA
+    latent 512 / q 1536, rope 64 + nope 128, 160 experts top-6 of width
+    1536 plus 2 shared, bf16 weights) cut to 4 layers served and 1
+    trained; weights drawn on the card from a seed."""
+    out = {"phase": "lm_moe", "compute_dtype": "bfloat16",
+           "serve_impl": "pallas", "train_impl": "chunked",
+           "tolerance": {"teacher_forced": f"{LM_TOL_BF16} x max|logit|",
+                         "decode_vs_full_forward":
+                         f"{LM_TOL_BF16} x max|logit|",
+                         "embed_grad": "bitwise to the token-order sum; "
+                         "the rounding bound of the one-hot product"},
+           "configs": {}}
+    for name, serve_cfg, train_cfg in _moe_configs():
+        rec = {"serve": _moe_serve(torch, serve_cfg, counters)}
+        rec["train"] = _moe_train(torch, train_cfg, counters)
+        out["configs"][name] = rec
+    out["launches"] = {
+        k: sum(r["serve"][run]["launches"][k] for r in
+               out["configs"].values() for run in ("run_a", "run_b"))
+        + sum(r["train"]["launches"][k] for r in out["configs"].values())
+        for k in counters}
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the LM attention kernels against their plain versions
 # ---------------------------------------------------------------------------
 
@@ -2793,7 +3116,19 @@ FA_CASES = [  # name, dtype, B, Sq, Sk, H, K, D, causal, window, rolled
     ("bf16_d128_g8_rows_without_keys", "bfloat16", 1, 129, 65, 8, 1, 128,
      True, 0, False),
     ("bf16_one_key", "bfloat16", 2, 1, 1, 8, 2, 80, True, 0, False),
+    # the MoE family's prefill shapes: deepseek-v2's MLA (q/k head dim
+    # 128 + 64, v padded to it, 128 heads) and granite-moe's G = 3
+    ("mla_prefill", "bfloat16", 8, 1024, 1024, 128, 128, 192, True, 0,
+     False),
+    ("f32_mla_prefill", "float32", 8, 1024, 1024, 128, 128, 192, True, 0,
+     False),
+    ("granite_prefill", "bfloat16", 8, 1024, 1024, 24, 8, 64, True, 0,
+     False),
+    ("bf16_d192_window_pads", "bfloat16", 2, 300, 300, 8, 4, 192, True, 40,
+     True),
 ]
+FA_TIMED = ("prefill_a", "prefill_b", "mla_prefill", "f32_mla_prefill",
+            "granite_prefill")
 # the LM decode shapes of runs (a) and (b), then edge cases
 FD_CASES = [  # name, dtype, B, C, H, K, D, pos, window, n_splits, block_k
     ("decode_a", "bfloat16", 8, 1056, 32, 8, 80, 1040, 4096, None,
@@ -2810,7 +3145,13 @@ FD_CASES = [  # name, dtype, B, C, H, K, D, pos, window, n_splits, block_k
     ("bf16_33_splits", "bfloat16", 2, 1056, 32, 8, 80, 1040, 4096, 33,
      None),
     ("f32_d128_g16", "float32", 2, 700, 16, 1, 128, 699, 0, None, None),
+    # granite-moe's decode: G = 3 (24 query heads over 8 kv heads)
+    ("granite_decode", "bfloat16", 8, 1056, 24, 8, 64, 1040, 0, None,
+     None),
+    ("f32_g3_33_splits", "float32", 2, 1056, 6, 2, 128, 1000, 0, 33,
+     None),
 ]
+FD_TIMED = ("decode_a", "decode_b_rolling", "granite_decode")
 
 
 def _attn_err(torch, got, ref, name):
@@ -2873,7 +3214,7 @@ def check_flash_attention(torch, dev, g):
             fail(f"flash_attention {name}: two calls differ bitwise")
         worst = max(worst, err)
         out["cases"][name] = {"max_abs_err": err, "tol_share": share}
-        if not name.startswith("prefill"):
+        if name not in FA_TIMED:
             continue
         keep = keep_mask(qp.long(), kp.long(), **kw)
         pairs = int(keep.sum()) * B * H
@@ -2976,7 +3317,7 @@ def check_flash_decode(torch, dev, g):
         out["cases"][name] = {"max_abs_err": err, "tol_share": share,
                               "kernels_per_call": n_kernels,
                               "plan": plan._asdict()}
-        if not name.startswith("decode"):
+        if name not in FD_TIMED:
             continue
         # the decode path reads each layer's cache once, after the layer
         # before streamed its weights through L2: time over copies of the
@@ -3816,6 +4157,12 @@ def main():
         "flash_attention": fa_ops.flash_attention,
         "flash_decode": fd_ops.flash_decode})
     emit(lmt)
+    moe = lm_moe_phase(torch, {
+        "segment_sum_2d": ss_ops.segment_sum.two_d,
+        "segment_sum": ss_ops.segment_sum,
+        "flash_attention": fa_ops.flash_attention,
+        "flash_decode": fd_ops.flash_decode})
+    emit(moe)
     # #1 on each training path's own embedding cotangent, at its shape
     ss2 = lmt.pop("segment_sum_2d")
     ss2["checks_by_path"] = {
@@ -3823,7 +4170,11 @@ def main():
         "train_pipeline": pipe["mtl_all"]["grad_vs_plain"]["embed_grad"],
         "gnn_bf16": gnn16["train"]["grad_vs_plain"]["embed_grad"],
         "finetune": fine["embed_grad"],
-        "lm_train": lmt["lm"]["embed_grad"]}
+        "lm_train": lmt["lm"]["embed_grad"],
+        **{f"lm_moe {name}": rec["train"]["embed_grad"]
+           for name, rec in moe["configs"].items()}}
+    ss2["by_shape"] = {f"lm_moe {name}": rec["train"]["segment_sum_2d"]
+                       for name, rec in moe["configs"].items()}
     ss2["max_abs_err"] = max(c[c["dtype"]]["max_abs_err"]
                              for c in ss2["checks_by_path"].values())
     emit({"phase": "kernel", "name": "segment_sum_2d", "tolerance": {
@@ -3871,11 +4222,14 @@ def main():
             "gnn_bf16": t16["segment_sum_2d"],
             "finetune": fine["pretrain"]["launches"]["segment_sum_2d"]
             + fine["launches"]["segment_sum_2d"],
-            "lm_train": lmt["launches"]["segment_sum_2d"]},
+            "lm_train": lmt["launches"]["segment_sum_2d"],
+            "lm_moe": moe["launches"]["segment_sum_2d"]},
         "flash_attention": {"lm_serve": sum(r["flash_attention"]
-                                            for r in lm_runs)},
+                                            for r in lm_runs),
+                            "lm_moe": moe["launches"]["flash_attention"]},
         "flash_decode": {"lm_serve": sum(r["flash_decode"]
-                                         for r in lm_runs)}}
+                                         for r in lm_runs),
+                         "lm_moe": moe["launches"]["flash_decode"]}}
     launches = {k: sum(v.values()) for k, v in by_path.items()}
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")

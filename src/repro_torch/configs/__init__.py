@@ -1,6 +1,6 @@
 """Config registry of the ported architectures: ``get(name)`` /
 ``get_smoke(name)`` / ``ARCHS``. An arch ``repro`` knows but the port does
-not yet (MoE, MLA, SSM, enc-dec, VLM) raises ``KeyError``."""
+not yet (SSM, hybrid, enc-dec, VLM) raises ``KeyError``."""
 from __future__ import annotations
 
 import importlib
@@ -11,6 +11,8 @@ _MODULES = {
     "h2o-danube-1.8b": "h2o_danube_1_8b",
     "qwen1.5-0.5b": "qwen1_5_0_5b",
     "hydragnn-gfm": "hydragnn_gfm",
+    "granite-moe-3b-a800m": "granite_moe_3b_a800m",
+    "deepseek-v2-236b": "deepseek_v2_236b",
 }
 ARCHS = tuple(_MODULES)
 

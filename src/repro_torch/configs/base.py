@@ -2,10 +2,13 @@
 
 ``repro.configs.base`` imports jax for its dtypes, so the port keeps its own
 dataclass holding only the fields its ported paths read: the EGNN trunk and
-the MTL heads, and the decoder-only LM trunk (GQA ``attn``/``swa`` blocks,
-per-block rematerialisation in training).
-Field names and defaults match the reference; MoE, MLA, SSM and
-encoder-decoder fields come with their slices."""
+the MTL heads, and the decoder-only LM trunk (GQA ``attn``/``swa`` and
+DeepSeek-V2 ``mla`` blocks, the MoE feed-forward, per-block
+rematerialisation in training), plus the sharding and memory fields the
+ported configs set (``fsdp``, ``train_accum``, ``naive_tp``,
+``moment_dtype``, ``swa_variant_window``, ``long_context_ok``), which the
+port carries for parity and does not read. Field names and defaults match
+the reference; SSM and encoder-decoder fields come with their slices."""
 from __future__ import annotations
 
 import dataclasses
@@ -34,9 +37,29 @@ class ArchConfig:
     rope_theta: float = 10000.0
     tie_embeddings: bool = True
     # attention pattern: 0 = full attention; >0 = sliding window. The unit
-    # is repeated to n_layers; the port's blocks are "attn" and "swa".
+    # is repeated to n_layers; the port's blocks are "attn", "swa" and
+    # "mla".
     window: int = 0
     block_pattern: tuple = ("attn",)
+    # MoE -------------------------------------------------------------------
+    n_experts: int = 0
+    top_k: int = 0
+    n_shared_experts: int = 0
+    d_ff_expert: int = 0           # per-expert hidden size
+    router_aux_coef: float = 0.01
+    capacity_factor: float = 1.25
+    # MLA (DeepSeek-V2) ------------------------------------------------------
+    kv_lora: int = 0               # latent rank for compressed KV (0 => GQA)
+    q_lora: int = 0
+    rope_dims: int = 0             # per-head rotary sub-dim
+    v_head_dim: int = 0
+    # carried for parity with the reference's configs, not read -------------
+    naive_tp: bool = False
+    moment_dtype: Any = torch.float32
+    fsdp: bool = False
+    train_accum: int = 1
+    swa_variant_window: int = 0
+    long_context_ok: bool = False
     # multi-task: one branch (GNN) or one LM head (LM) per data source -----
     n_tasks: int = 1
     # GNN (hydragnn-gfm) ----------------------------------------------------

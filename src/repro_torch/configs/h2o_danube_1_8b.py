@@ -8,6 +8,7 @@ CONFIG = ArchConfig(
     n_layers=24, d_model=2560, n_heads=32, n_kv_heads=8, d_ff=6912,
     vocab=32000, head_dim=80,
     block_pattern=("swa",), window=4096,
+    long_context_ok=True,
 )
 
 

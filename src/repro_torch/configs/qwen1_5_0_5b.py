@@ -7,6 +7,7 @@ CONFIG = ArchConfig(
     n_layers=24, d_model=1024, n_heads=16, n_kv_heads=16, d_ff=2816,
     vocab=151936, head_dim=64, qkv_bias=True,
     block_pattern=("attn",),
+    swa_variant_window=4096,
 )
 
 

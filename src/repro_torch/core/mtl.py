@@ -146,7 +146,10 @@ def make_lm_multitask(cfg, impl="chunked") -> MultiTaskModel:
     heads). ``loss_fn`` over ``{"tokens", "labels": (T, B, S)}``: each
     task's mean cross-entropy of its own head's logits, the head cast to
     the hidden dtype and the products summed in f32 (the padded vocab
-    slots unmasked, as ``repro`` computes them)."""
+    slots unmasked, as ``repro`` computes them), plus
+    ``cfg.router_aux_coef`` x the task's own MoE balance term: one trunk
+    pass over every task's rows, each task's tokens routed as ``repro``'s
+    per-task map routes them (``segments``)."""
     if cfg.n_tasks <= 1:
         raise ValueError(f"lm-mtl needs cfg.n_tasks > 1, got {cfg.n_tasks}")
 
@@ -164,13 +167,14 @@ def make_lm_multitask(cfg, impl="chunked") -> MultiTaskModel:
         toks = batch["tokens"]
         T, B, S = toks.shape
         x = transformer.embed_inputs(shared, toks.reshape(T * B, S), cfg)
-        h, _, _ = transformer.run_trunk(
+        h, _, aux = transformer.run_trunk(
             shared, x, cfg=cfg, positions=torch.arange(S, device=x.device),
-            mode="train", impl=impl)
+            mode="train", impl=impl, segments=T)
         h = h.reshape(T, B, S, h.shape[-1])
         logits = torch.einsum("tbsd,tdv->tbsv", h.float(),
                               hp["w"].to(h.dtype).float())
-        return _xent(logits, batch["labels"]).mean((1, 2)), {}
+        return (_xent(logits, batch["labels"]).mean((1, 2))
+                + cfg.router_aux_coef * aux), {}
 
     return MultiTaskModel(init=init, loss_fn=loss_fn,
                           name=f"lm-mtl-{cfg.name}", n_tasks=cfg.n_tasks)

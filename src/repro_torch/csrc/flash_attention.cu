@@ -38,7 +38,9 @@
 // decide a row (the diagonal, a window's edge). P·V reuses the score
 // registers as A fragments (the m16n8 C layout is the m16k16 A layout),
 // so p never goes through shared memory, and v's B fragments come from
-// ldmatrix.trans. P·V keeps the f32 contract of the plain version by
+// ldmatrix.trans. At D = 192 the q fragments are read from shared memory
+// at each slice instead of held in registers, and a CTA's 128 KB of tiles
+// take an SM. P·V keeps the f32 contract of the plain version by
 // splitting p: hi = bf16(p), lo = bf16(p - hi), two MMAs into one f32
 // accumulator. hi + lo holds p to about 2^-17 of itself, and the products
 // with bf16 v are exact, so the output is within the f32 tolerance of the
@@ -59,7 +61,8 @@
 // goes through shared memory key-major (rows padded to 132 floats) in the
 // k tile's space, dead by then, and the v tile row-major. Each k/v tile
 // serves 128 query rows; 95 KB of shared memory and at most 128 registers
-// a thread at D = 80 leave room for two CTAs (16 warps) on an SM.
+// a thread at D = 80 leave room for two CTAs (16 warps) on an SM; at D =
+// 192 (the MLA prefill's q/k head dim) a CTA takes 193 KB and an SM.
 //
 // Both skip a k tile in which no (q, k) pair is kept before its k and v
 // rows are loaded, but only once every row of the q tile has seen a kept
@@ -94,9 +97,18 @@ __host__ __device__ constexpr int fa_kp_floats() {
 }
 
 template <int D>
-constexpr size_t fa_smem_bytes() {
+__host__ __device__ constexpr size_t fa_smem_bytes() {
   return (size_t)((FA_Q + FA_T) * D + fa_kp_floats<D>()) * sizeof(float) +
          (FA_Q + FA_T) * sizeof(int);
+}
+
+// CTAs an SM the registers are sized for: two up to D = 128 (at most 128
+// registers a thread), one at D = 192, whose 193 KB of shared memory
+// leave room for no second CTA and whose D/16 x 8 accumulators need the
+// registers.
+template <int D>
+__host__ __device__ constexpr int fa_ctas_per_sm() {
+  return D <= 128 ? 2 : 1;
 }
 
 // the key of score slot j (< 8) of lane tx: 4tx + j and 32 + 4tx + j - 4
@@ -105,7 +117,7 @@ __device__ __forceinline__ int fa_key(int tx, int j) {
 }
 
 template <int D>
-__global__ void __launch_bounds__(FA_THREADS, 2)
+__global__ void __launch_bounds__(FA_THREADS, fa_ctas_per_sm<D>())
 flash_attention_f32_kernel(const float* __restrict__ q,
                            const float* __restrict__ k,
                            const float* __restrict__ v,
@@ -277,7 +289,8 @@ constexpr int TC_T = 64;              // keys per tile
 constexpr int TC_THREADS = 32 * TC_WARPS;
 constexpr int TC_STAGES = 2;          // k/v ring depth (stage ^ 1 below)
 
-// q tile + TC_STAGES x (k tile + v tile), rows of D + 8 bf16
+// q tile + TC_STAGES x (k tile + v tile), rows of D + 8 bf16: 128 KB at
+// D = 192, one CTA an SM
 template <int D>
 constexpr size_t tc_smem_bytes() {
   return (size_t)(TC_Q + 2 * TC_STAGES * TC_T) * (D + 8) *
@@ -429,6 +442,11 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int ND = D / 8;       // 8-wide output column tiles
   constexpr int CH = D / 8;       // 16-byte chunks a row
   constexpr int TILE = TC_T * LD; // one k or v stage, bf16
+  // a warp keeps its q fragments in registers up to D = 128; at D = 192
+  // they would take 48 of a thread's registers beside the 96 of the
+  // output accumulators, so they are read from the q tile, which stays in
+  // shared memory, at each 16-wide slice of QKᵀ instead
+  constexpr bool QREG = D <= 128;
   extern __shared__ __align__(16) unsigned char fa_smem[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(fa_smem);
   __nv_bfloat16* Ks = Qs + TC_Q * LD;           // [stage][64][LD]
@@ -494,12 +512,13 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   cp_async_commit();
   cp_async_wait<1>();                           // the q tile has landed
   __syncthreads();
-  uint32_t qf[KD][4];
-  {
-    const int row = 16 * warp + (lane & 7) + 8 * ((lane >> 3) & 1);
-    const uint32_t base = smem_u32(Qs + row * LD + 8 * (lane >> 4));
+  uint32_t qf[QREG ? KD : 1][4];
+  const uint32_t q_base =
+      smem_u32(Qs + (16 * warp + (lane & 7) + 8 * ((lane >> 3) & 1)) * LD +
+               8 * (lane >> 4));
+  if constexpr (QREG) {
 #pragma unroll
-    for (int kd = 0; kd < KD; ++kd) ldsm_x4(base + 32u * kd, qf[kd]);
+    for (int kd = 0; kd < KD; ++kd) ldsm_x4(q_base + 32u * kd, qf[kd]);
   }
   // lane offsets (bytes) of the ldmatrix row addresses in a k / v tile
   const uint32_t k_lane =
@@ -579,12 +598,19 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
     for (int kd = 0; kd < KD; ++kd) {
+      uint32_t qa[4];
+      if constexpr (QREG) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) qa[i] = qf[QREG ? kd : 0][i];
+      } else {
+        ldsm_x4(q_base + 32u * kd, qa);
+      }
 #pragma unroll
       for (int np = 0; np < 4; ++np) {
         uint32_t kf[4];
         ldsm_x4(ks + (uint32_t)(16 * np * LD + 16 * kd) * 2u, kf);
-        mma_bf16(s[2 * np], qf[kd], kf[0], kf[1]);
-        mma_bf16(s[2 * np + 1], qf[kd], kf[2], kf[3]);
+        mma_bf16(s[2 * np], qa, kf[0], kf[1]);
+        mma_bf16(s[2 * np + 1], qa, kf[2], kf[3]);
       }
     }
 
@@ -690,6 +716,8 @@ static int dispatch(int D, const void* q, const void* k, const void* v,
     case 96: return launch<T, 96>(q, k, v, q_pos, k_pos, out, B, Sq, Sk, H,
                                   K, st, scale, causal, window, s);
     case 128: return launch<T, 128>(q, k, v, q_pos, k_pos, out, B, Sq, Sk,
+                                    H, K, st, scale, causal, window, s);
+    case 192: return launch<T, 192>(q, k, v, q_pos, k_pos, out, B, Sq, Sk,
                                     H, K, st, scale, causal, window, s);
   }
   return (int)cudaErrorInvalidValue;

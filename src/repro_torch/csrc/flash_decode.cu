@@ -7,7 +7,9 @@
 // src/repro/kernels/flash_decode/kernel.py and its `combine_partials`.
 // Decode offers no query parallelism, so the cache length is split. A
 // cluster of C CTAs (grid (C, K, B), cluster (C, 1, 1)) owns one (batch,
-// kv head) and all G = H / K query heads of it (GQA without a repeat);
+// kv head) and all G = H / K query heads of it (GQA without a repeat;
+// nothing assumes G a power of two: the heads are loops of G, their
+// shared-memory arrays G·D or G·32 floats, so G = 3 runs as written);
 // CTA r takes splits [r·spc, (r+1)·spc) (spc = ceil(n_splits / C)), each
 // split giving its own partial, so the arithmetic keeps repro's
 // structure: partials per split, then the combine in split order.
@@ -466,6 +468,7 @@ static int dispatch(int dtype, int G, int D, F&& f) {
   switch (G) {                                                           \
     FD_G(TT, 1)                                                          \
     FD_G(TT, 2)                                                          \
+    FD_G(TT, 3)                                                          \
     FD_G(TT, 4)                                                          \
     FD_G(TT, 8)                                                          \
     FD_G(TT, 16)                                                         \
@@ -597,7 +600,8 @@ static cudaError_t encode_cache(CUtensorMap* map, const void* base,
 // q (B,1,H,D) with strides (q_sb, ., q_sh, 1); k/v (B,S,K,D) with strides
 // (sb, ss, sh, 1), rows 16-byte aligned; k_pos (B,S) int32 with batch
 // stride kp_sb (0 when shared) and unit position stride; q_pos (B,) with
-// stride qp_sb; out (B,1,H,D) contiguous; G = H / K in {1, 2, 4, 8, 16};
+// stride qp_sb; out (B,1,H,D) contiguous; G = H / K in {1, 2, 3, 4, 8,
+// 16};
 // split s covers [s·per_split, (s+1)·per_split) ∩ [0, S); `cluster` CTAs
 // a (batch, kv head), `stages` ring stages; dtype 0 = f32, 1 = bf16.
 extern "C" int flash_decode_launch(

@@ -16,7 +16,7 @@ import torch
 from .. import _build
 from .ref import flash_attention_ref
 
-HEAD_DIMS = (16, 32, 64, 80, 96, 128)   # instantiated in the kernel
+HEAD_DIMS = (16, 32, 64, 80, 96, 128, 192)   # instantiated in the kernels
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 

@@ -1,4 +1,5 @@
-"""Attention: GQA/MHA (+QKV bias) and sliding-window, ``repro``'s layout.
+"""Attention: GQA/MHA (+QKV bias), sliding-window, and DeepSeek-V2 MLA,
+``repro``'s layout.
 
 Three compute paths, ``repro``'s names:
   * ``impl="chunked"`` — blocked online-softmax attention in plain PyTorch
@@ -13,18 +14,20 @@ full length or the rolling window. Keys are stored post-RoPE at their
 absolute positions, so a rolling cache stays valid. A decode step writes
 its slot into ``k``/``v`` in place (``index_copy_``), so a token moves one
 row per layer rather than copying the cache; the values are ``repro``'s.
-
-MLA (DeepSeek-V2) is not ported yet (ROADMAP.md, queue 1).
+Cache layout (MLA): ``{"ckv": (B, C, r), "krope": (B, C, dr), "pos"}``,
+written in place the same way.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
 
 from ..kernels.flash_attention import ops as fa_ops
 from ..kernels.flash_decode import ops as fd_ops
-from .common import Params, apply_rope, dense, dense_init
+from .common import (Params, apply_rope, dense, dense_init, ones_init,
+                     rmsnorm)
 
 NEG_INF = -1e30
 PAD_POS = -(10 ** 9)            # position of a pad or invalid slot
@@ -204,13 +207,102 @@ def gqa_cache_init(cfg, batch: int, cache_len: int, dtype=None,
 
 
 # ---------------------------------------------------------------------------
-# MLA (DeepSeek-V2): not ported yet
+# MLA (DeepSeek-V2): low-rank compressed KV, absorbed decode
 # ---------------------------------------------------------------------------
 
-def _mla_unported(*_a, **_k):
-    raise NotImplementedError(
-        "MLA (DeepSeek-V2) attention is not ported yet: ROADMAP.md, queue 1, "
-        "item 11 (the other block types)")
+def mla_init(rng, cfg, device="cpu") -> Params:
+    d, H = cfg.d_model, cfg.n_heads
+    r, rq = cfg.kv_lora, cfg.q_lora
+    dn, dr, dv = cfg.hd, cfg.rope_dims, cfg.v_head_dim
+    dt = cfg.param_dtype
+    return {
+        "wq_a": dense_init(rng, d, rq, dt, device=device),
+        "q_norm": {"scale": ones_init((rq,), dt, device)},
+        "wq_b": dense_init(rng, rq, H * (dn + dr), dt, device=device),
+        "wkv_a": dense_init(rng, d, r + dr, dt, device=device),
+        "kv_norm": {"scale": ones_init((r,), dt, device)},
+        "wk_b": dense_init(rng, r, H * dn, dt, device=device),
+        "wv_b": dense_init(rng, r, H * dv, dt, device=device),
+        "wo": dense_init(rng, H * dv, d, dt,
+                         stddev=0.02 / math.sqrt(2 * cfg.n_layers),
+                         device=device),
+    }
 
 
-mla_init = mla_apply = mla_cache_init = _mla_unported
+def _mla_project_q(params, x, cfg, positions):
+    B, S, _ = x.shape
+    H, dn, dr = cfg.n_heads, cfg.hd, cfg.rope_dims
+    cd = cfg.compute_dtype
+    qa = rmsnorm(params["q_norm"], dense(params["wq_a"], x, cd))
+    qb = dense(params["wq_b"], qa, cd).reshape(B, S, H, dn + dr)
+    q_nope, q_rope = qb[..., :dn], qb[..., dn:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    return q_nope, q_rope
+
+
+def mla_apply(params: Params, x, *, cfg, positions, cache=None,
+              impl="chunked"):
+    """x: (B,S,d). Train/prefill: the latent is up-projected to per-head
+    k/v and attention runs over q/k of head dim dn + dr with v zero-padded
+    to it (``repro``'s semantics: the shared ``sdpa`` at scale 1/√(dn+dr),
+    then the padding sliced off). Decode (S == 1, cache given): the
+    absorbed form over the latent cache in f32 scores; the token's
+    ``ckv``/``krope`` rows are written in place at ``pos`` (no rolling)."""
+    B, S, d = x.shape
+    H, r = cfg.n_heads, cfg.kv_lora
+    dn, dr, dv = cfg.hd, cfg.rope_dims, cfg.v_head_dim
+    cd = cfg.compute_dtype
+    q_nope, q_rope = _mla_project_q(params, x, cfg, positions)
+
+    kv = dense(params["wkv_a"], x, cd)
+    ckv, k_rope = kv[..., :r], kv[..., r:]
+    ckv = rmsnorm(params["kv_norm"], ckv)
+    k_rope = apply_rope(k_rope[:, :, None, :], positions,
+                        cfg.rope_theta)[:, :, 0, :]
+    scale = 1.0 / math.sqrt(dn + dr)
+
+    if cache is None or (isinstance(cache, str) and cache == "init"):
+        k_nope = dense(params["wk_b"], ckv, cd).reshape(B, S, H, dn)
+        vv = dense(params["wv_b"], ckv, cd).reshape(B, S, H, dv)
+        q = torch.cat([q_nope, q_rope], -1)
+        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, dr)],
+                      -1)
+        o = sdpa(q, k, F.pad(vv, (0, dn + dr - dv)), q_pos=positions,
+                 k_pos=positions, causal=True, impl=impl, scale=scale)
+        out = dense(params["wo"], o[..., :dv].reshape(B, S, H * dv), cd)
+        if cache == "init":
+            pos = torch.tensor(S, dtype=torch.int32, device=x.device)
+            return out, {"ckv": ckv, "krope": k_rope, "pos": pos}
+        return out
+
+    # ---- absorbed decode (S == 1): score/value in latent space ----------
+    C = cache["ckv"].shape[1]
+    pos = cache["pos"]
+    at = pos.reshape(1).long()
+    cc = cache["ckv"].index_copy_(1, at, ckv.to(cache["ckv"].dtype))
+    cr = cache["krope"].index_copy_(1, at, k_rope.to(cache["krope"].dtype))
+    # absorb W_uk into q: q_lat[b,h,r'] = sum_dn q_nope[b,h,dn] Wk_b[r',h,dn]
+    wkb = params["wk_b"]["w"].reshape(r, H, dn).to(cd)
+    q_lat = torch.einsum("bhd,rhd->bhr", q_nope[:, 0], wkb)
+    s = (torch.einsum("bhr,bsr->bhs", q_lat.float(), cc.float())
+         + torch.einsum("bhd,bsd->bhs", q_rope[:, 0].float(),
+                        cr.float())) * scale
+    k_pos = torch.arange(C, device=x.device)
+    s = torch.where((k_pos <= pos)[None, None, :], s,
+                    torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    o_lat = torch.einsum("bhs,bsr->bhr", p, cc.float())          # (B,H,r)
+    wvb = params["wv_b"]["w"].reshape(r, H, dv).to(cd)
+    o = torch.einsum("bhr,rhd->bhd", o_lat.to(cd), wvb)
+    out = dense(params["wo"], o.reshape(B, 1, H * dv), cd)
+    return out, {"ckv": cc, "krope": cr, "pos": pos + 1}
+
+
+def mla_cache_init(cfg, batch: int, cache_len: int, dtype=None,
+                   device="cpu") -> Params:
+    dt = dtype or cfg.compute_dtype
+    return {"ckv": torch.zeros((batch, cache_len, cfg.kv_lora), dtype=dt,
+                               device=device),
+            "krope": torch.zeros((batch, cache_len, cfg.rope_dims), dtype=dt,
+                                 device=device),
+            "pos": torch.tensor(0, dtype=torch.int32, device=device)}

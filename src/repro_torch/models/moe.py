@@ -1,0 +1,147 @@
+"""Mixture-of-Experts layer, capacity-based (port of ``repro.models.moe``).
+
+Tokens are cut into groups of ``gs = min(group_size, T)``; each token picks
+its top-k experts from an f32 softmax router, gates renormalised. A token's
+place in an expert's per-group queue is the token-major cumsum of the
+choices; choices past the capacity ``C`` go to a dump slot ``E·C`` and
+drop. The dispatched buffer is ``(groups, E, C, d)``, the experts' SwiGLU is
+one batched product over the expert axis in ``compute_dtype``, and the
+combine gathers each choice's row back and sums it gated. Optional
+DeepSeek-style shared experts; the Switch load-balance term as aux.
+
+Every kept slot holds exactly one token's row, so the dispatch writes rows
+with an indexed copy (no accumulation) and the combine's backward writes
+each kept slot's cotangent with an indexed copy (``_Gather``): no float
+atomics on CUDA, the same bits on every run. ``repro`` scatters with
+``.at[slot].add``, which on a kept slot adds one row to zeros: the same
+values.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .common import ACT, Params, normal_init
+from .mlp import swiglu_apply, swiglu_init
+
+
+def moe_init(rng, cfg, device="cpu") -> Params:
+    d, E, dff = cfg.d_model, cfg.n_experts, cfg.d_ff_expert or cfg.d_ff
+    dt = cfg.param_dtype
+    p = {
+        "router": normal_init(rng, (d, E), dt, 0.02, device),
+        "w_gate": normal_init(rng, (E, d, dff), dt, 1 / math.sqrt(d),
+                              device),
+        "w_up": normal_init(rng, (E, d, dff), dt, 1 / math.sqrt(d), device),
+        "w_down": normal_init(rng, (E, dff, d), dt,
+                              0.02 / math.sqrt(2 * cfg.n_layers), device),
+    }
+    if cfg.n_shared_experts:
+        p["shared"] = swiglu_init(rng, d, dff * cfg.n_shared_experts, dt,
+                                  cfg.n_layers, device)
+    return p
+
+
+def _capacity(gs: int, top_k: int, n_experts: int, factor: float) -> int:
+    c = int(math.ceil(gs * top_k / n_experts * factor))
+    return max(8, -(-c // 8) * 8)  # pad to multiple of 8 lanes
+
+
+class _Gather(torch.autograd.Function):
+    """``flat[g, slot[g, i]]`` for (G, N, d) ``flat`` and (G, M) ``slot``.
+    Its backward writes each row's cotangent to its slot with an indexed
+    copy: a kept slot is read by one choice, so that is its whole
+    cotangent; the rows read many times (the zero dump row) get one of
+    theirs, and their cotangent is not used."""
+
+    @staticmethod
+    def forward(ctx, flat, gi, slot):
+        ctx.save_for_backward(gi, slot)
+        ctx.shape = flat.shape
+        return flat[gi, slot]
+
+    @staticmethod
+    def backward(ctx, g):
+        gi, slot = ctx.saved_tensors
+        out = torch.zeros(ctx.shape, dtype=g.dtype, device=g.device)
+        return out.index_put_((gi, slot), g), None, None
+
+
+def route(params: Params, xf, cfg):
+    """xf: (G, gs, d) -> the f32 router probabilities (G, gs, E), the
+    renormalised gates and the choices (G, gs, k), ``lax.top_k``'s order
+    (descending, the lower expert first on a tie)."""
+    logits = torch.einsum("gsd,de->gse", xf.float(),
+                          params["router"].float())
+    probs = torch.softmax(logits, dim=-1)
+    gate, choice = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate, choice = gate[..., :cfg.top_k], choice[..., :cfg.top_k]
+    gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
+    return probs, gate, choice
+
+
+def moe_apply(params: Params, x, *, cfg, group_size: int = 512,
+              segments: int = 1):
+    """x: (B, S, d) -> (y, aux). Token order is preserved.
+
+    ``segments`` > 1 routes each of that many equal slices of the batch
+    (rows ``B / segments`` each) as ``repro`` routes it alone — its own
+    groups, capacity and balance term — and returns aux per slice,
+    (segments,): the multi-task LM loss runs every task's rows through one
+    trunk pass, where ``repro`` maps the trunk over the tasks."""
+    B, S, d = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    cd = cfg.compute_dtype
+    if B % segments:
+        raise ValueError(f"batch {B} not divisible into {segments} segments")
+    T = B * S // segments
+    gs = min(group_size, T)
+    if T % gs:
+        raise ValueError(f"tokens {T} not divisible by group {gs}")
+    per = T // gs                             # groups a segment
+    G = per * segments
+    C = _capacity(gs, k, E, cfg.capacity_factor)
+
+    xf = x.reshape(G, gs, d)
+    probs, gate, choice = route(params, xf, cfg)
+
+    # ---- positions in each expert's per-group queue ----------------------
+    cf = choice.reshape(G, gs * k)                              # token-major
+    oh = torch.nn.functional.one_hot(cf, E).to(torch.int32)     # (G,gs*k,E)
+    pos = (torch.cumsum(oh, dim=1) * oh).sum(-1) - 1            # (G,gs*k)
+    keep = pos < C
+    slot = torch.where(keep, cf * C + pos, torch.full_like(cf, E * C))
+    gi = torch.arange(G, device=x.device)[:, None]
+
+    # ---- dispatch: one token's row to each kept slot ---------------------
+    xr = xf[:, :, None, :].expand(G, gs, k, d).reshape(G, gs * k, d)
+    buf = torch.zeros((G, E * C + 1, d), dtype=cd, device=x.device)
+    buf = buf.index_put((gi, slot), xr.to(cd))
+    ein = buf[:, :E * C].reshape(G, E, C, d)
+
+    # ---- expert FFN, batched over the expert axis ------------------------
+    wg = params["w_gate"].to(cd)
+    wu = params["w_up"].to(cd)
+    wd = params["w_down"].to(cd)
+    h = ACT[cfg.act](torch.einsum("gecd,edf->gecf", ein, wg)) * \
+        torch.einsum("gecd,edf->gecf", ein, wu)
+    eout = torch.einsum("gecf,efd->gecd", h, wd)                # (G,E,C,d)
+
+    # ---- combine (gather) -------------------------------------------------
+    flat = torch.cat([eout.reshape(G, E * C, d),
+                      torch.zeros((G, 1, d), dtype=cd, device=x.device)], 1)
+    yk = _Gather.apply(flat, gi, slot)                          # (G,gs*k,d)
+    yk = yk * (gate.reshape(G, gs * k, 1).to(cd) * keep[..., None])
+    y = yk.reshape(G, gs, k, d).sum(2).reshape(B, S, d)
+
+    # ---- shared experts + aux loss ----------------------------------------
+    if "shared" in params:
+        y = y + swiglu_apply(params["shared"], x, cfg.act, cd)
+
+    # Switch-style load balance: E * sum_e fraction_e * mean_prob_e
+    counts = torch.nn.functional.one_hot(choice, E).float()
+    frac = counts.reshape(segments, -1, E).mean(1) * k
+    mp = probs.reshape(segments, -1, E).mean(1)
+    aux = E * (frac * mp).sum(-1)
+    return y, (aux[0] if segments == 1 else aux)

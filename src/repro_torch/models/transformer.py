@@ -1,16 +1,18 @@
-"""Transformer assembly: the decoder-only LM, ``attn`` and ``swa`` blocks.
+"""Transformer assembly: the decoder-only LM; ``attn``, ``swa`` and ``mla``
+blocks, each with a SwiGLU or (``cfg.n_experts``) a MoE feed-forward.
 
 ``repro`` stacks the parameters of each repetition of the config's
 ``block_pattern`` unit on a leading ``reps`` axis and drives them with
 ``lax.scan``; the port keeps that stacked layout (so ``interop`` is a copy)
 and loops over ``reps`` in Python. Prefill caches come out stacked the same
 way: ``caches["scan"]`` is a tuple (one entry per unit position) of dicts
-whose ``k``/``v`` are (reps, B, S, K, hd) and whose ``pos`` is (reps,).
-Remainder layers (n_layers not a multiple of the unit) are unrolled under
-``params["rem"]``.
+whose ``k``/``v`` are (reps, B, S, K, hd) (MLA: ``ckv`` (reps, B, S, r) and
+``krope`` (reps, B, S, dr)) and whose ``pos`` is (reps,). Remainder layers
+(n_layers not a multiple of the unit) are unrolled under ``params["rem"]``.
+The MoE balance terms of the blocks are summed into the trunk's aux.
 
-Other block types (mla, mamba2, mlstm, slstm, shared_attn, enc-dec,
-frontends) raise ``NotImplementedError``: ROADMAP.md, queue 1.
+Other block types (mamba2, mlstm, slstm, shared_attn, enc-dec, frontends)
+raise ``NotImplementedError``: ROADMAP.md, queue 1.
 """
 from __future__ import annotations
 
@@ -18,13 +20,15 @@ import numpy as np
 import torch
 
 from ..interop import leaves, tree_map, unflatten
-from .attention import gqa_apply, gqa_cache_init, gqa_init
+from .attention import (gqa_apply, gqa_cache_init, gqa_init, mla_apply,
+                        mla_cache_init, mla_init)
 from .common import (Params, dense, dense_init, embed, embedding_init,
                      layernorm, normal_init, ones_init, rmsnorm, unembed,
                      zeros_init)
 from .mlp import swiglu_apply, swiglu_init
+from .moe import moe_apply, moe_init
 
-PORTED_BLOCKS = ("attn", "swa")
+PORTED_BLOCKS = ("attn", "swa", "mla")
 
 
 def _unported(what: str):
@@ -56,41 +60,56 @@ def _norm_init(cfg, d=None, device="cpu"):
 
 def block_init(rng, cfg, btype: str, device="cpu") -> Params:
     _check_block(btype)
-    return {"ln1": _norm_init(cfg, device=device),
-            "attn": gqa_init(rng, cfg, device),
-            "ln2": _norm_init(cfg, device=device),
-            "ffn": swiglu_init(rng, cfg.d_model, cfg.d_ff, cfg.param_dtype,
-                               cfg.n_layers or 2, device)}
+    attn = mla_init(rng, cfg, device) if btype == "mla" else \
+        gqa_init(rng, cfg, device)
+    p = {"ln1": _norm_init(cfg, device=device), "attn": attn,
+         "ln2": _norm_init(cfg, device=device)}
+    if cfg.n_experts:
+        p["ffn"] = moe_init(rng, cfg, device)
+    else:
+        p["ffn"] = swiglu_init(rng, cfg.d_model, cfg.d_ff, cfg.param_dtype,
+                               cfg.n_layers or 2, device)
+    return p
 
 
 def block_apply(bp: Params, x, *, btype, cfg, positions, cache=None,
-                mode="train", impl="chunked"):
+                mode="train", impl="chunked", segments=1):
     """Returns (x, new_cache, aux). mode=="train": no cache; "prefill":
     returns the block's new cache; "decode": consumes and updates the cache
-    (its k/v slot in place). aux is the MoE balance term, 0.0 for these
-    blocks."""
+    (its slot in place). aux is the MoE balance term (per segment with
+    ``segments`` > 1, see ``moe_apply``), 0.0 for a SwiGLU block."""
     _check_block(btype)
     nrm = _norm(cfg)
     h = nrm(bp["ln1"], x)
-    window = cfg.window if btype == "swa" else 0
+    if btype == "mla":
+        attend, kw = mla_apply, {}
+    else:
+        attend, kw = gqa_apply, {"window": cfg.window if btype == "swa"
+                                 else 0}
     new_cache = None
     if mode == "decode":
-        o, new_cache = gqa_apply(bp["attn"], h, cfg=cfg, positions=positions,
-                                 window=window, cache=cache, impl=impl)
+        o, new_cache = attend(bp["attn"], h, cfg=cfg, positions=positions,
+                              cache=cache, impl=impl, **kw)
     elif mode == "prefill":
-        o, new_cache = gqa_apply(bp["attn"], h, cfg=cfg, positions=positions,
-                                 window=window, cache="init", impl=impl)
+        o, new_cache = attend(bp["attn"], h, cfg=cfg, positions=positions,
+                              cache="init", impl=impl, **kw)
     else:
-        o = gqa_apply(bp["attn"], h, cfg=cfg, positions=positions,
-                      window=window, impl=impl)
+        o = attend(bp["attn"], h, cfg=cfg, positions=positions, impl=impl,
+                   **kw)
     x = x + o
     h2 = nrm(bp["ln2"], x)
-    x = x + swiglu_apply(bp["ffn"], h2, cfg.act, cfg.compute_dtype)
-    return x, new_cache, 0.0
+    aux = 0.0
+    if cfg.n_experts:
+        f, aux = moe_apply(bp["ffn"], h2, cfg=cfg, segments=segments)
+    else:
+        f = swiglu_apply(bp["ffn"], h2, cfg.act, cfg.compute_dtype)
+    return x + f, new_cache, aux
 
 
 def block_cache_init(cfg, btype, batch, cache_len, device="cpu"):
     _check_block(btype)
+    if btype == "mla":
+        return mla_cache_init(cfg, batch, cache_len, device=device)
     if btype == "swa":
         w = cfg.window or cache_len
         return gqa_cache_init(cfg, batch, min(w, cache_len), device=device)
@@ -135,9 +154,16 @@ def lm_init(rng, cfg, device="cpu") -> Params:
         p["scan"] = {}
         for u, btype in enumerate(unit):
             blocks = [block_init(rng, cfg, btype, device) for _ in range(reps)]
-            p["scan"][f"u{u}"] = tree_map(lambda *xs: torch.stack(xs),
-                                           *blocks)
+            tree = blocks[0]
+            # stacked a leaf at a time, each rep's copy dropped as its leaf
+            # is stacked: the unit's weights are held twice for one leaf
+            # only (full-width MoE units are tens of GB)
+            flat = [leaves(b) for b in blocks]
             del blocks
+            p["scan"][f"u{u}"] = unflatten(tree, {
+                k: torch.stack([f.pop(k) for f in flat])
+                for k in list(flat[0])})
+            del tree, flat
     p["rem"] = {f"r{i}": block_init(rng, cfg, bt, device)
                 for i, bt in enumerate(rem)}
     p["ln_f"] = _norm_init(cfg, device=device)
@@ -189,14 +215,16 @@ def _unstack(tree: Params, reps: int) -> list:
 
 
 def run_trunk(params: Params, x, *, cfg, positions, mode="train",
-              caches=None, impl="chunked"):
-    """x: (B,S,d) embedded inputs -> (hidden, new_caches, aux). aux (the
-    MoE balance term) is 0 for the ported blocks. With ``cfg.remat`` a
-    training pass keeps only each block's input and recomputes the block
-    in the backward."""
+              caches=None, impl="chunked", segments=1):
+    """x: (B,S,d) embedded inputs -> (hidden, new_caches, aux). aux is the
+    sum over blocks of the MoE balance terms (0 without experts); with
+    ``segments`` > 1 one per equal slice of the batch, each routed as if
+    alone (``moe_apply``). With ``cfg.remat`` a training pass keeps only
+    each block's input and recomputes the block in the backward."""
     unit, reps, rem = _pattern_split(cfg)
     remat = _remat(cfg, mode)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = torch.zeros((segments,) if segments > 1 else (),
+                      dtype=torch.float32, device=x.device)
     new_caches: Params = {}
     if reps > 0:
         per_unit = [[] for _ in unit]
@@ -212,9 +240,10 @@ def run_trunk(params: Params, x, *, cfg, positions, mode="train",
                 if mode == "decode":
                     c = {k: a[r] for k, a in caches["scan"][u].items()}
                     views[u].append(dict(c))
-                x, nc, _ = _block(bp, x, remat=remat, btype=btype, cfg=cfg,
+                x, nc, a = _block(bp, x, remat=remat, btype=btype, cfg=cfg,
                                   positions=positions, cache=c, mode=mode,
-                                  impl=impl)
+                                  impl=impl, segments=segments)
+                aux = aux + a
                 per_unit[u].append(nc)
         if mode in ("prefill", "decode"):
             new_caches["scan"] = tuple(
@@ -223,9 +252,10 @@ def run_trunk(params: Params, x, *, cfg, positions, mode="train",
                 for u in range(len(unit)))
     for i, btype in enumerate(rem):
         c = caches["rem"][f"r{i}"] if (caches and "rem" in caches) else None
-        x, nc, _ = _block(params["rem"][f"r{i}"], x, remat=remat,
+        x, nc, a = _block(params["rem"][f"r{i}"], x, remat=remat,
                           btype=btype, cfg=cfg, positions=positions, cache=c,
-                          mode=mode, impl=impl)
+                          mode=mode, impl=impl, segments=segments)
+        aux = aux + a
         if nc is not None:
             new_caches.setdefault("rem", {})[f"r{i}"] = nc
     x = _norm(cfg)(params["ln_f"], x)

@@ -6,8 +6,15 @@ step, computes the bias corrections in float32 and decays every leaf.
 
 The state mirrors the parameter tree (nested dicts of tensors); ``update``
 returns new trees and leaves its inputs untouched, as ``repro``'s pure
-function does. The step counter is a host int, so the schedule and the
-bias corrections cost no device synchronisation.
+function does. With ``donate=True`` it writes the new values into the
+params' and moments' own storage instead — the counterpart of ``repro``'s
+donated step buffers (``ShardingPlan(donate=True)``: XLA reuses them for
+the outputs), the same bits — computed a slice of ``DONATE_CHUNK``
+elements at a time, so a step holds one copy of the state and a slice's
+temporaries, where the pure update holds two copies and each leaf's
+f32 temporaries (a full-width MoE layer's expert leaf is 1.26e9
+elements). The step counter is a host int, so the schedule and the bias
+corrections cost no device synchronisation.
 """
 from __future__ import annotations
 
@@ -17,6 +24,9 @@ import numpy as np
 import torch
 
 from repro_torch.interop import leaves, tree_map
+
+
+DONATE_CHUNK = 1 << 26          # elements of a leaf updated at a time
 
 
 class AdamWState(NamedTuple):
@@ -36,8 +46,10 @@ def global_norm(tree) -> torch.Tensor:
 
 
 def adamw(lr, *, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.01,
-          grad_clip=0.0, moment_dtype=torch.float32) -> Optimizer:
-    """lr: float or schedule fn(step) -> float32."""
+          grad_clip=0.0, moment_dtype=torch.float32,
+          donate: bool = False) -> Optimizer:
+    """lr: float or schedule fn(step) -> float32. ``donate``: update the
+    params and moments in place (their inputs are consumed)."""
     sched = lr if callable(lr) else (lambda _: np.float32(lr))
 
     def init(params):
@@ -69,6 +81,10 @@ def adamw(lr, *, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.01,
             p_new = p.float() - lr_t * delta
             return p_new.to(p.dtype), m_new.to(m.dtype), v_new.to(v.dtype)
 
+        if donate:
+            tree_map(lambda p, g, m, v: _in_place(upd, p, g, m, v), params,
+                     grads, state.m, state.v)
+            return params, AdamWState(step=step, m=state.m, v=state.v)
         flat = tree_map(upd, params, grads, state.m, state.v)
         return _pick(flat, 0), AdamWState(step=step, m=_pick(flat, 1),
                                           v=_pick(flat, 2))
@@ -82,3 +98,17 @@ def _pick(tree, i):
     if isinstance(tree, dict):
         return {k: _pick(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def _in_place(upd, p, g, m, v):
+    """``upd`` on slices of the flattened leaves, each result copied into
+    its slice of p, m and v: elementwise, so the bits of the whole-leaf
+    update."""
+    if not all(t.is_contiguous() for t in (p, g, m, v)):
+        raise ValueError("donated AdamW update needs contiguous leaves")
+    pf, gf, mf, vf = (t.view(-1) for t in (p, g, m, v))
+    for s in range(0, pf.numel(), DONATE_CHUNK):
+        sl = slice(s, s + DONATE_CHUNK)
+        for dst, new in zip((pf, mf, vf), upd(pf[sl], gf[sl], mf[sl],
+                                              vf[sl])):
+            dst[sl].copy_(new)

@@ -18,10 +18,11 @@ from dataclasses import dataclass, field
 
 def make_lm_loss(cfg, impl="chunked"):
     """loss_fn(params, batch) -> the mean next-token cross-entropy of
-    ``{"tokens", "labels": (B, S)}`` over the padded vocab's f32 logits.
-    Encoder-decoder (``memory``, ``src_embed``) and modality (``media``)
-    batches raise: those blocks are not ported (ROADMAP.md, queue 1, item
-    11), and no ported block has a MoE balance term."""
+    ``{"tokens", "labels": (B, S)}`` over the padded vocab's f32 logits,
+    plus ``cfg.router_aux_coef`` x the trunk's MoE balance term with
+    experts (``repro``'s loss). Encoder-decoder (``memory``,
+    ``src_embed``) and modality (``media``) batches raise: those blocks are
+    not ported (ROADMAP.md, queue 1, item 11)."""
     from repro_torch.core.mtl import softmax_xent
     from repro_torch.models import transformer
 
@@ -29,10 +30,13 @@ def make_lm_loss(cfg, impl="chunked"):
         if batch.get("src_embed") is not None:
             raise transformer._unported("encoder-decoder inputs "
                                         "(src_embed)")
-        logits, _, _ = transformer.lm_apply(
+        logits, _, aux = transformer.lm_apply(
             params, batch["tokens"], cfg=cfg, media=batch.get("media"),
             memory=batch.get("memory"), mode="train", impl=impl)
-        return softmax_xent(logits, batch["labels"])
+        loss = softmax_xent(logits, batch["labels"])
+        if cfg.n_experts:
+            loss = loss + cfg.router_aux_coef * aux
+        return loss
     return loss_fn
 
 

@@ -5,8 +5,9 @@
 ``impl="pallas"`` prefill runs the flash-attention kernel and every decode
 step the flash-decode kernel (one launch per layer each); ``"chunked"`` and
 ``"naive"`` are the plain PyTorch paths. A decode step writes its token's
-k/v slot of each layer's cache in place (see ``models.attention``), so the
-caches handed to it are updated; the values are ``repro``'s.
+slot of each layer's cache (k/v, or MLA's ckv/krope) in place (see
+``models.attention``), so the caches handed to it are updated; the values
+are ``repro``'s.
 """
 from __future__ import annotations
 
@@ -21,18 +22,20 @@ from ..models import transformer
 
 def extend_caches(caches, cfg, capacity: int):
     """Pad prefill-produced attention caches (length S) to ``capacity``
-    along their sequence axis (the (reps,) stack leads where present). A
-    sliding-window cache already at or past the window keeps its length:
-    it is a rolling cache from the next token on."""
+    along their sequence axis (the (reps,) stack leads where present):
+    GQA's ``k``/``v`` (..., S, K, hd), MLA's ``ckv``/``krope`` (..., S, r).
+    A sliding-window ``k``/``v`` cache already at or past the window keeps
+    its length: it is a rolling cache from the next token on."""
     def fix(tree):
         if isinstance(tree, dict):
             out = {}
             for k, v in tree.items():
-                if k in ("k", "v") and isinstance(v, torch.Tensor):
-                    seq_ax = v.dim() - 3
+                if k in ("k", "v", "ckv", "krope") and isinstance(
+                        v, torch.Tensor):
+                    seq_ax = v.dim() - (3 if k in ("k", "v") else 2)
                     cur = v.shape[seq_ax]
                     cap = capacity
-                    if cfg.window and cur >= cfg.window:
+                    if k in ("k", "v") and cfg.window and cur >= cfg.window:
                         cap = cur
                     if cap > cur:
                         pad = [0, 0] * (v.dim() - seq_ax - 1) + [0, cap - cur]

@@ -599,6 +599,13 @@ def _attn_close(got, ref):
     (1, 300, 300, 8, 2, 80, 40, True),      # rolled pads + window: rows with
                                             # dead first tiles (p = 1), then
                                             # skipped tiles
+    # D = 192 (MLA prefill: q/k of nope 128 + rope 64, v padded to it) and
+    # G = 3 (granite-moe: 24 query heads over 8 kv heads)
+    (1, 130, 130, 8, 8, 192, 0, False),     # MHA at D = 192, ragged
+    (2, 65, 129, 4, 2, 192, 7, True),       # D = 192, window, pads, G = 2
+    (1, 129, 63, 4, 4, 192, 0, False),      # D = 192, rows see no key
+    (2, 100, 100, 24, 8, 64, 0, False),     # G = 3
+    (1, 300, 300, 6, 2, 80, 40, True),      # G = 3, rolled pads + window
 ])
 def test_flash_attention_kernel_matches_plain(cuda, dtype, B, Sq, Sk, H, K,
                                               D, window, rolled):
@@ -660,6 +667,11 @@ def test_flash_attention_kernel_refuses(cuda):
     (2, 1000, 32, 8, 80, 33, None),         # 3 splits a CTA, 11 CTAs
     (2, 700, 16, 1, 128, None, None),       # the largest instantiation
     (1, 700, 16, 1, 128, 40, 8),            # ... with 3 splits a CTA
+    # G = 3 (granite-moe's 24 query heads over 8 kv heads)
+    (8, 1056, 24, 8, 64, None, None),       # granite's decode shape
+    (2, 1000, 6, 2, 80, 17, None),          # 2 splits a CTA
+    (1, 77, 3, 1, 128, 3, 16),              # one kv head, ragged
+    (2, 640, 3, 1, 16, 12, 64),             # trailing empty splits
 ])
 def test_flash_decode_kernel_matches_plain(cuda, dtype, B, S, H, K, D,
                                            n_splits, block_k):
@@ -784,7 +796,8 @@ def test_flash_decode_plan_matches_the_card(cuda, B, S):
 def test_flash_decode_kernel_refuses(cuda):
     """What the kernel does not take raises: a cluster the card cannot
     place (the largest instantiation with an 8-stage ring: 270 KB of
-    shared memory), G = 3, a misaligned row, float16."""
+    shared memory), G = 5, head dim 192 (prefill's only), a misaligned
+    row, float16."""
     q = torch.zeros(1, 1, 16, 128, device=cuda)
     k = torch.zeros(1, 64, 1, 128, device=cuda)
     pos = torch.zeros(1, device=cuda, dtype=torch.int32)
@@ -792,7 +805,11 @@ def test_flash_decode_kernel_refuses(cuda):
     with pytest.raises(ValueError, match="cannot place"):
         fd_ops._launch(q, k, k, pos, kp, 0, 1.0, Plan(1, 64, 1, 1, 8))
     with pytest.raises(ValueError, match="query heads"):
-        flash_decode(q[:, :, :3], k, k, q_pos=pos, k_pos=kp)
+        flash_decode(q[:, :, :5], k, k, q_pos=pos, k_pos=kp)
+    q192 = torch.zeros(1, 1, 2, 192, device=cuda)
+    k192 = torch.zeros(1, 64, 1, 192, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_decode(q192, k192, k192, q_pos=pos, k_pos=kp)
     wide = torch.zeros(1, 64, 1, 136, device=cuda)
     with pytest.raises(ValueError, match="aligned"):
         flash_decode(q, wide[..., 2:130], wide[..., 2:130], q_pos=pos,
@@ -1076,3 +1093,79 @@ def test_replicas_and_sharded_rows_on_one_card(cuda):
             assert np.array_equal(o["forces"], own["forces"])
             _close(torch.from_numpy(o["forces"]),
                    torch.from_numpy(r["forces"]), 1e-4)
+
+
+def _moe_mla_cfg(**kw):
+    """A small MLA + MoE LM whose q/k head dim (48 + 16) the kernels take."""
+    from repro_torch.configs.base import ArchConfig
+    base = dict(name="mla-moe", n_layers=2, d_model=64, n_heads=4,
+                n_kv_heads=4, d_ff=64, vocab=97, head_dim=48, kv_lora=24,
+                q_lora=32, rope_dims=16, v_head_dim=32, n_experts=4,
+                top_k=2, n_shared_experts=1, d_ff_expert=32,
+                block_pattern=("mla",), compute_dtype=torch.float32,
+                remat=False)
+    base.update(kw)
+    return ArchConfig(**base)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cf", [1.25, 0.5])
+def test_moe_on_card_matches_cpu_and_replays(cuda, cf):
+    """``moe_apply`` on the card: output and aux within 1e-5 of the CPU's
+    (f32 compute, the same routing; capacity 0.5 drops tokens), and its
+    forward and every gradient bitwise equal over two runs (the dispatch
+    and the combine's backward write rows by indexed copies, no float
+    atomics)."""
+    from repro_torch.models.moe import moe_apply, moe_init
+    cfg = _moe_mla_cfg(capacity_factor=cf, n_experts=8, top_k=3,
+                       d_model=96)
+    rng = np.random.default_rng(0)
+    p = moe_init(rng, cfg)
+    x = torch.from_numpy(rng.standard_normal((4, 64, 96), np.float32))
+    y_cpu, aux_cpu = moe_apply(p, x, cfg=cfg, group_size=32)
+    from repro_torch import interop
+    pc = interop.leaves(p)
+    runs = []
+    for _ in range(2):
+        leaves = {k: v.to(cuda).requires_grad_(True) for k, v in pc.items()}
+        params = interop.unflatten(p, leaves)
+        xc = x.to(cuda).requires_grad_(True)
+        y, aux = moe_apply(params, xc, cfg=cfg, group_size=32)
+        grads = torch.autograd.grad((y.square().sum() + aux),
+                                    [xc, *leaves.values()])
+        runs.append((y.detach(), aux.detach(), grads))
+    _close(runs[0][0].cpu(), y_cpu, 1e-5)
+    assert abs(float(runs[0][1]) - float(aux_cpu)) <= 1e-5
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][2], runs[1][2]))
+
+
+@pytest.mark.gpu
+def test_mla_moe_lm_on_card(cuda):
+    """An MLA + MoE LM on the card: the kernel path's prefill (#5 at q/k
+    head dim 64) within 1e-4 of the plain path's, the absorbed decode's
+    logits within 2e-4 atol / 2e-3 rtol of teacher forcing (capacity
+    ample: no token drops in either grouping), and greedy generation twice
+    bitwise equal."""
+    from repro_torch.train.serve import extend_caches, make_decode_step
+    cfg = _moe_mla_cfg(capacity_factor=4.0)
+    params = transformer.lm_init(np.random.default_rng(1), cfg, cuda)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, (2, 24))).to(cuda)
+    full, _, _ = transformer.lm_apply(params, toks, cfg=cfg, impl="pallas")
+    plain, _, _ = transformer.lm_apply(params, toks, cfg=cfg,
+                                       impl="chunked")
+    _close(full, plain, 1e-4)
+    _, caches, _ = transformer.lm_apply(params, toks[:, :20], cfg=cfg,
+                                        mode="prefill", impl="pallas")
+    caches = extend_caches(caches, cfg, 24)
+    decode = make_decode_step(cfg, "pallas")
+    for t in range(20, 24):
+        lg, caches = decode(params, toks[:, t:t + 1], caches, t)
+        assert torch.allclose(lg[:, 0], full[:, t], atol=2e-4, rtol=2e-3)
+    a = greedy_generate(params, cfg, toks[:, :20], 6, impl="pallas",
+                        device=cuda)
+    b = greedy_generate(params, cfg, toks[:, :20], 6, impl="pallas",
+                        device=cuda)
+    assert torch.equal(a, b)

@@ -31,9 +31,13 @@ def test_port_imports_without_jax_or_repro():
     r = subprocess.run([sys.executable, "-c", SCRIPT], env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    # every submodule was imported, the training, LM serving and serving
-    # scale-out slices' among them
-    assert int(r.stdout.strip()) >= 58
+    # every submodule was imported, the training, LM serving, serving
+    # scale-out and MoE / MLA slices' among them
+    assert int(r.stdout.strip()) >= 74
+    for mod in ("models.moe", "configs.granite_moe_3b_a800m",
+                "configs.deepseek_v2_236b"):
+        assert (SRC / "repro_torch" / (mod.replace(".", "/") + ".py")
+                ).is_file(), mod
 
 
 EXAMPLES = SRC.parent / "examples"

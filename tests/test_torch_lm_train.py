@@ -19,6 +19,17 @@ trajectory: 1e-4 relative in fp32 (five AdamW steps of fp32 drift). The
 embedding's backward: 1e-6 x max(1, max|ref|) in fp32, and for a bf16
 table within one bf16 rounding of the f32 sums (the port sums in f32 and
 rounds once, XLA's scatter adds in bf16).
+
+The MoE configs (granite-moe, deepseek-v2) route each token to its top-k
+experts, a choice that jumps where two router logits tie. In f32 the
+packages' logits agree to ~1e-6 and every case here routes alike. In bf16
+they drift by a rounding of the hidden state, and a token whose k-th and
+(k+1)-th logits lie closer than that may take another expert in each
+package: the granite-moe smoke multi-task case in bf16 does so for one of
+96 tokens in its first layer (logit gap 1.5e-4, bf16 drift 2.8e-3), and
+the gradients behind that token then differ by more than a rounding. The
+multi-task MoE cases therefore run in f32 only; the single-task bf16 MoE
+cases route alike at their seeds and are held to the bf16 tolerance.
 """
 import jax
 import jax.numpy as jnp
@@ -50,7 +61,9 @@ from repro_torch.train.loop import make_lm_loss
 F32_TOL = 1e-5
 BF16_TOL = 4e-2
 BF16_GRAD_TOL = 5e-2
-ARCHS = ("qwen1.5-0.5b", "h2o-danube-1.8b")
+ARCHS = ("qwen1.5-0.5b", "h2o-danube-1.8b", "granite-moe-3b-a800m",
+         "deepseek-v2-236b")
+MOE_ARCHS = ("granite-moe-3b-a800m", "deepseek-v2-236b")
 DTYPES = {"f32": (jnp.float32, torch.float32, F32_TOL),
           "bf16": (jnp.bfloat16, torch.bfloat16, BF16_TOL)}
 
@@ -129,8 +142,9 @@ def test_lm_loss_and_grads_match_repro(arch, dtype, remat):
     _close_grads(tg, jg, dtype)
 
 
-@pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch,dtype", [
+    (a, d) for a in ARCHS for d in DTYPES
+    if not (a in MOE_ARCHS and d == "bf16")])
 def test_lm_multitask_matches_repro(arch, dtype):
     """``make_lm_multitask``: per-task losses (one trunk pass over the
     T·B rows in the port, ``repro`` vmaps per task), the weighted total and
@@ -283,6 +297,57 @@ def test_lm_mtl_session_matches_repro():
         np.testing.assert_allclose([r[key] for r in tr.logger.history],
                                    [r[key] for r in jr.logger.history],
                                    rtol=1e-4, err_msg=key)
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m",
+                                  "deepseek-v2-236b"])
+def test_moe_lm_session_matches_repro(arch):
+    """``model="lm"`` on the MoE smoke configs, 3 steps: each step's loss
+    (cross-entropy plus ``router_aux_coef`` x the balance term) within
+    1e-4 relative of ``repro``'s."""
+    jcfg, tcfg = _cfgs(arch, "f32")
+    source = j_make_lm_sources(1, 16, 16, jcfg.vocab)[0]
+    jr, tr, _ = _session_pair("lm", jcfg, tcfg, source, steps=3, batch=4)
+    jl = [r["loss"] for r in jr.logger.history]
+    tl = [r["loss"] for r in tr.logger.history]
+    assert len(tl) == len(jl) == 3 and all(np.isfinite(tl))
+    np.testing.assert_allclose(tl, jl, rtol=1e-4)
+
+
+@pytest.mark.parametrize("moment_dtype", [torch.float32, torch.bfloat16])
+def test_donated_adamw_steps_equal_pure_ones(monkeypatch, moment_dtype):
+    """``adamw(donate=True)`` through ``make_step``: three steps of the
+    deepseek-v2 smoke LM (bf16 params) update params and moments in their
+    own storage, slice by slice (``DONATE_CHUNK`` cut to 1000 elements so
+    every leaf spans several), bitwise equal to the pure update's."""
+    import importlib
+    from repro_torch.engine import make_step
+    adamw_mod = importlib.import_module("repro_torch.optim.adamw")
+    monkeypatch.setattr(adamw_mod, "DONATE_CHUNK", 1000)
+    _, tcfg = _cfgs("deepseek-v2-236b", "bf16",
+                    param_dtype=torch.bfloat16)
+    model = build_model("lm", tcfg)
+    batch = {k: torch.from_numpy(v) for k, v in
+             _batch(tcfg, 2, 16).items()}
+    states = []
+    for donate in (False, True):
+        opt = adamw_mod.adamw(1e-3, moment_dtype=moment_dtype,
+                              donate=donate)
+        state = TrainState.create(model.init(0, "cpu"), opt)
+        first = interop.leaves(state.params)
+        step = make_step(model, opt)
+        for _ in range(3):
+            state, out = step(state, batch)
+        after = interop.leaves(state.params)
+        assert all((after[k] is v) == donate for k, v in first.items())
+        states.append(state)
+    pure, donated = states
+    assert donated.opt_state.step == pure.opt_state.step == 3
+    for a, b in ((pure.params, donated.params),
+                 (pure.opt_state.m, donated.opt_state.m),
+                 (pure.opt_state.v, donated.opt_state.v)):
+        la, lb = interop.leaves(a), interop.leaves(b)
+        assert all(torch.equal(la[k], lb[k]) for k in la)
 
 
 def test_launcher_lm_modes_train_on_cpu(tmp_path):
