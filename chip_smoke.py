@@ -199,6 +199,31 @@ Phases, each printing one JSON line:
      peak memory; one step profiled. Phase 5 holds #5 at the MLA
      prefill (B=8, S=1024, H=K=128, D=192, bf16 and f32) and granite's
      (24/8 heads, D=64) and #6 at granite's decode (G=3, cache 1056);
+  6d. lm_recurrent: the recurrent family at full width and depth, fp32
+     weights drawn on the card from a seed, bf16 compute: zamba2-1.2b (38
+     layers, d=2048: Mamba2 blocks of 64 heads and state 64, and one
+     shared attention block, 32 heads of 64, window 4096, applied at 6
+     layers through per-layer LoRA adapters) and xlstm-125m (12 layers,
+     d=768, mLSTM and sLSTM in turn). Each is served by
+     ``greedy_generate(impl="pallas")`` at (a) B=8, a 1024-token prompt,
+     32 new, twice, bitwise equal, and zamba2 also at (b) B=1, a
+     4200-token prompt past its window, 16 new (the rolling cache, SSD's
+     chunk padding); launches counted from zero (#5 once a shared layer a
+     prefill, #6 once a shared layer a decode step, none for xlstm); the
+     kernel path's teacher-forced logits within ``LM_TOL_BF16`` of the
+     plain path's at (a) and (b); decode against the full forward, in
+     f32 within ``LM_TOL_F32`` and in bf16 no further from the f32
+     forward than twice the bf16 forward (or ``LM_TOL_BF16``); one
+     prefill and one decode step profiled. Then ``lm``
+     trains 3 steps of 8 x 1024 tokens (xlstm 8 x 256: its sLSTM scan
+     took 20.6 s a step at 1024) through ``Session`` (``impl="chunked"``,
+     per-block remat), twice, bitwise; #1 once a step, held on one step's
+     embedding cotangent and timed at its shape beside ``index_add_``;
+     peak memory; one step profiled. Phase 5 holds #5 and #6 at the
+     shared block's shapes (G=1, D=64, runs (a) and (b)). Each phase
+     starts with the garbage collected, the cuBLAS workspaces of earlier
+     phases freed and the peak counter reset; the ``memory`` line gives
+     the bytes still allocated at each phase's start, before and after;
   7. the ``kernels`` summary line (#1 ``segment_sum_2d`` apart from #2
      ``segment_sum`` since #1 runs every embedding's backward), the
      ``nvidia-smi`` line, and the final ``{"ok": true, "device": ...}``
@@ -333,13 +358,14 @@ def time_ms(torch, fn, iters=20, warm=3) -> float:
     return t0.elapsed_time(t1) / iters
 
 
-def device_profile(torch, fn, iters=20, warm=3) -> dict:
+def device_profile(torch, fn, iters=20, warm=3, cpu=True) -> dict:
     """Device time of one call of ``fn`` (``ms``): the kernels it launches,
     summed from a ``torch.profiler`` trace of ``iters`` calls, also by
     kernel name (``by_kernel``, ms a call), and the kernels a call
     launches (``kernels_per_call``). Unlike CUDA events around the calls,
     it leaves out the device's idle time while the host prepares the next
-    launch, which dominates calls of tens of us."""
+    launch, which dominates calls of tens of us. ``cpu=False`` traces the
+    device alone: no event a host-side op, for calls of ~10^5 launches."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warm):
@@ -347,9 +373,11 @@ def device_profile(torch, fn, iters=20, warm=3) -> dict:
     torch.cuda.synchronize()
     # a trace with no device event at all is the profiler's drop, not the
     # call's (its kernels ran in the warm-up): trace again, three at most
+    activities = [ProfilerActivity.CUDA]
+    if cpu:
+        activities.append(ProfilerActivity.CPU)
     for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=activities) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
@@ -2597,6 +2625,29 @@ def _free(torch):
     torch.cuda.empty_cache()
 
 
+MEMORY = {}                         # phase -> device memory at its start
+
+
+def _phase_start(torch, name):
+    """Before a phase: collect garbage, free the cuBLAS workspaces earlier
+    phases left and return the cached blocks, then reset the peak counter,
+    so that each phase's peaks are its own. PyTorch keeps one 32 MiB
+    cuBLAS workspace for each (cuBLAS handle, stream) pair that ran a GEMM
+    until it is told to free them: serve_scaleout's replicas and entries,
+    each on a stream and a thread of its own, left 48 (1.6 GB) alive, which
+    Python cannot see. Records the bytes allocated before and after."""
+    _free(torch)
+    before = torch.cuda.memory_allocated()
+    torch._C._cuda_clearCublasWorkspaces()
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    MEMORY[name] = {"allocated_bytes": before,
+                    "after_cublas_workspaces_freed":
+                    torch.cuda.memory_allocated()}
+    print(f"chip_smoke: phase {name}: {json.dumps(MEMORY[name])}",
+          file=sys.stderr, flush=True)
+
+
 def _embed_grad_check(torch, sess, batch):
     """One step's gradients with the embedding's backward recorded: the
     cotangent (g, ids) the step gives #1, checked against the step's
@@ -2807,7 +2858,8 @@ def _zero(torch, counters):
         c.launches = 0
 
 
-def _moe_generate(torch, params, cfg, prompt, n_new, counters, want):
+def _moe_generate(torch, params, cfg, prompt, n_new, counters, want,
+                  what="lm_moe"):
     """One ``greedy_generate(impl="pallas")`` with the counts zeroed just
     before it: tokens, logits and the run's numbers."""
     from repro_torch.train.serve import greedy_generate
@@ -2821,9 +2873,9 @@ def _moe_generate(torch, params, cfg, prompt, n_new, counters, want):
     B, S = prompt.shape
     if not (toks.shape == (B, n_new) and bool(torch.isfinite(logits).all())
             and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab):
-        fail(f"lm_moe {cfg.name}: bad tokens or non-finite logits")
+        fail(f"{what} {cfg.name}: bad tokens or non-finite logits")
     if launches != want:
-        fail(f"lm_moe {cfg.name} serve: launches {launches}, the design "
+        fail(f"{what} {cfg.name} serve: launches {launches}, the design "
              f"implies {want}")
     return toks, logits, {
         "batch": B, "prompt": S, "new": n_new, "launches": launches,
@@ -2831,14 +2883,16 @@ def _moe_generate(torch, params, cfg, prompt, n_new, counters, want):
         "prefill_tok_per_s": B * S / timings["prefill_s"],
         "decode_s": timings["decode_s"],
         "decode_ms_per_step": timings["decode_s"] / (n_new - 1) * 1e3,
+        "decode_tok_per_s": B * (n_new - 1) / timings["decode_s"],
         "peak_mem_bytes": torch.cuda.max_memory_allocated()}
 
 
-def _profiled(torch, fn):
+def _profiled(torch, fn, cpu=True):
     """One call of ``fn`` after a warm-up: its device time (kernels,
-    ``torch.profiler``), the kernels that take most of it, and the host
-    clock around one synchronised call."""
-    prof = device_profile(torch, fn, iters=1, warm=1)
+    ``torch.profiler``; ``cpu=False``: the device traced alone), the
+    kernels that take most of it, and the host clock around one
+    synchronised call."""
+    prof = device_profile(torch, fn, iters=1, warm=1, cpu=cpu)
     _sync(torch, DEVICE)
     t0 = time.perf_counter()
     fn()
@@ -3077,6 +3131,298 @@ def lm_moe_phase(torch, counters):
 
 
 # ---------------------------------------------------------------------------
+# phase 6d: the recurrent blocks at full width
+# ---------------------------------------------------------------------------
+
+REC_SERVE = {"a": (8, 1024, 32),    # B, prompt, new tokens: lm_serve's (a)
+             "b": (1, 4200, 16)}    # zamba2 only: past the 4096 window
+REC_TF_STEPS = {"a": 8, "b": 4}     # teacher-forced decode steps
+REC_ND = (2, 248, 8)                # decode vs the full forward: B,
+                                    # prefill, decode steps
+REC_TRAIN_B = 8                     # lm training: 8 sequences a step of
+REC_TRAIN_S = {"zamba2-1.2b": 1024,  # ... these lengths: xlstm's cut from
+               "xlstm-125m": 256}   # 1024, where its sLSTM scan (~20
+                                    # launches a token a layer, three
+                                    # passes a step under remat) took 20.6
+                                    # s a step on the host clock
+REC_TRAIN_STEPS = 3
+REC_PROFILE_S = {"xlstm-125m": (256, 64)}  # xlstm's profiled prefill and
+                                    # training step: lengths cut so that
+                                    # a trace holds ~10^4-10^5 events
+_T0 = [time.perf_counter()]
+
+
+def _tick(msg):
+    """Progress on stderr: seconds since the phase began."""
+    print(f"chip_smoke: {time.perf_counter() - _T0[0]:8.1f} s {msg}",
+          file=sys.stderr, flush=True)
+
+
+def _recurrent_configs():
+    """zamba2-1.2b and xlstm-125m at full width and depth."""
+    from repro_torch.configs import xlstm_125m, zamba2_1_2b
+    return [zamba2_1_2b.CONFIG, xlstm_125m.CONFIG]
+
+
+def _tree_bytes(tree):
+    """Bytes of the tensors of a tree of dicts and tuples."""
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    if isinstance(tree, tuple):
+        return sum(_tree_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+def _kernel_vs_plain(torch, params, cfg, B, S, steps, seed, what):
+    """Teacher-forced logits of the kernel path (``"pallas"``) against the
+    plain path's (``"chunked"``) over ``steps`` decode steps after an
+    S-token prefill, within ``LM_TOL_BF16`` x max|logit|."""
+    toks = _lm_prompts(cfg, B, S, extra=steps, seed=seed)
+    got, _ = _teacher_forced(torch, params, cfg, toks, S, "pallas")
+    ref, _ = _teacher_forced(torch, params, cfg, toks, S, "chunked")
+    scale = float(ref.abs().max())
+    err = float((got - ref).abs().max())
+    if not err <= LM_TOL_BF16 * scale:
+        fail(f"{what}: teacher-forced bf16 logits max_abs_err {err} > "
+             f"{LM_TOL_BF16}*{scale}")
+    return {"batch": B, "prompt": S, "steps": steps, "bf16_max_abs_err": err,
+            "bf16_max_abs_logit": scale, "bf16_tolerance": LM_TOL_BF16 * scale,
+            "per_step": (got - ref).abs().amax(dim=(1, 2)).tolist(),
+            "argmax_agreement": float((got.argmax(-1) == ref.argmax(-1))
+                                      .float().mean())}
+
+
+def _rec_serve(torch, cfg, counters):
+    """Serve ``cfg`` at full width: run (a) twice (bitwise), run (b) where
+    the config has a window, the kernel path's teacher-forced logits
+    against the plain path's at both runs' shapes, decode against the full
+    forward, one profiled prefill and decode step."""
+    from repro_torch import interop
+    from repro_torch.models import transformer
+    from repro_torch.train.serve import (extend_caches, make_decode_step,
+                                         make_prefill_step)
+    what = f"lm_recurrent {cfg.name}"
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    params = transformer.lm_init(gen, cfg, device=dev)
+    _sync(torch, DEVICE)
+    n_attn = sum(bt == "shared_attn" for bt in cfg.pattern)
+    out = {"layers": cfg.n_layers, "shared_attn_layers": n_attn,
+           "init_s": time.perf_counter() - t0,
+           "params": sum(x.numel() for x in
+                         interop.leaves(params).values()),
+           "param_bytes": _tree_bytes(params)}
+    runs = ("a", "b") if cfg.window else ("a",)
+    for run in runs:
+        _tick(f"{cfg.name} serve run {run}")
+        B, S, new = REC_SERVE[run]
+        # #5 takes the shared block's prefill, #6 its decode; the recurrent
+        # blocks run plain products and scans
+        want = {k: 0 for k in counters}
+        want.update(flash_attention=n_attn, flash_decode=n_attn * (new - 1))
+        prompt = _lm_prompts(cfg, B, S, seed=1 if run == "a" else 2)
+        toks, logits, rec = _moe_generate(torch, params, cfg, prompt, new,
+                                          counters, want, "lm_recurrent")
+        if run == "a":
+            toks2, logits2, rec2 = _moe_generate(
+                torch, params, cfg, prompt, new, counters, want,
+                "lm_recurrent")
+            if not (torch.equal(toks, toks2) and torch.equal(logits,
+                                                             logits2)):
+                fail(f"{what}: two kernel-path runs differ bitwise")
+            out["run_a_replay"] = rec2
+            out["replay_bitwise"] = True
+            first = toks[:, :1]
+        out[f"run_{run}"] = rec
+        del logits
+        out[f"teacher_forced_{run}"] = _kernel_vs_plain(
+            torch, params, cfg, B, S, REC_TF_STEPS[run],
+            1 if run == "a" else 2, f"{what} run {run}")
+
+    # decode (through #6 for the shared block) against the full forward of
+    # the same tokens (through #5): in f32 compute within LM_TOL_F32 (the
+    # decode path's arithmetic: a recurrent state stepped a token at a
+    # time against chunkwise sums); in bf16 compute, measured against the
+    # f32 full forward, no further from it than twice the bf16 full
+    # forward itself (or LM_TOL_BF16 x max|logit|, the larger): the step
+    # and the chunkwise sums round at other points, and the decoded
+    # state's roundings add up over the steps
+    _tick(f"{cfg.name} decode vs full forward")
+    Bn, Sn, Tn = REC_ND
+    toks = _lm_prompts(cfg, Bn, Sn, extra=Tn, seed=3).to(dev)
+    cfg32 = cfg.replace(compute_dtype=torch.float32)
+    res = {}
+    for name, c in (("bf16", cfg), ("f32", cfg32)):
+        with torch.no_grad():
+            full = transformer.lm_apply(params, toks, cfg=c, impl="pallas")[0]
+        res[name] = (full[:, Sn - 1:, :cfg.vocab].transpose(0, 1).float(),
+                     _teacher_forced(torch, params, c, toks, Sn,
+                                     "pallas")[0].float())
+        del full
+    (full16, dec16), (full32, dec32) = res["bf16"], res["f32"]
+    atol, rtol = LM_TOL_F32
+    f32_err = float((dec32 - full32).abs().max())
+    scale = float(full32.abs().max())
+    err16 = float((dec16 - full16).abs().max())
+    dec_off = float((dec16 - full32).abs().max())
+    full_off = float((full16 - full32).abs().max())
+    tol16 = max(2 * full_off, LM_TOL_BF16 * scale)
+    out["decode_vs_full_forward"] = {
+        "batch": Bn, "prefill": Sn, "steps": Tn, "f32_max_abs_err": f32_err,
+        "f32_tolerance": list(LM_TOL_F32), "bf16_max_abs_err": err16,
+        "bf16_per_step": (dec16 - full16).abs().amax(dim=(1, 2)).tolist(),
+        "bf16_decode_vs_f32_forward": dec_off,
+        "bf16_forward_vs_f32_forward": full_off,
+        "bf16_tolerance": tol16, "max_abs_logit": scale,
+        "argmax_agreement": float((dec16.argmax(-1) == full16.argmax(-1))
+                                  .float().mean())}
+    if not torch.allclose(dec32, full32, atol=atol, rtol=rtol):
+        fail(f"{what} f32 decode vs the full forward: max_abs_err {f32_err}"
+             f" beyond atol {atol} / rtol {rtol}")
+    if not dec_off <= tol16:
+        fail(f"{what} bf16 decode vs the f32 full forward: max_abs_err "
+             f"{dec_off} > {tol16} (the bf16 forward's own: {full_off})")
+    del res, full16, dec16, full32, dec32
+
+    # one profiled prefill and decode step at run (a)'s shape; the decode
+    # caches' bytes (the recurrent states are fixed-size, the shared
+    # block's k/v grow with the cache)
+    _tick(f"{cfg.name} profiles")
+    B, S, _ = REC_SERVE["a"]
+    prefill = make_prefill_step(cfg, "pallas")
+    decode = make_decode_step(cfg, "pallas")
+    ptoks = _lm_prompts(cfg, B, REC_PROFILE_S.get(cfg.name, (S,))[0],
+                        seed=1).to(dev)
+    out["prefill_profile"] = dict(
+        _profiled(torch, lambda: prefill(params, ptoks), cpu=False),
+        shape=list(ptoks.shape))
+    ptoks = _lm_prompts(cfg, B, S, seed=1).to(dev)
+    _, caches = prefill(params, ptoks)
+    caches = extend_caches(caches, cfg, S + 1)
+    out["decode_cache_bytes"] = _tree_bytes(caches)
+    out["decode_profile"] = _profiled(
+        torch, lambda: decode(params, first, caches, S), cpu=False)
+    del params, caches
+    _free(torch)
+    _tick(f"{cfg.name} served")
+    return out
+
+
+def _rec_train(torch, cfg, counters):
+    """Train ``lm`` on ``cfg`` through ``Session`` (``impl="chunked"``,
+    per-block remat, bf16 compute, AdamW at lr 3e-4) for
+    ``REC_TRAIN_STEPS`` steps of ``REC_TRAIN_B`` x ``REC_TRAIN_S`` tokens,
+    twice from one seed (bitwise); #1 on one step's embedding cotangent
+    against its plain versions and timed at its shape; one profiled
+    step."""
+    from repro_torch import interop
+    from repro_torch.data.lm_data import make_lm_sources
+    from repro_torch.engine import single_grad_fn
+    what = f"lm_recurrent {cfg.name}"
+    B, S, n = REC_TRAIN_B, REC_TRAIN_S[cfg.name], REC_TRAIN_STEPS
+    source = make_lm_sources(1, 64, S, cfg.vocab)[0]
+    _tick(f"{cfg.name} train")
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    sess = _lm_session(cfg, "lm", source, n, B)
+    res, launches, wall = _counted_run(torch, sess, counters)
+    peak = torch.cuda.max_memory_allocated()
+    rows = res.logger.history
+    losses = [r["loss"] for r in rows]
+    if len(losses) != n or not all(map(math.isfinite, losses)):
+        fail(f"{what} train: losses {losses}")
+    want = {k: 0 for k in counters}
+    want["segment_sum_2d"] = n
+    if launches != want:
+        fail(f"{what} train: launches {launches}, the design implies {want} "
+             "(one embedding backward a step)")
+    out = {"batch": B, "seq": S, "steps": n, "remat": cfg.remat,
+           "params": sum(x.numel() for x in
+                         interop.leaves(sess.state.params).values()),
+           "losses": losses, "launches": launches, "wall_s": wall,
+           "step_host_ms_in_run": (rows[-1]["wall"] - rows[0]["wall"])
+           / (n - 1) * 1e3,
+           "peak_mem_bytes": peak,
+           "state_bytes": sum(_tree_bytes(t) for t in (
+               sess.state.params, sess.state.opt_state.m,
+               sess.state.opt_state.v))}
+    ends = {k: v.cpu() for k, v in interop.leaves(res.params).items()}
+    del res
+    _free(torch)
+    _tick(f"{cfg.name} train replay")
+    with _lm_session(cfg, "lm", source, n, B) as again:
+        res2 = again.run()
+    if [r["loss"] for r in res2.logger.history] != losses or not all(
+            torch.equal(v.cpu(), ends[k])
+            for k, v in interop.leaves(res2.params).items()):
+        fail(f"{what} train: two {n}-step runs from one seed differ")
+    out["replay_bitwise"] = True
+    del res2, ends, again
+    _free(torch)
+
+    # #1 on one step's own embedding cotangent, at this config's shape
+    _tick(f"{cfg.name} #1 on the embedding's cotangent")
+    batch = {k: torch.from_numpy(v[:B]).to(DEVICE) for k, v in
+             source.items()}
+    (_, _, grads), calls = _capture_embed(
+        lambda: single_grad_fn(sess.model)(sess.state.params, batch))
+    del grads
+    out["embed_grad"] = _check_embed(torch, calls, what)
+    g, ids, V, _ = calls[0]
+    del calls
+    _free(torch)
+    out["segment_sum_2d"] = _embed_times(torch, g, ids, V)
+    del g, ids
+    _free(torch)
+    _tick(f"{cfg.name} step profile")
+    step, state = sess.step_fn, sess.state
+    Sp = REC_PROFILE_S.get(cfg.name, (S, S))[1]
+    pbatch = {k: v[:, :Sp].contiguous() for k, v in batch.items()}
+    out["step_profile"] = dict(_profiled(
+        torch, lambda: float(step(state, pbatch)[1].loss), cpu=False),
+        shape=[B, Sp])
+    del sess, state, step
+    _free(torch)
+    _tick(f"{cfg.name} trained")
+    return out
+
+
+def lm_recurrent_phase(torch, counters):
+    """zamba2-1.2b (38 layers, d=2048: 32 Mamba2 blocks of 64 heads, state
+    64, and the shared attention block, 32 heads of 64, window 4096,
+    applied at 6 of them through per-layer LoRA adapters) and xlstm-125m
+    (12 layers, d=768, mLSTM and sLSTM in turn) at full width and depth,
+    fp32 weights drawn on the card from a seed, bf16 compute."""
+    out = {"phase": "lm_recurrent", "compute_dtype": "bfloat16",
+           "serve_impl": "pallas", "train_impl": "chunked",
+           "tolerance": {"teacher_forced": f"{LM_TOL_BF16} x max|logit|",
+                         "decode_vs_full_forward":
+                         f"f32: atol/rtol {LM_TOL_F32}; bf16: against the "
+                         "f32 forward, max(2 x the bf16 forward's own "
+                         f"error, {LM_TOL_BF16} x max|logit|)",
+                         "embed_grad": "bitwise to the token-order sum; "
+                         "the rounding bound of the one-hot product"},
+           "configs": {}}
+    _T0[0] = time.perf_counter()
+    for cfg in _recurrent_configs():
+        t0 = time.perf_counter()
+        rec = {"serve": _rec_serve(torch, cfg, counters)}
+        rec["train"] = _rec_train(torch, cfg, counters)
+        rec["wall_s"] = time.perf_counter() - t0
+        out["configs"][cfg.name] = rec
+    out["launches"] = {
+        k: sum(r["serve"][run]["launches"][k] for r in
+               out["configs"].values()
+               for run in ("run_a", "run_a_replay", "run_b")
+               if run in r["serve"])
+        + sum(r["train"]["launches"][k] for r in out["configs"].values())
+        for k in counters}
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the LM attention kernels against their plain versions
 # ---------------------------------------------------------------------------
 
@@ -3126,9 +3472,15 @@ FA_CASES = [  # name, dtype, B, Sq, Sk, H, K, D, causal, window, rolled
      False),
     ("bf16_d192_window_pads", "bfloat16", 2, 300, 300, 8, 4, 192, True, 40,
      True),
+    # zamba2-1.2b's shared attention block: MHA (G = 1) at D = 64, window
+    # 4096, at lm_recurrent's runs (a) and (b) (the window live)
+    ("zamba2_prefill", "bfloat16", 8, 1024, 1024, 32, 32, 64, True, 4096,
+     False),
+    ("zamba2_prefill_b", "bfloat16", 1, 4200, 4200, 32, 32, 64, True, 4096,
+     False),
 ]
 FA_TIMED = ("prefill_a", "prefill_b", "mla_prefill", "f32_mla_prefill",
-            "granite_prefill")
+            "granite_prefill", "zamba2_prefill", "zamba2_prefill_b")
 # the LM decode shapes of runs (a) and (b), then edge cases
 FD_CASES = [  # name, dtype, B, C, H, K, D, pos, window, n_splits, block_k
     ("decode_a", "bfloat16", 8, 1056, 32, 8, 80, 1040, 4096, None,
@@ -3150,8 +3502,15 @@ FD_CASES = [  # name, dtype, B, C, H, K, D, pos, window, n_splits, block_k
      None),
     ("f32_g3_33_splits", "float32", 2, 1056, 6, 2, 128, 1000, 0, 33,
      None),
+    # zamba2-1.2b's shared attention block: G = 1, D = 64, at lm_recurrent's
+    # run (a) cache and run (b)'s rolling cache under the 4096 window
+    ("zamba2_decode", "bfloat16", 8, 1056, 32, 32, 64, 1040, 4096, None,
+     None),
+    ("zamba2_decode_b_rolling", "bfloat16", 1, 4200, 32, 32, 64, 4210, 4096,
+     None, None),
 ]
-FD_TIMED = ("decode_a", "decode_b_rolling", "granite_decode")
+FD_TIMED = ("decode_a", "decode_b_rolling", "granite_decode",
+            "zamba2_decode", "zamba2_decode_b_rolling")
 
 
 def _attn_err(torch, got, ref, name):
@@ -4124,45 +4483,60 @@ def main():
     if args.profile:
         emit(attn_sweep(torch))
         emit(profile_phase(torch))
+    _phase_start(torch, "serve")
     serve, serve_rows = serve_phase(torch, N_REQUESTS)
     emit(serve)
     gnn_counters = {"egnn_edge": edge_ops.egnn_edge_agg,
                     "egnn_edge_bwd": edge_ops.egnn_edge_bwd,
                     "segment_sum": ss_ops.segment_sum,
                     "segment_sum_2d": ss_ops.segment_sum.two_d}
+    _phase_start(torch, "serve_scaleout")
     scaleout = serve_scaleout_phase(torch, serve, gnn_counters)
     emit(scaleout)
+    _phase_start(torch, "train")
     train = train_phase(torch, gnn_counters)
     emit(train)
     bf16_counters = {**gnn_counters,
                      "egnn_edge_bf16": edge_ops.egnn_edge_agg.bf16,
                      "egnn_edge_bwd_bf16": edge_ops.egnn_edge_bwd.bf16}
+    _phase_start(torch, "gnn_bf16")
     gnn16 = gnn_bf16_phase(torch, serve_rows, bf16_counters)
     emit(gnn16)
     del serve_rows
+    _phase_start(torch, "train_pipeline")
     pipe = train_pipeline_phase(torch, gnn_counters)
     emit(pipe)
+    _phase_start(torch, "train_mtp")
     mtp = train_mtp_phase(torch)
     emit(mtp)
+    _phase_start(torch, "finetune")
     fine = finetune_phase(torch, gnn_counters)
     emit(fine)
+    _phase_start(torch, "lm_serve")
     lm = lm_serve_phase(torch, {"flash_attention": fa_ops.flash_attention,
                                 "flash_decode": fd_ops.flash_decode})
     emit(lm)
     if args.profile:
         emit(lm_profile(torch))
+    _phase_start(torch, "lm_train")
     lmt = lm_train_phase(torch, {
         "segment_sum_2d": ss_ops.segment_sum.two_d,
         "segment_sum": ss_ops.segment_sum,
         "flash_attention": fa_ops.flash_attention,
         "flash_decode": fd_ops.flash_decode})
     emit(lmt)
-    moe = lm_moe_phase(torch, {
-        "segment_sum_2d": ss_ops.segment_sum.two_d,
-        "segment_sum": ss_ops.segment_sum,
-        "flash_attention": fa_ops.flash_attention,
-        "flash_decode": fd_ops.flash_decode})
+    lm_counters = {"segment_sum_2d": ss_ops.segment_sum.two_d,
+                   "segment_sum": ss_ops.segment_sum,
+                   "flash_attention": fa_ops.flash_attention,
+                   "flash_decode": fd_ops.flash_decode}
+    _phase_start(torch, "lm_moe")
+    moe = lm_moe_phase(torch, lm_counters)
     emit(moe)
+    _phase_start(torch, "lm_recurrent")
+    rec = lm_recurrent_phase(torch, lm_counters)
+    emit(rec)
+    _phase_start(torch, "end")
+    emit({"phase": "memory", "at_phase_start": MEMORY})
     # #1 on each training path's own embedding cotangent, at its shape
     ss2 = lmt.pop("segment_sum_2d")
     ss2["checks_by_path"] = {
@@ -4171,10 +4545,15 @@ def main():
         "gnn_bf16": gnn16["train"]["grad_vs_plain"]["embed_grad"],
         "finetune": fine["embed_grad"],
         "lm_train": lmt["lm"]["embed_grad"],
-        **{f"lm_moe {name}": rec["train"]["embed_grad"]
-           for name, rec in moe["configs"].items()}}
-    ss2["by_shape"] = {f"lm_moe {name}": rec["train"]["segment_sum_2d"]
-                       for name, rec in moe["configs"].items()}
+        **{f"lm_moe {name}": r["train"]["embed_grad"]
+           for name, r in moe["configs"].items()},
+        **{f"lm_recurrent {name}": r["train"]["embed_grad"]
+           for name, r in rec["configs"].items()}}
+    ss2["by_shape"] = {
+        **{f"lm_moe {name}": r["train"]["segment_sum_2d"]
+           for name, r in moe["configs"].items()},
+        **{f"lm_recurrent {name}": r["train"]["segment_sum_2d"]
+           for name, r in rec["configs"].items()}}
     ss2["max_abs_err"] = max(c[c["dtype"]]["max_abs_err"]
                              for c in ss2["checks_by_path"].values())
     emit({"phase": "kernel", "name": "segment_sum_2d", "tolerance": {
@@ -4185,10 +4564,11 @@ def main():
     # pre-training pipeline (runs (a) and (b)), the task-parallel runs
     # (every rank of (a)-(c)), the bf16 GNN path (its serving passes and
     # its training run), fine-tuning (pre-training, both fine-tuning runs
-    # and the accum=2 step), LM serving (runs (a) and (b)) and LM training
-    # (runs (a) and (b)). #1 takes every embedding's backward: the species
-    # embedding's on the GNN training paths, the token embedding's on
-    # lm_train
+    # and the accum=2 step), LM serving (runs (a) and (b)), LM training
+    # (runs (a) and (b)), the MoE family and the recurrent family (each
+    # config's serving runs and training runs). #1 takes every embedding's
+    # backward: the species embedding's on the GNN training paths, the
+    # token embedding's on the LM training paths
     lm_runs = (lm["run_a"]["launches"], lm["run_b"]["launches"])
     s16, t16 = gnn16["serve"], gnn16["train"]["launches"]
     by_path = {
@@ -4223,13 +4603,17 @@ def main():
             "finetune": fine["pretrain"]["launches"]["segment_sum_2d"]
             + fine["launches"]["segment_sum_2d"],
             "lm_train": lmt["launches"]["segment_sum_2d"],
-            "lm_moe": moe["launches"]["segment_sum_2d"]},
+            "lm_moe": moe["launches"]["segment_sum_2d"],
+            "lm_recurrent": rec["launches"]["segment_sum_2d"]},
         "flash_attention": {"lm_serve": sum(r["flash_attention"]
                                             for r in lm_runs),
-                            "lm_moe": moe["launches"]["flash_attention"]},
+                            "lm_moe": moe["launches"]["flash_attention"],
+                            "lm_recurrent":
+                            rec["launches"]["flash_attention"]},
         "flash_decode": {"lm_serve": sum(r["flash_decode"]
                                          for r in lm_runs),
-                         "lm_moe": moe["launches"]["flash_decode"]}}
+                         "lm_moe": moe["launches"]["flash_decode"],
+                         "lm_recurrent": rec["launches"]["flash_decode"]}}
     launches = {k: sum(v.values()) for k, v in by_path.items()}
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")

@@ -1,6 +1,6 @@
 """Config registry of the ported architectures: ``get(name)`` /
 ``get_smoke(name)`` / ``ARCHS``. An arch ``repro`` knows but the port does
-not yet (SSM, hybrid, enc-dec, VLM) raises ``KeyError``."""
+not yet (enc-dec, VLM, the other attention families) raises ``KeyError``."""
 from __future__ import annotations
 
 import importlib
@@ -13,6 +13,8 @@ _MODULES = {
     "hydragnn-gfm": "hydragnn_gfm",
     "granite-moe-3b-a800m": "granite_moe_3b_a800m",
     "deepseek-v2-236b": "deepseek_v2_236b",
+    "zamba2-1.2b": "zamba2_1_2b",
+    "xlstm-125m": "xlstm_125m",
 }
 ARCHS = tuple(_MODULES)
 

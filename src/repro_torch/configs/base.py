@@ -2,13 +2,14 @@
 
 ``repro.configs.base`` imports jax for its dtypes, so the port keeps its own
 dataclass holding only the fields its ported paths read: the EGNN trunk and
-the MTL heads, and the decoder-only LM trunk (GQA ``attn``/``swa`` and
-DeepSeek-V2 ``mla`` blocks, the MoE feed-forward, per-block
+the MTL heads, and the decoder-only LM trunk (GQA ``attn``/``swa``,
+DeepSeek-V2 ``mla``, the recurrent ``mamba2``/``mlstm``/``slstm`` blocks
+and zamba's ``shared_attn``, the MoE feed-forward, per-block
 rematerialisation in training), plus the sharding and memory fields the
 ported configs set (``fsdp``, ``train_accum``, ``naive_tp``,
 ``moment_dtype``, ``swa_variant_window``, ``long_context_ok``), which the
 port carries for parity and does not read. Field names and defaults match
-the reference; SSM and encoder-decoder fields come with their slices."""
+the reference; encoder-decoder and frontend fields come with their slices."""
 from __future__ import annotations
 
 import dataclasses
@@ -37,8 +38,9 @@ class ArchConfig:
     rope_theta: float = 10000.0
     tie_embeddings: bool = True
     # attention pattern: 0 = full attention; >0 = sliding window. The unit
-    # is repeated to n_layers; the port's blocks are "attn", "swa" and
-    # "mla".
+    # is repeated to n_layers; the port's blocks are "attn", "swa", "mla",
+    # "mamba2", "mlstm", "slstm" and "shared_attn" (zamba-style
+    # shared-weight attention with per-application LoRA).
     window: int = 0
     block_pattern: tuple = ("attn",)
     # MoE -------------------------------------------------------------------
@@ -53,6 +55,14 @@ class ArchConfig:
     q_lora: int = 0
     rope_dims: int = 0             # per-head rotary sub-dim
     v_head_dim: int = 0
+    # SSM -------------------------------------------------------------------
+    ssm_state: int = 0
+    ssm_heads: int = 0
+    ssm_expand: int = 2
+    ssm_chunk: int = 256
+    conv_kernel: int = 4
+    mlstm_chunked: bool = True     # chunkwise-parallel mLSTM (the scan is
+                                   # the oracle)
     # carried for parity with the reference's configs, not read -------------
     naive_tp: bool = False
     moment_dtype: Any = torch.float32

@@ -1,5 +1,9 @@
 """Transformer assembly: the decoder-only LM; ``attn``, ``swa`` and ``mla``
-blocks, each with a SwiGLU or (``cfg.n_experts``) a MoE feed-forward.
+blocks, each with a SwiGLU or (``cfg.n_experts``) a MoE feed-forward; the
+recurrent ``mamba2``, ``mlstm`` and ``slstm`` blocks (``models.ssm``) and
+zamba's ``shared_attn`` (one GQA weight set, ``params["shared_attn"]``,
+applied at each such layer through the layer's own LoRA adapters), which
+have no feed-forward.
 
 ``repro`` stacks the parameters of each repetition of the config's
 ``block_pattern`` unit on a leading ``reps`` axis and drives them with
@@ -7,12 +11,14 @@ blocks, each with a SwiGLU or (``cfg.n_experts``) a MoE feed-forward.
 and loops over ``reps`` in Python. Prefill caches come out stacked the same
 way: ``caches["scan"]`` is a tuple (one entry per unit position) of dicts
 whose ``k``/``v`` are (reps, B, S, K, hd) (MLA: ``ckv`` (reps, B, S, r) and
-``krope`` (reps, B, S, dr)) and whose ``pos`` is (reps,). Remainder layers
-(n_layers not a multiple of the unit) are unrolled under ``params["rem"]``.
-The MoE balance terms of the blocks are summed into the trunk's aux.
+``krope`` (reps, B, S, dr); a recurrent block: its fixed-size state, e.g.
+Mamba2's ``ssm`` (reps, B, H, P, N) and ``conv``) and whose ``pos`` is
+(reps,). Remainder layers (n_layers not a multiple of the unit) are
+unrolled under ``params["rem"]``. The MoE balance terms of the blocks are
+summed into the trunk's aux.
 
-Other block types (mamba2, mlstm, slstm, shared_attn, enc-dec, frontends)
-raise ``NotImplementedError``: ROADMAP.md, queue 1.
+Other block types (enc-dec, frontends) raise ``NotImplementedError``:
+ROADMAP.md, queue 1.
 """
 from __future__ import annotations
 
@@ -27,8 +33,18 @@ from .common import (Params, dense, dense_init, embed, embedding_init,
                      zeros_init)
 from .mlp import swiglu_apply, swiglu_init
 from .moe import moe_apply, moe_init
+from .ssm import (mamba2_apply, mamba2_init, mamba2_state_init, mamba2_step,
+                  mlstm_apply, mlstm_init, mlstm_state_init, mlstm_step,
+                  slstm_apply, slstm_init, slstm_state_init, slstm_step)
 
-PORTED_BLOCKS = ("attn", "swa", "mla")
+PORTED_BLOCKS = ("attn", "swa", "mla", "mamba2", "mlstm", "slstm",
+                 "shared_attn")
+LORA_RANK = 64  # zamba2-style per-application adapters on the shared block
+# a recurrent block's (init, apply, step, state init)
+_MIXERS = {"mamba2": (mamba2_init, mamba2_apply, mamba2_step,
+                      mamba2_state_init),
+           "mlstm": (mlstm_init, mlstm_apply, mlstm_step, mlstm_state_init),
+           "slstm": (slstm_init, slstm_apply, slstm_step, slstm_state_init)}
 
 
 def _unported(what: str):
@@ -46,6 +62,10 @@ def _norm(cfg):
     return rmsnorm if cfg.norm == "rmsnorm" else layernorm
 
 
+def _has_ffn(btype: str) -> bool:
+    return btype in ("attn", "swa", "mla")
+
+
 def _norm_init(cfg, d=None, device="cpu"):
     d = d or cfg.d_model
     p = {"scale": ones_init((d,), cfg.param_dtype, device)}
@@ -60,10 +80,23 @@ def _norm_init(cfg, d=None, device="cpu"):
 
 def block_init(rng, cfg, btype: str, device="cpu") -> Params:
     _check_block(btype)
-    attn = mla_init(rng, cfg, device) if btype == "mla" else \
-        gqa_init(rng, cfg, device)
-    p = {"ln1": _norm_init(cfg, device=device), "attn": attn,
-         "ln2": _norm_init(cfg, device=device)}
+    p = {"ln1": _norm_init(cfg, device=device)}
+    if btype == "mla":
+        p["attn"] = mla_init(rng, cfg, device)
+    elif btype in ("attn", "swa"):
+        p["attn"] = gqa_init(rng, cfg, device)
+    elif btype == "shared_attn":
+        d, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        for nm, dout in (("q", H * hd), ("k", K * hd), ("v", K * hd)):
+            p[f"lora_{nm}_a"] = normal_init(rng, (d, LORA_RANK),
+                                            cfg.param_dtype, 0.02, device)
+            p[f"lora_{nm}_b"] = zeros_init((LORA_RANK, dout),
+                                           cfg.param_dtype, device)
+    else:
+        p["mixer"] = _MIXERS[btype][0](rng, cfg, device)
+    if not _has_ffn(btype):
+        return p
+    p["ln2"] = _norm_init(cfg, device=device)
     if cfg.n_experts:
         p["ffn"] = moe_init(rng, cfg, device)
     else:
@@ -72,31 +105,60 @@ def block_init(rng, cfg, btype: str, device="cpu") -> Params:
     return p
 
 
+def _shared_attn_params(shared: Params, bp: Params, cfg):
+    """The shared base weights merged with this application's LoRA deltas,
+    in compute dtype (``dense`` then leaves them as they are); ``wo`` has
+    no adapter."""
+    cd = cfg.compute_dtype
+    out = {}
+    for nm, key in (("q", "wq"), ("k", "wk"), ("v", "wv")):
+        w = shared[key]["w"].to(cd) + (
+            bp[f"lora_{nm}_a"].to(cd) @ bp[f"lora_{nm}_b"].to(cd))
+        out[key] = {"w": w}
+    out["wo"] = {"w": shared["wo"]["w"].to(cd)}
+    return out
+
+
 def block_apply(bp: Params, x, *, btype, cfg, positions, cache=None,
-                mode="train", impl="chunked", segments=1):
+                mode="train", impl="chunked", segments=1, shared=None):
     """Returns (x, new_cache, aux). mode=="train": no cache; "prefill":
     returns the block's new cache; "decode": consumes and updates the cache
-    (its slot in place). aux is the MoE balance term (per segment with
-    ``segments`` > 1, see ``moe_apply``), 0.0 for a SwiGLU block."""
+    (an attention cache's slot in place; a recurrent state comes back as
+    new tensors). aux is the MoE balance term (per segment with
+    ``segments`` > 1, see ``moe_apply``), 0.0 for other blocks. ``shared``
+    is ``params["shared_attn"]``, which a ``shared_attn`` block applies."""
     _check_block(btype)
     nrm = _norm(cfg)
     h = nrm(bp["ln1"], x)
-    if btype == "mla":
-        attend, kw = mla_apply, {}
-    else:
-        attend, kw = gqa_apply, {"window": cfg.window if btype == "swa"
-                                 else 0}
     new_cache = None
+    if btype in _MIXERS:
+        _, apply, step, _ = _MIXERS[btype]
+        if mode == "decode":
+            o, new_cache = step(bp["mixer"], h, cache, cfg=cfg)
+        elif mode == "prefill":
+            o, new_cache = apply(bp["mixer"], h, cfg=cfg, return_state=True)
+        else:
+            o = apply(bp["mixer"], h, cfg=cfg)
+        return x + o, new_cache, 0.0
+    if btype == "mla":
+        attend, ap, kw = mla_apply, bp["attn"], {}
+    elif btype == "shared_attn":
+        attend, ap = gqa_apply, _shared_attn_params(shared, bp, cfg)
+        kw = {"window": cfg.window}
+    else:
+        attend, ap = gqa_apply, bp["attn"]
+        kw = {"window": cfg.window if btype == "swa" else 0}
     if mode == "decode":
-        o, new_cache = attend(bp["attn"], h, cfg=cfg, positions=positions,
+        o, new_cache = attend(ap, h, cfg=cfg, positions=positions,
                               cache=cache, impl=impl, **kw)
     elif mode == "prefill":
-        o, new_cache = attend(bp["attn"], h, cfg=cfg, positions=positions,
+        o, new_cache = attend(ap, h, cfg=cfg, positions=positions,
                               cache="init", impl=impl, **kw)
     else:
-        o = attend(bp["attn"], h, cfg=cfg, positions=positions, impl=impl,
-                   **kw)
+        o = attend(ap, h, cfg=cfg, positions=positions, impl=impl, **kw)
     x = x + o
+    if not _has_ffn(btype):
+        return x, new_cache, 0.0
     h2 = nrm(bp["ln2"], x)
     aux = 0.0
     if cfg.n_experts:
@@ -108,9 +170,11 @@ def block_apply(bp: Params, x, *, btype, cfg, positions, cache=None,
 
 def block_cache_init(cfg, btype, batch, cache_len, device="cpu"):
     _check_block(btype)
+    if btype in _MIXERS:
+        return _MIXERS[btype][3](cfg, batch, device=device)
     if btype == "mla":
         return mla_cache_init(cfg, batch, cache_len, device=device)
-    if btype == "swa":
+    if btype in ("swa", "shared_attn"):
         w = cfg.window or cache_len
         return gqa_cache_init(cfg, batch, min(w, cache_len), device=device)
     return gqa_cache_init(cfg, batch, cache_len, device=device)
@@ -166,6 +230,8 @@ def lm_init(rng, cfg, device="cpu") -> Params:
             del tree, flat
     p["rem"] = {f"r{i}": block_init(rng, cfg, bt, device)
                 for i, bt in enumerate(rem)}
+    if "shared_attn" in cfg.pattern:
+        p["shared_attn"] = gqa_init(rng, cfg, device)
     p["ln_f"] = _norm_init(cfg, device=device)
     if not cfg.tie_embeddings:
         p["lm_head"] = dense_init(rng, cfg.d_model, cfg.padded_vocab,
@@ -200,11 +266,16 @@ def _remat(cfg, mode):
     return cfg.remat and mode == "train" and torch.is_grad_enabled()
 
 
-def _block(bp, x, *, remat, **kw):
+def _block(bp, x, *, remat, shared=None, **kw):
+    """One block, recomputed in the backward with ``remat``. ``shared``
+    (zamba's shared attention weights) goes to the checkpoint as an input
+    beside the block's own tree: its gradient sums over every
+    application."""
     if not remat:
-        return block_apply(bp, x, **kw)
+        return block_apply(bp, x, shared=shared, **kw)
     from torch.utils.checkpoint import checkpoint
-    return checkpoint(block_apply, bp, x, use_reentrant=False, **kw)
+    return checkpoint(block_apply, bp, x, use_reentrant=False,
+                      shared=shared, **kw)
 
 
 def _unstack(tree: Params, reps: int) -> list:
@@ -223,6 +294,7 @@ def run_trunk(params: Params, x, *, cfg, positions, mode="train",
     each block's input and recomputes the block in the backward."""
     unit, reps, rem = _pattern_split(cfg)
     remat = _remat(cfg, mode)
+    shared = params.get("shared_attn")
     aux = torch.zeros((segments,) if segments > 1 else (),
                       dtype=torch.float32, device=x.device)
     new_caches: Params = {}
@@ -240,9 +312,10 @@ def run_trunk(params: Params, x, *, cfg, positions, mode="train",
                 if mode == "decode":
                     c = {k: a[r] for k, a in caches["scan"][u].items()}
                     views[u].append(dict(c))
-                x, nc, a = _block(bp, x, remat=remat, btype=btype, cfg=cfg,
-                                  positions=positions, cache=c, mode=mode,
-                                  impl=impl, segments=segments)
+                x, nc, a = _block(bp, x, remat=remat, shared=shared,
+                                  btype=btype, cfg=cfg, positions=positions,
+                                  cache=c, mode=mode, impl=impl,
+                                  segments=segments)
                 aux = aux + a
                 per_unit[u].append(nc)
         if mode in ("prefill", "decode"):
@@ -253,8 +326,9 @@ def run_trunk(params: Params, x, *, cfg, positions, mode="train",
     for i, btype in enumerate(rem):
         c = caches["rem"][f"r{i}"] if (caches and "rem" in caches) else None
         x, nc, a = _block(params["rem"][f"r{i}"], x, remat=remat,
-                          btype=btype, cfg=cfg, positions=positions, cache=c,
-                          mode=mode, impl=impl, segments=segments)
+                          shared=shared, btype=btype, cfg=cfg,
+                          positions=positions, cache=c, mode=mode, impl=impl,
+                          segments=segments)
         aux = aux + a
         if nc is not None:
             new_caches.setdefault("rem", {})[f"r{i}"] = nc

@@ -10,8 +10,12 @@ Tolerances (fp32 compute): 2e-4 atol / 2e-3 rtol on logits, what
 ``tests/test_serve.py`` holds ``repro``'s own decode to against teacher
 forcing; caches 2e-5 (one projection and RoPE, summed in another order);
 the building blocks 1e-5. The bf16 case is stated where it is tested.
+The recurrent configs (zamba2-1.2b: Mamba2 and the shared attention block;
+xlstm-125m: mLSTM and sLSTM) carry fixed-size states as their caches,
+held to the same 2e-5.
 """
 import functools
+import re
 
 import jax
 import jax.numpy as jnp
@@ -50,9 +54,18 @@ CASES = {
     "qwen_smoke": "qwen1.5-0.5b",
     "granite_moe_smoke": "granite-moe-3b-a800m",
     "deepseek_smoke": "deepseek-v2-236b",
+    "zamba2_smoke": "zamba2-1.2b",
+    "xlstm_smoke": "xlstm-125m",
 }
 LM_ARCHS = ("h2o-danube-1.8b", "qwen1.5-0.5b", "granite-moe-3b-a800m",
-            "deepseek-v2-236b")
+            "deepseek-v2-236b", "zamba2-1.2b", "xlstm-125m")
+RECURRENT_ARCHS = ("zamba2-1.2b", "xlstm-125m")
+# each block type's cache (prefill's and decode's) leaves
+CACHE_KEYS = {"attn": {"k", "v", "pos"}, "swa": {"k", "v", "pos"},
+              "shared_attn": {"k", "v", "pos"},
+              "mla": {"ckv", "krope", "pos"}, "mamba2": {"ssm", "conv"},
+              "mlstm": {"C", "n", "m", "conv"},
+              "slstm": {"h", "c", "n", "m"}}
 
 
 def _cfgs(case):
@@ -66,8 +79,10 @@ def _cfgs(case):
 
 
 def _params(jcfg, seed=0):
-    """repro's tree with random biases (its init zeros them) and norm
-    scales, so every leaf matters."""
+    """repro's tree with random biases (its init zeros them), norm scales
+    and the recurrent blocks' zero- or one-initialised leaves (conv bias,
+    dt bias, D, the shared block's LoRA ``b`` factors), so every leaf
+    matters."""
     p = jt.lm_init(jax.random.PRNGKey(seed), jcfg)
     rng = np.random.default_rng(seed)
 
@@ -76,7 +91,8 @@ def _params(jcfg, seed=0):
         x = np.asarray(x)
         if "'b'" in name:
             return x + 0.1 * rng.standard_normal(x.shape).astype(x.dtype)
-        if "'scale'" in name:
+        if "'scale'" in name or re.search(
+                r"'(conv_b|dt_bias|D|lora_._b)'", name):
             return x + 0.1 * rng.standard_normal(x.shape).astype(x.dtype)
         return x
     return jax.tree_util.tree_map_with_path(perturb, p)
@@ -225,7 +241,9 @@ LM_FIELDS = ("name", "family", "citation", "n_layers", "d_model", "n_heads",
              "n_experts", "top_k", "n_shared_experts", "d_ff_expert",
              "router_aux_coef", "capacity_factor", "kv_lora", "q_lora",
              "rope_dims", "v_head_dim", "naive_tp", "fsdp", "train_accum",
-             "swa_variant_window", "long_context_ok", "remat")
+             "swa_variant_window", "long_context_ok", "remat", "ssm_state",
+             "ssm_heads", "ssm_expand", "ssm_chunk", "conv_kernel",
+             "mlstm_chunked")
 DTYPE_FIELDS = ("param_dtype", "compute_dtype", "moment_dtype")
 
 
@@ -248,9 +266,10 @@ def test_configs_match_repro(arch, smoke):
 def test_registry_knows_only_ported_archs():
     assert set(tconfigs.ARCHS) == {"h2o-danube-1.8b", "qwen1.5-0.5b",
                                    "hydragnn-gfm", "granite-moe-3b-a800m",
-                                   "deepseek-v2-236b"}
+                                   "deepseek-v2-236b", "zamba2-1.2b",
+                                   "xlstm-125m"}
     with pytest.raises(KeyError, match="not yet ported"):
-        tconfigs.get("zamba2-1.2b")
+        tconfigs.get("gemma3-12b")
 
 
 def test_lm_data_is_repro_s():
@@ -283,7 +302,8 @@ def test_interop_carries_lm_trees_and_caches():
 
 
 def test_lm_init_layout_matches_repro():
-    for case in ("attn_swa_rem", "h2o_smoke"):
+    for case in ("attn_swa_rem", "h2o_smoke", "zamba2_smoke",
+                 "xlstm_smoke"):
         jcfg, tcfg = _cfgs(case)
         jcfg, tcfg = jcfg.replace(n_tasks=3), tcfg.replace(n_tasks=3)
         want = jax.tree_util.tree_map(
@@ -319,19 +339,23 @@ def test_prefill_logits_and_caches_match_repro(case, impl):
     assert isinstance(caches["scan"], tuple)
     assert len(caches["scan"]) == len(want["scan"])
     assert set(caches) == set(want)
-    # GQA caches hold k/v, MLA's the latent ckv/krope
-    kv = ("ckv", "krope") if "mla" in tcfg.block_pattern else ("k", "v")
-    for got_u, want_u in zip(caches["scan"], want["scan"]):
-        assert set(got_u) == set(want_u) == {*kv, "pos"}
-        for k in kv:
-            assert tuple(got_u[k].shape) == want_u[k].shape
-            _close(got_u[k], want_u[k], atol=2e-5, rtol=2e-5)
-        assert got_u["pos"].dtype == torch.int32
-        np.testing.assert_array_equal(got_u["pos"].numpy(), want_u["pos"])
-    for name, c in want.get("rem", {}).items():
-        for k in kv:
-            _close(caches["rem"][name][k], c[k], atol=2e-5, rtol=2e-5)
-        assert int(caches["rem"][name]["pos"]) == int(c["pos"])
+    # GQA caches hold k/v, MLA's the latent ckv/krope, a recurrent block
+    # its state; each leaf in repro's dtype
+    unit = tcfg.block_pattern
+    rem = tcfg.pattern[len(tcfg.pattern) // len(unit) * len(unit):]
+    pairs = list(zip(unit, caches["scan"], want["scan"])) + [
+        (bt, caches["rem"][f"r{i}"], want["rem"][f"r{i}"])
+        for i, bt in enumerate(rem)]
+    for btype, got_u, want_u in pairs:
+        assert set(got_u) == set(want_u) == CACHE_KEYS[btype]
+        for k, w in want_u.items():
+            assert tuple(got_u[k].shape) == w.shape, k
+            assert str(got_u[k].dtype) == f"torch.{w.dtype}", k
+            if k == "pos":
+                np.testing.assert_array_equal(got_u[k].numpy(), w)
+            else:
+                _close(got_u[k].float(), np.asarray(w, np.float32),
+                       atol=2e-5, rtol=2e-5, msg=k)
 
 
 @pytest.mark.parametrize("impl", IMPLS)
@@ -401,7 +425,8 @@ def test_greedy_generate_matches_repro(case, impl):
 def test_extend_caches_matches_repro():
     """Padding to capacity; a window cache at or past the window keeps its
     length (repro's rule)."""
-    for case in ("swa", "attn", "attn_swa_rem", "deepseek_smoke"):
+    for case in ("swa", "attn", "attn_swa_rem", "deepseek_smoke",
+                 "zamba2_smoke", "xlstm_smoke"):
         ref = _reference(case)
         jcfg, tcfg = _cfgs(case)
         for cap in (16, 21, 40):
@@ -475,7 +500,7 @@ def test_bf16_compute_matches_repro():
 def test_unported_blocks_raise():
     _, tcfg = _cfgs("attn")
     rng = np.random.default_rng(0)
-    for bt in ("mamba2", "mlstm", "slstm", "shared_attn"):
+    for bt in ("enc_attn", "dec_attn"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tt.block_init(rng, tcfg, bt)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -504,3 +529,135 @@ def test_serve_lm_cli_on_cpu(capsys):
     plain = tserve.greedy_generate(params, cfg, prompt, 4, impl="chunked",
                                    device="cpu")
     assert torch.equal(plain, out)
+
+
+# ---------------------------------------------------------------------------
+# the recurrent configs: zamba2-1.2b and xlstm-125m
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _repro_decode_run(case, B, S, T, seed, from_zero=False):
+    """repro's jitted teacher-forced forward over S + T tokens and its
+    decode of the last T (after an S-token prefill, or from
+    ``lm_cache_init`` at token 0 with ``from_zero``), computed once."""
+    ref = _reference(case)
+    jcfg, _ = _cfgs(case)
+    jp = jax.tree_util.tree_map(jnp.asarray, ref["params"])
+    toks = _tokens(jcfg, B, S + T, seed=seed)
+    full = jax.jit(lambda p, t: jt.lm_apply(p, t, cfg=jcfg)[0])(
+        jp, jnp.asarray(toks))
+    decode = jax.jit(jserve.make_decode_step(jcfg))
+    if from_zero:
+        caches, prefill = jt.lm_cache_init(jp, jcfg, B, S + T), None
+    else:
+        prefill, caches = jax.jit(jserve.make_prefill_step(jcfg))(
+            jp, jnp.asarray(toks[:, :S]))
+        caches = jserve.extend_caches(caches, jcfg, S + T)
+    init = jax.tree_util.tree_map(np.asarray, caches)
+    dec = []
+    for t in range(S, S + T):
+        lg, caches = decode(jp, jnp.asarray(toks[:, t:t + 1]), caches,
+                            jnp.asarray(t))
+        dec.append(np.asarray(lg[:, 0]))
+    greedy = None if from_zero else np.asarray(jserve.greedy_generate(
+        jp, jcfg, jnp.asarray(toks[:, :S]), 5))
+    return dict(toks=toks, full=np.asarray(full), decode=dec, init=init,
+                prefill=None if prefill is None else np.asarray(prefill),
+                greedy=greedy)
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+def test_zamba2_prompt_past_the_window_matches_repro(impl):
+    """zamba2 smoke (window 32): a 40-token prompt, then 6 decode steps.
+    The shared block's prefill cache (40 slots) is past the window, so
+    ``extend_caches`` keeps it and decode rolls over it; every attention
+    layer is windowed, so decode also equals teacher forcing."""
+    ref = _reference("zamba2_smoke")
+    _, tcfg = _cfgs("zamba2_smoke")
+    tp = interop.to_torch(ref["params"])
+    S, T = 40, 6
+    want = _repro_decode_run("zamba2_smoke", 2, S, T, 7)
+    toks = want["toks"]
+    logits, caches = tserve.make_prefill_step(tcfg, impl)(
+        tp, torch.from_numpy(toks[:, :S]))
+    _close(logits, want["prefill"], msg="prefill")
+    _close(logits, want["full"][:, :S], msg="prefill vs full")
+    caches = tserve.extend_caches(caches, tcfg, S + T)
+    assert caches["scan"][5]["k"].shape == (1, 2, S, 4, 32)
+    decode = tserve.make_decode_step(tcfg, impl)
+    for i, t in enumerate(range(S, S + T)):
+        got, caches = decode(tp, torch.from_numpy(toks[:, t:t + 1]), caches,
+                             t)
+        _close(got[:, 0], want["decode"][i], msg=f"decode {t}")
+        _close(got[:, 0], want["full"][:, t], msg=f"teacher {t}")
+    got = tserve.greedy_generate(tp, tcfg, torch.from_numpy(toks[:, :S]), 5,
+                                 impl=impl, device="cpu")
+    np.testing.assert_array_equal(got.numpy(), want["greedy"])
+
+
+@pytest.mark.parametrize("arch", RECURRENT_ARCHS)
+def test_recurrent_lm_cache_init_decodes_from_token_zero(arch):
+    """Decode from ``lm_cache_init`` (zero states; Mamba2's conv window in
+    f32, as ``repro``'s) over 12 tokens against ``repro``'s decode from
+    its own ``lm_cache_init`` and its teacher-forced forward."""
+    case = {"zamba2-1.2b": "zamba2_smoke", "xlstm-125m": "xlstm_smoke"}[arch]
+    ref = _reference(case)
+    _, tcfg = _cfgs(case)
+    tp = interop.to_torch(ref["params"])
+    want = _repro_decode_run(case, 2, 0, 12, 8, from_zero=True)
+    toks = want["toks"]
+    caches = tt.lm_cache_init(tp, tcfg, 2, 12)
+    jax.tree_util.tree_map(
+        lambda a, b: np.testing.assert_array_equal(a, b), want["init"],
+        interop.to_numpy(caches))
+    decode = tserve.make_decode_step(tcfg, "chunked")
+    for t in range(12):
+        got, caches = decode(tp, torch.from_numpy(toks[:, t:t + 1]), caches,
+                             t)
+        _close(got[:, 0], want["decode"][t], msg=f"decode {t}")
+        _close(got[:, 0], want["full"][:, t], msg=f"teacher {t}")
+
+
+@pytest.mark.parametrize("arch", RECURRENT_ARCHS)
+def test_recurrent_bf16_compute_matches_repro(arch):
+    """The smoke configs at their own bf16 compute: prefill logits and two
+    decode steps against ``repro``'s full forward, within 5e-2 x
+    max|logit| (``test_bf16_compute_matches_repro``'s tolerance: both
+    sides round at the same points, in another order)."""
+    jcfg, tcfg = j_get_smoke(arch), tconfigs.get_smoke(arch)
+    jp = _params(jcfg, seed=4)
+    tp = interop.to_torch(jax.tree_util.tree_map(np.asarray, jp))
+    toks = _tokens(jcfg, 2, 18, seed=4)
+    full, _, _ = jt.lm_apply(jp, jnp.asarray(toks), cfg=jcfg)
+    scale = float(np.abs(np.asarray(full)).max())
+    for impl in IMPLS:
+        logits, caches = tserve.make_prefill_step(tcfg, impl)(
+            tp, torch.from_numpy(toks[:, :16]))
+        _close(logits, np.asarray(full[:, :16]), atol=5e-2 * scale, rtol=0)
+        caches = tserve.extend_caches(caches, tcfg, 18)
+        for t in (16, 17):
+            logits, caches = tserve.make_decode_step(tcfg, impl)(
+                tp, torch.from_numpy(toks[:, t:t + 1]), caches, t)
+            _close(logits[:, 0], np.asarray(full[:, t]), atol=5e-2 * scale,
+                   rtol=0, msg=f"{impl} step {t}")
+
+
+@pytest.mark.parametrize("arch", RECURRENT_ARCHS)
+def test_recurrent_archs_through_the_launchers(arch, capsys):
+    """``launch.serve_lm`` and ``launch.train --mode lm`` take the
+    recurrent archs by name at the smoke width on the CPU: tokens equal to
+    the plain path's, finite losses."""
+    from repro_torch.launch import serve_lm
+    from repro_torch.launch import train as t_launch
+    toks = serve_lm.main(["--device", "cpu", "--arch", arch])
+    assert toks.shape == (4, 16)
+    assert f'"arch": "{arch}"' in capsys.readouterr().out
+    cfg = tconfigs.get_smoke(arch)
+    params = tt.lm_init(np.random.default_rng(0), cfg)
+    prompt = t_lm_data.make_lm_source(1, 4, 32, cfg.vocab)["tokens"]
+    plain = tserve.greedy_generate(params, cfg, prompt, 16, impl="chunked",
+                                   device="cpu")
+    assert torch.equal(plain, toks)
+    loss = t_launch.main(["--mode", "lm", "--device", "cpu", "--arch", arch,
+                          "--steps", "4", "--batch", "2", "--seq", "32"])
+    assert np.isfinite(loss)

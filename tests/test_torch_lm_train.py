@@ -30,7 +30,27 @@ package: the granite-moe smoke multi-task case in bf16 does so for one of
 the gradients behind that token then differ by more than a rounding. The
 multi-task MoE cases therefore run in f32 only; the single-task bf16 MoE
 cases route alike at their seeds and are held to the bf16 tolerance.
+
+The recurrent configs (zamba2-1.2b: Mamba2 and the shared attention
+block, whose weights take a gradient summed over every application;
+xlstm-125m: mLSTM and sLSTM) are held to the same tolerances, but for
+their bf16 gradients. Some of their leaves' gradients are sums that
+cancel: a shift of all of a head's mLSTM input gates leaves the
+stabilised output unchanged wherever its denominator exceeds 1, so the
+input-gate bias's f32 gradient is ~1e-9 and each package's bf16 value is
+rounding noise; ``repro``'s own bf16 gradient of Mamba2's ``D`` and
+``A_log`` departs from its f32 gradient by up to 0.9 of the leaf's
+largest entry, and changing only where the port's bf16 conv rounds
+moves its A_log gradient by 30-50% of an entry. So a bf16 gradient leaf
+of these configs is held to ``repro``'s bf16 leaf within
+``BF16_GRAD_TOL`` + 2 r of its size, in max and in 2-norm, r the largest
+relative departure of ``repro``'s own bf16 gradient from its f32 one over
+that parameter's leaves in every layer: the port no noisier than twice
+the reference's own rounding of that parameter (the worst reading at
+these seeds: 0.70 of the bound, mLSTM's input-gate bias under remat).
 """
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -44,6 +64,7 @@ from repro.engine import Session as JSession
 from repro.engine import SessionConfig as JSessionConfig
 from repro.engine import multitask_grad_fn as j_multitask_grad_fn
 from repro.models import transformer as jt
+from repro.train import checkpoint as j_ckpt
 from repro.train.loop import make_lm_loss as j_make_lm_loss
 
 from repro_torch import configs as tconfigs
@@ -55,6 +76,7 @@ from repro_torch.engine import (Session, SessionConfig, SingleTaskModel,
                                 single_grad_fn)
 from repro_torch.launch import train as t_launch
 from repro_torch.models import common as tcommon
+from repro_torch.models import transformer as tt
 from repro_torch.train import checkpoint as t_ckpt
 from repro_torch.train.loop import make_lm_loss
 
@@ -62,7 +84,8 @@ F32_TOL = 1e-5
 BF16_TOL = 4e-2
 BF16_GRAD_TOL = 5e-2
 ARCHS = ("qwen1.5-0.5b", "h2o-danube-1.8b", "granite-moe-3b-a800m",
-         "deepseek-v2-236b")
+         "deepseek-v2-236b", "zamba2-1.2b", "xlstm-125m")
+RECURRENT_ARCHS = ("zamba2-1.2b", "xlstm-125m")
 MOE_ARCHS = ("granite-moe-3b-a800m", "deepseek-v2-236b")
 DTYPES = {"f32": (jnp.float32, torch.float32, F32_TOL),
           "bf16": (jnp.bfloat16, torch.bfloat16, BF16_TOL)}
@@ -110,6 +133,56 @@ def _close_grads(got, want, dtype):
         assert float(np.linalg.norm(g - w)) <= BF16_GRAD_TOL * norm, k
 
 
+def _kind(key):
+    """A gradient leaf's parameter name without its layer: the same
+    parameter of every repetition and remainder layer."""
+    return re.sub(r"(scan/u\d+|rem/r\d+)/", "", key)
+
+
+def _close_grads_to_noise(got, want, want_f32, shares=None):
+    """bf16 gradient leaves of the recurrent configs: each within
+    ``BF16_GRAD_TOL`` + 2 r of its size, in max and in 2-norm, r the
+    largest relative departure of ``repro``'s own bf16 gradient from its
+    f32 one (``want_f32``) over the leaves of that parameter in every
+    layer. ``shares`` collects each leaf's error over its bound."""
+    wl, fl = (interop.leaves(jax.tree_util.tree_map(
+        lambda x: np.asarray(x, np.float64), t)) for t in (want, want_f32))
+    gl = interop.leaves(got)
+    assert set(gl) == set(wl) == set(fl)
+    noise = {}
+    for k, w in wl.items():
+        top, norm = float(np.abs(w).max()), float(np.linalg.norm(w))
+        assert top > 0, k
+        r = (float(np.abs(w - fl[k]).max()) / top,
+             float(np.linalg.norm(w - fl[k])) / norm)
+        old = noise.get(_kind(k), (0.0, 0.0))
+        noise[_kind(k)] = (max(old[0], r[0]), max(old[1], r[1]))
+    for k, w in wl.items():
+        g = gl[k].double().numpy()
+        assert g.shape == w.shape, k
+        r_max, r_norm = noise[_kind(k)]
+        share = (float(np.abs(g - w).max()) / (
+            (BF16_GRAD_TOL + 2 * r_max) * float(np.abs(w).max())),
+            float(np.linalg.norm(g - w)) / (
+            (BF16_GRAD_TOL + 2 * r_norm) * float(np.linalg.norm(w))))
+        if shares is not None:
+            shares[k] = share
+        assert max(share) <= 1.0, (k, share)
+
+
+def _live_lora(params, seed=0):
+    """repro's tree with the shared attention block's LoRA ``b`` factors
+    (zero at init, which zeroes the ``a`` factors' gradients) drawn, so
+    every adapter leaf takes a gradient; other trees unchanged."""
+    rng = np.random.default_rng(seed)
+
+    def draw(path, x):
+        if re.search(r"'lora_._b'", jax.tree_util.keystr(path)):
+            return jnp.asarray(0.02 * rng.standard_normal(x.shape), x.dtype)
+        return x
+    return jax.tree_util.tree_map_with_path(draw, params)
+
+
 def _batch(cfg, B, S, T=None, seed=3):
     src = make_lm_sources(T or 1, B, S, cfg.vocab, seed=seed)
     if T is None:
@@ -128,7 +201,7 @@ def test_lm_loss_and_grads_match_repro(arch, dtype, remat):
     """``make_lm_loss`` through ``single_grad_fn``: the loss and every
     gradient leaf, with and without per-block rematerialisation."""
     jcfg, tcfg = _cfgs(arch, dtype, remat=remat)
-    params = jt.lm_init(jax.random.PRNGKey(0), jcfg)
+    params = _live_lora(jt.lm_init(jax.random.PRNGKey(0), jcfg))
     batch = _batch(tcfg, 2, 24)
     jl, jg = jax.jit(jax.value_and_grad(j_make_lm_loss(jcfg)))(
         params, {k: jnp.asarray(v) for k, v in batch.items()})
@@ -139,6 +212,11 @@ def test_lm_loss_and_grads_match_repro(arch, dtype, remat):
     tol = DTYPES[dtype][2]
     assert metrics == {}
     _close(tl.numpy(), jl, tol, "loss")
+    if dtype == "bf16" and arch in RECURRENT_ARCHS:
+        _, jg32 = jax.jit(jax.value_and_grad(j_make_lm_loss(
+            jcfg.replace(compute_dtype=jnp.float32))))(
+            params, {k: jnp.asarray(v) for k, v in batch.items()})
+        return _close_grads_to_noise(tg, jg, jg32)
     _close_grads(tg, jg, dtype)
 
 
@@ -152,7 +230,7 @@ def test_lm_multitask_matches_repro(arch, dtype):
     jcfg, tcfg = _cfgs(arch, dtype, n_tasks=3)
     jmodel = j_make_lm_multitask(jcfg)
     tmodel = make_lm_multitask(tcfg)
-    params = jmodel.init(jax.random.PRNGKey(1))
+    params = _live_lora(jmodel.init(jax.random.PRNGKey(1)))
     batch = _batch(tcfg, 2, 16, T=3)
     tw = (1.0, 0.5, 2.0)
     jl, jm, jg = jax.jit(j_multitask_grad_fn(jmodel, 3, tw))(
@@ -164,6 +242,11 @@ def test_lm_multitask_matches_repro(arch, dtype):
     _close(tl.numpy(), jl, tol, "loss")
     _close(tm["per_task_loss"].numpy(), jm["per_task_loss"], tol,
            "per_task_loss")
+    if dtype == "bf16" and arch in RECURRENT_ARCHS:
+        _, _, jg32 = jax.jit(j_multitask_grad_fn(j_make_lm_multitask(
+            jcfg.replace(compute_dtype=jnp.float32)), 3, tw))(
+            params, {k: jnp.asarray(v) for k, v in batch.items()})
+        return _close_grads_to_noise(tg, jg, jg32)
     _close_grads(tg, jg, dtype)
 
 
@@ -260,8 +343,8 @@ def test_embed_backward_matches_repro_take_bf16():
 # ---------------------------------------------------------------------------
 
 def _session_pair(model, jcfg, tcfg, sources, steps=5, batch=2, **kw):
-    common = dict(steps=steps, batch_per_task=batch, lr=2e-3, warmup=2,
-                  log_every=1, verbose=False, seed=0, **kw)
+    common = dict(dict(steps=steps, batch_per_task=batch, lr=2e-3, warmup=2,
+                       log_every=1, verbose=False, seed=0), **kw)
     js = JSession.from_config(JSessionConfig(model=model, arch=jcfg,
                                              **common), sources=sources)
     ts = Session.from_config(SessionConfig(model=model, arch=tcfg,
@@ -312,6 +395,65 @@ def test_moe_lm_session_matches_repro(arch):
     tl = [r["loss"] for r in tr.logger.history]
     assert len(tl) == len(jl) == 3 and all(np.isfinite(tl))
     np.testing.assert_allclose(tl, jl, rtol=1e-4)
+
+
+def test_granite_moe_at_its_expert_count_follows_repro():
+    """The rise of the full-width granite-moe losses over 3 steps at lr
+    3e-4 with no warmup (``chip_smoke.py``'s ``lm_moe``): granite at its
+    own 40 experts, top-8, expert width 128, d=384 (6/2 heads of 64), 2
+    layers, its real vocab (49,155), f32 compute; 3 ``Session`` steps of
+    4 x 32 tokens at lr 3e-4, no warmup. Each step's loss within 1e-4
+    relative of ``repro``'s: the port follows ``repro`` step for step."""
+    kw = dict(d_model=384, n_heads=6, n_kv_heads=2, head_dim=64,
+              n_experts=40, top_k=8, d_ff_expert=128, d_ff=128,
+              vocab=49155, n_layers=2)
+    jcfg, tcfg = _cfgs("granite-moe-3b-a800m", "f32", **kw)
+    source = j_make_lm_sources(1, 12, 32, jcfg.vocab)[0]
+    jr, tr, _ = _session_pair("lm", jcfg, tcfg, source, steps=3, batch=4,
+                              lr=3e-4, warmup=0)
+    jl = [r["loss"] for r in jr.logger.history]
+    tl = [r["loss"] for r in tr.logger.history]
+    assert len(tl) == len(jl) == 3 and all(np.isfinite(tl))
+    np.testing.assert_allclose(tl, jl, rtol=1e-4)
+
+
+@pytest.mark.parametrize("arch", RECURRENT_ARCHS)
+def test_recurrent_lm_session_matches_repro(arch):
+    """``model="lm"`` on the recurrent smoke configs, 3 steps: each
+    step's loss within 1e-4 relative of ``repro``'s."""
+    jcfg, tcfg = _cfgs(arch, "f32")
+    source = j_make_lm_sources(1, 16, 16, jcfg.vocab)[0]
+    jr, tr, _ = _session_pair("lm", jcfg, tcfg, source, steps=3, batch=4)
+    jl = [r["loss"] for r in jr.logger.history]
+    tl = [r["loss"] for r in tr.logger.history]
+    assert len(tl) == len(jl) == 3 and all(np.isfinite(tl))
+    np.testing.assert_allclose(tl, jl, rtol=1e-4)
+
+
+@pytest.mark.parametrize("arch", RECURRENT_ARCHS)
+def test_recurrent_checkpoints_restore_across_packages(arch, tmp_path):
+    """An LM tree with the recurrent blocks' leaves (and zamba2's
+    ``shared_attn``) written by either package restores bit for bit in
+    the other, into a shape-only template."""
+    jcfg, tcfg = _cfgs(arch, "f32")
+    jp = jt.lm_init(jax.random.PRNGKey(2), jcfg)
+    path = str(tmp_path / "from_repro")
+    j_ckpt.save(path, {"params": jp}, metadata={"step": 3})
+    template = tt.lm_init(np.random.default_rng(0), tcfg, device="meta")
+    got = t_ckpt.restore(path, {"params": template})["params"]
+    want = interop.leaves(jax.tree_util.tree_map(np.asarray, jp))
+    assert set(interop.leaves(got)) == set(want)
+    for k, v in interop.leaves(got).items():
+        np.testing.assert_array_equal(v, want[k], err_msg=k)
+    assert t_ckpt.load_metadata(path) == {"step": 3}
+    tp = tt.lm_init(np.random.default_rng(1), tcfg)
+    path = str(tmp_path / "from_port.npz")
+    t_ckpt.save(path, {"params": tp})
+    back = j_ckpt.restore(path, {"params": jax.eval_shape(lambda: jp)})
+    back = interop.leaves(jax.tree_util.tree_map(np.asarray,
+                                                 back["params"]))
+    for k, v in interop.leaves(tp).items():
+        np.testing.assert_array_equal(back[k], v.numpy(), err_msg=k)
 
 
 @pytest.mark.parametrize("moment_dtype", [torch.float32, torch.bfloat16])
