@@ -56,6 +56,11 @@ Phases, each printing one JSON line:
      the session's own ``predict_one`` and within ``SERVE_TOL`` of one
      device (whether bitwise is recorded), ``max_batch=6`` on 4 entries
      raises, #3 (fused) or #2 (pallas) launched 4 x entries x batches;
+     (e) five cycles of an 8-replica session opened, warmed up, serving
+     40 requests and closed: the bytes allocated on the card after each
+     (the cuBLAS workspaces of every (handle, stream) pair that ran a
+     GEMM) stay at the first cycle's, the serving streams coming from a
+     pool keyed by the thread's cuBLAS handle;
   4. train: ``Session`` trains hydragnn-gfm at full width under
      ``"fused"`` for 10 steps (5 synthetic sources, 8 graphs each per step,
      A=64, E=2048, AdamW, a checkpoint). Every loss is finite; the forward
@@ -146,7 +151,8 @@ Phases, each printing one JSON line:
      their ratio recorded as information;
   5. lm kernels: flash attention (#5) and flash decode (#6) against their
      plain versions on the card, f32 and bf16, causal with and without a
-     window, GQA (G = 1, 2, 3, 4, 8, 16), head dims 16 to 192, ragged
+     window and bidirectional, GQA (G = 1, 2, 3, 4, 7, 8, 16), head dims
+     16 to 192, ragged
      lengths, rotated (rolling) positions with pads,
      and for #6 splits with no valid key and splits past the cache end;
      timed beside ``scaled_dot_product_attention`` (``library_ms``, never
@@ -224,6 +230,33 @@ Phases, each printing one JSON line:
      starts with the garbage collected, the cuBLAS workspaces of earlier
      phases freed and the peak counter reset; the ``memory`` line gives
      the bytes still allocated at each phase's start, before and after;
+  6e. lm_frontends: the modality frontends and the encoder-decoder at
+     full width and depth, fp32 weights drawn on the card from a seed,
+     bf16 compute: internvl2-1b (24 layers, d=896, 14 / 2 heads of 64,
+     qkv bias, a vision projector putting 256 seeded frames of width 1024
+     before the text) and seamless-m4t-medium (12 encoder and 12 decoder
+     layers, d=1024, 16 heads of 64, layernorm, an audio projector, 4096
+     seeded source frames). seamless's ``encode`` of 8 x 4096 frames
+     through #5 (bidirectional, once a layer) within ``LM_TOL_BF16`` of
+     the plain path's memory. Each served twice at B=8, bitwise equal:
+     internvl2 by ``make_prefill_step(media=)`` over 256 + 768 positions
+     and 31 decode steps from position 1024 (#5 once a layer a prefill,
+     #6 once a layer a step), seamless by ``greedy_generate(memory=)`` on
+     a 1024-token prompt (#5 twice a layer a prefill, self and cross; a
+     step #6 once a layer and #5 once, the cross-attention of one query);
+     teacher-forced logits (prefill + 8 steps) of the kernel path within
+     ``LM_TOL_BF16`` of the plain path's, decode within it of the full
+     forward (argmax agreement beside); one prefill, decode step and
+     encode profiled, and the f32 unembedding's device time beside the
+     prefill's. Then ``lm`` trains 3 steps (internvl2 8 x (256 media +
+     768 text), seamless 2 x 1024 with 4096 frames, the batch cut from 8:
+     its encoder keeps every layer's attention probabilities under
+     autograd), twice, bitwise; #1 once a step, held on one step's
+     cotangent and timed at its shape; peak memory; one step profiled.
+     Phase 5 holds #5 at seamless's encoder, cross-attention (1024 and 1
+     query over 4096 keys, positions 0), causal self-attention and
+     internvl2's prefill (G = 7), and at cross and causal shapes with
+     distinct positions and pads; #6 at G = 7 and at seamless's decode;
   7. the ``kernels`` summary line (#1 ``segment_sum_2d`` apart from #2
      ``segment_sum`` since #1 runs every embedding's backward), the
      ``nvidia-smi`` line, and the final ``{"ok": true, "device": ...}``
@@ -795,14 +828,16 @@ def _edge_bwd_bounds(B, A, E, H, n_valid, need_dpos, bf16=False):
             "operations": gemm_ops + edge_ops, "bytes": nbytes}
 
 
-def _gemm_library(torch, B, A, H, g, dev):
+def _gemm_library(torch, B, A, H, g, dev, dtype=None):
     """The six node-level products of #4 as ``torch.matmul`` calls (TF32
-    off, as ``repro_torch`` pins it): a yardstick for the GEMM part only,
-    never used by the port."""
+    off, as ``repro_torch`` pins it; in ``dtype``, f32 by default): a
+    yardstick for the GEMM part only, never used by the port."""
     M = B * A
-    x = [torch.randn((M, H), generator=g, device=dev) for _ in range(5)]
+    dt = dtype or torch.float32
+    x = [torch.randn((M, H), generator=g, device=dev).to(dt)
+         for _ in range(5)]
     gm, sm, hm, dpi, dpj = x
-    w0i, w0j, w1 = (torch.randn((H, H), generator=g, device=dev)
+    w0i, w0j, w1 = (torch.randn((H, H), generator=g, device=dev).to(dt)
                     for _ in range(3))
 
     def library():
@@ -1064,12 +1099,52 @@ def _crash_replica(rep, r, sample):
         time.sleep(0.005)
 
 
+SESSION_CYCLES = 5                  # (e): open-use-close cycles
+
+
+def _session_cycles(torch, params, cfg, spec, samples, heads, refs):
+    """(e) ``SESSION_CYCLES`` cycles of an 8-replica session opened,
+    warmed up, serving 40 requests (rows bitwise to ``refs``) and closed:
+    the bytes allocated on the card after each cycle (garbage collected,
+    the cached blocks returned), which hold the cuBLAS workspaces of every
+    (handle, stream) pair that ran a GEMM. The serving streams come from a
+    pool keyed by the thread's cuBLAS handle, so the cycles after the
+    first add none: each cycle's bytes must stay at the first's."""
+    from repro_torch.launch.mesh import make_replica_meshes
+    from repro_torch.serve import ReplicaServeSession
+    from repro_torch.serve.engine import STREAMS
+    after, pool, ok = [], [], True
+    for _ in range(SESSION_CYCLES):
+        with ReplicaServeSession(
+                params, cfg, spec=spec, max_batch=8, max_wait_ms=5.0,
+                meshes=make_replica_meshes(
+                    SCALEOUT_REPLICAS,
+                    devices=[DEVICE] * SCALEOUT_REPLICAS)) as rep:
+            rep.warmup()
+            ok = ok and rows_bitwise(_served(rep.submit_many(
+                samples[:40], heads[:40])), refs[:40])
+        del rep
+        _free(torch)
+        after.append(torch.cuda.memory_allocated())
+        pool.append(len(STREAMS))
+    checks = {"rows_bitwise": ok,
+              "bytes_at_first_cycle": max(after) == after[0]}
+    if not all(checks.values()):
+        fail(f"serve_scaleout (e): {checks}, allocated bytes after each "
+             f"cycle {after}, pool streams {pool}")
+    return {"cycles": SESSION_CYCLES, "replicas": SCALEOUT_REPLICAS,
+            "checks": checks, "allocated_bytes_after_cycle": after,
+            "pool_streams_after_cycle": pool}
+
+
 def serve_scaleout_phase(torch, serve, counters):
     """Multi-device serving on the one card at full width: (a) 8 replicas
     (8 streams, 8 param copies) behind the router; (b) failover, every
     replica dead, ``restart_workers``; (c) close under load; (d) rows split
-    over 2 and 4 entries under ``"fused"`` and ``"pallas"``. ``counters``
-    are zeroed just before (a)'s and each (d) run's requests."""
+    over 2 and 4 entries under ``"fused"`` and ``"pallas"``; (e) sessions
+    opened and closed five times leave the card's allocated bytes (the
+    cuBLAS workspaces) at the first cycle's. ``counters`` are zeroed just
+    before (a)'s and each (d) run's requests."""
     from repro_torch import interop
     from repro_torch.configs.hydragnn_gfm import CONFIG
     from repro_torch.launch.mesh import make_replica_meshes
@@ -1101,7 +1176,6 @@ def serve_scaleout_phase(torch, serve, counters):
         firsts = [next(iter(interop.leaves(s._entries[0].shared).values()))
                   for s in rep.replicas]
         storages = {t.untyped_storage().data_ptr() for t in firsts}
-        streams = {s._entries[0].stream for s in rep.replicas}
         for c in counters.values():
             c.launches = 0
         t0 = time.perf_counter()
@@ -1109,6 +1183,9 @@ def serve_scaleout_phase(torch, serve, counters):
         wall = time.perf_counter() - t0
         launches = {k: c.launches for k, c in counters.items()}
         st = rep.stats()
+        # each replica's worker ran on one stream of the pool, no two
+        # workers on one
+        worker_streams = [s.worker_streams for s in rep.replicas]
     c = st["counters"]
     checks = {
         "rows_bitwise_vs_single": rows_bitwise(res, refs),
@@ -1116,7 +1193,8 @@ def serve_scaleout_phase(torch, serve, counters):
         "outstanding_zero": st["scheduler"]["outstanding"]
         == [0] * SCALEOUT_REPLICAS,
         "param_storages": len(storages) == SCALEOUT_REPLICAS,
-        "streams": len(streams) == SCALEOUT_REPLICAS,
+        "streams": all(len(w) == 1 for w in worker_streams)
+        and len(set().union(*worker_streams)) == SCALEOUT_REPLICAS,
         "launches": launches["egnn_edge"] == 4 * c["batches"] > 0
         and launches["segment_sum"] == 0,
         "shapes": shapes <= spec.n_shapes * SCALEOUT_REPLICAS}
@@ -1242,6 +1320,8 @@ def serve_scaleout_phase(torch, serve, counters):
                 "requests_per_s": SCALEOUT_REQUESTS / wall,
                 "e2e_ms": {k: st["latency"]["e2e"][k]
                            for k in ("p50_ms", "p99_ms")}})
+    out["e_workspaces"] = _session_cycles(torch, params, cfg, spec, samples,
+                                          heads, refs)
     out["launches"] = {
         "egnn_edge": out["a_replicas"]["launches"]["egnn_edge"] + sum(
             d["launches"]["egnn_edge"] for d in out["d_sharded"]),
@@ -2277,6 +2357,9 @@ def check_egnn_edge_bwd_bf16(torch, dev, g):
                 "library_note": "no one PyTorch call computes this backward",
                 "gemm_library_ms": device_ms(
                     torch, _gemm_library(torch, B, A, H, g, dev)),
+                "gemm_library_bf16_ms": device_ms(
+                    torch, _gemm_library(torch, B, A, H, g, dev,
+                                         torch.bfloat16)),
                 "shape": [B, A, E, H], "dpos": need_dpos,
                 "valid_edges": n_valid, "bitwise_vs_f32_upcast": True,
                 "rel_err": errs,
@@ -2859,18 +2942,47 @@ def _zero(torch, counters):
 
 
 def _moe_generate(torch, params, cfg, prompt, n_new, counters, want,
-                  what="lm_moe"):
-    """One ``greedy_generate(impl="pallas")`` with the counts zeroed just
-    before it: tokens, logits and the run's numbers."""
-    from repro_torch.train.serve import greedy_generate
+                  what="lm_moe", media=None, memory=None):
+    """One kernel-path generation with the counts zeroed just before it:
+    ``greedy_generate(impl="pallas", memory=)``, or with ``media`` (which
+    ``greedy_generate`` does not take, as ``repro``'s does not)
+    ``make_prefill_step(media=)``, ``extend_caches`` and
+    ``make_decode_step`` from ``n_media + S`` on. Tokens, logits and the
+    run's numbers."""
+    from repro_torch.train.serve import (extend_caches, greedy_generate,
+                                         make_decode_step, make_prefill_step)
     torch.cuda.reset_peak_memory_stats()
     _zero(torch, counters)
-    timings = {}
-    toks, logits = greedy_generate(params, cfg, prompt, n_new,
-                                   impl="pallas", device=DEVICE,
-                                   return_logits=True, timings=timings)
-    launches = {k: c.launches for k, c in counters.items()}
     B, S = prompt.shape
+    n_media = 0 if media is None else media.shape[1]
+    timings = {}
+    if media is None:
+        toks, logits = greedy_generate(params, cfg, prompt, n_new,
+                                       impl="pallas", memory=memory,
+                                       device=DEVICE, return_logits=True,
+                                       timings=timings)
+    else:
+        decode = make_decode_step(cfg, "pallas")
+        t0 = time.perf_counter()
+        lg, caches = make_prefill_step(cfg, "pallas")(
+            params, prompt.to(DEVICE), media=media)
+        caches = extend_caches(caches, cfg, n_media + S + n_new)
+        outs = [lg[:, -1:]]
+        out = [outs[0].argmax(-1).to(torch.int32)]
+        _sync(torch, DEVICE)
+        t1 = time.perf_counter()
+        pos = torch.tensor(n_media + S, dtype=torch.int64, device=DEVICE)
+        for _ in range(n_new - 1):
+            lg, caches = decode(params, out[-1], caches, pos)
+            outs.append(lg[:, -1:])
+            out.append(outs[-1].argmax(-1).to(torch.int32))
+            pos = pos + 1
+        _sync(torch, DEVICE)
+        timings = {"prefill_s": t1 - t0,
+                   "decode_s": time.perf_counter() - t1}
+        toks, logits = torch.cat(out, 1), torch.cat(outs, 1)
+        del caches
+    launches = {k: c.launches for k, c in counters.items()}
     if not (toks.shape == (B, n_new) and bool(torch.isfinite(logits).all())
             and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab):
         fail(f"{what} {cfg.name}: bad tokens or non-finite logits")
@@ -2878,9 +2990,9 @@ def _moe_generate(torch, params, cfg, prompt, n_new, counters, want,
         fail(f"{what} {cfg.name} serve: launches {launches}, the design "
              f"implies {want}")
     return toks, logits, {
-        "batch": B, "prompt": S, "new": n_new, "launches": launches,
-        "prefill_s": timings["prefill_s"],
-        "prefill_tok_per_s": B * S / timings["prefill_s"],
+        "batch": B, "media": n_media, "prompt": S, "new": n_new,
+        "launches": launches, "prefill_s": timings["prefill_s"],
+        "prefill_tok_per_s": B * (n_media + S) / timings["prefill_s"],
         "decode_s": timings["decode_s"],
         "decode_ms_per_step": timings["decode_s"] / (n_new - 1) * 1e3,
         "decode_tok_per_s": B * (n_new - 1) / timings["decode_s"],
@@ -3423,12 +3535,340 @@ def lm_recurrent_phase(torch, counters):
 
 
 # ---------------------------------------------------------------------------
+# phase 6e: the frontends and the encoder-decoder at full width
+# ---------------------------------------------------------------------------
+
+FRONT_SERVE = {"internvl2-1b": (8, 768, 32),   # B, text prompt, new tokens
+               "seamless-m4t-medium": (8, 1024, 32)}
+FRONT_TF_STEPS = 8                  # teacher-forced decode steps
+FRONT_ND = (2, 248, 8)              # decode vs the full forward: B, text
+                                    # prefill, decode steps
+FRONT_TRAIN = {"internvl2-1b": (8, 768),       # B, text tokens a sequence
+               "seamless-m4t-medium": (2, 1024)}  # cut from 8: the encoder
+                                    # keeps every layer's attention
+                                    # probabilities under autograd (no
+                                    # remat, as repro's), ~2.1 GB a layer
+                                    # at B=2 x 4096 frames
+FRONT_TRAIN_STEPS = 3
+FRONT_SOURCE_ROWS = 16              # sequences in each training source
+
+
+def _frontend_configs():
+    """internvl2-1b and seamless-m4t-medium at full width and depth."""
+    from repro_torch.configs import internvl2_1b, seamless_m4t_medium
+    return [internvl2_1b.CONFIG, seamless_m4t_medium.CONFIG]
+
+
+def _frames(torch, B, n, seed):
+    """Seeded stand-ins for the frontend stubs' embeddings (B, n, 1024),
+    f32, drawn on the card."""
+    from repro_torch.models.frontends import VISION_EMBED_DIM
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed)
+    return torch.randn((B, n, VISION_EMBED_DIM), generator=gen,
+                       device=DEVICE)
+
+
+def _front_serve(torch, cfg, counters):
+    """Serve ``cfg`` at full width, weights drawn on the card: seamless's
+    encoder over B x 4096 frames (kernel path against the plain path),
+    then generation twice (bitwise), the kernel path's teacher-forced
+    logits against the plain path's, decode against the full forward,
+    profiles of a prefill and a decode step (and of seamless's encoder,
+    and its f32 unembedding's share of the prefill)."""
+    from repro_torch import interop
+    from repro_torch.models import transformer
+    from repro_torch.train.serve import (extend_caches, make_decode_step,
+                                         make_prefill_step)
+    what = f"lm_frontends {cfg.name}"
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    params = transformer.lm_init(gen, cfg, device=dev)
+    _sync(torch, DEVICE)
+    leaves = interop.leaves(params)
+    out = {"layers": cfg.n_layers, "enc_layers": cfg.n_enc_layers,
+           "init_s": time.perf_counter() - t0,
+           "params": sum(x.numel() for x in leaves.values()),
+           "params_by_part": {part: sum(
+               x.numel() for k, x in leaves.items()
+               if k.split("/")[0] == part)
+               for part in ("embed", "scan", "projector", "enc")},
+           "param_bytes": _tree_bytes(params)}
+    del leaves
+    B, S, new = FRONT_SERVE[cfg.name]
+    L = cfg.n_layers
+    media = memory = None
+    if cfg.n_enc_layers:
+        _tick(f"{cfg.name} encode")
+        src = _frames(torch, B, cfg.enc_memory_len, seed=11)
+        _zero(torch, counters)
+        with torch.no_grad():
+            memory = transformer.encode(params, src, cfg, impl="pallas")
+            _sync(torch, DEVICE)
+            enc_launches = {k: c.launches for k, c in counters.items()}
+            plain = transformer.encode(params, src, cfg, impl="chunked")
+        scale = float(plain.float().abs().max())
+        err = float((memory.float() - plain.float()).abs().max())
+        want = {k: 0 for k in counters}
+        want["flash_attention"] = cfg.n_enc_layers
+        if enc_launches != want:
+            fail(f"{what} encode: launches {enc_launches}, the design "
+                 f"implies {want}")
+        if not (bool(torch.isfinite(memory).all())
+                and err <= LM_TOL_BF16 * scale):
+            fail(f"{what} encode: memory max_abs_err {err} > "
+                 f"{LM_TOL_BF16}*{scale} (or not finite)")
+        del plain
+        with torch.no_grad():
+            prof = _profiled(torch, lambda: transformer.encode(
+                params, src, cfg, impl="pallas"), cpu=False)
+        out["encode"] = dict(prof, batch=B, frames=cfg.enc_memory_len,
+                             launches=enc_launches, max_abs_err=err,
+                             max_abs_memory=scale,
+                             tolerance=LM_TOL_BF16 * scale,
+                             frames_per_s=B * cfg.enc_memory_len
+                             / (prof["host_ms"] * 1e-3))
+        del src
+        # #5 twice a layer a prefill (causal self, cross); a decode step
+        # #6 once a layer (self) and #5 once (cross, one query)
+        want = {k: 0 for k in counters}
+        want.update(flash_attention=2 * L + L * (new - 1),
+                    flash_decode=L * (new - 1))
+    else:
+        media = _frames(torch, B, cfg.n_media_tokens, seed=12)
+        want = {k: 0 for k in counters}
+        want.update(flash_attention=L, flash_decode=L * (new - 1))
+    _tick(f"{cfg.name} serve")
+    prompt = _lm_prompts(cfg, B, S, seed=1)
+    toks, logits, rec = _moe_generate(torch, params, cfg, prompt, new,
+                                      counters, want, "lm_frontends", media,
+                                      memory)
+    toks2, logits2, rec2 = _moe_generate(torch, params, cfg, prompt, new,
+                                         counters, want, "lm_frontends",
+                                         media, memory)
+    if not (torch.equal(toks, toks2) and torch.equal(logits, logits2)):
+        fail(f"{what}: two kernel-path runs differ bitwise")
+    out.update(run_a=rec, run_a_replay=rec2, replay_bitwise=True)
+    first = toks[:, :1]
+    del logits, logits2, toks2
+
+    # the kernel path's teacher-forced logits against the plain path's
+    _tick(f"{cfg.name} teacher forced")
+    tf = _lm_prompts(cfg, B, S, extra=FRONT_TF_STEPS, seed=1)
+    got, _ = _teacher_forced(torch, params, cfg, tf, S, "pallas", media,
+                             memory)
+    ref, _ = _teacher_forced(torch, params, cfg, tf, S, "chunked", media,
+                             memory)
+    scale = float(ref.abs().max())
+    err = float((got - ref).abs().max())
+    if not err <= LM_TOL_BF16 * scale:
+        fail(f"{what}: teacher-forced bf16 logits max_abs_err {err} > "
+             f"{LM_TOL_BF16}*{scale}")
+    out["teacher_forced"] = {
+        "batch": B, "prompt": S, "steps": FRONT_TF_STEPS,
+        "bf16_max_abs_err": err, "bf16_max_abs_logit": scale,
+        "bf16_tolerance": LM_TOL_BF16 * scale,
+        "per_step": (got - ref).abs().amax(dim=(1, 2)).tolist(),
+        "argmax_agreement": float((got.argmax(-1) == ref.argmax(-1))
+                                  .float().mean())}
+    del got, ref
+
+    # decode (#6, and #5 for the cross-attention) against the full forward
+    # of the same tokens (#5)
+    _tick(f"{cfg.name} decode vs full forward")
+    Bn, Sn, Tn = FRONT_ND
+    nd = _lm_prompts(cfg, Bn, Sn, extra=Tn, seed=3)
+    m_n = None if media is None else media[:Bn]
+    k_n = None if memory is None else memory[:Bn]
+    n = 0 if media is None else media.shape[1]
+    with torch.no_grad():
+        full = transformer.lm_apply(params, nd.to(dev), cfg=cfg, media=m_n,
+                                    memory=k_n, impl="pallas")[0]
+    full = full[:, n + Sn - 1:, :cfg.vocab].transpose(0, 1)
+    dec, _ = _teacher_forced(torch, params, cfg, nd, Sn, "pallas", m_n, k_n)
+    scale = float(full.abs().max())
+    err = float((dec - full).abs().max())
+    if not err <= LM_TOL_BF16 * scale:
+        fail(f"{what}: bf16 decode vs the full forward max_abs_err {err} > "
+             f"{LM_TOL_BF16}*{scale}")
+    out["decode_vs_full_forward"] = {
+        "batch": Bn, "prefill": Sn, "media": n, "steps": Tn,
+        "bf16_max_abs_err": err, "bf16_tolerance": LM_TOL_BF16 * scale,
+        "per_step": (dec - full).abs().amax(dim=(1, 2)).tolist(),
+        "argmax_agreement": float((dec.argmax(-1) == full.argmax(-1))
+                                  .float().mean())}
+    del full, dec
+
+    # one profiled prefill and decode step at the served shape; seamless's
+    # f32 unembedding alone beside its prefill
+    _tick(f"{cfg.name} profiles")
+    prefill = make_prefill_step(cfg, "pallas")
+    decode = make_decode_step(cfg, "pallas")
+    ptoks = prompt.to(dev)
+    out["prefill_profile"] = dict(_profiled(
+        torch, lambda: prefill(params, ptoks, media=media, memory=memory),
+        cpu=False), shape=[B, n + S])
+    _, caches = prefill(params, ptoks, media=media, memory=memory)
+    caches = extend_caches(caches, cfg, n + S + 1)
+    out["decode_cache_bytes"] = _tree_bytes(caches)
+    out["decode_profile"] = _profiled(
+        torch, lambda: decode(params, first, caches, n + S, memory=memory),
+        cpu=False)
+    del caches
+    hidden = torch.randn((B, n + S, cfg.d_model), generator=gen,
+                         device=dev).to(cfg.compute_dtype)
+    unembed_ms = device_ms(torch, lambda: transformer.lm_logits(
+        params, hidden, cfg), iters=3, warm=1)
+    out["unembed"] = {
+        "device_ms": unembed_ms, "shape": [B, n + S, cfg.padded_vocab],
+        "share_of_prefill": unembed_ms
+        / out["prefill_profile"]["device_ms"]}
+    del params, hidden, media, memory
+    _free(torch)
+    _tick(f"{cfg.name} served")
+    return out
+
+
+def _front_source(torch, cfg, B, S):
+    """``FRONT_SOURCE_ROWS`` ``lm_data`` sequences of S tokens, with
+    seeded frames beside them: internvl2's 256 media a sequence,
+    seamless's 4096 source frames (host numpy, f32)."""
+    import numpy as np
+
+    from repro_torch.data.lm_data import make_lm_sources
+    from repro_torch.models.frontends import VISION_EMBED_DIM
+    src = make_lm_sources(1, FRONT_SOURCE_ROWS, S, cfg.vocab)[0]
+    rng = np.random.default_rng(21)
+    n, key = ((cfg.enc_memory_len, "src_embed") if cfg.n_enc_layers
+              else (cfg.n_media_tokens, "media"))
+    src[key] = rng.standard_normal((FRONT_SOURCE_ROWS, n, VISION_EMBED_DIM),
+                                   dtype=np.float32)
+    return src
+
+
+def _front_train(torch, cfg, counters):
+    """Train ``lm`` on ``cfg`` with its frames (internvl2's media,
+    seamless's ``src_embed`` encoded inside the loss) through ``Session``
+    (``impl="chunked"``, per-block remat in the decoder, bf16 compute,
+    AdamW at lr 3e-4) for ``FRONT_TRAIN_STEPS`` steps, twice from one seed
+    (bitwise); #1 on one step's embedding cotangent against its plain
+    versions and timed at its shape; one profiled step. One session's
+    state lives at a time (seamless's first run peaks at ~70 GB)."""
+    from repro_torch import interop
+    from repro_torch.engine import single_grad_fn
+    what = f"lm_frontends {cfg.name}"
+    B, S = FRONT_TRAIN[cfg.name]
+    n = FRONT_TRAIN_STEPS
+    source = _front_source(torch, cfg, B, S)
+    _tick(f"{cfg.name} train")
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    sess = _lm_session(cfg, "lm", source, n, B)
+    res, launches, wall = _counted_run(torch, sess, counters)
+    peak = torch.cuda.max_memory_allocated()
+    rows = res.logger.history
+    losses = [r["loss"] for r in rows]
+    if len(losses) != n or not all(map(math.isfinite, losses)):
+        fail(f"{what} train: losses {losses}")
+    want = {k: 0 for k in counters}
+    want["segment_sum_2d"] = n
+    if launches != want:
+        fail(f"{what} train: launches {launches}, the design implies {want} "
+             "(one embedding backward a step)")
+    frames = cfg.enc_memory_len if cfg.n_enc_layers else cfg.n_media_tokens
+    out = {"batch": B, "text": S, "frames": frames, "steps": n,
+           "remat": cfg.remat, "losses": losses, "launches": launches,
+           "wall_s": wall,
+           "step_host_ms_in_run": (rows[-1]["wall"] - rows[0]["wall"])
+           / (n - 1) * 1e3,
+           "peak_mem_bytes": peak,
+           "state_bytes": sum(_tree_bytes(t) for t in (
+               sess.state.params, sess.state.opt_state.m,
+               sess.state.opt_state.v))}
+    ends = {k: v.cpu() for k, v in interop.leaves(res.params).items()}
+    del res
+    _free(torch)
+
+    _tick(f"{cfg.name} #1 on the embedding's cotangent")
+    batch = {k: torch.from_numpy(v[:B]).to(DEVICE) for k, v in
+             source.items()}
+    (_, _, grads), calls = _capture_embed(
+        lambda: single_grad_fn(sess.model)(sess.state.params, batch))
+    del grads
+    out["embed_grad"] = _check_embed(torch, calls, what)
+    g, ids, V, _ = calls[0]
+    del calls
+    _free(torch)
+    out["segment_sum_2d"] = _embed_times(torch, g, ids, V)
+    del g, ids
+    _free(torch)
+    _tick(f"{cfg.name} step profile")
+    step, state = sess.step_fn, sess.state
+    out["step_profile"] = dict(_profiled(
+        torch, lambda: float(step(state, batch)[1].loss), cpu=False),
+        shape=[B, S])
+    del sess, state, step, batch
+    _free(torch)
+
+    _tick(f"{cfg.name} train replay")
+    with _lm_session(cfg, "lm", source, n, B) as again:
+        res2 = again.run()
+    if [r["loss"] for r in res2.logger.history] != losses or not all(
+            torch.equal(v.cpu(), ends[k])
+            for k, v in interop.leaves(res2.params).items()):
+        fail(f"{what} train: two {n}-step runs from one seed differ")
+    out["replay_bitwise"] = True
+    del res2, ends, again
+    _free(torch)
+    _tick(f"{cfg.name} trained")
+    return out
+
+
+def lm_frontends_phase(torch, counters):
+    """internvl2-1b (24 layers, d=896, 14/2 heads of 64, a vision
+    projector's 256 media before the text) and seamless-m4t-medium (12
+    encoder and 12 decoder layers, d=1024, 16 heads of 64, an audio
+    projector, cross-attention to 4096 frames) at full width and depth,
+    fp32 weights drawn on the card from a seed, bf16 compute."""
+    out = {"phase": "lm_frontends", "compute_dtype": "bfloat16",
+           "serve_impl": "pallas", "train_impl": "chunked",
+           "tolerance": {"teacher_forced": f"{LM_TOL_BF16} x max|logit|",
+                         "encoder_memory": f"{LM_TOL_BF16} x max|memory|",
+                         "decode_vs_full_forward":
+                         f"{LM_TOL_BF16} x max|logit|",
+                         "embed_grad": "bitwise to the token-order sum; "
+                         "the rounding bound of the one-hot product"},
+           "configs": {}}
+    _T0[0] = time.perf_counter()
+    for cfg in _frontend_configs():
+        t0 = time.perf_counter()
+        rec = {"serve": _front_serve(torch, cfg, counters)}
+        rec["train"] = _front_train(torch, cfg, counters)
+        rec["wall_s"] = time.perf_counter() - t0
+        out["configs"][cfg.name] = rec
+    out["launches"] = {
+        k: sum(r["serve"][run]["launches"][k]
+               for r in out["configs"].values()
+               for run in ("run_a", "run_a_replay"))
+        + sum(r["serve"].get("encode", {}).get("launches", {}).get(k, 0)
+              for r in out["configs"].values())
+        + sum(r["train"]["launches"][k] for r in out["configs"].values())
+        for k in counters}
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the LM attention kernels against their plain versions
 # ---------------------------------------------------------------------------
 
 PAD_POS = -(10 ** 9)
 # the LM prefill shapes of runs (a) and (b), then edge cases
-FA_CASES = [  # name, dtype, B, Sq, Sk, H, K, D, causal, window, rolled
+FA_CASES = [  # name, dtype, B, Sq, Sk, H, K, D, causal, window, positions
+    # (positions: False = q at arange(Sk - Sq, Sk) over k at arange(Sk);
+    # True = k rotated with pads every 11th; "zeros" = every position 0;
+    # "distinct" = unordered draws, k pads every 7th)
     ("prefill_a", "bfloat16", 8, 1024, 1024, 32, 8, 80, True, 4096,
      False),
     ("prefill_b", "bfloat16", 1, 4200, 4200, 32, 8, 80, True, 4096,
@@ -3478,9 +3918,34 @@ FA_CASES = [  # name, dtype, B, Sq, Sk, H, K, D, causal, window, rolled
      False),
     ("zamba2_prefill_b", "bfloat16", 1, 4200, 4200, 32, 32, 64, True, 4096,
      False),
+    # the frontends and the encoder-decoder (lm_frontends): seamless's
+    # encoder (bidirectional over 4096 frames), its decoder's
+    # cross-attention in prefill (1024 queries over 4096 keys, every
+    # position 0) and at decode (one query), its causal self-attention;
+    # internvl2's prefill (256 media + 768 text, G = 7); a cross shape
+    # with distinct positions and pads, which equal positions would hide
+    ("seamless_encoder", "bfloat16", 8, 4096, 4096, 16, 16, 64, False, 0,
+     False),
+    ("seamless_cross_prefill", "bfloat16", 8, 1024, 4096, 16, 16, 64, False,
+     0, "zeros"),
+    ("seamless_cross_decode", "bfloat16", 8, 1, 4096, 16, 16, 64, False, 0,
+     "zeros"),
+    ("seamless_self_prefill", "bfloat16", 8, 1024, 1024, 16, 16, 64, True,
+     0, False),
+    ("internvl2_prefill", "bfloat16", 8, 1024, 1024, 14, 2, 64, True, 0,
+     False),
+    ("bf16_cross_distinct_pads", "bfloat16", 2, 300, 700, 8, 4, 64, False, 0,
+     "distinct"),
+    ("f32_cross_distinct_pads", "float32", 2, 300, 700, 8, 4, 64, False, 0,
+     "distinct"),
+    ("bf16_causal_distinct_pads", "bfloat16", 2, 300, 700, 14, 2, 64, True,
+     0, "distinct"),
 ]
 FA_TIMED = ("prefill_a", "prefill_b", "mla_prefill", "f32_mla_prefill",
-            "granite_prefill", "zamba2_prefill", "zamba2_prefill_b")
+            "granite_prefill", "zamba2_prefill", "zamba2_prefill_b",
+            "seamless_encoder", "seamless_cross_prefill",
+            "seamless_cross_decode", "seamless_self_prefill",
+            "internvl2_prefill")
 # the LM decode shapes of runs (a) and (b), then edge cases
 FD_CASES = [  # name, dtype, B, C, H, K, D, pos, window, n_splits, block_k
     ("decode_a", "bfloat16", 8, 1056, 32, 8, 80, 1040, 4096, None,
@@ -3508,9 +3973,18 @@ FD_CASES = [  # name, dtype, B, C, H, K, D, pos, window, n_splits, block_k
      None),
     ("zamba2_decode_b_rolling", "bfloat16", 1, 4200, 32, 32, 64, 4210, 4096,
      None, None),
+    # lm_frontends: internvl2's decode, G = 7 (14 query heads over 2 kv
+    # heads; cache 256 + 768 + 32), and seamless's decoder self-attention
+    # (G = 1, 16 heads of 64)
+    ("internvl2_decode", "bfloat16", 8, 1056, 14, 2, 64, 1040, 0, None,
+     None),
+    ("f32_g7_33_splits", "float32", 2, 1056, 7, 1, 128, 1000, 0, 33, None),
+    ("seamless_decode", "bfloat16", 8, 1056, 16, 16, 64, 1040, 0, None,
+     None),
 ]
 FD_TIMED = ("decode_a", "decode_b_rolling", "granite_decode",
-            "zamba2_decode", "zamba2_decode_b_rolling")
+            "zamba2_decode", "zamba2_decode_b_rolling", "internvl2_decode",
+            "seamless_decode")
 
 
 def _attn_err(torch, got, ref, name):
@@ -3559,10 +4033,18 @@ def check_flash_attention(torch, dev, g):
             return torch.randn(shape, generator=g, device=dev).to(dt)
         q, k, v = t(B, Sq, H, D), t(B, Sk, K, D), t(B, Sk, K, D)
         kp = torch.arange(Sk, device=dev, dtype=torch.int32)
-        if rolled:
+        qp = torch.arange(Sk - Sq, Sk, device=dev, dtype=torch.int32)
+        if rolled == "zeros":
+            qp, kp = torch.zeros_like(qp), torch.zeros_like(kp)
+        elif rolled == "distinct":
+            qp = torch.randint(0, 1000, (Sq,), generator=g, device=dev,
+                               dtype=torch.int32)
+            kp = torch.randint(0, 1000, (Sk,), generator=g, device=dev,
+                               dtype=torch.int32)
+            kp[::7] = PAD_POS
+        elif rolled:
             kp = torch.remainder(kp - Sk // 3, Sk)
             kp[::11] = PAD_POS
-        qp = torch.arange(Sk - Sq, Sk, device=dev, dtype=torch.int32)
         kw = dict(causal=causal, window=window)
         got = flash_attention(q, k, v, q_pos=qp, k_pos=kp, **kw)
         ref = flash_attention_ref(q, k, v, qp, kp, **kw)
@@ -3584,9 +4066,11 @@ def check_flash_attention(torch, dev, g):
         def plain():
             flash_attention_ref(q, k, v, qp, kp, **kw)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        # every pair kept (the encoder, cross-attention): SDPA unmasked
+        lib_mask = None if bool(keep.all()) else keep
 
         def library():
-            F.scaled_dot_product_attention(qt, kt, vt, attn_mask=keep,
+            F.scaled_dot_product_attention(qt, kt, vt, attn_mask=lib_mask,
                                            enable_gqa=True)
         ms = device_ms(torch, kernel, iters=10)
         wall = time_ms(torch, kernel, iters=10)
@@ -3598,8 +4082,10 @@ def check_flash_attention(torch, dev, g):
         timed = {"ms": ms, "wall_ms": wall, "plain_ms": plain_ms,
                  "library_ms": lib,
                  "library": "scaled_dot_product_attention(enable_gqa, "
-                            "bool mask)",
+                            + ("no mask)" if lib_mask is None
+                               else "bool mask)"),
                  "shape": [B, Sq, Sk, H, K, D], "window": window,
+                 "causal": causal,
                  "kept_pairs": pairs,
                  **_bound(torch, 4 * D * pairs, nbytes, dt)}
         if name == "prefill_a":
@@ -3726,21 +4212,26 @@ def _lm_prompts(cfg, B, S, extra=0, seed=0):
     return torch.from_numpy(src["tokens"])
 
 
-def _teacher_forced(torch, params, cfg, toks, S, impl):
+def _teacher_forced(torch, params, cfg, toks, S, impl, media=None,
+                    memory=None):
     """Prefill ``toks[:, :S]`` and decode the rest fed the true tokens:
     the last prefill logits and each decode step's over the real vocab,
     (steps, B, vocab), and the caches (one slot to spare for a follow-on
-    step)."""
+    step). ``media`` go before the prompt (the steps' positions shift by
+    their count); ``memory`` is an enc-dec model's encoder output."""
     from repro_torch.train.serve import (extend_caches, make_decode_step,
                                          make_prefill_step)
     dev = params["embed"]["table"].device
     toks = toks.to(dev)
-    logits, caches = make_prefill_step(cfg, impl)(params, toks[:, :S])
-    caches = extend_caches(caches, cfg, toks.shape[1] + 1)
+    n = 0 if media is None else media.shape[1]
+    logits, caches = make_prefill_step(cfg, impl)(
+        params, toks[:, :S], media=media, memory=memory)
+    caches = extend_caches(caches, cfg, n + toks.shape[1] + 1)
     steps = [logits[:, -1]]
     decode = make_decode_step(cfg, impl)
     for t in range(S, toks.shape[1]):
-        lg, caches = decode(params, toks[:, t:t + 1], caches, t)
+        lg, caches = decode(params, toks[:, t:t + 1], caches, n + t,
+                            memory=memory)
         steps.append(lg[:, 0])
     return torch.stack(steps)[..., :cfg.vocab], caches
 
@@ -4535,6 +5026,9 @@ def main():
     _phase_start(torch, "lm_recurrent")
     rec = lm_recurrent_phase(torch, lm_counters)
     emit(rec)
+    _phase_start(torch, "lm_frontends")
+    front = lm_frontends_phase(torch, lm_counters)
+    emit(front)
     _phase_start(torch, "end")
     emit({"phase": "memory", "at_phase_start": MEMORY})
     # #1 on each training path's own embedding cotangent, at its shape
@@ -4548,12 +5042,16 @@ def main():
         **{f"lm_moe {name}": r["train"]["embed_grad"]
            for name, r in moe["configs"].items()},
         **{f"lm_recurrent {name}": r["train"]["embed_grad"]
-           for name, r in rec["configs"].items()}}
+           for name, r in rec["configs"].items()},
+        **{f"lm_frontends {name}": r["train"]["embed_grad"]
+           for name, r in front["configs"].items()}}
     ss2["by_shape"] = {
         **{f"lm_moe {name}": r["train"]["segment_sum_2d"]
            for name, r in moe["configs"].items()},
         **{f"lm_recurrent {name}": r["train"]["segment_sum_2d"]
-           for name, r in rec["configs"].items()}}
+           for name, r in rec["configs"].items()},
+        **{f"lm_frontends {name}": r["train"]["segment_sum_2d"]
+           for name, r in front["configs"].items()}}
     ss2["max_abs_err"] = max(c[c["dtype"]]["max_abs_err"]
                              for c in ss2["checks_by_path"].values())
     emit({"phase": "kernel", "name": "segment_sum_2d", "tolerance": {
@@ -4604,16 +5102,20 @@ def main():
             + fine["launches"]["segment_sum_2d"],
             "lm_train": lmt["launches"]["segment_sum_2d"],
             "lm_moe": moe["launches"]["segment_sum_2d"],
-            "lm_recurrent": rec["launches"]["segment_sum_2d"]},
+            "lm_recurrent": rec["launches"]["segment_sum_2d"],
+            "lm_frontends": front["launches"]["segment_sum_2d"]},
         "flash_attention": {"lm_serve": sum(r["flash_attention"]
                                             for r in lm_runs),
                             "lm_moe": moe["launches"]["flash_attention"],
                             "lm_recurrent":
-                            rec["launches"]["flash_attention"]},
+                            rec["launches"]["flash_attention"],
+                            "lm_frontends":
+                            front["launches"]["flash_attention"]},
         "flash_decode": {"lm_serve": sum(r["flash_decode"]
                                          for r in lm_runs),
                          "lm_moe": moe["launches"]["flash_decode"],
-                         "lm_recurrent": rec["launches"]["flash_decode"]}}
+                         "lm_recurrent": rec["launches"]["flash_decode"],
+                         "lm_frontends": front["launches"]["flash_decode"]}}
     launches = {k: sum(v.values()) for k, v in by_path.items()}
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")

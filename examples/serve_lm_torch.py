@@ -8,6 +8,11 @@ their plain versions.
 
   PYTHONPATH=src python examples/serve_lm_torch.py --arch h2o-danube-1.8b --new 24
   PYTHONPATH=src python examples/serve_lm_torch.py --device cpu --new 4
+  PYTHONPATH=src python examples/serve_lm_torch.py --device cpu \
+      --arch seamless-m4t-medium --new 4
+
+An enc-dec arch decodes against zeros of (B, 32, d_model) as its encoder
+memory, as ``examples/serve_lm.py`` does.
 """
 import argparse
 import time
@@ -40,9 +45,13 @@ def main(argv=None):
     prompt = np.random.default_rng(1).integers(
         0, cfg.vocab, (args.batch, args.prompt_len)).astype(np.int32)
 
+    memory = (torch.zeros((args.batch, 32, cfg.d_model),
+                          dtype=cfg.compute_dtype, device=dev)
+              if cfg.n_enc_layers else None)
+
     t0 = time.perf_counter()
     out = greedy_generate(params, cfg, torch.from_numpy(prompt), args.new,
-                          impl="pallas", device=dev)
+                          impl="pallas", memory=memory, device=dev)
     dt = time.perf_counter() - t0
     print(f"arch={cfg.name} batch={args.batch} prompt={args.prompt_len} "
           f"new={args.new}  wall={dt:.2f}s "

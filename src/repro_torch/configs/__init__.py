@@ -1,6 +1,6 @@
 """Config registry of the ported architectures: ``get(name)`` /
 ``get_smoke(name)`` / ``ARCHS``. An arch ``repro`` knows but the port does
-not yet (enc-dec, VLM, the other attention families) raises ``KeyError``."""
+not yet (gemma3-12b, stablelm-12b) raises ``KeyError``."""
 from __future__ import annotations
 
 import importlib
@@ -15,6 +15,8 @@ _MODULES = {
     "deepseek-v2-236b": "deepseek_v2_236b",
     "zamba2-1.2b": "zamba2_1_2b",
     "xlstm-125m": "xlstm_125m",
+    "internvl2-1b": "internvl2_1b",
+    "seamless-m4t-medium": "seamless_m4t_medium",
 }
 ARCHS = tuple(_MODULES)
 

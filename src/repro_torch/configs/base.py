@@ -9,7 +9,9 @@ rematerialisation in training), plus the sharding and memory fields the
 ported configs set (``fsdp``, ``train_accum``, ``naive_tp``,
 ``moment_dtype``, ``swa_variant_window``, ``long_context_ok``), which the
 port carries for parity and does not read. Field names and defaults match
-the reference; encoder-decoder and frontend fields come with their slices."""
+the reference; so do the encoder-decoder (``enc_attn``/``dec_attn``) and
+modality-frontend fields (``n_enc_layers``, ``enc_memory_len``,
+``modality``, ``n_media_tokens``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -39,8 +41,9 @@ class ArchConfig:
     tie_embeddings: bool = True
     # attention pattern: 0 = full attention; >0 = sliding window. The unit
     # is repeated to n_layers; the port's blocks are "attn", "swa", "mla",
-    # "mamba2", "mlstm", "slstm" and "shared_attn" (zamba-style
-    # shared-weight attention with per-application LoRA).
+    # "mamba2", "mlstm", "slstm", "shared_attn" (zamba-style
+    # shared-weight attention with per-application LoRA), "enc_attn"
+    # (bidirectional) and "dec_attn" (self + cross, enc-dec only).
     window: int = 0
     block_pattern: tuple = ("attn",)
     # MoE -------------------------------------------------------------------
@@ -63,6 +66,12 @@ class ArchConfig:
     conv_kernel: int = 4
     mlstm_chunked: bool = True     # chunkwise-parallel mLSTM (the scan is
                                    # the oracle)
+    # encoder-decoder ---------------------------------------------------------
+    n_enc_layers: int = 0          # >0 => encoder-decoder (seamless)
+    enc_memory_len: int = 4096     # stub encoder-memory length for serving
+    # modality frontends (stubs) ----------------------------------------------
+    modality: str = "text"         # text | vision_embed | audio_embed
+    n_media_tokens: int = 0        # prepended embedding tokens for vlm/audio
     # carried for parity with the reference's configs, not read -------------
     naive_tp: bool = False
     moment_dtype: Any = torch.float32

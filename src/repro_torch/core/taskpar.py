@@ -36,6 +36,16 @@ import torch
 from repro_torch.interop import leaves, unflatten
 
 
+def leaf_grads(loss, leaves: dict) -> list:
+    """d loss / d each leaf; a leaf the loss does not reach (a vision
+    model's projector on a text-only batch) gets zeros, as ``jax.grad``
+    gives it."""
+    grads = torch.autograd.grad(loss, list(leaves.values()),
+                                allow_unused=True)
+    return [torch.zeros_like(v) if g is None else g
+            for g, v in zip(grads, leaves.values())]
+
+
 @dataclasses.dataclass(frozen=True)
 class MTPConfig:
     """``repro``'s ``MTPConfig`` without its axis names: a flat plan's
@@ -371,7 +381,7 @@ def mtp_value_and_grad_dist(model: MultiTaskModel, shard: TaskShard,
             # by multiplication: 0 * non-finite is still non-finite
             objective = torch.where(w > 0, pt * w,
                                     torch.zeros((), device=dev)).sum()
-            grads = torch.autograd.grad(objective, list(flat.values()))
+            grads = leaf_grads(objective, flat)
         g = dict(zip(flat, grads))
         trunk = [k for k in flat if k.startswith("shared/")]
         own = [k for k in flat if not k.startswith("shared/")]

@@ -9,7 +9,8 @@
 // cluster of C CTAs (grid (C, K, B), cluster (C, 1, 1)) owns one (batch,
 // kv head) and all G = H / K query heads of it (GQA without a repeat;
 // nothing assumes G a power of two: the heads are loops of G, their
-// shared-memory arrays G·D or G·32 floats, so G = 3 runs as written);
+// shared-memory arrays G·D or G·32 floats, so G = 3 and G = 7 run as
+// written);
 // CTA r takes splits [r·spc, (r+1)·spc) (spc = ceil(n_splits / C)), each
 // split giving its own partial, so the arithmetic keeps repro's
 // structure: partials per split, then the combine in split order.
@@ -470,6 +471,7 @@ static int dispatch(int dtype, int G, int D, F&& f) {
     FD_G(TT, 2)                                                          \
     FD_G(TT, 3)                                                          \
     FD_G(TT, 4)                                                          \
+    FD_G(TT, 7)                                                          \
     FD_G(TT, 8)                                                          \
     FD_G(TT, 16)                                                         \
   }                                                                      \

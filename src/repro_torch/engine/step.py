@@ -31,7 +31,7 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.core.taskpar import (MultiTaskModel,
+from repro_torch.core.taskpar import (MultiTaskModel, leaf_grads,
                                       mtp_value_and_grad_dist)
 from repro_torch.interop import leaves as tree_leaves
 from repro_torch.interop import tree_map, unflatten
@@ -84,7 +84,7 @@ def single_grad_fn(model: SingleTaskModel) -> Callable:
         leaves, p = _requires_grad(params)
         with torch.enable_grad():
             loss = model.loss_fn(p, batch)
-            grads = torch.autograd.grad(loss, list(leaves.values()))
+            grads = leaf_grads(loss, leaves)
         return loss.detach(), {}, unflatten(params, dict(zip(leaves, grads)))
     return grad_fn
 
@@ -106,7 +106,7 @@ def multitask_grad_fn(model: MultiTaskModel, n_tasks: int,
             # multiplication: 0 * non-finite is still non-finite
             loss = torch.where(tw > 0, per_task * tw,
                                torch.zeros((), device=per_task.device)).sum()
-            grads = torch.autograd.grad(loss, list(leaves.values()))
+            grads = leaf_grads(loss, leaves)
         grads = unflatten(params, dict(zip(leaves, grads)))
         metrics = {k: v.detach() for k, v in metrics.items()}
         return loss.detach(), dict(metrics, per_task_loss=per_task.detach()), \

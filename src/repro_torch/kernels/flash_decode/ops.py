@@ -23,7 +23,8 @@ from ..flash_attention.ops import check_rows
 from .ref import combine_partials, decode_partials_ref
 
 HEAD_DIMS = (16, 32, 64, 80, 96, 128)   # instantiated in the kernel
-GROUPS = (1, 2, 3, 4, 8, 16)    # query heads per kv head, instantiated
+GROUPS = (1, 2, 3, 4, 7, 8, 16)  # query heads per kv head, instantiated
+                                 # (7: internvl2-1b, 14 over 2)
 MAX_CLUSTER = 16                # CTAs a (batch, kv head)
 STAGES = (16, 12, 8, 4)         # ring depths of 32 keys, deepest first; a
                                 # ring is a multiple of the kernel's 4 or 8

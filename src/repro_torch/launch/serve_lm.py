@@ -13,7 +13,9 @@ Weights are random, drawn from ``--seed`` (on the card, by a seeded CUDA
 generator: no host copy of the 7 GB tree); prompts come from
 ``data.lm_data``. It runs ``impl="pallas"``: the kernels on the card, their
 plain PyTorch versions on the CPU. It prints prefill and decode tokens per
-second separately, with the device's name.
+second separately, with the device's name. A vision arch (internvl2-1b)
+is served text-only; an enc-dec arch (seamless-m4t-medium) decodes against
+zeros of (B, 32, d_model) as its encoder memory.
 """
 from __future__ import annotations
 
@@ -48,9 +50,15 @@ def main(argv=None):
                                  cfg, device=dev)
     prompt = make_lm_source(args.seed + 1, args.batch, args.prompt_len,
                             cfg.vocab)["tokens"]
+    # an enc-dec arch decodes against stand-in encoder memory: zeros of
+    # (B, 32, d_model), as repro's serving example passes
+    memory = (torch.zeros((args.batch, 32, cfg.d_model),
+                          dtype=cfg.compute_dtype, device=dev)
+              if cfg.n_enc_layers else None)
     timings = {}
     out = greedy_generate(params, cfg, torch.from_numpy(prompt), args.new,
-                          impl="pallas", device=dev, timings=timings)
+                          impl="pallas", memory=memory, device=dev,
+                          timings=timings)
     name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
             else "cpu")
     row = {"arch": cfg.name, "width": args.width, "impl": "pallas",

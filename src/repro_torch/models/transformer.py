@@ -1,9 +1,17 @@
-"""Transformer assembly: the decoder-only LM; ``attn``, ``swa`` and ``mla``
-blocks, each with a SwiGLU or (``cfg.n_experts``) a MoE feed-forward; the
-recurrent ``mamba2``, ``mlstm`` and ``slstm`` blocks (``models.ssm``) and
-zamba's ``shared_attn`` (one GQA weight set, ``params["shared_attn"]``,
-applied at each such layer through the layer's own LoRA adapters), which
-have no feed-forward.
+"""Transformer assembly: decoder-only LMs and encoder-decoder models;
+``attn``, ``swa`` and ``mla`` blocks, each with a SwiGLU or
+(``cfg.n_experts``) a MoE feed-forward; the recurrent ``mamba2``, ``mlstm``
+and ``slstm`` blocks (``models.ssm``) and zamba's ``shared_attn`` (one GQA
+weight set, ``params["shared_attn"]``, applied at each such layer through
+the layer's own LoRA adapters), which have no feed-forward; the encoder's
+bidirectional ``enc_attn`` and the decoder's ``dec_attn`` (causal
+self-attention, then cross-attention to the encoder's memory, then the
+feed-forward), whose caches are ``{"self": <a GQA cache>}``.
+
+Modality frontends (``models.frontends``): a ``vision_embed`` model's
+projected media embeddings come before the text tokens (text positions
+start at ``n_media``); an ``audio_embed`` model projects its source frames
+in ``encode``, whose output is the decoder's ``memory``.
 
 ``repro`` stacks the parameters of each repetition of the config's
 ``block_pattern`` unit on a leading ``reps`` axis and drives them with
@@ -16,21 +24,21 @@ Mamba2's ``ssm`` (reps, B, H, P, N) and ``conv``) and whose ``pos`` is
 (reps,). Remainder layers (n_layers not a multiple of the unit) are
 unrolled under ``params["rem"]``. The MoE balance terms of the blocks are
 summed into the trunk's aux.
-
-Other block types (enc-dec, frontends) raise ``NotImplementedError``:
-ROADMAP.md, queue 1.
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
 
 from ..interop import leaves, tree_map, unflatten
 from .attention import (gqa_apply, gqa_cache_init, gqa_init, mla_apply,
-                        mla_cache_init, mla_init)
-from .common import (Params, dense, dense_init, embed, embedding_init,
-                     layernorm, normal_init, ones_init, rmsnorm, unembed,
-                     zeros_init)
+                        mla_cache_init, mla_init, sdpa)
+from .common import (Params, apply_rope, dense, dense_init, embed,
+                     embedding_init, layernorm, normal_init, ones_init,
+                     rmsnorm, unembed, zeros_init)
+from .frontends import projector_apply, projector_init
 from .mlp import swiglu_apply, swiglu_init
 from .moe import moe_apply, moe_init
 from .ssm import (mamba2_apply, mamba2_init, mamba2_state_init, mamba2_step,
@@ -38,7 +46,7 @@ from .ssm import (mamba2_apply, mamba2_init, mamba2_state_init, mamba2_step,
                   slstm_apply, slstm_init, slstm_state_init, slstm_step)
 
 PORTED_BLOCKS = ("attn", "swa", "mla", "mamba2", "mlstm", "slstm",
-                 "shared_attn")
+                 "shared_attn", "enc_attn", "dec_attn")
 LORA_RANK = 64  # zamba2-style per-application adapters on the shared block
 # a recurrent block's (init, apply, step, state init)
 _MIXERS = {"mamba2": (mamba2_init, mamba2_apply, mamba2_step,
@@ -47,15 +55,9 @@ _MIXERS = {"mamba2": (mamba2_init, mamba2_apply, mamba2_step,
            "slstm": (slstm_init, slstm_apply, slstm_step, slstm_state_init)}
 
 
-def _unported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported yet (the port's LM blocks are "
-        f"{PORTED_BLOCKS}): ROADMAP.md, queue 1, item 11")
-
-
 def _check_block(btype: str):
     if btype not in PORTED_BLOCKS:
-        raise _unported(f"block type {btype!r}")
+        raise ValueError(f"unknown block type {btype!r}: {PORTED_BLOCKS}")
 
 
 def _norm(cfg):
@@ -63,7 +65,7 @@ def _norm(cfg):
 
 
 def _has_ffn(btype: str) -> bool:
-    return btype in ("attn", "swa", "mla")
+    return btype in ("attn", "swa", "mla", "enc_attn", "dec_attn")
 
 
 def _norm_init(cfg, d=None, device="cpu"):
@@ -83,8 +85,11 @@ def block_init(rng, cfg, btype: str, device="cpu") -> Params:
     p = {"ln1": _norm_init(cfg, device=device)}
     if btype == "mla":
         p["attn"] = mla_init(rng, cfg, device)
-    elif btype in ("attn", "swa"):
+    elif btype in ("attn", "swa", "enc_attn", "dec_attn"):
         p["attn"] = gqa_init(rng, cfg, device)
+        if btype == "dec_attn":
+            p["ln_x"] = _norm_init(cfg, device=device)
+            p["xattn"] = gqa_init(rng, cfg, device)
     elif btype == "shared_attn":
         d, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
         for nm, dout in (("q", H * hd), ("k", K * hd), ("v", K * hd)):
@@ -97,7 +102,7 @@ def block_init(rng, cfg, btype: str, device="cpu") -> Params:
     if not _has_ffn(btype):
         return p
     p["ln2"] = _norm_init(cfg, device=device)
-    if cfg.n_experts:
+    if cfg.n_experts and btype != "enc_attn":
         p["ffn"] = moe_init(rng, cfg, device)
     else:
         p["ffn"] = swiglu_init(rng, cfg.d_model, cfg.d_ff, cfg.param_dtype,
@@ -120,13 +125,17 @@ def _shared_attn_params(shared: Params, bp: Params, cfg):
 
 
 def block_apply(bp: Params, x, *, btype, cfg, positions, cache=None,
-                mode="train", impl="chunked", segments=1, shared=None):
+                mode="train", impl="chunked", segments=1, shared=None,
+                memory=None):
     """Returns (x, new_cache, aux). mode=="train": no cache; "prefill":
     returns the block's new cache; "decode": consumes and updates the cache
     (an attention cache's slot in place; a recurrent state comes back as
     new tensors). aux is the MoE balance term (per segment with
     ``segments`` > 1, see ``moe_apply``), 0.0 for other blocks. ``shared``
-    is ``params["shared_attn"]``, which a ``shared_attn`` block applies."""
+    is ``params["shared_attn"]``, which a ``shared_attn`` block applies;
+    ``memory`` (B, M, d) the encoder's output, which a ``dec_attn`` block
+    cross-attends in every mode. An ``enc_attn`` block trains
+    bidirectionally (prefill and decode are causal, as ``repro``'s)."""
     _check_block(btype)
     nrm = _norm(cfg)
     h = nrm(bp["ln1"], x)
@@ -150,26 +159,69 @@ def block_apply(bp: Params, x, *, btype, cfg, positions, cache=None,
         kw = {"window": cfg.window if btype == "swa" else 0}
     if mode == "decode":
         o, new_cache = attend(ap, h, cfg=cfg, positions=positions,
-                              cache=cache, impl=impl, **kw)
+                              cache=cache["self"] if btype == "dec_attn"
+                              else cache, impl=impl, **kw)
     elif mode == "prefill":
         o, new_cache = attend(ap, h, cfg=cfg, positions=positions,
                               cache="init", impl=impl, **kw)
+    elif btype == "enc_attn":
+        o = _bidir_attn(ap, h, cfg, positions, impl)
     else:
         o = attend(ap, h, cfg=cfg, positions=positions, impl=impl, **kw)
     x = x + o
+    if btype == "dec_attn":
+        x = x + _cross_attn(bp["xattn"], nrm(bp["ln_x"], x), memory, cfg,
+                            impl)
+        if new_cache is not None:
+            new_cache = {"self": new_cache}
     if not _has_ffn(btype):
         return x, new_cache, 0.0
     h2 = nrm(bp["ln2"], x)
     aux = 0.0
-    if cfg.n_experts:
+    if cfg.n_experts and btype != "enc_attn":
         f, aux = moe_apply(bp["ffn"], h2, cfg=cfg, segments=segments)
     else:
         f = swiglu_apply(bp["ffn"], h2, cfg.act, cfg.compute_dtype)
     return x + f, new_cache, aux
 
 
+def _bidir_attn(ap, h, cfg, positions, impl):
+    """The encoder's self-attention: RoPE at ``positions``, no mask."""
+    B, S, _ = h.shape
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    cd = cfg.compute_dtype
+    q = dense(ap["wq"], h, cd).reshape(B, S, H, hd)
+    k = dense(ap["wk"], h, cd).reshape(B, S, K, hd)
+    v = dense(ap["wv"], h, cd).reshape(B, S, K, hd)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    o = sdpa(q, k, v, q_pos=positions, k_pos=positions, causal=False,
+             impl=impl)
+    return dense(ap["wo"], o.reshape(B, S, H * hd), cd)
+
+
+def _cross_attn(ap, h, memory, cfg, impl):
+    """Decoder cross-attention to the encoder's memory (B, M, d): no RoPE,
+    every query and key at position 0, no mask. The memory's k and v are
+    projected at every call, a decode step's included (``repro``'s)."""
+    B, S, _ = h.shape
+    M = memory.shape[1]
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    cd = cfg.compute_dtype
+    q = dense(ap["wq"], h, cd).reshape(B, S, H, hd)
+    k = dense(ap["wk"], memory, cd).reshape(B, M, K, hd)
+    v = dense(ap["wv"], memory, cd).reshape(B, M, K, hd)
+    zeros = functools.partial(torch.zeros, dtype=torch.int32,
+                              device=h.device)
+    o = sdpa(q, k, v, q_pos=zeros((S,)), k_pos=zeros((M,)), causal=False,
+             impl=impl)
+    return dense(ap["wo"], o.reshape(B, S, H * hd), cd)
+
+
 def block_cache_init(cfg, btype, batch, cache_len, device="cpu"):
     _check_block(btype)
+    if btype == "dec_attn":
+        return {"self": gqa_cache_init(cfg, batch, cache_len, device=device)}
     if btype in _MIXERS:
         return _MIXERS[btype][3](cfg, batch, device=device)
     if btype == "mla":
@@ -232,6 +284,8 @@ def lm_init(rng, cfg, device="cpu") -> Params:
                 for i, bt in enumerate(rem)}
     if "shared_attn" in cfg.pattern:
         p["shared_attn"] = gqa_init(rng, cfg, device)
+    if cfg.modality in ("vision_embed", "audio_embed"):
+        p["projector"] = projector_init(rng, cfg, device)
     p["ln_f"] = _norm_init(cfg, device=device)
     if not cfg.tie_embeddings:
         p["lm_head"] = dense_init(rng, cfg.d_model, cfg.padded_vocab,
@@ -242,21 +296,30 @@ def lm_init(rng, cfg, device="cpu") -> Params:
             "w": normal_init(rng, (cfg.n_tasks, cfg.d_model,
                                    cfg.padded_vocab), cfg.param_dtype, 0.02,
                              device)}
+    if cfg.n_enc_layers:
+        p["enc"] = {"blocks": {f"e{i}": block_init(rng, cfg, "enc_attn",
+                                                   device)
+                               for i in range(cfg.n_enc_layers)},
+                    "ln_f": _norm_init(cfg, device=device)}
     return p
 
 
 def _restack(per_rep: list, views: list, stacked: dict) -> dict:
-    """Stack per-repetition caches back onto the leading reps axis. A leaf
-    a decode step wrote in place is still the view of ``stacked`` it was
-    given, and is returned as the stacked tensor, not copied."""
+    """Stack per-repetition caches (nested dicts: a ``dec_attn`` cache is
+    ``{"self": {...}}``) back onto the leading reps axis, leaf by leaf. A
+    leaf a decode step wrote in place is still the view of ``stacked`` it
+    was given (``views`` holds each repetition's flattened views), and is
+    returned as the stacked tensor, not copied."""
+    flat = [leaves(c) for c in per_rep]
+    whole = leaves(stacked) if views is not None else None
     out = {}
-    for key in per_rep[0]:
+    for key in flat[0]:
         if views is not None and all(c[key] is w[key]
-                                     for c, w in zip(per_rep, views)):
-            out[key] = stacked[key]
+                                     for c, w in zip(flat, views)):
+            out[key] = whole[key]
         else:
-            out[key] = torch.stack([c[key] for c in per_rep])
-    return out
+            out[key] = torch.stack([c[key] for c in flat])
+    return unflatten(per_rep[0], out)
 
 
 def _remat(cfg, mode):
@@ -286,12 +349,14 @@ def _unstack(tree: Params, reps: int) -> list:
 
 
 def run_trunk(params: Params, x, *, cfg, positions, mode="train",
-              caches=None, impl="chunked", segments=1):
+              caches=None, impl="chunked", segments=1, memory=None):
     """x: (B,S,d) embedded inputs -> (hidden, new_caches, aux). aux is the
     sum over blocks of the MoE balance terms (0 without experts); with
     ``segments`` > 1 one per equal slice of the batch, each routed as if
     alone (``moe_apply``). With ``cfg.remat`` a training pass keeps only
-    each block's input and recomputes the block in the backward."""
+    each block's input and recomputes the block in the backward.
+    ``memory`` is the encoder's output, handed to every block (a
+    ``dec_attn`` block cross-attends it)."""
     unit, reps, rem = _pattern_split(cfg)
     remat = _remat(cfg, mode)
     shared = params.get("shared_attn")
@@ -310,12 +375,12 @@ def run_trunk(params: Params, x, *, cfg, positions, mode="train",
                 bp = per_rep[u][r]
                 c = None
                 if mode == "decode":
-                    c = {k: a[r] for k, a in caches["scan"][u].items()}
-                    views[u].append(dict(c))
+                    c = tree_map(lambda a: a[r], caches["scan"][u])
+                    views[u].append(leaves(c))
                 x, nc, a = _block(bp, x, remat=remat, shared=shared,
                                   btype=btype, cfg=cfg, positions=positions,
                                   cache=c, mode=mode, impl=impl,
-                                  segments=segments)
+                                  segments=segments, memory=memory)
                 aux = aux + a
                 per_unit[u].append(nc)
         if mode in ("prefill", "decode"):
@@ -328,7 +393,7 @@ def run_trunk(params: Params, x, *, cfg, positions, mode="train",
         x, nc, a = _block(params["rem"][f"r{i}"], x, remat=remat,
                           shared=shared, btype=btype, cfg=cfg,
                           positions=positions, cache=c, mode=mode, impl=impl,
-                          segments=segments)
+                          segments=segments, memory=memory)
         aux = aux + a
         if nc is not None:
             new_caches.setdefault("rem", {})[f"r{i}"] = nc
@@ -337,11 +402,14 @@ def run_trunk(params: Params, x, *, cfg, positions, mode="train",
 
 
 def embed_inputs(params, tokens, cfg, media=None):
-    """tokens: (B, S) int -> (B, S, d_model). Text only: the modality
-    frontends (``media``) are not ported yet."""
+    """tokens: (B, S_text) int; media: raw frontend embeddings
+    (B, n_media, d_frontend) or None -> (B, n_media + S_text, d_model),
+    the projected media first."""
+    x = embed(params["embed"], tokens, cfg.compute_dtype)
     if media is not None:
-        raise _unported("media frontends (vision/audio projector)")
-    return embed(params["embed"], tokens, cfg.compute_dtype)
+        media = projector_apply(params["projector"], media, cfg)
+        x = torch.cat([media.to(x.dtype), x], dim=1)
+    return x
 
 
 def _mask_pad_vocab(logits, cfg):
@@ -372,20 +440,41 @@ def lm_logits(params, hidden, cfg, task: int | None = None):
     return _mask_pad_vocab(out, cfg)
 
 
+def encode(params, src_embed, cfg, impl="chunked"):
+    """The encoder of an enc-dec model. src_embed: raw frontend frames
+    (B, S_src, d_frontend) -> memory (B, S_src, d_model): the projector
+    (a modality model's), then ``n_enc_layers`` bidirectional blocks at
+    positions ``arange(S_src)``, then the encoder's final norm. No remat,
+    as ``repro``'s."""
+    if cfg.modality in ("vision_embed", "audio_embed"):
+        src_embed = projector_apply(params["projector"], src_embed, cfg)
+    x = src_embed.to(cfg.compute_dtype)
+    positions = torch.arange(x.shape[1], device=x.device)
+    for i in range(cfg.n_enc_layers):
+        x, _, _ = block_apply(params["enc"]["blocks"][f"e{i}"], x,
+                              btype="enc_attn", cfg=cfg, positions=positions,
+                              mode="train", impl=impl)
+    return _norm(cfg)(params["enc"]["ln_f"], x)
+
+
 def lm_apply(params: Params, tokens, *, cfg, media=None, memory=None,
              mode="train", caches=None, positions=None, impl="chunked",
              task=None):
-    """Full LM forward. Returns (logits, new_caches, aux)."""
-    if memory is not None:
-        raise _unported("encoder-decoder memory (cross-attention)")
+    """Full LM forward. Returns (logits, new_caches, aux). ``media``
+    (prefill and train) is prepended through the projector; ``memory``
+    (B, M, d_model), the encoder's output, is needed by an enc-dec model
+    in every mode."""
     if mode == "decode":
         x = embed(params["embed"], tokens, cfg.compute_dtype)  # (B,1,d)
     else:
         x = embed_inputs(params, tokens, cfg, media)
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)
+    if cfg.n_enc_layers and memory is None and mode != "decode":
+        raise ValueError("enc-dec model needs encoder memory")
     h, ncaches, aux = run_trunk(params, x, cfg=cfg, positions=positions,
-                                mode=mode, caches=caches, impl=impl)
+                                mode=mode, caches=caches, impl=impl,
+                                memory=memory)
     return lm_logits(params, h, cfg, task=task), ncaches, aux
 
 

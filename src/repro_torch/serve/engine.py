@@ -30,14 +30,20 @@ entries, the params copied once per distinct device, so the budget stays
 the bucket grid; ``serve.scaleout`` runs one session per replica on top.
 
 The worker runs each batch's host -> device copies (``non_blocking``, from
-pinned memory), forward and ``.cpu()`` on the session's own CUDA stream,
-one per mesh entry, so sessions on one card overlap instead of queueing on
+pinned memory), forward and ``.cpu()`` on a CUDA stream of its own, one
+per mesh entry, so sessions on one card overlap instead of queueing on
 the default stream; ``predict_one`` runs the same kernels at the same
-shapes on the caller's stream. One injected ``clock`` is the time base of
-queue, batcher and metrics. ``close()`` stops admissions, drains every
-queued or binned request through the forward, joins the worker and is an
-idempotent no-op on re-entry; ``restart_worker()`` brings a crashed worker
-back.
+shapes on the caller's stream. The streams come from ``STREAMS``, a pool
+that outlives the sessions: one stream a (card, the running thread's
+cuBLAS handle, entry slot). PyTorch keeps a 32 MiB cuBLAS workspace for
+each (handle, stream) pair that ran a GEMM, until the process ends, and
+hands a thread's handle to a later thread once the first ends: with the
+stream a function of the handle, sessions opened and closed again reuse
+the pairs, and the workspaces stay as many as the threads that ran at
+once. One injected ``clock`` is the time base of queue, batcher and
+metrics. ``close()`` stops admissions, drains every queued or binned
+request through the forward, joins the worker and is an idempotent no-op
+on re-entry; ``restart_worker()`` brings a crashed worker back.
 """
 from __future__ import annotations
 
@@ -88,12 +94,53 @@ def _row_chunks(batch: dict, n: int) -> list:
 
 
 class _Entry(NamedTuple):
-    """One mesh entry: its device, its stream (None on the CPU) and the
-    params on that device (shared by the entries of one device)."""
+    """One mesh entry: its device, its slot (the entry's index among the
+    session's entries on that device: the stream it takes from ``STREAMS``)
+    and the params on that device (shared by the entries of one device)."""
     device: torch.device
-    stream: object
+    slot: int
     shared: dict
     heads: list
+
+
+def _blas_handle(device: torch.device) -> int:
+    """The calling thread's cuBLAS handle on ``device``."""
+    with torch.cuda.device(device):
+        return torch.cuda.current_blas_handle()
+
+
+class StreamPool:
+    """CUDA streams that outlive the serving sessions: ``stream(device,
+    slot)`` is one stream a (device, the calling thread's cuBLAS handle,
+    slot), made on first use and handed back ever after. Two live threads
+    never share a handle, so two threads never share a stream; a thread
+    that starts after another ended may get its handle, and then its
+    streams, whose (handle, stream) pairs already have their cuBLAS
+    workspaces. ``make`` and ``handle`` (device -> a new stream, the
+    calling thread's handle) are PyTorch's by default."""
+
+    def __init__(self, make=None, handle=None):
+        self._make = make or (lambda d: torch.cuda.Stream(device=d))
+        self._handle = handle or _blas_handle
+        self._streams: dict = {}
+        self._lock = threading.Lock()
+        self._local = threading.local()
+
+    def stream(self, device, slot: int = 0):
+        handles = self._local.__dict__.setdefault("handles", {})
+        if device not in handles:       # a thread keeps its handle
+            handles[device] = self._handle(device)
+        key = (device, handles[device], slot)
+        with self._lock:
+            if key not in self._streams:
+                self._streams[key] = self._make(device)
+            return self._streams[key]
+
+    def __len__(self) -> int:
+        return len(self._streams)
+
+
+STREAMS = StreamPool()
 
 
 def _pinned(device) -> torch.device:
@@ -190,9 +237,10 @@ class ServeSession:
         heads = {d: _head_slices(p["heads"], n_heads)
                  for d, p in copies.items()}
         self._entries = [
-            _Entry(d, torch.cuda.Stream(device=d) if d.type == "cuda"
-                   else None, copies[d]["shared"], heads[d])
-            for d in devices]
+            _Entry(d, devices[:i].count(d), copies[d]["shared"], heads[d])
+            for i, d in enumerate(devices)]
+        # the streams the worker thread ran the entries on
+        self.worker_streams: set = set()
         self.metrics = metrics if metrics is not None else \
             ServeMetrics(seed=seed, clock=clock)
         # retained so restart_worker() can rebuild the queue/batcher pair
@@ -355,15 +403,18 @@ class ServeSession:
             out[k] = t
         return out
 
-    @staticmethod
-    def _on(entry: _Entry, own_streams: bool):
-        """Where an entry's work is queued: its own stream, or the caller's
-        current stream on its device."""
+    def _on(self, entry: _Entry, own_streams: bool):
+        """Where an entry's work is queued: the pool's stream for this
+        thread and the entry's slot, or the caller's current stream on its
+        device."""
         if entry.device.type != "cuda":
             return contextlib.nullcontext()
-        if own_streams:
-            return torch.cuda.stream(entry.stream)
-        return torch.cuda.device(entry.device)
+        if not own_streams:
+            return torch.cuda.device(entry.device)
+        stream = STREAMS.stream(entry.device, entry.slot)
+        if threading.current_thread() is self._worker:
+            self.worker_streams.add(stream)
+        return torch.cuda.stream(stream)
 
     def _predict(self, head: int, batch: dict, own_streams: bool = True):
         """The forward of one assembled batch under ``head``: each mesh
@@ -502,11 +553,11 @@ class ServeSession:
 
     def restart_worker(self) -> bool:
         """Recover from a dead worker: clear the fail-fast state and stand
-        up a fresh queue + batcher + worker thread. The shape cache, the
-        params and the streams are kept, so recovery rebuilds nothing on
-        the device. The crashed worker's pending futures were already
-        failed — nothing is replayed. Returns True if a restart happened
-        (False: the worker was healthy)."""
+        up a fresh queue + batcher + worker thread. The shape cache and the
+        params are kept, so recovery rebuilds nothing on the device. The
+        crashed worker's pending futures were already failed — nothing is
+        replayed. Returns True if a restart happened (False: the worker
+        was healthy)."""
         if self._closed:
             raise ServeClosedError("ServeSession is closed")
         if self._worker_error is None and self._worker.is_alive():

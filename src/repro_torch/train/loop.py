@@ -20,19 +20,28 @@ def make_lm_loss(cfg, impl="chunked"):
     """loss_fn(params, batch) -> the mean next-token cross-entropy of
     ``{"tokens", "labels": (B, S)}`` over the padded vocab's f32 logits,
     plus ``cfg.router_aux_coef`` x the trunk's MoE balance term with
-    experts (``repro``'s loss). Encoder-decoder (``memory``,
-    ``src_embed``) and modality (``media``) batches raise: those blocks are
-    not ported (ROADMAP.md, queue 1, item 11)."""
+    experts (``repro``'s loss). An enc-dec batch without ``memory`` is
+    encoded from its ``src_embed`` frames (a batch with neither raises,
+    naming ``src_embed``); with ``media`` the media positions' logits are
+    dropped before the cross-entropy, so the labels are the text's."""
     from repro_torch.core.mtl import softmax_xent
     from repro_torch.models import transformer
 
     def loss_fn(params, batch):
-        if batch.get("src_embed") is not None:
-            raise transformer._unported("encoder-decoder inputs "
-                                        "(src_embed)")
+        memory, media = batch.get("memory"), batch.get("media")
+        if cfg.n_enc_layers and memory is None:
+            if batch.get("src_embed") is None:
+                raise ValueError(
+                    f"{cfg.name or 'the enc-dec model'}: the batch has "
+                    f"neither 'memory' nor 'src_embed' (B, S_src, "
+                    f"d_frontend) frames for the encoder")
+            memory = transformer.encode(params, batch["src_embed"], cfg,
+                                        impl)
         logits, _, aux = transformer.lm_apply(
-            params, batch["tokens"], cfg=cfg, media=batch.get("media"),
-            memory=batch.get("memory"), mode="train", impl=impl)
+            params, batch["tokens"], cfg=cfg, media=media, memory=memory,
+            mode="train", impl=impl)
+        if media is not None:
+            logits = logits[:, media.shape[1]:]
         loss = softmax_xent(logits, batch["labels"])
         if cfg.n_experts:
             loss = loss + cfg.router_aux_coef * aux

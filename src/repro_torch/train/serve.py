@@ -3,9 +3,13 @@
 
 ``greedy_generate`` chains prefill -> cache extension -> decode. Under
 ``impl="pallas"`` prefill runs the flash-attention kernel and every decode
-step the flash-decode kernel (one launch per layer each); ``"chunked"`` and
-``"naive"`` are the plain PyTorch paths. A decode step writes its token's
-slot of each layer's cache (k/v, or MLA's ckv/krope) in place (see
+step the flash-decode kernel (one launch per layer each; an enc-dec
+decoder's cross-attention to the encoder's ``memory`` runs #5 in prefill
+and in every decode step); ``"chunked"`` and ``"naive"`` are the plain
+PyTorch paths. A vision model's media go through
+``make_prefill_step(media=)``, and its decode steps start at
+``n_media + S_text``. A decode step writes its token's slot of each
+layer's cache (k/v, or MLA's ckv/krope) in place (see
 ``models.attention``), so the caches handed to it are updated; the values
 are ``repro``'s.
 """
@@ -55,35 +59,43 @@ def extend_caches(caches, cfg, capacity: int):
 
 def make_prefill_step(cfg, impl="chunked"):
     @torch.no_grad()
-    def prefill(params, tokens):
-        logits, caches, _ = transformer.lm_apply(params, tokens, cfg=cfg,
-                                                 mode="prefill", impl=impl)
+    def prefill(params, tokens, media=None, memory=None):
+        """tokens: (B, S_text) ints; ``media`` (B, n_media, d_frontend)
+        frames projected and put first; ``memory`` (B, M, d_model) the
+        encoder's output for an enc-dec model."""
+        logits, caches, _ = transformer.lm_apply(
+            params, tokens, cfg=cfg, media=media, memory=memory,
+            mode="prefill", impl=impl)
         return logits, caches
     return prefill
 
 
 def make_decode_step(cfg, impl="chunked", task=None):
     @torch.no_grad()
-    def decode(params, token, caches, pos):
+    def decode(params, token, caches, pos, memory=None):
         """token: (B,1) int; pos: the absolute position (an int or a 0-d
-        tensor; a device tensor keeps the step free of host syncs). Writes
-        the token's k/v slot of each layer's cache in place and returns
+        tensor; a device tensor keeps the step free of host syncs);
+        ``memory`` the encoder's output for an enc-dec model. Writes the
+        token's k/v slot of each layer's cache in place and returns
         (logits, caches). With ``task``, the logits come from that
         source's LM head."""
         positions = torch.as_tensor(pos, device=token.device).reshape(1)
         logits, caches, _ = transformer.lm_apply(
             params, token, cfg=cfg, mode="decode", caches=caches,
-            positions=positions, impl=impl, task=task)
+            positions=positions, memory=memory, impl=impl, task=task)
         return logits, caches
     return decode
 
 
 def greedy_generate(params, cfg, prompt_tokens, n_new: int, *,
                     impl="chunked", capacity: int | None = None,
-                    device=None, return_logits=False, timings=None):
-    """prompt_tokens: (B, S) ints. Returns the (B, n_new) int32 greedy
-    continuation on ``device`` — and, with ``return_logits``, the f32
-    logits each token was taken from, (B, n_new, padded vocab).
+                    memory=None, device=None, return_logits=False,
+                    timings=None):
+    """prompt_tokens: (B, S) ints; ``memory`` (B, M, d_model) the
+    encoder's output for an enc-dec model, cross-attended at prefill and at
+    every step. Returns the (B, n_new) int32 greedy continuation on
+    ``device`` — and, with ``return_logits``, the f32 logits each token was
+    taken from, (B, n_new, padded vocab).
 
     ``device`` None means ``cuda`` (raises without a GPU); ``params`` must
     already live there (``interop.to_torch(tree, device)``). A
@@ -95,6 +107,8 @@ def greedy_generate(params, cfg, prompt_tokens, n_new: int, *,
         raise ValueError(f"params are on {table.device}, generating on "
                          f"{dev}: move them with interop.to_torch")
     tokens = torch.as_tensor(prompt_tokens).to(dev)
+    if memory is not None:
+        memory = torch.as_tensor(memory).to(dev)
     B, S = tokens.shape
     capacity = capacity or (S + n_new)
     prefill = make_prefill_step(cfg, impl)
@@ -105,7 +119,7 @@ def greedy_generate(params, cfg, prompt_tokens, n_new: int, *,
             torch.cuda.synchronize(dev)
 
     t0 = time.perf_counter()
-    logits, caches = prefill(params, tokens)
+    logits, caches = prefill(params, tokens, memory=memory)
     caches = extend_caches(caches, cfg, capacity)
     last = logits[:, -1:]
     tok = last.argmax(-1).to(torch.int32)
@@ -114,7 +128,7 @@ def greedy_generate(params, cfg, prompt_tokens, n_new: int, *,
     t1 = time.perf_counter()
     pos = torch.tensor(S, dtype=torch.int64, device=dev)
     for _ in range(n_new - 1):
-        logits, caches = decode(params, tok, caches, pos)
+        logits, caches = decode(params, tok, caches, pos, memory=memory)
         tok = logits[:, -1:].argmax(-1).to(torch.int32)
         out.append(tok)
         outs_logits.append(logits[:, -1:])

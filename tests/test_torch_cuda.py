@@ -624,6 +624,9 @@ def _attn_close(got, ref):
     # zamba2-1.2b's shared attention: MHA (G = 1) at D = 64, windowed
     (2, 200, 200, 32, 32, 64, 4096, False),  # window inactive
     (1, 300, 300, 32, 32, 64, 128, True),    # window live, rolled pads
+    # internvl2-1b: G = 7 (14 query heads over 2 kv heads) at D = 64
+    (2, 100, 100, 14, 2, 64, 0, False),      # G = 7, ragged
+    (1, 130, 130, 7, 1, 64, 40, True),       # G = 7, rolled pads + window
 ])
 def test_flash_attention_kernel_matches_plain(cuda, dtype, B, Sq, Sk, H, K,
                                               D, window, rolled):
@@ -651,6 +654,45 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype, B, Sq, Sk, H, K,
     nc = flash_attention(q, k, v, q_pos=qp, k_pos=kp, causal=False)
     ref = flash_attention_ref(q, k, v, qp, kp, causal=False)
     assert _attn_close(nc, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Sq,Sk,H,K,pos", [
+    (2, 300, 300, 16, 16, "arange"),    # seamless's encoder: bidirectional
+    (2, 130, 300, 16, 16, "zeros"),     # its cross-attention in prefill
+    (2, 1, 300, 16, 16, "zeros"),       # ... at decode: one query row
+    (2, 130, 257, 8, 4, "distinct"),    # distinct positions, pads
+])
+def test_flash_attention_kernel_cross_and_bidirectional(cuda, dtype, B, Sq,
+                                                        Sk, H, K, pos):
+    """#5 at D = 64 without a causal mask, where every tile is live: the
+    encoder's shape, cross-attention with every position 0 (nothing
+    masked), and, since equal positions would hide a wrong position test,
+    distinct unordered positions with pads (every 7th key), there also
+    causal."""
+    rng = np.random.default_rng(Sq * Sk)
+    dt = getattr(torch, dtype)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
+            cuda, dt)
+    q, k, v = t(B, Sq, H, 64), t(B, Sk, K, 64), t(B, Sk, K, 64)
+    if pos == "arange":
+        qp, kp = np.arange(Sq), np.arange(Sk)
+    elif pos == "zeros":
+        qp, kp = np.zeros(Sq), np.zeros(Sk)
+    else:
+        qp, kp = rng.integers(0, 1000, Sq), rng.integers(0, 1000, Sk)
+        kp[::7] = PAD
+    qp, kp = (torch.from_numpy(x.astype(np.int32)).to(cuda)
+              for x in (qp, kp))
+    for causal in (False, True) if pos == "distinct" else (False,):
+        got = flash_attention(q, k, v, q_pos=qp, k_pos=kp, causal=causal)
+        ref = flash_attention_ref(q, k, v, qp, kp, causal=causal)
+        assert _attn_close(got, ref), causal
+        assert torch.equal(got, flash_attention(q, k, v, q_pos=qp, k_pos=kp,
+                                                causal=causal))
 
 
 @pytest.mark.gpu
@@ -693,6 +735,10 @@ def test_flash_attention_kernel_refuses(cuda):
     # zamba2-1.2b's shared attention: MHA (G = 1) at D = 64
     (8, 1056, 32, 32, 64, None, None),      # decode run (a)'s cache
     (1, 4200, 32, 32, 64, None, None),      # run (b)'s rolling cache
+    # G = 7 (internvl2-1b's 14 query heads over 2 kv heads)
+    (8, 1056, 14, 2, 64, None, None),       # internvl2's decode shape
+    (2, 1000, 14, 2, 64, 17, None),         # 2 splits a CTA
+    (1, 77, 7, 1, 128, 3, 16),              # one kv head, D = 128, ragged
 ])
 def test_flash_decode_kernel_matches_plain(cuda, dtype, B, S, H, K, D,
                                            n_splits, block_k):
@@ -1090,7 +1136,9 @@ def test_replicas_and_sharded_rows_on_one_card(cuda):
                 [rep.submit(sm, head=t) for t, sm in jobs]]
         batches = rep.stats()["counters"]["batches"]
         assert egnn_edge_agg.launches == cfg.gnn_layers * batches
-        assert len({s._entries[0].stream for s in rep.replicas}) == 4
+        streams = [s.worker_streams for s in rep.replicas]
+        assert all(len(w) == 1 for w in streams)
+        assert len(set().union(*streams)) == 4
     for o, r in zip(outs, refs):
         assert o["energy"] == r["energy"]
         assert np.array_equal(o["forces"], r["forces"])
@@ -1186,6 +1234,65 @@ def test_mla_moe_lm_on_card(cuda):
     b = greedy_generate(params, cfg, toks[:, :20], 6, impl="pallas",
                         device=cuda)
     assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the frontends and the encoder-decoder: internvl2-1b, seamless-m4t-medium
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+def test_encdec_and_media_lm_on_card(cuda):
+    """The smoke configs in f32 compute on the card. seamless: the encoder
+    through #5 (bidirectional) within 1e-4 of the plain path's memory;
+    ``greedy_generate(memory=)`` on the kernel path equal to the plain
+    path's and the CPU's tokens, with #5 twice a layer a prefill (self,
+    cross) and once a layer a decode step (cross, one query), #6 once a
+    layer a decode step. internvl2: prefill with media, then decode at
+    ``n_media + S`` on, the kernel path's logits within 2e-4 atol / 2e-3
+    rtol of the full forward's."""
+    from repro_torch import interop
+    from repro_torch.train.serve import (extend_caches, make_decode_step,
+                                         make_prefill_step)
+    cfg = get_smoke("seamless-m4t-medium").replace(
+        compute_dtype=torch.float32)
+    L = cfg.n_layers
+    params = transformer.lm_init(np.random.default_rng(0), cfg)
+    cparams = interop.to_torch(params, cuda)
+    src = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (3, 40, 1024), np.float32))
+    mem = transformer.encode(cparams, src.to(cuda), cfg, impl="pallas")
+    plain = transformer.encode(cparams, src.to(cuda), cfg)
+    _close(mem, plain, 1e-4)
+    prompt = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, (3, 24)).astype(np.int32))
+    fa0, fd0 = flash_attention.launches, flash_decode.launches
+    got = greedy_generate(cparams, cfg, prompt, 6, impl="pallas",
+                          memory=mem, device=cuda)
+    assert flash_attention.launches - fa0 == 2 * L + 5 * L
+    assert flash_decode.launches - fd0 == 5 * L
+    assert torch.equal(got, greedy_generate(cparams, cfg, prompt, 6,
+                                            impl="chunked", memory=mem,
+                                            device=cuda))
+    assert torch.equal(got.cpu(), greedy_generate(
+        params, cfg, prompt, 6, impl="chunked", memory=mem.cpu(),
+        device="cpu"))
+
+    cfg = get_smoke("internvl2-1b").replace(compute_dtype=torch.float32)
+    n = cfg.n_media_tokens
+    params = transformer.lm_init(np.random.default_rng(3), cfg, cuda)
+    media = torch.randn(2, n, 1024, device=cuda)
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab, (2, 24))).to(cuda)
+    full, _, _ = transformer.lm_apply(params, toks, cfg=cfg, media=media,
+                                      impl="pallas")
+    _, caches = make_prefill_step(cfg, "pallas")(params, toks[:, :20],
+                                                 media=media)
+    caches = extend_caches(caches, cfg, n + 24)
+    decode = make_decode_step(cfg, "pallas")
+    for t in range(20, 24):
+        lg, caches = decode(params, toks[:, t:t + 1], caches, n + t)
+        assert torch.allclose(lg[:, 0], full[:, n + t], atol=2e-4,
+                              rtol=2e-3)
 
 
 # ---------------------------------------------------------------------------

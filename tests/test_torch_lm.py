@@ -267,7 +267,8 @@ def test_registry_knows_only_ported_archs():
     assert set(tconfigs.ARCHS) == {"h2o-danube-1.8b", "qwen1.5-0.5b",
                                    "hydragnn-gfm", "granite-moe-3b-a800m",
                                    "deepseek-v2-236b", "zamba2-1.2b",
-                                   "xlstm-125m"}
+                                   "xlstm-125m", "internvl2-1b",
+                                   "seamless-m4t-medium"}
     with pytest.raises(KeyError, match="not yet ported"):
         tconfigs.get("gemma3-12b")
 
@@ -498,16 +499,27 @@ def test_bf16_compute_matches_repro():
 
 
 def test_unported_blocks_raise():
+    """The encoder-decoder blocks and the media frontend, refused until
+    they were ported, now run: ``enc_attn`` / ``dec_attn`` init and cache
+    init (the decoder's cache nested under ``"self"``), and media put
+    before the text by ``embed_inputs``. What no version takes still
+    raises: an unknown block type, an unknown attention impl."""
     _, tcfg = _cfgs("attn")
     rng = np.random.default_rng(0)
     for bt in ("enc_attn", "dec_attn"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tt.block_init(rng, tcfg, bt)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tt.block_cache_init(tcfg, bt, 1, 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt.embed_inputs({}, torch.zeros((1, 2), dtype=torch.long), tcfg,
-                        media=torch.zeros(1))
+        p = tt.block_init(rng, tcfg, bt)
+        assert {"ln1", "attn", "ln2", "ffn"} <= set(p)
+        assert ("xattn" in p and "ln_x" in p) == (bt == "dec_attn")
+        c = tt.block_cache_init(tcfg, bt, 1, 4)
+        c = c["self"] if bt == "dec_attn" else c
+        assert tuple(c["k"].shape) == (1, 4, tcfg.n_kv_heads, tcfg.hd)
+    vcfg = tcfg.replace(modality="vision_embed")
+    params = tt.lm_init(rng, vcfg)
+    x = tt.embed_inputs(params, torch.zeros((1, 2), dtype=torch.long), vcfg,
+                        media=torch.zeros(1, 3, 1024))
+    assert tuple(x.shape) == (1, 5, tcfg.d_model)
+    with pytest.raises(ValueError, match="block type"):
+        tt.block_init(rng, tcfg, "conv")
     with pytest.raises(ValueError, match="impl"):
         tattn.sdpa(torch.zeros(1, 2, 2, 16), torch.zeros(1, 2, 2, 16),
                    torch.zeros(1, 2, 2, 16), q_pos=torch.arange(2),

@@ -540,3 +540,68 @@ def test_plain_path_from_8_threads_counts_nothing_and_agrees():
     for g in got:
         assert all(torch.equal(a, b) for a, b in zip(g, want))
     assert [c.launches for c in counters] == [0, 0]
+
+
+# ---------------------------------------------------------------------------
+# the serving streams' pool
+# ---------------------------------------------------------------------------
+
+class _HandlePool:
+    """PyTorch's cuBLAS handle pool, as the pool sees it: a thread takes a
+    handle on its first ask (the last one handed back, else a new one)
+    and hands it back when it ends."""
+
+    def __init__(self):
+        self.free, self.made = [], 0
+        self.lock = threading.Lock()
+        self.local = threading.local()
+
+    def handle(self, device):
+        if not hasattr(self.local, "h"):
+            with self.lock:
+                if self.free:
+                    self.local.h = self.free.pop()
+                else:
+                    self.made += 1
+                    self.local.h = self.made
+        return self.local.h
+
+    def release(self):
+        with self.lock:
+            self.free.append(self.local.h)
+
+
+def test_stream_pool_hands_back_the_same_streams():
+    """Five cycles of 8 threads, each asking for its streams at two slots
+    and ending: every cycle after the first hands back streams the first
+    made, so the (handle, stream) pairs, and with them PyTorch's cuBLAS
+    workspaces, stay the first cycle's; two live threads never share a
+    stream; one thread gets one stream a (device, slot), ask after ask."""
+    from repro_torch.serve.engine import StreamPool
+    handles = _HandlePool()
+    made = []
+    pool = StreamPool(make=lambda d: made.append(object()) or made[-1],
+                      handle=handles.handle)
+    pairs, sizes = [], []
+    for _ in range(5):
+        got, start = [None] * 8, threading.Barrier(8)
+
+        def run(i):
+            start.wait()             # all 8 live at once
+            s = [pool.stream("cuda:0", slot) for slot in (0, 1)]
+            assert pool.stream("cuda:0", 0) is s[0]
+            got[i] = (handles.handle("cuda:0"), s)
+            start.wait()
+            handles.release()
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        assert len({id(s) for _, ss in got for s in ss}) == 16
+        pairs.append({(h, id(s)) for h, ss in got for s in ss})
+        sizes.append(len(pool))
+    assert sizes == [16] * 5 and len(made) == 16 and handles.made == 8
+    assert all(p == pairs[0] for p in pairs)
+    # another device: streams of its own
+    assert pool.stream("cuda:1", 0) is not pool.stream("cuda:0", 0)
