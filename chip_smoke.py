@@ -205,12 +205,14 @@ Phases, each printing one JSON line:
      peak memory; one step profiled. Phase 5 holds #5 at the MLA
      prefill (B=8, S=1024, H=K=128, D=192, bf16 and f32) and granite's
      (24/8 heads, D=64) and #6 at granite's decode (G=3, cache 1056);
-  6d. lm_recurrent: the recurrent family at full width and depth, fp32
-     weights drawn on the card from a seed, bf16 compute: zamba2-1.2b (38
+  6d. lm_recurrent: the recurrent family at full width, fp32 weights
+     drawn on the card from a seed, bf16 compute: zamba2-1.2b (38
      layers, d=2048: Mamba2 blocks of 64 heads and state 64, and one
      shared attention block, 32 heads of 64, window 4096, applied at 6
-     layers through per-layer LoRA adapters) and xlstm-125m (12 layers,
-     d=768, mLSTM and sLSTM in turn). Each is served by
+     layers through per-layer LoRA adapters; served at full depth) and
+     xlstm-125m (d=768, mLSTM and sLSTM in turn; 2 of its 12 layers,
+     ``REC_XLSTM_LAYERS``: its host-bound scans run no kernel of the
+     port). Each is served by
      ``greedy_generate(impl="pallas")`` at (a) B=8, a 1024-token prompt,
      32 new, twice, bitwise equal, and zamba2 also at (b) B=1, a
      4200-token prompt past its window, 16 new (the rolling cache, SSD's
@@ -221,8 +223,9 @@ Phases, each printing one JSON line:
      f32 within ``LM_TOL_F32`` and in bf16 no further from the f32
      forward than twice the bf16 forward (or ``LM_TOL_BF16``); one
      prefill and one decode step profiled. Then ``lm``
-     trains 3 steps of 8 x 1024 tokens (xlstm 8 x 256: its sLSTM scan
-     took 20.6 s a step at 1024) through ``Session`` (``impl="chunked"``,
+     trains 3 steps of 8 x 1024 tokens (zamba2 cut to 12 of 38 layers,
+     ``REC_TRAIN_LAYERS``; xlstm 8 x 256, its sLSTM scan took 20.6 s a
+     step at 1024) through ``Session`` (``impl="chunked"``,
      per-block remat), twice, bitwise; #1 once a step, held on one step's
      embedding cotangent and timed at its shape beside ``index_add_``;
      peak memory; one step profiled. Phase 5 holds #5 and #6 at the
@@ -251,12 +254,37 @@ Phases, each printing one JSON line:
      prefill's. Then ``lm`` trains 3 steps (internvl2 8 x (256 media +
      768 text), seamless 2 x 1024 with 4096 frames, the batch cut from 8:
      its encoder keeps every layer's attention probabilities under
-     autograd), twice, bitwise; #1 once a step, held on one step's
+     autograd; and 6 of its 12 + 12 layers, ``FRONT_TRAIN_LAYERS``),
+     twice, bitwise; #1 once a step, held on one step's
      cotangent and timed at its shape; peak memory; one step profiled.
      Phase 5 holds #5 at seamless's encoder, cross-attention (1024 and 1
      query over 4096 keys, positions 0), causal self-attention and
      internvl2's prefill (G = 7), and at cross and causal shapes with
      distinct positions and pads; #6 at G = 7 and at seamless's decode;
+  6f. lm_dense12b: the 12 B dense models, fp32 weights drawn on the card
+     from a seed, bf16 compute, one model on the card at a time:
+     gemma3-12b (48 layers, d=3840, 16 / 8 heads of 256, five sliding-
+     window layers (1024) to one full-attention layer, vocab 262,144;
+     11.77 B parameters) and stablelm-12b (40 layers, d=5120, 32 / 8
+     heads of 160, vocab 100,352; 11.63 B). Each served at full width and
+     depth by ``greedy_generate(impl="pallas")`` at (a) B=8, 1024 + 32,
+     twice, bitwise, and gemma3 at (b) B=1, 4200 + 16 past its window (#5
+     once a layer a prefill, #6 once a layer a step); the kernel path's
+     teacher-forced logits within ``LM_TOL_BF16`` of the plain path's at
+     both shapes, and against the full forward of the same tokens:
+     gated for stablelm and for gemma3 under its window (2 x 248 + 8),
+     reported for gemma3 at (a) and (b), where ``repro``'s
+     ``extend_caches`` keeps every k/v cache at the prompt's length (the
+     full-attention layers' too) and a decode step overwrites their oldest
+     slot; a prefill and a decode step profiled, the f32 unembedding
+     beside the prefill. Then ``lm`` trains through ``Session`` with its
+     donated AdamW (``donate=True``), cut in depth only (gemma3 6 of 48
+     layers, one 5:1 unit; stablelm 8 of 40), 3 steps of 2 x 1024, twice,
+     bitwise; #1 once a step, held on one step's cotangent and timed at
+     its shape; one step profiled. No run may peak above 75 GB. Phase 5
+     holds #5 at both models' prefill shapes (gemma3 causal and windowed
+     at (a) and (b)) and #6 at their decode shapes, and each new head dim
+     in f32;
   7. the ``kernels`` summary line (#1 ``segment_sum_2d`` apart from #2
      ``segment_sum`` since #1 runs every embedding's backward), the
      ``nvidia-smi`` line, and the final ``{"ok": true, "device": ...}``
@@ -3258,6 +3286,15 @@ REC_TRAIN_S = {"zamba2-1.2b": 1024,  # ... these lengths: xlstm's cut from
                                     # passes a step under remat) took 20.6
                                     # s a step on the host clock
 REC_TRAIN_STEPS = 3
+REC_TRAIN_LAYERS = {"zamba2-1.2b": 12}  # trained cut in depth (two shared-
+                                    # attention applications), served at
+                                    # full depth
+REC_XLSTM_LAYERS = 2                # xlstm served and trained at 2 of 12
+                                    # layers (one mLSTM / sLSTM pair): no
+                                    # kernel of the port is on its path, and
+                                    # its host-bound scans took 82 s at 12
+                                    # layers on an NVIDIA H100 80GB HBM3,
+                                    # 700.00 W
 REC_PROFILE_S = {"xlstm-125m": (256, 64)}  # xlstm's profiled prefill and
                                     # training step: lengths cut so that
                                     # a trace holds ~10^4-10^5 events
@@ -3271,9 +3308,11 @@ def _tick(msg):
 
 
 def _recurrent_configs():
-    """zamba2-1.2b and xlstm-125m at full width and depth."""
+    """zamba2-1.2b at full width and depth, xlstm-125m at full width cut to
+    ``REC_XLSTM_LAYERS``."""
     from repro_torch.configs import xlstm_125m, zamba2_1_2b
-    return [zamba2_1_2b.CONFIG, xlstm_125m.CONFIG]
+    return [zamba2_1_2b.CONFIG,
+            xlstm_125m.CONFIG.replace(n_layers=REC_XLSTM_LAYERS)]
 
 
 def _tree_bytes(tree):
@@ -3288,7 +3327,8 @@ def _tree_bytes(tree):
 def _kernel_vs_plain(torch, params, cfg, B, S, steps, seed, what):
     """Teacher-forced logits of the kernel path (``"pallas"``) against the
     plain path's (``"chunked"``) over ``steps`` decode steps after an
-    S-token prefill, within ``LM_TOL_BF16`` x max|logit|."""
+    S-token prefill, within ``LM_TOL_BF16`` x max|logit|: the record, and
+    the tokens and the kernel path's logits."""
     toks = _lm_prompts(cfg, B, S, extra=steps, seed=seed)
     got, _ = _teacher_forced(torch, params, cfg, toks, S, "pallas")
     ref, _ = _teacher_forced(torch, params, cfg, toks, S, "chunked")
@@ -3301,7 +3341,7 @@ def _kernel_vs_plain(torch, params, cfg, B, S, steps, seed, what):
             "bf16_max_abs_logit": scale, "bf16_tolerance": LM_TOL_BF16 * scale,
             "per_step": (got - ref).abs().amax(dim=(1, 2)).tolist(),
             "argmax_agreement": float((got.argmax(-1) == ref.argmax(-1))
-                                      .float().mean())}
+                                      .float().mean())}, toks, got
 
 
 def _rec_serve(torch, cfg, counters):
@@ -3351,7 +3391,7 @@ def _rec_serve(torch, cfg, counters):
         del logits
         out[f"teacher_forced_{run}"] = _kernel_vs_plain(
             torch, params, cfg, B, S, REC_TF_STEPS[run],
-            1 if run == "a" else 2, f"{what} run {run}")
+            1 if run == "a" else 2, f"{what} run {run}")[0]
 
     # decode (through #6 for the shared block) against the full forward of
     # the same tokens (through #5): in f32 compute within LM_TOL_F32 (the
@@ -3450,7 +3490,8 @@ def _rec_train(torch, cfg, counters):
     if launches != want:
         fail(f"{what} train: launches {launches}, the design implies {want} "
              "(one embedding backward a step)")
-    out = {"batch": B, "seq": S, "steps": n, "remat": cfg.remat,
+    out = {"batch": B, "seq": S, "steps": n, "layers": cfg.n_layers,
+           "remat": cfg.remat,
            "params": sum(x.numel() for x in
                          interop.leaves(sess.state.params).values()),
            "losses": losses, "launches": launches, "wall_s": wall,
@@ -3505,8 +3546,10 @@ def lm_recurrent_phase(torch, counters):
     """zamba2-1.2b (38 layers, d=2048: 32 Mamba2 blocks of 64 heads, state
     64, and the shared attention block, 32 heads of 64, window 4096,
     applied at 6 of them through per-layer LoRA adapters) and xlstm-125m
-    (12 layers, d=768, mLSTM and sLSTM in turn) at full width and depth,
-    fp32 weights drawn on the card from a seed, bf16 compute."""
+    (d=768, mLSTM and sLSTM in turn) at full width, zamba2 served at full
+    depth and trained cut (``REC_TRAIN_LAYERS``), xlstm at
+    ``REC_XLSTM_LAYERS`` of its 12 layers; fp32 weights drawn on the card
+    from a seed, bf16 compute."""
     out = {"phase": "lm_recurrent", "compute_dtype": "bfloat16",
            "serve_impl": "pallas", "train_impl": "chunked",
            "tolerance": {"teacher_forced": f"{LM_TOL_BF16} x max|logit|",
@@ -3521,7 +3564,8 @@ def lm_recurrent_phase(torch, counters):
     for cfg in _recurrent_configs():
         t0 = time.perf_counter()
         rec = {"serve": _rec_serve(torch, cfg, counters)}
-        rec["train"] = _rec_train(torch, cfg, counters)
+        rec["train"] = _rec_train(torch, cfg.replace(
+            n_layers=REC_TRAIN_LAYERS.get(cfg.name, cfg.n_layers)), counters)
         rec["wall_s"] = time.perf_counter() - t0
         out["configs"][cfg.name] = rec
     out["launches"] = {
@@ -3549,6 +3593,9 @@ FRONT_TRAIN = {"internvl2-1b": (8, 768),       # B, text tokens a sequence
                                     # probabilities under autograd (no
                                     # remat, as repro's), ~2.1 GB a layer
                                     # at B=2 x 4096 frames
+FRONT_TRAIN_LAYERS = {"seamless-m4t-medium": 6}  # trained cut in depth
+                                    # (6 of 12 decoder and 6 of 12 encoder
+                                    # layers), served at full depth
 FRONT_TRAIN_STEPS = 3
 FRONT_SOURCE_ROWS = 16              # sequences in each training source
 
@@ -3752,16 +3799,26 @@ def _front_train(torch, cfg, counters):
     """Train ``lm`` on ``cfg`` with its frames (internvl2's media,
     seamless's ``src_embed`` encoded inside the loss) through ``Session``
     (``impl="chunked"``, per-block remat in the decoder, bf16 compute,
-    AdamW at lr 3e-4) for ``FRONT_TRAIN_STEPS`` steps, twice from one seed
-    (bitwise); #1 on one step's embedding cotangent against its plain
-    versions and timed at its shape; one profiled step. One session's
-    state lives at a time (seamless's first run peaks at ~70 GB)."""
+    AdamW at lr 3e-4) for ``FRONT_TRAIN_STEPS`` steps (``_train_twice``),
+    seamless cut in depth (``FRONT_TRAIN_LAYERS``). One session's state
+    lives at a time."""
+    B, S = FRONT_TRAIN[cfg.name]
+    if cfg.name in FRONT_TRAIN_LAYERS:
+        cut = FRONT_TRAIN_LAYERS[cfg.name]
+        cfg = cfg.replace(n_layers=cut, n_enc_layers=cut)
+    frames = cfg.enc_memory_len if cfg.n_enc_layers else cfg.n_media_tokens
+    return _train_twice(torch, cfg, counters, _front_source(torch, cfg, B, S),
+                        B, S, FRONT_TRAIN_STEPS, f"lm_frontends {cfg.name}",
+                        text=S, frames=frames, enc_layers=cfg.n_enc_layers)
+
+
+def _train_twice(torch, cfg, counters, source, B, S, n, what, **info):
+    """``lm`` on ``cfg`` through ``Session`` for n steps of B sequences of
+    ``source``, twice from one seed (bitwise); #1 on one step's embedding
+    cotangent against its plain versions and timed at its shape; one
+    profiled step; peak memory. ``info`` leads the record."""
     from repro_torch import interop
     from repro_torch.engine import single_grad_fn
-    what = f"lm_frontends {cfg.name}"
-    B, S = FRONT_TRAIN[cfg.name]
-    n = FRONT_TRAIN_STEPS
-    source = _front_source(torch, cfg, B, S)
     _tick(f"{cfg.name} train")
     _free(torch)
     torch.cuda.reset_peak_memory_stats()
@@ -3777,9 +3834,11 @@ def _front_train(torch, cfg, counters):
     if launches != want:
         fail(f"{what} train: launches {launches}, the design implies {want} "
              "(one embedding backward a step)")
-    frames = cfg.enc_memory_len if cfg.n_enc_layers else cfg.n_media_tokens
-    out = {"batch": B, "text": S, "frames": frames, "steps": n,
-           "remat": cfg.remat, "losses": losses, "launches": launches,
+    out = {"batch": B, **info, "steps": n, "layers": cfg.n_layers,
+           "remat": cfg.remat, "donate": sess.plan.donate,
+           "params": sum(x.numel() for x in
+                         interop.leaves(sess.state.params).values()),
+           "losses": losses, "launches": launches,
            "wall_s": wall,
            "step_host_ms_in_run": (rows[-1]["wall"] - rows[0]["wall"])
            / (n - 1) * 1e3,
@@ -3787,7 +3846,9 @@ def _front_train(torch, cfg, counters):
            "state_bytes": sum(_tree_bytes(t) for t in (
                sess.state.params, sess.state.opt_state.m,
                sess.state.opt_state.v))}
-    ends = {k: v.cpu() for k, v in interop.leaves(res.params).items()}
+    # a copy: the donated steps profiled below update these params in place
+    ends = {k: v.to("cpu", copy=True)
+            for k, v in interop.leaves(res.params).items()}
     del res
     _free(torch)
 
@@ -3809,6 +3870,7 @@ def _front_train(torch, cfg, counters):
     out["step_profile"] = dict(_profiled(
         torch, lambda: float(step(state, batch)[1].loss), cpu=False),
         shape=[B, S])
+    out["peak_mem_bytes_with_profile"] = torch.cuda.max_memory_allocated()
     del sess, state, step, batch
     _free(torch)
 
@@ -3854,6 +3916,225 @@ def lm_frontends_phase(torch, counters):
                for run in ("run_a", "run_a_replay"))
         + sum(r["serve"].get("encode", {}).get("launches", {}).get(k, 0)
               for r in out["configs"].values())
+        + sum(r["train"]["launches"][k] for r in out["configs"].values())
+        for k in counters}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 6f: the 12 B dense models, gemma3-12b and stablelm-12b
+# ---------------------------------------------------------------------------
+
+DENSE_SERVE = {"a": (8, 1024, 32),  # B, prompt, new tokens: lm_serve's (a)
+               "b": (1, 4200, 16)}  # gemma3 only: past its 1024 window
+DENSE_TF_STEPS = {"a": 8, "b": 4}   # teacher-forced decode steps
+DENSE_ND = (2, 248, 8)              # decode vs the full forward under
+                                    # gemma3's window: B, prefill, steps
+DENSE_TRAIN_LAYERS = {"gemma3-12b": 6,      # one 5:1 unit of 48 layers
+                      "stablelm-12b": 8}    # of 40: each cut in depth only
+DENSE_TRAIN_B = 2                   # x LM_S tokens a step
+DENSE_TRAIN_STEPS = 3
+DENSE_PEAK_LIMIT = 75e9             # bytes: no run of the phase above it
+
+
+def _dense_configs():
+    """gemma3-12b and stablelm-12b at full width and depth."""
+    from repro_torch.configs import gemma3_12b, stablelm_12b
+    return [gemma3_12b.CONFIG, stablelm_12b.CONFIG]
+
+
+def _full_logits(torch, params, cfg, toks, S):
+    """The full forward's logits (``impl="pallas"``) at positions S - 1
+    onwards, (steps + 1, B, vocab) as ``_teacher_forced`` gives its own:
+    the unembedding takes only those positions, so no (B, S, vocab) f32
+    tensor of every position is made."""
+    from repro_torch.models import transformer
+    dev = params["embed"]["table"].device
+    toks = toks.to(dev)
+    with torch.no_grad():
+        x = transformer.embed_inputs(params, toks, cfg)
+        h, _, _ = transformer.run_trunk(
+            params, x, cfg=cfg, positions=torch.arange(toks.shape[1],
+                                                       device=dev),
+            mode="train", impl="pallas")
+        logits = transformer.lm_logits(params, h[:, S - 1:], cfg)
+    return logits.transpose(0, 1)[..., :cfg.vocab]
+
+
+def _dense_teacher_forced(torch, params, cfg, B, S, steps, seed, what):
+    """Prefill S tokens and decode ``steps`` more fed the true tokens: the
+    kernel path's logits against the plain path's (``"chunked"``) within
+    ``LM_TOL_BF16`` x max|logit|, and against the full forward of the same
+    tokens (teacher forcing). Where ``repro``'s cache rule keeps every
+    k/v cache at the prompt's length (a windowed config, a prompt at least
+    the window long: the full-attention layers' caches too, so a decode
+    step overwrites their oldest slot) the departure from teacher forcing
+    is reported, not gated; else it is held to the same tolerance."""
+    out, toks, got = _kernel_vs_plain(torch, params, cfg, B, S, steps, seed,
+                                      what)
+    full = _full_logits(torch, params, cfg, toks, S)
+    kept = bool(cfg.window) and S >= cfg.window
+    dep = float((got - full).abs().max())
+    fscale = float(full.abs().max())
+    out["vs_teacher_forcing"] = {
+        "max_abs_err": dep, "tolerance": LM_TOL_BF16 * fscale,
+        "per_step": (got - full).abs().amax(dim=(1, 2)).tolist(),
+        "argmax_agreement": float((got.argmax(-1) == full.argmax(-1))
+                                  .float().mean()),
+        "gated": not kept}
+    if kept:
+        out["vs_teacher_forcing"]["why_not_gated"] = (
+            f"prompt {S} >= window {cfg.window}: repro's extend_caches "
+            "keeps every k/v cache at the prompt's length, the full-"
+            "attention layers' too, so each decode step overwrites their "
+            "oldest slot, which teacher forcing still attends")
+    elif not dep <= LM_TOL_BF16 * fscale:
+        fail(f"{what}: decode vs teacher forcing max_abs_err {dep} > "
+             f"{LM_TOL_BF16}*{fscale}")
+    out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def _dense_serve(torch, cfg, counters):
+    """Serve ``cfg`` at full width and depth, weights drawn on the card:
+    run (a) twice (bitwise) and, where the config has a window, run (b)
+    past it; the kernel path's teacher-forced logits against the plain
+    path's at both runs' shapes and against teacher forcing (gated under
+    the window at ``DENSE_ND``); one profiled prefill and decode step, and
+    the f32 unembedding beside the prefill. One model lives at a time."""
+    from repro_torch import interop
+    from repro_torch.models import transformer
+    from repro_torch.train.serve import (extend_caches, make_decode_step,
+                                         make_prefill_step)
+    what = f"lm_dense12b {cfg.name}"
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    _tick(f"{cfg.name} init")
+    t0 = time.perf_counter()
+    params = transformer.lm_init(gen, cfg, device=dev)
+    _sync(torch, DEVICE)
+    L = cfg.n_layers
+    out = {"layers": L, "pattern": list(cfg.block_pattern),
+           "window": cfg.window, "init_s": time.perf_counter() - t0,
+           "params": sum(x.numel() for x in
+                         interop.leaves(params).values()),
+           "param_bytes": _tree_bytes(params)}
+    peaks = []
+    for run in ("a", "b") if cfg.window else ("a",):
+        _tick(f"{cfg.name} serve run {run}")
+        B, S, new = DENSE_SERVE[run]
+        want = {k: 0 for k in counters}
+        want.update(flash_attention=L, flash_decode=L * (new - 1))
+        seed = 1 if run == "a" else 2
+        prompt = _lm_prompts(cfg, B, S, seed=seed)
+        toks, logits, rec = _moe_generate(torch, params, cfg, prompt, new,
+                                          counters, want, "lm_dense12b")
+        peaks.append(rec["peak_mem_bytes"])
+        if run == "a":
+            toks2, logits2, rec2 = _moe_generate(
+                torch, params, cfg, prompt, new, counters, want,
+                "lm_dense12b")
+            if not (torch.equal(toks, toks2) and torch.equal(logits,
+                                                             logits2)):
+                fail(f"{what}: two kernel-path runs differ bitwise")
+            out["run_a_replay"] = rec2
+            out["replay_bitwise"] = True
+            first = toks[:, :1]
+            del logits2
+        out[f"run_{run}"] = rec
+        del logits
+        _tick(f"{cfg.name} teacher-forced run {run}")
+        torch.cuda.reset_peak_memory_stats()
+        out[f"teacher_forced_{run}"] = _dense_teacher_forced(
+            torch, params, cfg, B, S, DENSE_TF_STEPS[run], seed,
+            f"{what} run {run}")
+        peaks.append(out[f"teacher_forced_{run}"]["peak_mem_bytes"])
+    if cfg.window:
+        Bn, Sn, Tn = DENSE_ND
+        out["decode_vs_full_forward"] = _dense_teacher_forced(
+            torch, params, cfg, Bn, Sn, Tn, 3, f"{what} under the window")
+
+    _tick(f"{cfg.name} profiles")
+    B, S, _ = DENSE_SERVE["a"]
+    prefill = make_prefill_step(cfg, "pallas")
+    decode = make_decode_step(cfg, "pallas")
+    ptoks = _lm_prompts(cfg, B, S, seed=1).to(dev)
+    out["prefill_profile"] = dict(
+        _profiled(torch, lambda: prefill(params, ptoks), cpu=False),
+        shape=[B, S])
+    _, caches = prefill(params, ptoks)
+    caches = extend_caches(caches, cfg, S + 1)
+    out["decode_cache_bytes"] = _tree_bytes(caches)
+    out["decode_profile"] = _profiled(
+        torch, lambda: decode(params, first, caches, S), cpu=False)
+    del caches
+    hidden = torch.randn((B, S, cfg.d_model), generator=gen,
+                         device=dev).to(cfg.compute_dtype)
+    unembed_ms = device_ms(torch, lambda: transformer.lm_logits(
+        params, hidden, cfg), iters=3, warm=1)
+    out["unembed"] = {
+        "device_ms": unembed_ms, "shape": [B, S, cfg.padded_vocab],
+        "share_of_prefill": unembed_ms
+        / out["prefill_profile"]["device_ms"]}
+    out["peak_mem_bytes"] = max(peaks)
+    if not out["peak_mem_bytes"] <= DENSE_PEAK_LIMIT:
+        fail(f"{what}: peak {out['peak_mem_bytes']} bytes > "
+             f"{DENSE_PEAK_LIMIT}")
+    del params, hidden
+    _free(torch)
+    _tick(f"{cfg.name} served")
+    return out
+
+
+def _dense_train(torch, cfg, counters):
+    """``lm`` on ``cfg`` cut to ``DENSE_TRAIN_LAYERS`` at full width,
+    through ``Session`` (``donate=True``, the default: the AdamW update in
+    the params' and moments' own storage; ``impl="chunked"``, per-block
+    remat, bf16 compute, lr 3e-4) for ``DENSE_TRAIN_STEPS`` steps of
+    ``DENSE_TRAIN_B`` x 1024 tokens (``_train_twice``)."""
+    from repro_torch.data.lm_data import make_lm_sources
+    cut = cfg.replace(n_layers=DENSE_TRAIN_LAYERS[cfg.name])
+    source = make_lm_sources(1, 16, LM_S, cut.vocab)[0]
+    out = _train_twice(torch, cut, counters, source, DENSE_TRAIN_B, LM_S,
+                       DENSE_TRAIN_STEPS, f"lm_dense12b {cfg.name}",
+                       seq=LM_S, layers_of=cfg.n_layers)
+    for key in ("peak_mem_bytes", "peak_mem_bytes_with_profile"):
+        if not out[key] <= DENSE_PEAK_LIMIT:
+            fail(f"lm_dense12b {cfg.name} train: {key} {out[key]} > "
+                 f"{DENSE_PEAK_LIMIT}")
+    return out
+
+
+def lm_dense12b_phase(torch, counters):
+    """gemma3-12b (48 layers, d=3840, 16 / 8 heads of 256, five sliding-
+    window layers (1024) to one full-attention layer, vocab 262,144, θ 1e6)
+    and stablelm-12b (40 layers, d=5120, 32 / 8 heads of 160, vocab
+    100,352) served at full width and depth, trained cut in depth only
+    (``DENSE_TRAIN_LAYERS``); fp32 weights drawn on the card from a seed,
+    bf16 compute."""
+    out = {"phase": "lm_dense12b", "compute_dtype": "bfloat16",
+           "serve_impl": "pallas", "train_impl": "chunked",
+           "tolerance": {"teacher_forced": f"{LM_TOL_BF16} x max|logit|",
+                         "decode_vs_teacher_forcing":
+                         f"{LM_TOL_BF16} x max|logit| where no cache is "
+                         "kept at the prompt's length; else reported",
+                         "embed_grad": "bitwise to the token-order sum; "
+                         "the rounding bound of the one-hot product",
+                         "peak_mem_bytes": DENSE_PEAK_LIMIT},
+           "configs": {}}
+    _T0[0] = time.perf_counter()
+    for cfg in _dense_configs():
+        t0 = time.perf_counter()
+        rec = {"serve": _dense_serve(torch, cfg, counters)}
+        rec["train"] = _dense_train(torch, cfg, counters)
+        rec["wall_s"] = time.perf_counter() - t0
+        out["configs"][cfg.name] = rec
+    out["launches"] = {
+        k: sum(r["serve"][run]["launches"][k]
+               for r in out["configs"].values()
+               for run in ("run_a", "run_a_replay", "run_b")
+               if run in r["serve"])
         + sum(r["train"]["launches"][k] for r in out["configs"].values())
         for k in counters}
     return out
@@ -3940,12 +4221,32 @@ FA_CASES = [  # name, dtype, B, Sq, Sk, H, K, D, causal, window, positions
      "distinct"),
     ("bf16_causal_distinct_pads", "bfloat16", 2, 300, 700, 14, 2, 64, True,
      0, "distinct"),
+    # lm_dense12b: gemma3-12b's prefill (16 / 8 heads of 256: each CTA
+    # half the output columns), causal and with its 1024 window, at run (a)
+    # and past the window at (b); stablelm-12b's (32 / 8 heads of 160);
+    # each new head dim in f32 at a small shape with rolled pads
+    ("gemma3_prefill", "bfloat16", 8, 1024, 1024, 16, 8, 256, True, 0,
+     False),
+    ("gemma3_prefill_window", "bfloat16", 8, 1024, 1024, 16, 8, 256, True,
+     1024, False),
+    ("gemma3_prefill_b", "bfloat16", 1, 4200, 4200, 16, 8, 256, True, 0,
+     False),
+    ("gemma3_prefill_b_window", "bfloat16", 1, 4200, 4200, 16, 8, 256, True,
+     1024, False),
+    ("stablelm_prefill", "bfloat16", 8, 1024, 1024, 32, 8, 160, True, 0,
+     False),
+    ("f32_d256_g2_rolled_pads", "float32", 2, 300, 300, 4, 2, 256, True, 40,
+     True),
+    ("f32_d160_g4_rolled_pads", "float32", 2, 300, 300, 8, 2, 160, True, 40,
+     True),
 ]
 FA_TIMED = ("prefill_a", "prefill_b", "mla_prefill", "f32_mla_prefill",
             "granite_prefill", "zamba2_prefill", "zamba2_prefill_b",
             "seamless_encoder", "seamless_cross_prefill",
             "seamless_cross_decode", "seamless_self_prefill",
-            "internvl2_prefill")
+            "internvl2_prefill", "gemma3_prefill", "gemma3_prefill_window",
+            "gemma3_prefill_b", "gemma3_prefill_b_window",
+            "stablelm_prefill")
 # the LM decode shapes of runs (a) and (b), then edge cases
 FD_CASES = [  # name, dtype, B, C, H, K, D, pos, window, n_splits, block_k
     ("decode_a", "bfloat16", 8, 1056, 32, 8, 80, 1040, 4096, None,
@@ -3981,10 +4282,22 @@ FD_CASES = [  # name, dtype, B, C, H, K, D, pos, window, n_splits, block_k
     ("f32_g7_33_splits", "float32", 2, 1056, 7, 1, 128, 1000, 0, 33, None),
     ("seamless_decode", "bfloat16", 8, 1056, 16, 16, 64, 1040, 0, None,
      None),
+    # lm_dense12b: gemma3-12b's decode (G = 2, D = 256: 4 consumer warps, a
+    # 4-stage ring), without and with its 1024 window; stablelm-12b's (G =
+    # 4, D = 160); each new head dim in f32 (D = 256: 2 consumer warps)
+    ("gemma3_decode", "bfloat16", 8, 1056, 16, 8, 256, 1040, 0, None,
+     None),
+    ("gemma3_decode_window", "bfloat16", 8, 1056, 16, 8, 256, 1040, 1024,
+     None, None),
+    ("stablelm_decode", "bfloat16", 8, 1056, 32, 8, 160, 1040, 0, None,
+     None),
+    ("f32_d256_g2_5_splits", "float32", 2, 700, 4, 2, 256, 699, 0, 5, None),
+    ("f32_d160_g4", "float32", 2, 700, 8, 2, 160, 699, 0, None, None),
 ]
 FD_TIMED = ("decode_a", "decode_b_rolling", "granite_decode",
             "zamba2_decode", "zamba2_decode_b_rolling", "internvl2_decode",
-            "seamless_decode")
+            "seamless_decode", "gemma3_decode", "gemma3_decode_window",
+            "stablelm_decode")
 
 
 def _attn_err(torch, got, ref, name):
@@ -5029,6 +5342,9 @@ def main():
     _phase_start(torch, "lm_frontends")
     front = lm_frontends_phase(torch, lm_counters)
     emit(front)
+    _phase_start(torch, "lm_dense12b")
+    dense = lm_dense12b_phase(torch, lm_counters)
+    emit(dense)
     _phase_start(torch, "end")
     emit({"phase": "memory", "at_phase_start": MEMORY})
     # #1 on each training path's own embedding cotangent, at its shape
@@ -5044,14 +5360,18 @@ def main():
         **{f"lm_recurrent {name}": r["train"]["embed_grad"]
            for name, r in rec["configs"].items()},
         **{f"lm_frontends {name}": r["train"]["embed_grad"]
-           for name, r in front["configs"].items()}}
+           for name, r in front["configs"].items()},
+        **{f"lm_dense12b {name}": r["train"]["embed_grad"]
+           for name, r in dense["configs"].items()}}
     ss2["by_shape"] = {
         **{f"lm_moe {name}": r["train"]["segment_sum_2d"]
            for name, r in moe["configs"].items()},
         **{f"lm_recurrent {name}": r["train"]["segment_sum_2d"]
            for name, r in rec["configs"].items()},
         **{f"lm_frontends {name}": r["train"]["segment_sum_2d"]
-           for name, r in front["configs"].items()}}
+           for name, r in front["configs"].items()},
+        **{f"lm_dense12b {name}": r["train"]["segment_sum_2d"]
+           for name, r in dense["configs"].items()}}
     ss2["max_abs_err"] = max(c[c["dtype"]]["max_abs_err"]
                              for c in ss2["checks_by_path"].values())
     emit({"phase": "kernel", "name": "segment_sum_2d", "tolerance": {
@@ -5103,19 +5423,23 @@ def main():
             "lm_train": lmt["launches"]["segment_sum_2d"],
             "lm_moe": moe["launches"]["segment_sum_2d"],
             "lm_recurrent": rec["launches"]["segment_sum_2d"],
-            "lm_frontends": front["launches"]["segment_sum_2d"]},
+            "lm_frontends": front["launches"]["segment_sum_2d"],
+            "lm_dense12b": dense["launches"]["segment_sum_2d"]},
         "flash_attention": {"lm_serve": sum(r["flash_attention"]
                                             for r in lm_runs),
                             "lm_moe": moe["launches"]["flash_attention"],
                             "lm_recurrent":
                             rec["launches"]["flash_attention"],
                             "lm_frontends":
-                            front["launches"]["flash_attention"]},
+                            front["launches"]["flash_attention"],
+                            "lm_dense12b":
+                            dense["launches"]["flash_attention"]},
         "flash_decode": {"lm_serve": sum(r["flash_decode"]
                                          for r in lm_runs),
                          "lm_moe": moe["launches"]["flash_decode"],
                          "lm_recurrent": rec["launches"]["flash_decode"],
-                         "lm_frontends": front["launches"]["flash_decode"]}}
+                         "lm_frontends": front["launches"]["flash_decode"],
+                         "lm_dense12b": dense["launches"]["flash_decode"]}}
     launches = {k: sum(v.values()) for k, v in by_path.items()}
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")

@@ -1,6 +1,6 @@
 """Config registry of the ported architectures: ``get(name)`` /
-``get_smoke(name)`` / ``ARCHS``. An arch ``repro`` knows but the port does
-not yet (gemma3-12b, stablelm-12b) raises ``KeyError``."""
+``get_smoke(name)`` / ``ARCHS``, every arch ``repro`` knows, in its
+registry's order. An unknown name raises ``KeyError``."""
 from __future__ import annotations
 
 import importlib
@@ -8,23 +8,24 @@ import importlib
 from .base import ArchConfig
 
 _MODULES = {
-    "h2o-danube-1.8b": "h2o_danube_1_8b",
-    "qwen1.5-0.5b": "qwen1_5_0_5b",
-    "hydragnn-gfm": "hydragnn_gfm",
     "granite-moe-3b-a800m": "granite_moe_3b_a800m",
-    "deepseek-v2-236b": "deepseek_v2_236b",
-    "zamba2-1.2b": "zamba2_1_2b",
-    "xlstm-125m": "xlstm_125m",
     "internvl2-1b": "internvl2_1b",
+    "h2o-danube-1.8b": "h2o_danube_1_8b",
+    "deepseek-v2-236b": "deepseek_v2_236b",
+    "gemma3-12b": "gemma3_12b",
+    "zamba2-1.2b": "zamba2_1_2b",
+    "stablelm-12b": "stablelm_12b",
+    "qwen1.5-0.5b": "qwen1_5_0_5b",
     "seamless-m4t-medium": "seamless_m4t_medium",
+    "xlstm-125m": "xlstm_125m",
+    "hydragnn-gfm": "hydragnn_gfm",
 }
 ARCHS = tuple(_MODULES)
 
 
 def _mod(name: str):
     if name not in _MODULES:
-        raise KeyError(f"unknown or not yet ported arch '{name}'; the port "
-                       f"knows {list(_MODULES)} (ROADMAP.md, queue 1)")
+        raise KeyError(f"unknown arch '{name}'; known: {list(_MODULES)}")
     return importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
 
 

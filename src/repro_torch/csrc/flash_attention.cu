@@ -38,18 +38,36 @@
 // decide a row (the diagonal, a window's edge). P·V reuses the score
 // registers as A fragments (the m16n8 C layout is the m16k16 A layout),
 // so p never goes through shared memory, and v's B fragments come from
-// ldmatrix.trans. At D = 192 the q fragments are read from shared memory
-// at each slice instead of held in registers, and a CTA's 128 KB of tiles
-// take an SM. P·V keeps the f32 contract of the plain version by
-// splitting p: hi = bf16(p), lo = bf16(p - hi), two MMAs into one f32
-// accumulator. hi + lo holds p to about 2^-17 of itself, and the products
-// with bf16 v are exact, so the output is within the f32 tolerance of the
-// plain version before its one rounding to bf16. One bf16 p (what
-// FlashAttention-2 does) is off by up to 2^-9 of each p, and that is not:
+// ldmatrix.trans. Above D = 128 the q fragments are read from shared
+// memory at each slice instead of held in registers; at D = 192 and 256 a
+// CTA's 128 / 133 KB of tiles take an SM. P·V keeps the f32 contract of
+// the plain version by splitting p: hi = bf16(p), lo = bf16(p - hi), two
+// MMAs into one f32 accumulator. hi + lo holds p to about 2^-17 of
+// itself, and the products with bf16 v are exact, so the output is within
+// the f32 tolerance of the plain version before its one rounding to
+// bf16. One bf16 p (what FlashAttention-2 does) is off by up to 2^-9 of
+// each p, and that is not:
 // tests/test_torch_flash.py emulates both, and one bf16 p misses the f32
 // tolerance (2e-5 x max(1, |ref|)) some 40-55 times over at its shapes,
 // where the split stays under a tenth of it. The split costs 6·D instead
 // of 4·D tensor-core FLOP per pair, still far below the FFMA floor.
+//
+// Head dim 256 (gemma3-12b): a CTA's output accumulator would take 128
+// f32 registers a thread in the bf16 kernel (16 rows x 256 columns a warp)
+// beside the 32 of the score tile and the p fragments, and the f32
+// kernel's q, k and v tiles 257 KB of shared memory. So at D = 256 both
+// kernels split the output columns: a CTA computes QKᵀ over the whole head
+// dim, the softmax on it, and P·V for DV = D / 2 = 128 of the output
+// columns only, reading only those columns of v; the grid holds both
+// halves of a (batch, head, query tile), neighbours in its fastest
+// dimension, so the second reads its k tiles from L2. QKᵀ is computed twice
+// (the bf16 kernel's tensor-core work per pair 8·D instead of 6·D); each
+// half's accumulators are D = 128's (64 f32 registers a thread in bf16),
+// and the f32 kernel's tiles fit one CTA an SM (225 KB). The split changes
+// no bit: the scores, the masks and the softmax of both halves are the
+// same sums in the same order, and each output column is its own sum. At
+// D = 160 (stablelm-12b) neither limit bites and a CTA computes every
+// column, as at the other head dims.
 //
 // float32: flash_attention_f32_kernel, f32 FFMA (no TF32, as the plain
 // version computes), so its floor is the fp32 one. 256 threads; thread
@@ -96,16 +114,26 @@ __host__ __device__ constexpr int fa_kp_floats() {
   return FA_T * (D > FA_PLD ? D : FA_PLD);
 }
 
+// Output columns a CTA computes: half the head dim at D = 256 (see the
+// head of this file), all of them below.
+template <int D>
+__host__ __device__ constexpr int fa_out_cols() {
+  return D > 192 ? D / 2 : D;
+}
+
+// q tile [128][D], v tile [64][DV], k / p tile, positions
 template <int D>
 __host__ __device__ constexpr size_t fa_smem_bytes() {
-  return (size_t)((FA_Q + FA_T) * D + fa_kp_floats<D>()) * sizeof(float) +
+  return (size_t)(FA_Q * D + FA_T * fa_out_cols<D>() + fa_kp_floats<D>()) *
+             sizeof(float) +
          (FA_Q + FA_T) * sizeof(int);
 }
 
 // CTAs an SM the registers are sized for: two up to D = 128 (at most 128
-// registers a thread), one at D = 192, whose 193 KB of shared memory
-// leave room for no second CTA and whose D/16 x 8 accumulators need the
-// registers.
+// registers a thread), one above: at D = 160 and 192 the 161 / 193 KB of
+// shared memory leave room for no second CTA and the D/16 x 8
+// accumulators need the registers; at D = 256 the 225 KB of a column
+// half.
 template <int D>
 __host__ __device__ constexpr int fa_ctas_per_sm() {
   return D <= 128 ? 2 : 1;
@@ -130,21 +158,24 @@ flash_attention_f32_kernel(const float* __restrict__ q,
                            long long v_sh, float scale, int causal,
                            int window) {
   static_assert(D % 16 == 0, "head dim must be a multiple of 16");
-  constexpr int DM = D / 16;
+  constexpr int DV = fa_out_cols<D>();   // output columns of this CTA
+  constexpr int DM = DV / 16;
   extern __shared__ __align__(16) float smem[];
   float* Qt = smem;                      // [D][128] d-major
-  float* Vs = Qt + FA_Q * D;             // [64][D]  key-major
-  float* Kt = Vs + FA_T * D;             // [D][64]  d-major, then
+  float* Vs = Qt + FA_Q * D;             // [64][DV] key-major
+  float* Kt = Vs + FA_T * DV;            // [D][64]  d-major, then
   float* Pt = Kt;                        // [64][132] key-major p
   int* qp_s = reinterpret_cast<int*>(Kt + fa_kp_floats<D>());
   int* kp_s = qp_s + FA_Q;
 
   const int tid = threadIdx.x, tx = tid & 7, ty = tid >> 3;
-  const int q0 = blockIdx.x * FA_Q, h = blockIdx.y, b = blockIdx.z;
+  // blockIdx.y: the head, then which DV columns of it
+  const int q0 = blockIdx.x * FA_Q, h = blockIdx.y / (D / DV),
+            c0 = blockIdx.y % (D / DV) * DV, b = blockIdx.z;
   const int hk = h / G;
   const int nq = min(FA_Q, Sq - q0);
   const float* kb = k + b * k_sb + hk * k_sh;
-  const float* vb = v + b * v_sb + hk * v_sh;
+  const float* vb = v + b * v_sb + hk * v_sh + c0;
 
   stage_rows_t<float, D, FA_Q>(Qt, q + b * q_sb + h * q_sh + q0 * q_ss, q_ss,
                            nq);
@@ -187,7 +218,7 @@ flash_attention_f32_kernel(const float* __restrict__ q,
     if (!tile_kept && __syncthreads_and(rows_live)) continue;
 
     stage_rows_t<float, D, FA_T>(Kt, kb + k0 * k_ss, k_ss, nk);
-    stage_rows<float, D, D>(Vs, vb + k0 * v_ss, v_ss, FA_T, nk);
+    stage_rows<float, DV, DV>(Vs, vb + k0 * v_ss, v_ss, FA_T, nk);
     __syncthreads();
 
     float s[4][8];
@@ -252,7 +283,7 @@ flash_attention_f32_kernel(const float* __restrict__ q,
 #pragma unroll
       for (int j = 0; j < DM; ++j) {
         const float2 vv = *reinterpret_cast<const float2*>(
-            Vs + c * D + 16 * j + 2 * tx);
+            Vs + c * DV + 16 * j + 2 * tx);
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           acc[i][j][0] = fmaf(pr[i], vv.x, acc[i][j][0]);
@@ -270,7 +301,8 @@ flash_attention_f32_kernel(const float* __restrict__ q,
     lt += __shfl_xor_sync(0xffffffffu, lt, 4);
     if (!row_in[i]) continue;
     const float inv = 1.f / fmaxf(lt, 1e-30f);
-    float* o = out + (((long long)b * Sq + q0 + 4 * ty + i) * H + h) * D;
+    float* o =
+        out + (((long long)b * Sq + q0 + 4 * ty + i) * H + h) * D + c0;
 #pragma unroll
     for (int j = 0; j < DM; ++j) {
       o[16 * j + 2 * tx] = acc[i][j][0] * inv;
@@ -289,11 +321,13 @@ constexpr int TC_T = 64;              // keys per tile
 constexpr int TC_THREADS = 32 * TC_WARPS;
 constexpr int TC_STAGES = 2;          // k/v ring depth (stage ^ 1 below)
 
-// q tile + TC_STAGES x (k tile + v tile), rows of D + 8 bf16: 128 KB at
-// D = 192, one CTA an SM
+// q tile + TC_STAGES x (k tile + v tile), rows of D + 8 bf16 (the v
+// tile's of DV + 8, the columns this CTA computes): 105 KB at D = 160
+// (two CTAs an SM), 128 KB at D = 192 and 133 KB at D = 256 (one)
 template <int D>
 constexpr size_t tc_smem_bytes() {
-  return (size_t)(TC_Q + 2 * TC_STAGES * TC_T) * (D + 8) *
+  return ((size_t)(TC_Q + TC_STAGES * TC_T) * (D + 8) +
+          (size_t)TC_STAGES * TC_T * (fa_out_cols<D>() + 8)) *
          sizeof(__nv_bfloat16);
 }
 
@@ -437,34 +471,40 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                             long long v_sh, float scale, int causal,
                             int window) {
   static_assert(D % 16 == 0, "head dim must be a multiple of 16");
+  constexpr int DV = fa_out_cols<D>();  // output columns of this CTA
   constexpr int LD = D + 8;       // padded row, bf16: conflict-free ldmatrix
-  constexpr int KD = D / 16;      // 16-wide d slices (QKᵀ depth, P·V pairs)
-  constexpr int ND = D / 8;       // 8-wide output column tiles
-  constexpr int CH = D / 8;       // 16-byte chunks a row
-  constexpr int TILE = TC_T * LD; // one k or v stage, bf16
-  // a warp keeps its q fragments in registers up to D = 128; at D = 192
-  // they would take 48 of a thread's registers beside the 96 of the
-  // output accumulators, so they are read from the q tile, which stays in
-  // shared memory, at each 16-wide slice of QKᵀ instead
+  constexpr int LDV = DV + 8;     // ... of the v tile
+  constexpr int KD = D / 16;      // 16-wide d slices (QKᵀ depth)
+  constexpr int KDV = DV / 16;    // 16-wide output slices (P·V pairs)
+  constexpr int ND = DV / 8;      // 8-wide output column tiles
+  constexpr int CH = D / 8;       // 16-byte chunks a q / k row
+  constexpr int CHV = DV / 8;     // ... a v row
+  constexpr int TILE = TC_T * LD; // one k stage, bf16
+  constexpr int TILEV = TC_T * LDV;  // one v stage
+  // a warp keeps its q fragments in registers up to D = 128; above (at
+  // D = 192 they would take 48 of a thread's registers beside the 96 of
+  // the output accumulators) they are read from the q tile, which stays
+  // in shared memory, at each 16-wide slice of QKᵀ instead
   constexpr bool QREG = D <= 128;
   extern __shared__ __align__(16) unsigned char fa_smem[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(fa_smem);
   __nv_bfloat16* Ks = Qs + TC_Q * LD;           // [stage][64][LD]
-  __nv_bfloat16* Vs = Ks + TC_STAGES * TILE;    // [stage][64][LD]
+  __nv_bfloat16* Vs = Ks + TC_STAGES * TILE;    // [stage][64][LDV]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   // the last query tiles, which see the most keys under a causal mask,
   // are scheduled first (blockIdx.z runs slowest), so short CTAs fill the
-  // tail of the grid
+  // tail of the grid; blockIdx.x is the head, then which DV columns of it
   const int q0 = (gridDim.z - 1 - blockIdx.z) * TC_Q;
-  const int h = blockIdx.x, b = blockIdx.y;
+  const int h = blockIdx.x / (D / DV), c0 = blockIdx.x % (D / DV) * DV;
+  const int b = blockIdx.y;
   const int hk = h / G;
   const int nq = min(TC_Q, Sq - q0);
   const int ntiles = (Sk + TC_T - 1) / TC_T;
   const __nv_bfloat16* qb = q + b * q_sb + h * q_sh + q0 * q_ss;
   const __nv_bfloat16* kb = k + b * k_sb + hk * k_sh;
-  const __nv_bfloat16* vb = v + b * v_sb + hk * v_sh;
+  const __nv_bfloat16* vb = v + b * v_sb + hk * v_sh + c0;
 
   // the q tile: one cp.async group, rows past Sq zero-filled
   for (int i = tid; i < TC_Q * CH; i += TC_THREADS) {
@@ -477,13 +517,15 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   auto issue = [&](int tile, int stage) {   // one k/v tile, one group
     const int k0 = tile * TC_T, nk = min(TC_T, Sk - k0);
     const uint32_t kd = smem_u32(Ks + stage * TILE);
-    const uint32_t vd = smem_u32(Vs + stage * TILE);
+    const uint32_t vd = smem_u32(Vs + stage * TILEV);
     for (int i = tid; i < TC_T * CH; i += TC_THREADS) {
       const int r = i / CH, c = i % CH;
       const long long row = k0 + min(r, nk - 1);
-      const uint32_t off = (uint32_t)(r * LD + 8 * c) * 2u;
-      cp_async16(kd + off, kb + row * k_ss + 8 * c, r < nk);
-      cp_async16(vd + off, vb + row * v_ss + 8 * c, r < nk);
+      cp_async16(kd + (uint32_t)(r * LD + 8 * c) * 2u,
+                 kb + row * k_ss + 8 * c, r < nk);
+      if (CHV == CH || c < CHV)
+        cp_async16(vd + (uint32_t)(r * LDV + 8 * c) * 2u,
+                   vb + row * v_ss + 8 * c, r < nk);
     }
   };
 
@@ -525,8 +567,8 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       (uint32_t)(((lane & 7) + 8 * (lane >> 4)) * LD + 8 * ((lane >> 3) & 1))
       * 2u;
   const uint32_t v_lane =
-      (uint32_t)(((lane & 7) + 8 * ((lane >> 3) & 1)) * LD + 8 * (lane >> 4))
-      * 2u;
+      (uint32_t)(((lane & 7) + 8 * ((lane >> 3) & 1)) * LDV +
+                 8 * (lane >> 4)) * 2u;
 
   // scores in log2 units: 2^(s·scale·log2(e) - m) = e^(s·scale - m ln 2)
   const float sc = scale * 1.4426950408889634f;
@@ -590,7 +632,7 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     __syncthreads();
 
     const uint32_t ks = smem_u32(Ks + stage * TILE) + k_lane;
-    const uint32_t vs = smem_u32(Vs + stage * TILE) + v_lane;
+    const uint32_t vs = smem_u32(Vs + stage * TILEV) + v_lane;
     const int nk = min(TC_T, Sk - cur * TC_T);
 
     // s = q kᵀ: 16 rows x 64 keys a warp, eight 16x8 accumulators
@@ -631,9 +673,9 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
       split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
 #pragma unroll
-      for (int dp = 0; dp < KD; ++dp) {
+      for (int dp = 0; dp < KDV; ++dp) {
         uint32_t vf[4];
-        ldsm_x4_t(vs + (uint32_t)(16 * kk * LD + 16 * dp) * 2u, vf);
+        ldsm_x4_t(vs + (uint32_t)(16 * kk * LDV + 16 * dp) * 2u, vf);
         mma_bf16(acc[2 * dp], pl, vf[0], vf[1]);
         mma_bf16(acc[2 * dp + 1], pl, vf[2], vf[3]);
         mma_bf16(acc[2 * dp], ph, vf[0], vf[1]);
@@ -657,7 +699,7 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     const float inv = 1.f / fmaxf(lt, 1e-30f);
     __nv_bfloat16* o =
         out + (((long long)b * Sq + q0 + 16 * warp + g + 8 * r) * H + h) * D +
-        2 * t;
+        c0 + 2 * t;
 #pragma unroll
     for (int i = 0; i < ND; ++i)
       *reinterpret_cast<__nv_bfloat162*>(o + 8 * i) = __floats2bfloat162_rn(
@@ -683,7 +725,7 @@ static int launch(const void* q, const void* k, const void* v,
     const size_t smem = tc_smem_bytes<D>();
     err = allow_smem(flash_attention_bf16_kernel<D>, smem);
     if (err != cudaSuccess) return (int)err;
-    dim3 grid(H, B, (Sq + TC_Q - 1) / TC_Q);
+    dim3 grid(H * (D / fa_out_cols<D>()), B, (Sq + TC_Q - 1) / TC_Q);
     flash_attention_bf16_kernel<D><<<grid, TC_THREADS, smem, stream>>>(
         qt, kt, vt, q_pos, k_pos, ot, Sq, Sk, H, H / K, st[0], st[1], st[2],
         st[3], st[4], st[5], st[6], st[7], st[8], scale, causal, window);
@@ -691,7 +733,9 @@ static int launch(const void* q, const void* k, const void* v,
     const size_t smem = fa_smem_bytes<D>();
     err = allow_smem(flash_attention_f32_kernel<D>, smem);
     if (err != cudaSuccess) return (int)err;
-    dim3 grid((Sq + FA_Q - 1) / FA_Q, H, B);
+    const int heads = H * (D / fa_out_cols<D>());
+    if (heads > 65535) return (int)cudaErrorInvalidValue;
+    dim3 grid((Sq + FA_Q - 1) / FA_Q, heads, B);
     flash_attention_f32_kernel<D><<<grid, FA_THREADS, smem, stream>>>(
         qt, kt, vt, q_pos, k_pos, ot, Sq, Sk, H, H / K, st[0], st[1], st[2],
         st[3], st[4], st[5], st[6], st[7], st[8], scale, causal, window);
@@ -717,7 +761,11 @@ static int dispatch(int D, const void* q, const void* k, const void* v,
                                   K, st, scale, causal, window, s);
     case 128: return launch<T, 128>(q, k, v, q_pos, k_pos, out, B, Sq, Sk,
                                     H, K, st, scale, causal, window, s);
+    case 160: return launch<T, 160>(q, k, v, q_pos, k_pos, out, B, Sq, Sk,
+                                    H, K, st, scale, causal, window, s);
     case 192: return launch<T, 192>(q, k, v, q_pos, k_pos, out, B, Sq, Sk,
+                                    H, K, st, scale, causal, window, s);
+    case 256: return launch<T, 256>(q, k, v, q_pos, k_pos, out, B, Sq, Sk,
                                     H, K, st, scale, causal, window, s);
   }
   return (int)cudaErrorInvalidValue;

@@ -39,9 +39,13 @@
 //   c mod W; the ring is a multiple of W stages, so a warp waits on a
 //   stage's next use only once its last use has landed: the waits tell
 //   phases apart by parity alone). W is 8 where such a CTA fits its
-//   shared memory (the LM's bf16, G=4, D=80 among them), else 4: a
-//   stage's arithmetic takes a warp longer than the stage takes to land,
-//   so more warps an SM share it (PERF.md §6). One key a lane for the
+//   shared memory (the LM's bf16, G=4, D=80 among them; stablelm-12b's
+//   bf16, G=4, D=160), else 4 (gemma3-12b's bf16, G=2, D=256: a ring of
+//   4 stages, 128 KB): a stage's arithmetic takes a warp longer than the
+//   stage takes to land, so more warps an SM share it (PERF.md §6). In
+//   f32 at D=256 a stage is 64 KB and four do not fit beside the rest, so
+//   W is 2 with a ring of 2 stages, one a warp (the same parity-only
+//   waits: the ring is still a multiple of W). One key a lane for the
 //   scores (q in shared memory as f32, read as broadcast vectors; k_pos
 //   loaded a stage ahead), an online softmax per head by shuffles, and
 //   P·V with each lane owning the columns lane + 32t; all in f32 FFMA. At a split's end the warps'
@@ -105,12 +109,14 @@ __host__ __device__ constexpr size_t fd_smem_bytes(int W, int stages,
 }
 
 // Consumer warps of an instantiation: 8 where a CTA with a ring of one
-// stage a warp and 4 splits fits the 227 KB a block may take, else 4.
+// stage a warp and 4 splits fits the 227 KB a block may take, else 4
+// where that fits with 4, else 2.
 template <typename T, int G, int D>
 __host__ __device__ constexpr int fd_warps() {
   return fd_smem_bytes<T, G, D>(FD_MAX_WARPS, FD_MAX_WARPS, 4) <= 232448
              ? FD_MAX_WARPS
-             : 4;
+         : fd_smem_bytes<T, G, D>(4, 4, 4) <= 232448 ? 4
+                                                      : 2;
 }
 
 struct FdArgs {
@@ -202,6 +208,8 @@ __global__ void __launch_bounds__(32 * (fd_warps<T, G, D>() + 1),
                                   fd_warps<T, G, D>() > 4 ? 2 : 1)
 flash_decode_kernel(const __grid_constant__ FdArgs a) {
   constexpr int W = fd_warps<T, G, D>();       // consumer warps
+  static_assert(fd_smem_bytes<T, G, D>(W, W, 1) <= 232448,
+                "no ring of one stage a warp fits this instantiation");
   constexpr int NT = 32 * (W + 1);            // + the producer warp
   constexpr int TILE = fd_tile_bytes<T, D>();
   constexpr int STAGE = 2 * TILE;
@@ -448,31 +456,41 @@ struct Inst {
 };
 
 // Call f(Inst<T, G, D>{}) for the instantiation of (dtype, G, D);
-// dtype 0 = f32, 1 = bf16.
+// dtype 0 = f32, 1 = bf16. Head dims up to 128 are instantiated at every
+// G; 160 and 256 (stablelm-12b, gemma3-12b) at G = 1, 2, 4, 8 only, which
+// keeps the build's time (kernels/flash_decode/ops.py: INSTANCES).
 template <typename F>
 static int dispatch(int dtype, int G, int D, F&& f) {
 #define FD_D(TT, GG, DD) \
   case DD:               \
     return f(Inst<TT, GG, DD>{});
+#define FD_DIMS(TT, GG)                                                  \
+  FD_D(TT, GG, 16)                                                       \
+  FD_D(TT, GG, 32)                                                       \
+  FD_D(TT, GG, 64)                                                       \
+  FD_D(TT, GG, 80)                                                       \
+  FD_D(TT, GG, 96)                                                       \
+  FD_D(TT, GG, 128)
 #define FD_G(TT, GG)                                                     \
   case GG:                                                               \
+    switch (D) { FD_DIMS(TT, GG) }                                       \
+    return (int)cudaErrorInvalidValue;
+#define FD_G_WIDE(TT, GG)                                                \
+  case GG:                                                               \
     switch (D) {                                                         \
-      FD_D(TT, GG, 16)                                                   \
-      FD_D(TT, GG, 32)                                                   \
-      FD_D(TT, GG, 64)                                                   \
-      FD_D(TT, GG, 80)                                                   \
-      FD_D(TT, GG, 96)                                                   \
-      FD_D(TT, GG, 128)                                                  \
+      FD_DIMS(TT, GG)                                                    \
+      FD_D(TT, GG, 160)                                                  \
+      FD_D(TT, GG, 256)                                                  \
     }                                                                    \
     return (int)cudaErrorInvalidValue;
 #define FD_T(TT)                                                         \
   switch (G) {                                                           \
-    FD_G(TT, 1)                                                          \
-    FD_G(TT, 2)                                                          \
+    FD_G_WIDE(TT, 1)                                                     \
+    FD_G_WIDE(TT, 2)                                                     \
     FD_G(TT, 3)                                                          \
-    FD_G(TT, 4)                                                          \
+    FD_G_WIDE(TT, 4)                                                     \
     FD_G(TT, 7)                                                          \
-    FD_G(TT, 8)                                                          \
+    FD_G_WIDE(TT, 8)                                                     \
     FD_G(TT, 16)                                                         \
   }                                                                      \
   return (int)cudaErrorInvalidValue;
@@ -483,7 +501,9 @@ static int dispatch(int dtype, int G, int D, F&& f) {
     FD_T(__nv_bfloat16)
   }
 #undef FD_T
+#undef FD_G_WIDE
 #undef FD_G
+#undef FD_DIMS
 #undef FD_D
   return (int)cudaErrorInvalidValue;
 }
@@ -602,8 +622,8 @@ static cudaError_t encode_cache(CUtensorMap* map, const void* base,
 // q (B,1,H,D) with strides (q_sb, ., q_sh, 1); k/v (B,S,K,D) with strides
 // (sb, ss, sh, 1), rows 16-byte aligned; k_pos (B,S) int32 with batch
 // stride kp_sb (0 when shared) and unit position stride; q_pos (B,) with
-// stride qp_sb; out (B,1,H,D) contiguous; G = H / K in {1, 2, 3, 4, 8,
-// 16};
+// stride qp_sb; out (B,1,H,D) contiguous; (D, G = H / K) an instantiated
+// pair (dispatch);
 // split s covers [s·per_split, (s+1)·per_split) ∩ [0, S); `cluster` CTAs
 // a (batch, kv head), `stages` ring stages; dtype 0 = f32, 1 = bf16.
 extern "C" int flash_decode_launch(

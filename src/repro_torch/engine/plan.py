@@ -20,8 +20,10 @@ batch:
   * ``placement=..., backend="hier"``   -> a ``HeadPlacement``: heads on
     uneven rank groups (``engine.hier``), global semantics
 
-``donate`` is accepted for ``repro``'s signature and has no effect: eager
-PyTorch holds no buffers to donate.
+``donate``: a ``Session`` on the plan updates params and moments in their
+own storage (it builds ``adamw(donate=plan.donate)``), as ``repro``'s
+donated step buffers are reused for its outputs; a step from
+``make_step`` takes whatever optimizer it is given.
 """
 from __future__ import annotations
 
@@ -47,7 +49,7 @@ class ShardingPlan:
     mesh: Any = None                   # DeviceMesh ("data", "model")
     mtp: MTPConfig | None = None
     backend: str = "auto"              # auto | jit | pjit | shard_map | hier
-    donate: bool = True                # accepted; no effect (see above)
+    donate: bool = True                # in-place AdamW (see above)
     # hierarchical backend: a HeadPlacement (heads -> uneven rank groups,
     # core.solve_placement) INSTEAD of a mesh — the plan deals the ranks
     # into per-group sub-groups itself

@@ -25,9 +25,14 @@ the world size, or a ``HeadPlacement``) trains hierarchically, heads on
 uneven rank groups solved from the per-source load. Every rank runs the
 same seeded batcher and takes its slice (``repro``'s single-controller
 semantics); a rank holds the trunk and only its heads and their moments.
-``cfg.donate`` is accepted and has no effect (eager PyTorch donates
-nothing). ``device=None`` means ``cuda`` (a rank's own device in a job) and
-raises without a GPU; the CPU must be asked for (``device="cpu"``).
+With ``cfg.donate`` (the default, as ``repro``'s) the AdamW update writes
+the new params and moments into their own storage (``adamw(donate=True)``):
+a step holds the state once, where the pure update holds it twice. A
+donating session owns its state: it copies the params ``model.init``
+returns (an init may hand back tensors its caller still holds, as
+fine-tuning's trunk is), and its guarded step decides before it updates.
+``device=None`` means ``cuda`` (a rank's own device in a job) and raises
+without a GPU; the CPU must be asked for (``device="cpu"``).
 """
 from __future__ import annotations
 
@@ -43,7 +48,7 @@ from repro_torch.data.bucketing import BucketingBatcher, BucketSpec
 from repro_torch.data.loader import GroupBatcher, SingleBatcher, _source_len
 from repro_torch.data.mixing import MixingBatcher, MixingConfig
 from repro_torch.data.prefetch import DevicePlacer, Prefetcher
-from repro_torch.interop import leaves
+from repro_torch.interop import leaves, tree_map
 from repro_torch.optim import adamw, warmup_cosine
 from repro_torch.train import checkpoint
 from repro_torch.train.loop import EarlyStopping, MetricLogger, train_loop
@@ -69,7 +74,8 @@ class SessionConfig:
     # parallelism (the mesh itself is passed to Session: it is runtime state)
     mode: str = "par"                 # MTP head sharding: "par" | "base"
     backend: str = "auto"             # auto | jit | pjit | shard_map | hier
-    # accepted for repro's signature; eager PyTorch donates no buffers
+    # the AdamW update writes params and moments in place (the state is
+    # held once); False: the pure update, new trees each step
     donate: bool = True
     # loop control
     log_every: int = 10
@@ -287,7 +293,8 @@ class Session:
         lr = warmup_cosine(cfg.lr, cfg.warmup, cfg.steps) if cfg.warmup \
             else cfg.lr
         self.optimizer = adamw(lr, weight_decay=cfg.weight_decay,
-                               grad_clip=cfg.grad_clip)
+                               grad_clip=cfg.grad_clip,
+                               donate=self.plan.donate)
         # quarantine bookkeeping (repro_torch.resilience): loss-weight-
         # quarantined task indices and sampling-quarantined source indices
         # (MixingBatcher sessions)
@@ -296,6 +303,9 @@ class Session:
         self._rebuild_step()
         params = self.plan.shard_params(self.model.init(cfg.seed,
                                                         self.device))
+        if self.plan.donate:
+            params = tree_map(lambda p: p.clone(
+                memory_format=torch.contiguous_format), params)
         guard0 = GuardState.init() if self._guard_cfg() is not None \
             else None
         self.state = TrainState.create(params, self.optimizer,

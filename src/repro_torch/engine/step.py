@@ -193,14 +193,16 @@ def make_guarded_train_step(grad_fn: Callable, optimizer, gcfg,
 
     A step is accepted when the loss and the gradients' global norm are
     finite and, once ``warmup_steps`` accepted steps have seeded the EMA,
-    ``loss <= spike_factor * |EMA| + spike_slack``. The update runs first
-    (it leaves its inputs untouched); then the loss and the norm come to
-    the host in one read, and the step keeps the new trees or the old ones
-    by reference — no select pass over the parameters. A tripped step
-    returns params, moments AND the step counter unchanged (so the
-    schedule's step stays where it was); tripped losses never enter the
-    EMA. The guard's scalars follow ``repro``'s float32 / int32
-    arithmetic on the host. ``norm_fn`` as in ``make_train_step``."""
+    ``loss <= spike_factor * |EMA| + spike_slack``. The loss and the norm
+    come to the host in one read first, and only an accepted step runs
+    the update — no select pass over the parameters, and a donating
+    optimizer (``adamw(donate=True)``), which overwrites its inputs, never
+    touches a tripped step's state. A tripped step returns params,
+    moments AND the step counter unchanged (so the schedule's step stays
+    where it was); tripped losses never enter the EMA. The guard's
+    scalars follow ``repro``'s float32 / int32 arithmetic on the host
+    (``repro`` selects between the updated and the old trees: the same
+    state). ``norm_fn`` as in ``make_train_step``."""
     spike = np.float32(gcfg.spike_factor)
     slack = np.float32(gcfg.spike_slack)
     decay = np.float32(gcfg.ema_decay)
@@ -210,8 +212,6 @@ def make_guarded_train_step(grad_fn: Callable, optimizer, gcfg,
         g = state.guard
         loss, metrics, grads = grad_fn(state.params, batch)
         gnorm = norm_fn(grads)
-        new_params, new_opt = optimizer.update(grads, state.opt_state,
-                                               state.params, norm_fn)
         # the step's one host read: the loss and the global norm together
         # (one non-finite gradient makes the norm non-finite)
         lv, gv = torch.stack([loss.float(), gnorm.float()]).cpu().numpy()
@@ -220,6 +220,8 @@ def make_guarded_train_step(grad_fn: Callable, optimizer, gcfg,
             else np.float32(np.inf)
         ok = bool(np.isfinite(lv) and np.isfinite(gv) and lv <= threshold)
         if ok:
+            new_params, new_opt = optimizer.update(grads, state.opt_state,
+                                                   state.params, norm_fn)
             ema = _fma32(rest, lv, decay * g.ema) if int(g.good) > 0 else lv
             guard = GuardState(ema=np.float32(ema),
                                good=np.int32(g.good + 1), trips=np.int32(0))

@@ -16,7 +16,7 @@ import torch
 from .. import _build
 from .ref import flash_attention_ref
 
-HEAD_DIMS = (16, 32, 64, 80, 96, 128, 192)   # instantiated in the kernels
+HEAD_DIMS = (16, 32, 64, 80, 96, 128, 160, 192, 256)   # instantiated
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -81,7 +81,8 @@ def flash_attention(q, k, v, *, q_pos, k_pos, causal=True, window=0,
     integer positions -> (B,Sq,H,D) in q's dtype. Keys at ``k_pos <= -1e8``
     are pads; ``window > 0`` keeps ``q_pos - k_pos < window``. The CUDA
     kernels' tiles are fixed (64 keys; 64 query rows for bf16 on the tensor
-    cores, 128 for f32) and mask the ragged edge themselves, so ``repro``'s
+    cores, 128 for f32; at D = 256 a CTA computes half the output columns)
+    and mask the ragged edge themselves, so ``repro``'s
     ``block_q``/``block_k`` knobs have no counterpart."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"q must be (B,Sq,H,D) and k, v one (B,Sk,K,D) "

@@ -22,15 +22,20 @@ from .. import _build
 from ..flash_attention.ops import check_rows
 from .ref import combine_partials, decode_partials_ref
 
-HEAD_DIMS = (16, 32, 64, 80, 96, 128)   # instantiated in the kernel
-GROUPS = (1, 2, 3, 4, 7, 8, 16)  # query heads per kv head, instantiated
-                                 # (7: internvl2-1b, 14 over 2)
+# The (head dim, query heads per kv head) pairs instantiated in the
+# kernel: head dims up to 128 at every group (7: internvl2-1b, 14 over 2),
+# 160 (stablelm-12b, G=4) and 256 (gemma3-12b, G=2) at the groups of the
+# ported configs only (csrc/flash_decode.cu's dispatch)
+INSTANCES = frozenset(
+    [(d, g) for d in (16, 32, 64, 80, 96, 128)
+     for g in (1, 2, 3, 4, 7, 8, 16)]
+    + [(d, g) for d in (160, 256) for g in (1, 2, 4, 8)])
 MAX_CLUSTER = 16                # CTAs a (batch, kv head)
-STAGES = (16, 12, 8, 4)         # ring depths of 32 keys, deepest first; a
-                                # ring is a multiple of the kernel's 4 or 8
-                                # consumer warps (a warp waits on a stage's
-                                # next use only once its last use has
-                                # landed), the launcher refuses others
+STAGES = (16, 12, 8, 4, 2)      # ring depths of 32 keys, deepest first; a
+                                # ring is a multiple of the kernel's 2, 4 or
+                                # 8 consumer warps (a warp waits on a
+                                # stage's next use only once its last use
+                                # has landed), the launcher refuses others
 GRANULE = 8                     # the default plan's split boundaries
 MIN_SPLIT = 128                 # the default plan's shortest split
 SM_COUNT = 132                  # H100 SXM: the SMs the CPU plans for
@@ -154,8 +159,7 @@ def plan_call(q, k, n_splits=None, block_k=None) -> Plan:
     layer), on the CPU with no occupancy limit."""
     B, _, H, D = q.shape
     S, K = k.shape[1], k.shape[2]
-    if (q.is_cuda and q.dtype in _DTYPES and D in HEAD_DIMS
-            and H // K in GROUPS):
+    if q.is_cuda and q.dtype in _DTYPES and (D, H // K) in INSTANCES:
         return _card_plan(q.device.index, q.dtype, B, K, S, H // K, D,
                           n_splits, block_k)
     return plan_splits(B, K, S, n_splits, block_k)
@@ -178,12 +182,11 @@ def _launch(q, k, v, q_pos, k_pos, window, scale, plan: Plan):
                         f"{v.dtype}")
     B, _, H, D = q.shape
     S, K = k.shape[1], k.shape[2]
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_decode CUDA kernel: head dim {D} not in "
-                         f"{HEAD_DIMS}")
-    if H // K not in GROUPS:
-        raise ValueError(f"flash_decode CUDA kernel: {H // K} query heads "
-                         f"per kv head, not in {GROUPS}")
+    if (D, H // K) not in INSTANCES:
+        raise ValueError(
+            f"flash_decode CUDA kernel: head dim {D} at {H // K} query "
+            f"heads per kv head is not instantiated (INSTANCES: "
+            f"{sorted(INSTANCES)})")
     if K > 65535 or B > 65535 or plan.n_splits * plan.per_split >= 2 ** 31:
         raise ValueError(f"grid too large: B={B}, K={K}, {plan}")
     for name, t in (("q", q), ("k", k), ("v", v)):

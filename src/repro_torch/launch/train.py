@@ -22,11 +22,16 @@ through the segment-sum kernel.
   PYTHONPATH=src python -m repro_torch.launch.train --mode gfm --device cpu
 
 ``--width full`` takes the arch's published config; LM weights are drawn
-from ``--seed`` (on the card, by a seeded CUDA generator).
+from ``--seed`` (on the card, by a seeded CUDA generator). The last line
+printed is a JSON summary: the final loss, the device and, on a card, its
+peak allocated bytes (``torch.cuda.max_memory_allocated``).
 """
 from __future__ import annotations
 
 import argparse
+import json
+
+import torch
 
 from repro_torch import configs
 from repro_torch.configs import hydragnn_gfm
@@ -99,6 +104,16 @@ def main(argv=None):
     args = ap.parse_args(argv)
     with session_for(args) as session:
         result = session.run()
+        dev = session.device
+    on_card = dev.type == "cuda"
+    print(json.dumps({
+        "mode": args.mode,
+        "arch": "hydragnn-gfm" if args.mode == "gfm" else args.arch,
+        "width": args.width, "steps": args.steps,
+        "final_loss": result.final_loss,
+        "device": torch.cuda.get_device_name(dev) if on_card else "cpu",
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(dev)
+        if on_card else None}), flush=True)
     return result.final_loss
 
 

@@ -627,6 +627,15 @@ def _attn_close(got, ref):
     # internvl2-1b: G = 7 (14 query heads over 2 kv heads) at D = 64
     (2, 100, 100, 14, 2, 64, 0, False),      # G = 7, ragged
     (1, 130, 130, 7, 1, 64, 40, True),       # G = 7, rolled pads + window
+    # stablelm-12b: D = 160 at G = 4; gemma3-12b: D = 256 at G = 2, where
+    # each CTA computes half the output columns
+    (2, 100, 100, 32, 8, 160, 0, False),     # stablelm's heads, ragged
+    (1, 300, 300, 8, 2, 160, 40, True),      # D = 160, rolled pads + window
+    (1, 129, 63, 8, 2, 160, 0, False),       # D = 160, rows see no key
+    (2, 130, 130, 16, 8, 256, 0, False),     # gemma3's heads, ragged
+    (1, 300, 300, 4, 2, 256, 40, True),      # D = 256, rolled pads + window
+    (2, 65, 129, 4, 4, 256, 7, False),       # D = 256, G = 1, short window
+    (1, 129, 63, 8, 1, 256, 0, False),       # D = 256, G = 8, no key seen
 ])
 def test_flash_attention_kernel_matches_plain(cuda, dtype, B, Sq, Sk, H, K,
                                               D, window, rolled):
@@ -739,6 +748,18 @@ def test_flash_attention_kernel_refuses(cuda):
     (8, 1056, 14, 2, 64, None, None),       # internvl2's decode shape
     (2, 1000, 14, 2, 64, 17, None),         # 2 splits a CTA
     (1, 77, 7, 1, 128, 3, 16),              # one kv head, D = 128, ragged
+    # stablelm-12b (D = 160, G = 4) and gemma3-12b (D = 256, G = 2) at
+    # their decode shapes, then the other groups of those head dims (in
+    # f32 at D = 256: two consumer warps, a ring of two stages)
+    (8, 1056, 32, 8, 160, None, None),      # stablelm's decode shape
+    (8, 1056, 16, 8, 256, None, None),      # gemma3's decode shape
+    (2, 1000, 8, 2, 160, 17, None),         # D = 160, 2 splits a CTA
+    (1, 77, 8, 8, 160, 3, 16),              # D = 160, G = 1, ragged
+    (1, 300, 16, 2, 160, None, None),       # D = 160, G = 8
+    (2, 640, 4, 2, 256, 12, 64),            # D = 256, trailing empty splits
+    (1, 300, 4, 4, 256, None, None),        # D = 256, G = 1
+    (1, 77, 8, 2, 256, 3, 16),              # D = 256, G = 4, ragged
+    (1, 300, 8, 1, 256, None, None),        # D = 256, G = 8
 ])
 def test_flash_decode_kernel_matches_plain(cuda, dtype, B, S, H, K, D,
                                            n_splits, block_k):
@@ -859,8 +880,9 @@ def test_flash_decode_plan_matches_the_card(cuda, B, S):
 def test_flash_decode_kernel_refuses(cuda):
     """What the kernel does not take raises: a cluster the card cannot
     place (the largest instantiation with an 8-stage ring: 270 KB of
-    shared memory), G = 5, head dim 192 (prefill's only), a misaligned
-    row, float16."""
+    shared memory), G = 5, head dim 192 (prefill's only), head dims 160
+    and 256 at a group they are not instantiated at, a misaligned row,
+    float16."""
     q = torch.zeros(1, 1, 16, 128, device=cuda)
     k = torch.zeros(1, 64, 1, 128, device=cuda)
     pos = torch.zeros(1, device=cuda, dtype=torch.int32)
@@ -873,6 +895,12 @@ def test_flash_decode_kernel_refuses(cuda):
     k192 = torch.zeros(1, 64, 1, 192, device=cuda)
     with pytest.raises(ValueError, match="head dim"):
         flash_decode(q192, k192, k192, q_pos=pos, k_pos=kp)
+    # head dims 160 and 256 exist at G = 1, 2, 4, 8 only
+    for D, G in ((160, 3), (256, 16), (256, 7)):
+        qw = torch.zeros(1, 1, G, D, device=cuda, dtype=torch.bfloat16)
+        kw = torch.zeros(1, 64, 1, D, device=cuda, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="not instantiated"):
+            flash_decode(qw, kw, kw, q_pos=pos, k_pos=kp)
     wide = torch.zeros(1, 64, 1, 136, device=cuda)
     with pytest.raises(ValueError, match="aligned"):
         flash_decode(q, wide[..., 2:130], wide[..., 2:130], q_pos=pos,
@@ -1356,5 +1384,70 @@ def test_recurrent_lm_training_on_card(cuda, arch):
         assert segment_sum.two_d.launches - n0 == 3
         losses.append([r["loss"] for r in res.logger.history])
         ends.append(interop.leaves(res.params))
+    assert all(np.isfinite(losses[0])) and losses[0] == losses[1]
+    assert all(torch.equal(ends[0][k], ends[1][k]) for k in ends[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["gemma3-12b", "stablelm-12b"])
+def test_dense12b_lm_on_card(cuda, arch):
+    """The smoke config at its arch's own head dim and group (gemma3 256 at
+    G=2, stablelm 160 at G=4) in f32 compute on the card: one #5 launch a
+    layer a prefill and one #6 launch a layer a decode step; the kernel
+    path's greedy tokens are the plain path's and the CPU's, two runs
+    bitwise; a prompt past gemma3's window (32) keeps every cache at its
+    length; the full forward within 2e-4 atol / 2e-3 rtol of the CPU's."""
+    from repro_torch import interop
+    real = {"gemma3-12b": dict(head_dim=256, n_heads=4, n_kv_heads=2),
+            "stablelm-12b": dict(head_dim=160, n_heads=8, n_kv_heads=2)}
+    cfg = get_smoke(arch).replace(compute_dtype=torch.float32, **real[arch])
+    L = cfg.n_layers
+    params = transformer.lm_init(np.random.default_rng(0), cfg)
+    cparams = interop.to_torch(params, cuda)
+    for S in (24, 40):
+        prompt = torch.from_numpy(np.random.default_rng(S).integers(
+            0, cfg.vocab, (3, S)).astype(np.int32))
+        fa0, fd0 = flash_attention.launches, flash_decode.launches
+        got = greedy_generate(cparams, cfg, prompt, 6, impl="pallas",
+                              device=cuda)
+        assert flash_attention.launches - fa0 == L
+        assert flash_decode.launches - fd0 == L * 5
+        assert torch.equal(got, greedy_generate(cparams, cfg, prompt, 6,
+                                                impl="pallas", device=cuda))
+        assert torch.equal(got, greedy_generate(cparams, cfg, prompt, 6,
+                                                impl="chunked", device=cuda))
+        assert torch.equal(got.cpu(), greedy_generate(
+            params, cfg, prompt, 6, impl="chunked", device="cpu"))
+        full, _, _ = transformer.lm_apply(cparams, prompt.to(cuda), cfg=cfg,
+                                          impl="pallas")
+        ref, _, _ = transformer.lm_apply(params, prompt, cfg=cfg)
+        assert torch.allclose(full.cpu(), ref, atol=2e-4, rtol=2e-3)
+
+
+@pytest.mark.gpu
+def test_donated_session_on_card_is_bitwise_the_pure_one(cuda):
+    """``lm`` training of gemma3's smoke config (bf16 compute, remat)
+    through ``Session`` on the card, ``donate=True`` (the default) against
+    ``donate=False``: #1 once a step, the same losses and the same final
+    params bit for bit, the donated params in their first storage."""
+    from repro_torch import interop
+    from repro_torch.data.lm_data import make_lm_sources
+    from repro_torch.engine import Session, SessionConfig
+    cfg = get_smoke("gemma3-12b").replace(remat=True)
+    source = make_lm_sources(1, 16, 64, cfg.vocab)[0]
+    ends, losses = [], []
+    for donate in (True, False):
+        scfg = SessionConfig(model="lm", arch=cfg, steps=3,
+                             batch_per_task=4, lr=3e-4, log_every=1,
+                             seed=0, verbose=False, donate=donate)
+        n0 = segment_sum.two_d.launches
+        with Session.from_config(scfg, sources=source, device=cuda) as s:
+            first = dict(interop.leaves(s.state.params))
+            res = s.run()
+        assert segment_sum.two_d.launches - n0 == 3
+        after = interop.leaves(res.params)
+        assert all((after[k] is v) == donate for k, v in first.items())
+        losses.append([r["loss"] for r in res.logger.history])
+        ends.append(after)
     assert all(np.isfinite(losses[0])) and losses[0] == losses[1]
     assert all(torch.equal(ends[0][k], ends[1][k]) for k in ends[0])

@@ -141,8 +141,10 @@ def test_configs_match_repro(arch, smoke):
         assert getattr(t, f) == getattr(j, f), f
     assert t.param_dtype == torch.float32
     assert t.compute_dtype == torch.bfloat16
-    with pytest.raises(KeyError, match="not yet ported"):
-        tconfigs.get("stablelm-12b")
+    # a name neither package knows
+    for get in (tconfigs.get, j_get):
+        with pytest.raises(KeyError, match="unknown arch"):
+            get(arch + "-xl")
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))

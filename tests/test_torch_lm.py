@@ -264,13 +264,14 @@ def test_configs_match_repro(arch, smoke):
 
 
 def test_registry_knows_only_ported_archs():
-    assert set(tconfigs.ARCHS) == {"h2o-danube-1.8b", "qwen1.5-0.5b",
-                                   "hydragnn-gfm", "granite-moe-3b-a800m",
-                                   "deepseek-v2-236b", "zamba2-1.2b",
-                                   "xlstm-125m", "internvl2-1b",
-                                   "seamless-m4t-medium"}
-    with pytest.raises(KeyError, match="not yet ported"):
-        tconfigs.get("gemma3-12b")
+    """Every arch of ``repro``'s registry is ported, in its order, and a
+    name neither package knows raises ``KeyError`` in both."""
+    from repro.configs import ARCHS as J_ARCHS
+    from repro.configs import get as j_get
+    assert tconfigs.ARCHS == J_ARCHS
+    for get in (tconfigs.get, tconfigs.get_smoke, j_get):
+        with pytest.raises(KeyError, match="unknown arch"):
+            get("gemma3-27b")
 
 
 def test_lm_data_is_repro_s():
