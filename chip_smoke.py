@@ -95,14 +95,16 @@ Phases, each printing one JSON line:
      params, moments and step bitwise equal to a clean 12-step run; the
      report's events and each checkpoint write's ms;
   4c. train_mtp: multi-task parallelism (the paper's method) at the same
-     width: ranks spawned by ``launch.mesh.run_ranks`` on the one card over
-     gloo (NCCL refuses two ranks on one card), each a ``Session`` of 3
+     width, the trunk cut to 2 of its 4 EGNN layers (``MTP_LAYERS``: the
+     contract's time): ranks spawned by ``launch.mesh.run_ranks`` on the
+     one card over gloo (NCCL refuses two ranks on one card), each a
+     ``Session`` of 3
      steps with the paper's source sizes as task weights. (a) ``hier``:
      8 ranks, ``placement=8`` — groups (2, 1, 3, 1, 1), per-rank B of 4 or
      8; (b) ``par``: a (1, 5) mesh, one head a rank; (c) ``base``: a (2, 1)
      mesh, heads whole. Each: per-task and total losses within rtol 5e-5,
      atol 1e-6 of the one-process session on the same batches; trunk
-     params bitwise equal across ranks after every step; 4 + 4 edge-kernel
+     params bitwise equal across ranks after every step; 2 + 2 edge-kernel
      launches a step a rank; each rank's params and moments equal to the
      §4.3 model (``memory_per_device`` x 3 x 4 B) beside
      ``memory_allocated``. (a) also: two runs bitwise equal, the checkpoint
@@ -183,8 +185,9 @@ Phases, each printing one JSON line:
      it, the f32 one-hot plain version, the bf16 one-hot product the
      backward was before, ``index_add_`` and the byte bound;
   6c. lm_moe: the MoE family at full width, weights drawn on the card
-     from a seed, bf16 compute: granite-moe-3b-a800m (32 layers, d=1536,
-     24/8 heads of 64, 40 experts top-8 of width 512, fp32 weights) and
+     from a seed, bf16 compute: granite-moe-3b-a800m (d=1536, 24/8 heads
+     of 64, 40 experts top-8 of width 512, fp32 weights) cut to 16 of its
+     32 layers (``GRANITE_LAYERS``) and
      deepseek-v2-236b (d=5120, 128 heads, MLA latent 512 / q 1536, rope
      64 + nope 128, 160 experts top-6 of width 1536 plus 2 shared, bf16
      weights) cut to 4 layers served and 1 trained. Each is served by
@@ -266,8 +269,9 @@ Phases, each printing one JSON line:
      gemma3-12b (48 layers, d=3840, 16 / 8 heads of 256, five sliding-
      window layers (1024) to one full-attention layer, vocab 262,144;
      11.77 B parameters) and stablelm-12b (40 layers, d=5120, 32 / 8
-     heads of 160, vocab 100,352; 11.63 B). Each served at full width and
-     depth by ``greedy_generate(impl="pallas")`` at (a) B=8, 1024 + 32,
+     heads of 160, vocab 100,352; 11.63 B). Each served at full width, cut
+     in depth to 24 / 20 layers (``DENSE_SERVE_LAYERS``: the contract's
+     time), by ``greedy_generate(impl="pallas")`` at (a) B=8, 1024 + 32,
      twice, bitwise, and gemma3 at (b) B=1, 4200 + 16 past its window (#5
      once a layer a prefill, #6 once a layer a step); the kernel path's
      teacher-forced logits within ``LM_TOL_BF16`` of the plain path's at
@@ -285,12 +289,39 @@ Phases, each printing one JSON line:
      holds #5 at both models' prefill shapes (gemma3 causal and windowed
      at (a) and (b)) and #6 at their decode shapes, and each new head dim
      in f32;
+  6g. train_dist: training across ranks, one ``run_ranks`` job of 2 gloo
+     ranks on the one card (a (2, 1) mesh), every case at full width
+     against a one-process session on the card run first and freed
+     before the spawn: (a) fine-tuning data-parallel (hydragnn-gfm's
+     trunk, 4 EGNN layers at H=866, and a fresh 3x889 branch: the
+     ``SingleTaskModel`` of ``examples/finetune_downstream_torch.py``, 8
+     transition1x graphs a step); (b) ``lm`` on qwen1.5-0.5b at ``DIST_LM``
+     = 2 x 512 tokens a rank, at accum 1 and 2; (c) ``lm-mtl`` on qwen's
+     two task heads on the ``"base"`` plan, each task's rows split over
+     both ranks; (d) granite-moe-3b-a800m ``lm`` cut in depth to
+     ``DIST_MOE_LAYERS`` = 2 of 32 (the balance term across ranks); the
+     LMs in f32 compute (``_dist_spec`` says why); 2 steps each; (e) the
+     GFM-MTL soak on the ``"base"`` plan under ``SOAK_FAULTS`` (the five
+     fault classes), ``resume()``, and a clean 2-rank run. Signals: per-task
+     and total losses within ``MTP_RTOL`` / ``MTP_ATOL`` of one process
+     (the soak: its clean run's first 2 steps) and the sum of AdamW's
+     second moments within ``DIST_V_TOL`` (a gradient off by a constant
+     factor, which AdamW's update hides from the losses, moves it); the
+     full params equal on every rank after every step (a fingerprint of
+     each leaf's bits); launches a rank from zero, as the design
+     implies (#3 and #4 4 a GNN step, #1 one a microbatch); the soak's
+     resumed run bitwise equal to the clean one, every rank at the same
+     step with the same events and checkpoint listing; gloo's all-reduce
+     ms a step a rank, each case's peak, and the job's startup, ranks and
+     teardown seconds (time-shared, not a scaling result);
   7. the ``kernels`` summary line (#1 ``segment_sum_2d`` apart from #2
      ``segment_sum`` since #1 runs every embedding's backward), the
      ``nvidia-smi`` line, and the final ``{"ok": true, "device": ...}``
      line.
 
-``--profile`` adds device time by kernel (``torch.profiler``) for one
+``--phase train_mtp`` or ``--phase train_dist`` builds the kernels and
+runs that phase alone (no contract line). ``--profile`` adds device time
+by kernel (``torch.profiler``) for one
 served GNN batch, one training step, one LM prefill and one decode step,
 and the attention sweep: the device time of #5 over masks (beside SDPA on
 the same inputs), and of #6 at LM decode runs (a) and (b), by kernel
@@ -321,12 +352,16 @@ import hashlib
 import itertools
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
 import time
 from pathlib import Path
 
 sys.modules["jax"] = None          # the port must never reach JAX
+_IMPORTED = time.monotonic()       # in a rank: when its process imported
+                                   # this file (a job's startup, split)
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
@@ -1960,6 +1995,8 @@ MTP_RTOL, MTP_ATOL = 5e-5, 1e-6     # repro's cross-plan parity tolerance
 MTP_ITERS = 3                       # steps a rank times
 MTP_TIMEOUT_S = 600                 # one job of ranks, spawn to exit
 MTP_RUNS = (("hier", 8, True), ("par", 5, False), ("base", 2, False))
+MTP_LAYERS = 2                      # of the trunk's 4 EGNN layers (the
+                                    # contract's time; full width)
 
 
 def _sync(torch, device):
@@ -2094,6 +2131,7 @@ def _mtp_rank(rank, world, kind, arch, sources, device, ckpt, full):
         out["memory_allocated"] = torch.cuda.memory_allocated(dev)
         out["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
     out["t_enter"] = entered
+    out["t_import"] = _IMPORTED
     if not full:
         out["t_exit"] = time.monotonic()
         return out
@@ -2147,7 +2185,8 @@ def train_mtp_phase(torch, device=DEVICE, arch=None):
     from repro_torch.configs.hydragnn_gfm import CONFIG
     from repro_torch.launch.mesh import run_ranks
     from repro_torch.train import checkpoint
-    arch = arch or CONFIG.replace(segment_sum_impl="fused")
+    arch = arch or CONFIG.replace(segment_sum_impl="fused",
+                                  gnn_layers=MTP_LAYERS)
     sources = _train_sources()
     T = len(sources)
     ref_sess = _mtp_session(arch, sources, device)
@@ -2158,7 +2197,8 @@ def train_mtp_phase(torch, device=DEVICE, arch=None):
     if device == "cuda":
         torch.cuda.empty_cache()
     ckpt = str(ROOT / "build" / "chip_smoke" / "mtp_hier")
-    out = {"phase": "train_mtp", "config": "hydragnn-gfm", "impl": "fused",
+    out = {"phase": "train_mtp", "config": "hydragnn-gfm",
+           "gnn_layers": arch.gnn_layers, "impl": "fused",
            "backend": "gloo", "steps": MTP_STEPS, "batch_per_task": 8,
            "tolerance": {"rtol": MTP_RTOL, "atol": MTP_ATOL},
            "note": "ranks time-share one card over gloo: times are not a "
@@ -2223,6 +2263,7 @@ def train_mtp_phase(torch, device=DEVICE, arch=None):
         # the last rank's exit to the results (teardown)
         row = {"world": world, "wall_s": wall,
                "startup_s": max(r["t_enter"] for r in ranks) - spawned,
+               "import_s": max(r["t_import"] for r in ranks) - spawned,
                "ranks_s": max(r["t_exit"] for r in ranks)
                - max(r["t_enter"] for r in ranks),
                "teardown_s": back - max(r["t_exit"] for r in ranks),
@@ -2737,6 +2778,7 @@ def _free(torch):
 
 
 MEMORY = {}                         # phase -> device memory at its start
+_START = [time.perf_counter()]      # the script's start (``t_s`` in MEMORY)
 
 
 def _phase_start(torch, name):
@@ -2752,7 +2794,8 @@ def _phase_start(torch, name):
     torch._C._cuda_clearCublasWorkspaces()
     _free(torch)
     torch.cuda.reset_peak_memory_stats()
-    MEMORY[name] = {"allocated_bytes": before,
+    MEMORY[name] = {"t_s": time.perf_counter() - _START[0],
+                    "allocated_bytes": before,
                     "after_cublas_workspaces_freed":
                     torch.cuda.memory_allocated()}
     print(f"chip_smoke: phase {name}: {json.dumps(MEMORY[name])}",
@@ -2951,13 +2994,17 @@ MOE_ND = (2, 248, 8)                # decode vs the full forward: B, prefill,
 MOE_TRAIN_B = 2                     # x LM_S tokens a step
 MOE_TRAIN_STEPS = 3
 DEEPSEEK_LAYERS = (4, 1)            # served, trained (of 60: 7.9 GB a layer)
+GRANITE_LAYERS = 16                 # served and trained (of 32: the
+                                    # contract's time limit)
 
 
 def _moe_configs():
-    """(name, served config, trained config): granite-moe at its full depth,
-    deepseek-v2 at full width cut to ``DEEPSEEK_LAYERS``."""
+    """(name, served config, trained config): granite-moe and deepseek-v2
+    at full width, cut in depth to ``GRANITE_LAYERS`` and
+    ``DEEPSEEK_LAYERS``."""
     from repro_torch.configs import deepseek_v2_236b, granite_moe_3b_a800m
     g, d = granite_moe_3b_a800m.CONFIG, deepseek_v2_236b.CONFIG
+    g = g.replace(n_layers=GRANITE_LAYERS)
     return [(g.name, g, g),
             (d.name, d.replace(n_layers=DEEPSEEK_LAYERS[0]),
              d.replace(n_layers=DEEPSEEK_LAYERS[1]))]
@@ -3244,9 +3291,9 @@ def _embed_times(torch, g, ids, V):
 
 
 def lm_moe_phase(torch, counters):
-    """granite-moe-3b-a800m at full width and depth (32 layers, d=1536,
-    24/8 heads of 64, 40 experts top-8 of width 512, fp32 weights, bf16
-    compute) and deepseek-v2-236b at full width (d=5120, 128 heads, MLA
+    """granite-moe-3b-a800m at full width (d=1536, 24/8 heads of 64, 40
+    experts top-8 of width 512, fp32 weights, bf16 compute) cut to 16 of
+    its 32 layers, and deepseek-v2-236b at full width (d=5120, 128 heads, MLA
     latent 512 / q 1536, rope 64 + nope 128, 160 experts top-6 of width
     1536 plus 2 shared, bf16 weights) cut to 4 layers served and 1
     trained; weights drawn on the card from a seed."""
@@ -3258,9 +3305,12 @@ def lm_moe_phase(torch, counters):
                          "embed_grad": "bitwise to the token-order sum; "
                          "the rounding bound of the one-hot product"},
            "configs": {}}
+    _T0[0] = time.perf_counter()
     for name, serve_cfg, train_cfg in _moe_configs():
         rec = {"serve": _moe_serve(torch, serve_cfg, counters)}
+        _tick(f"{name} served")
         rec["train"] = _moe_train(torch, train_cfg, counters)
+        _tick(f"{name} trained")
         out["configs"][name] = rec
     out["launches"] = {
         k: sum(r["serve"][run]["launches"][k] for r in
@@ -3930,6 +3980,8 @@ DENSE_SERVE = {"a": (8, 1024, 32),  # B, prompt, new tokens: lm_serve's (a)
 DENSE_TF_STEPS = {"a": 8, "b": 4}   # teacher-forced decode steps
 DENSE_ND = (2, 248, 8)              # decode vs the full forward under
                                     # gemma3's window: B, prefill, steps
+DENSE_SERVE_LAYERS = {"gemma3-12b": 24,     # four 5:1 units of 48 layers
+                      "stablelm-12b": 20}   # of 40: the contract's time
 DENSE_TRAIN_LAYERS = {"gemma3-12b": 6,      # one 5:1 unit of 48 layers
                       "stablelm-12b": 8}    # of 40: each cut in depth only
 DENSE_TRAIN_B = 2                   # x LM_S tokens a step
@@ -3938,9 +3990,11 @@ DENSE_PEAK_LIMIT = 75e9             # bytes: no run of the phase above it
 
 
 def _dense_configs():
-    """gemma3-12b and stablelm-12b at full width and depth."""
+    """gemma3-12b and stablelm-12b at full width, cut in depth to
+    ``DENSE_SERVE_LAYERS``."""
     from repro_torch.configs import gemma3_12b, stablelm_12b
-    return [gemma3_12b.CONFIG, stablelm_12b.CONFIG]
+    return [c.replace(n_layers=DENSE_SERVE_LAYERS[c.name])
+            for c in (gemma3_12b.CONFIG, stablelm_12b.CONFIG)]
 
 
 def _full_logits(torch, params, cfg, toks, S):
@@ -4093,12 +4147,13 @@ def _dense_train(torch, cfg, counters):
     the params' and moments' own storage; ``impl="chunked"``, per-block
     remat, bf16 compute, lr 3e-4) for ``DENSE_TRAIN_STEPS`` steps of
     ``DENSE_TRAIN_B`` x 1024 tokens (``_train_twice``)."""
+    from repro_torch.configs import get
     from repro_torch.data.lm_data import make_lm_sources
     cut = cfg.replace(n_layers=DENSE_TRAIN_LAYERS[cfg.name])
     source = make_lm_sources(1, 16, LM_S, cut.vocab)[0]
     out = _train_twice(torch, cut, counters, source, DENSE_TRAIN_B, LM_S,
                        DENSE_TRAIN_STEPS, f"lm_dense12b {cfg.name}",
-                       seq=LM_S, layers_of=cfg.n_layers)
+                       seq=LM_S, layers_of=get(cfg.name).n_layers)
     for key in ("peak_mem_bytes", "peak_mem_bytes_with_profile"):
         if not out[key] <= DENSE_PEAK_LIMIT:
             fail(f"lm_dense12b {cfg.name} train: {key} {out[key]} > "
@@ -4110,9 +4165,9 @@ def lm_dense12b_phase(torch, counters):
     """gemma3-12b (48 layers, d=3840, 16 / 8 heads of 256, five sliding-
     window layers (1024) to one full-attention layer, vocab 262,144, θ 1e6)
     and stablelm-12b (40 layers, d=5120, 32 / 8 heads of 160, vocab
-    100,352) served at full width and depth, trained cut in depth only
-    (``DENSE_TRAIN_LAYERS``); fp32 weights drawn on the card from a seed,
-    bf16 compute."""
+    100,352) at full width, served cut in depth to ``DENSE_SERVE_LAYERS``
+    (24 / 20) and trained cut to ``DENSE_TRAIN_LAYERS``; fp32 weights
+    drawn on the card from a seed, bf16 compute."""
     out = {"phase": "lm_dense12b", "compute_dtype": "bfloat16",
            "serve_impl": "pallas", "train_impl": "chunked",
            "tolerance": {"teacher_forced": f"{LM_TOL_BF16} x max|logit|",
@@ -4138,6 +4193,452 @@ def lm_dense12b_phase(torch, counters):
         + sum(r["train"]["launches"][k] for r in out["configs"].values())
         for k in counters}
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 6g: training across ranks — data parallelism, lm-mtl over a task's
+# ranks, accumulation, the MoE balance term, the resilient runner
+# ---------------------------------------------------------------------------
+
+DIST_WORLD = 2                      # ranks of the one job, on the one card
+DIST_STEPS = 2                      # steps of each case (a)-(d): at 3,
+                                    # lm-mtl's rounding drift reached 1.67
+                                    # x the tolerance (PERF.md §6)
+DIST_LM = (2, 512)                  # a rank's LM rows a step: B x S tokens
+DIST_MOE_LAYERS = 2                 # granite-moe trained at 2 of 32 layers
+DIST_SOAK_STEPS = 12                # accepted steps of the soak (e)
+DIST_TIMEOUT_S = 600                # the job, spawn to exit
+DIST_V_TOL = 1e-3                   # relative: the sum of AdamW's v (a
+                                    # gradient off by c moves it by c^2)
+DIST_CASES = ("finetune", "lm", "lm_accum2", "lm_mtl", "moe")
+
+
+def _dist_spec():
+    """What the phase trains, passed whole to the ranks (their module is
+    this file imported anew): full width; granite-moe cut in depth. The
+    LMs compute in f32: in bf16 each rank rounds its partial gradient
+    sums to bf16 where one process rounds the whole sum once, and a
+    router's top-k flips where two logits lie within a bf16 rounding, so
+    only f32 compute holds the ranks to the one-process session within
+    repro's cross-plan tolerance."""
+    import torch
+    from repro_torch.configs import (granite_moe_3b_a800m, hydragnn_gfm,
+                                     qwen1_5_0_5b)
+    f32 = {"compute_dtype": torch.float32}
+    return {"gfm": hydragnn_gfm.CONFIG.replace(segment_sum_impl="fused"),
+            "qwen": qwen1_5_0_5b.CONFIG.replace(**f32),
+            "moe": granite_moe_3b_a800m.CONFIG.replace(
+                n_layers=DIST_MOE_LAYERS, **f32),
+            "lm": DIST_LM, "steps": DIST_STEPS,
+            "soak_steps": DIST_SOAK_STEPS, "world": DIST_WORLD,
+            "soak_dir": str(ROOT / "build" / "chip_smoke" / "dist_soak")}
+
+
+def _dist_session(spec, case, device, mesh=None, resilience=None):
+    """The ``Session`` of one case of phase train_dist: ``mesh`` None is
+    the one-process session the ranks are held to. (a) ``finetune``: a
+    fresh branch on a seeded trunk (``examples/finetune_downstream_
+    torch.py``'s model), one transition1x source, 8 graphs a step; (b)
+    ``lm`` / ``lm_accum2``: qwen, ``DIST_LM`` rows a rank at accum 1 and
+    2; (c) ``lm_mtl``: qwen's two task heads on the ``"base"`` plan, one
+    row a task a rank; (d) ``moe``: granite-moe ``lm``; (e) ``soak``:
+    GFM-MTL on three sources x 8 graphs, ``"base"``."""
+    from repro_torch.data.lm_data import make_lm_sources
+    from repro_torch.data.synthetic_atoms import (generate_all,
+                                                  generate_source,
+                                                  source_dicts)
+    from repro_torch.engine import Session, SessionConfig
+    B, S = spec["lm"]
+    n = spec["world"]
+    kw = dict(steps=spec["steps"], lr=3e-4, log_every=1,
+              eval_every=10 ** 9, seed=0, verbose=False)
+    model = None
+    if case == "finetune":
+        from repro_torch.models import gnn
+        cfg = spec["gfm"]
+        model = _example("finetune_downstream_torch").finetune_model(
+            cfg, gnn.egnn_init(cfg, seed=7, device=device))
+        sources = source_dicts({"transition1x": generate_source(
+            "transition1x", 16, max_atoms=cfg.max_atoms,
+            max_edges=cfg.max_edges, seed=99)})[0]
+        kw.update(model="gfm-finetune", batch_per_task=8, lr=FT_LR)
+    elif case == "soak":
+        cfg = spec["gfm"]
+        sources = source_dicts(generate_all(
+            16, max_atoms=cfg.max_atoms, max_edges=cfg.max_edges,
+            sources=list(FT_SOURCES)))
+        kw.update(model="gfm-mtl", batch_per_task=8, lr=1e-3, warmup=2,
+                  steps=spec["soak_steps"], mode="base",
+                  resilience=resilience)
+    elif case == "lm_mtl":
+        cfg = spec["qwen"].replace(n_tasks=2)
+        sources = make_lm_sources(2, 8, S, cfg.vocab)
+        kw.update(model="lm-mtl", batch_per_task=n, mode="base")
+    else:
+        cfg = spec["moe" if case == "moe" else "qwen"]
+        sources = make_lm_sources(1, 16, S, cfg.vocab)[0]
+        kw.update(model="lm", batch_per_task=B * n,
+                  accum=2 if case == "lm_accum2" else 1)
+    return Session(SessionConfig(arch=cfg, **kw), sources=sources,
+                   mesh=mesh, model=model, device=device)
+
+
+def _fingerprint(torch, tree) -> list:
+    """Two 64-bit sums of each leaf's bit patterns, plain and squared (on
+    the device, wrapping): any one element that differs changes the
+    first. The ranks' params after every step are compared by it."""
+    from repro_torch import interop
+    out = []
+    for _, v in sorted(interop.leaves(tree).items()):
+        b = v.detach().reshape(-1).view(
+            torch.int32 if v.element_size() == 4 else torch.int16).long()
+        out.append(torch.stack([b.sum(), (b * b).sum()]))
+    return torch.stack(out).cpu().tolist()
+
+
+def _dist_run(torch, sess, counters, dev):
+    """Run ``sess`` with the launch counts and the all-reduce clock zeroed
+    just before; the fingerprint of the full params after every step."""
+    prints, inner = [], sess.step_fn
+
+    def traced(state, batch):
+        state, out = inner(state, batch)
+        prints.append(_fingerprint(torch, sess.plan.gather_params(
+            state.params)))
+        return state, out
+    sess.step_fn = traced
+    _sync(torch, dev)
+    for c in counters.values():
+        c.launches = 0
+    _ALLREDUCE[0] = 0.0
+    t0 = time.perf_counter()
+    with sess:
+        res = sess.run()
+    _sync(torch, dev)
+    return res, {"v_sum": _v_sum(sess, res.state),
+                 "launches": {k: c.launches for k, c in counters.items()},
+                 "wall_s": time.perf_counter() - t0,
+                 "allreduce_s": _ALLREDUCE[0], "fingerprints": prints}
+
+
+def _v_sum(sess, state) -> float:
+    """The sum of AdamW's second moments over every parameter (a
+    collective on a task-parallel plan): AdamW's update hides a gradient
+    off by a constant factor from the losses, not from this sum."""
+    from repro_torch import interop
+    v = sess.plan.gather_params(state.opt_state.v)
+    return float(sum(x.double().sum() for x in interop.leaves(v).values()))
+
+
+_ALLREDUCE = [0.0]                  # a rank's seconds in dist.all_reduce
+
+
+def _timed_all_reduce(dist, torch, dev):
+    """Wrap ``dist.all_reduce`` (every collective sum of the port goes
+    through it) to add its host-clock seconds, the device synchronized on
+    both sides, to ``_ALLREDUCE``."""
+    real = dist.all_reduce
+
+    def timed(tensor, *a, **kw):
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        r = real(tensor, *a, **kw)
+        _sync(torch, dev)
+        _ALLREDUCE[0] += time.perf_counter() - t0
+        return r
+    dist.all_reduce = timed
+    return real
+
+
+def _dist_soak(torch, spec, device, mesh, counters, dev):
+    """(e): the soak under the five fault classes, its ``resume()`` to the
+    end, and a clean run, on every rank of the ``"base"`` plan."""
+    from repro_torch import interop
+    from repro_torch.resilience import (CheckpointPolicy, FaultSchedule,
+                                        GuardConfig, ResilienceConfig)
+
+    def res(d, faults=None):
+        return ResilienceConfig(
+            ckpt_dir=os.path.join(spec["soak_dir"], d), faults=faults,
+            retry_base_delay=0.0, guard=GuardConfig(
+                warmup_steps=2, spike_factor=50.0, max_consecutive_trips=1),
+            policy=CheckpointPolicy(every_steps=4, keep_last=2),
+            max_ticks=4 * spec["soak_steps"])
+    out = {}
+    for name, d, faults, resume in (
+            ("faulted", "f", FaultSchedule.from_dict(SOAK_FAULTS), False),
+            ("resumed", "f", None, True), ("clean", "c", None, False)):
+        sess = _dist_session(spec, "soak", device, mesh,
+                             resilience=res(d, faults))
+        if resume:
+            out["resumed_at"] = sess.resume()
+        result, run = _dist_run(torch, sess, counters, dev)
+        st, rep = result.state, result.resilience
+        run.update(
+            step=int(st.step), opt_step=int(st.opt_state.step),
+            guard=[float(st.guard.ema), int(st.guard.good),
+                   int(st.guard.trips)],
+            state_sha=_sha(v for t in (st.params, st.opt_state.m,
+                                       st.opt_state.v)
+                           for _, v in sorted(interop.leaves(t).items())),
+            losses=[r["loss"] for r in result.logger.history],
+            per_task=_per_task(result, 3), preempted=result.preempted,
+            events=[(e["kind"], e["tick"]) for e in rep["events"]],
+            report={k: rep[k] for k in (
+                "ticks", "steps", "checkpoints_saved", "io_retries",
+                "pipeline_recoveries", "faults_fired", "faults_pending",
+                "trips", "rollbacks", "save_ms")},
+            listing=sorted(os.listdir(os.path.join(spec["soak_dir"], d))))
+        out[name] = run
+        del sess, result, st
+        _rank_free(torch, dev)
+    return out
+
+
+def _rank_free(torch, dev):
+    import gc
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+
+def _dist_rank(rank, world, spec, device):
+    """One rank of phase train_dist: cases (a)-(d), then the soak (e), on
+    a (world, 1) mesh; per case the losses, the launch counts from zero,
+    the full params' fingerprint after every step, the sum of AdamW's v,
+    the seconds in gloo's all-reduce, and the peak."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels.egnn_edge import ops as edge_ops
+    from repro_torch.kernels.segment_sum import ops as ss_ops
+    from repro_torch.launch.mesh import make_host_mesh, rank_device
+    entered = time.monotonic()
+    dev = rank_device()
+    counters = {"egnn_edge": edge_ops.egnn_edge_agg,
+                "egnn_edge_bwd": edge_ops.egnn_edge_bwd,
+                "segment_sum": ss_ops.segment_sum,
+                "segment_sum_2d": ss_ops.segment_sum.two_d}
+    real = _timed_all_reduce(dist, torch, dev)
+    mesh = make_host_mesh(world, 1)
+    out = {"rank": rank, "t_enter": entered, "t_import": _IMPORTED,
+           "cases": {}}
+    try:
+        for case in DIST_CASES:
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(dev)
+            sess = _dist_session(spec, case, device, mesh)
+            heads = list(sess.plan.shard.heads)
+            result, run = _dist_run(torch, sess, counters, dev)
+            run.update(losses=[r["loss"] for r in result.logger.history],
+                       per_task=_per_task(result, 2)
+                       if case == "lm_mtl" else None, heads=heads,
+                       peak_mem_bytes=torch.cuda.max_memory_allocated(dev)
+                       if dev.type == "cuda" else None)
+            out["cases"][case] = run
+            del sess, result
+            _rank_free(torch, dev)
+        out["soak"] = _dist_soak(torch, spec, device, mesh, counters, dev)
+    finally:
+        dist.all_reduce = real
+    out["t_exit"] = time.monotonic()
+    return out
+
+
+def _dist_launches(spec, case, device, soak=None) -> dict:
+    """The launches a rank's run of ``case`` implies: the trunk once a
+    microbatch (a GNN layer: #3 and #4 once each), one embedding backward
+    (#1) a microbatch; none off the card (the plain versions run there).
+    The soak steps on every tick but a recovery's and the preemption's."""
+    zero = {"egnn_edge": 0, "egnn_edge_bwd": 0, "segment_sum": 0,
+            "segment_sum_2d": 0}
+    if device != "cuda":
+        return zero
+    if case == "soak":
+        rep = soak["report"]
+        steps = rep["ticks"] - rep["pipeline_recoveries"] - \
+            int(soak["preempted"])
+    else:
+        steps = spec["steps"] * (2 if case == "lm_accum2" else 1)
+    layers = spec["gfm"].gnn_layers if case in ("finetune", "soak") else 0
+    return dict(zero, egnn_edge=layers * steps, egnn_edge_bwd=layers * steps,
+                segment_sum_2d=steps)
+
+
+def train_dist_phase(torch, device=DEVICE, spec=None):
+    """Phase train_dist (see the module docstring)."""
+    from repro_torch.launch.mesh import run_ranks
+    spec = spec or _dist_spec()
+    n = spec["world"]
+    out = {"phase": "train_dist", "backend": "gloo", "world": n,
+           "steps": spec["steps"], "lm_rows_a_rank": list(spec["lm"]),
+           "moe_layers": spec["moe"].n_layers,
+           "tolerance": {"rtol": MTP_RTOL, "atol": MTP_ATOL,
+                         "params_across_ranks": "bitwise (each leaf's "
+                         "fingerprint after every step)",
+                         "soak_vs_clean": "bitwise",
+                         "v_sum_rel": DIST_V_TOL},
+           "note": "two ranks time-share one card over gloo: the times are "
+                   "not a scaling result, and NCCL is not exercised",
+           "cases": {}}
+    # the one-process sessions the ranks are held to, freed before the
+    # spawn; the soak's clean run against the first steps of one process
+    t0 = time.perf_counter()
+    refs = {}
+    for case in DIST_CASES + ("soak",):
+        sess = _dist_session(dict(spec, soak_steps=spec["steps"]), case,
+                             device)
+        with sess:
+            res = sess.run()
+        refs[case] = {"losses": [r["loss"] for r in res.logger.history],
+                      "per_task": _per_task(res, len(sess.task_names))
+                      if case in ("lm_mtl", "soak") else None,
+                      "v_sum": _v_sum(sess, res.state)}
+        del sess, res
+        if device == "cuda":
+            _free(torch)
+    out["reference_s"] = time.perf_counter() - t0
+    shutil.rmtree(spec["soak_dir"], ignore_errors=True)
+    rdzv = ROOT / "build" / "chip_smoke"
+    rdzv.mkdir(parents=True, exist_ok=True)
+    t0, spawned = time.perf_counter(), time.monotonic()
+    try:
+        ranks = run_ranks(_dist_rank, n, backend="gloo", device=device,
+                          args=(spec, device), timeout=DIST_TIMEOUT_S,
+                          rdzv_dir=str(rdzv))
+    except Exception as e:                        # noqa: BLE001
+        fail(f"train_dist: {e}")
+    back = time.perf_counter()
+    out.update(wall_s=back - t0,
+               startup_s=max(r["t_enter"] for r in ranks) - spawned,
+               import_s=max(r["t_import"] for r in ranks) - spawned,
+               ranks_s=max(r["t_exit"] for r in ranks)
+               - max(r["t_enter"] for r in ranks),
+               teardown_s=time.monotonic() - max(r["t_exit"]
+                                                 for r in ranks))
+    print("chip_smoke: train_dist job: " + json.dumps(
+        {k: out[k] for k in ("reference_s", "wall_s", "import_s",
+                             "startup_s", "ranks_s", "teardown_s")}),
+        file=sys.stderr,
+        flush=True)
+    launches = {"egnn_edge": 0, "egnn_edge_bwd": 0, "segment_sum": 0,
+                "segment_sum_2d": 0}
+    off = []          # every case is checked and shown before a failure
+    for case in DIST_CASES:
+        name, ref = f"train_dist {case}", refs[case]
+        runs = [r["cases"][case] for r in ranks]
+        worst = max(_close_rows([r["losses"]], [ref["losses"]])
+                    for r in runs)
+        row = {"loss_err_vs_tol": worst, "losses": runs[0]["losses"],
+               "reference": ref["losses"]}
+        if ref["per_task"] is not None:
+            worst_t = max(_close_rows(r["per_task"], ref["per_task"])
+                          for r in runs)
+            worst = max(worst, worst_t)
+            row.update(per_task_err_vs_tol=worst_t,
+                       per_task=runs[0]["per_task"],
+                       reference_per_task=ref["per_task"])
+        v_err = max(abs(r["v_sum"] - ref["v_sum"]) for r in runs) / \
+            abs(ref["v_sum"])
+        row["v_sum_rel_err"] = v_err
+        print(f"chip_smoke: {name}: {json.dumps(row)}", file=sys.stderr,
+              flush=True)
+        if not worst <= 1.0:
+            off.append(f"{name}: losses off the one-process session's by "
+                       f"{worst} x the tolerance")
+        if not v_err <= DIST_V_TOL:
+            off.append(f"{name}: AdamW's second moments sum to {v_err} "
+                       "(relative) off the one-process session's")
+        _dist_agree(name, runs, spec["steps"])
+        want = _dist_launches(spec, case, device)
+        for i, r in enumerate(runs):
+            if r["launches"] != want:
+                fail(f"{name} rank {i}: launches {r['launches']}, the "
+                     f"design implies {want}")
+            for k in launches:
+                launches[k] += r["launches"][k]
+        row.update(launches_per_rank=want, ranks=[
+            {"wall_s": r["wall_s"], "peak_mem_bytes": r["peak_mem_bytes"],
+             "allreduce_ms_per_step": r["allreduce_s"] * 1e3
+             / spec["steps"], "heads": r["heads"]} for r in runs])
+        out["cases"][case] = row
+    if off:
+        fail("; ".join(off))
+    out["soak"] = _dist_soak_check(spec, ranks, refs["soak"], device,
+                                   launches)
+    out["launches"] = launches
+    shutil.rmtree(spec["soak_dir"], ignore_errors=True)
+    return out
+
+
+def _dist_agree(name, runs, steps):
+    """The ranks' params bitwise equal after every step (fingerprints)."""
+    if len(runs[0]["fingerprints"]) != steps:
+        fail(f"{name}: {len(runs[0]['fingerprints'])} steps, not {steps}")
+    for i in range(steps):
+        if any(r["fingerprints"][i] != runs[0]["fingerprints"][i]
+               for r in runs):
+            fail(f"{name}: params differ across ranks after step {i}")
+
+
+def _dist_soak_check(spec, ranks, ref, device, launches):
+    """(e): every fault took effect on every rank alike, the resumed run
+    ends bitwise equal to the clean one, every rank at the same step with
+    the same events and checkpoint listing, and the clean run's first
+    steps within the tolerance of one process."""
+    name = "train_dist soak"
+    soaks = [r["soak"] for r in ranks]
+    first = soaks[0]
+    for s in soaks[1:]:
+        for run in ("faulted", "resumed", "clean"):
+            a, b = s[run], first[run]
+            if (a["step"], a["events"], a["listing"], a["state_sha"],
+                    a["fingerprints"]) != (b["step"], b["events"],
+                                           b["listing"], b["state_sha"],
+                                           b["fingerprints"]):
+                fail(f"{name} {run}: the ranks disagree on the step, the "
+                     "events, the checkpoint listing or the params")
+    f, r, c = first["faulted"], first["resumed"], first["clean"]
+    kinds = {k for k, _ in f["events"]}
+    rep = f["report"]
+    if not (f["preempted"] and rep["faults_fired"] == len(SOAK_FAULTS)
+            and rep["rollbacks"] >= 2 and rep["io_retries"] >= 1
+            and rep["pipeline_recoveries"] == 1
+            and {"rollback", "pipeline_recovery", "preempt_flush"} <= kinds):
+        fail(f"{name}: the faults did not all take effect: {f['events']} "
+             f"{rep}")
+    if (r["step"], r["opt_step"], r["state_sha"], r["guard"]) != (
+            c["step"], c["opt_step"], c["state_sha"], c["guard"]) or \
+            c["step"] != spec["soak_steps"]:
+        fail(f"{name}: the resumed run does not end bitwise equal to the "
+             "clean 2-rank run")
+    n = spec["steps"]
+    worst = _close_rows(c["per_task"][:n], ref["per_task"])
+    worst_total = _close_rows([c["losses"][:n]], [ref["losses"]])
+    if not max(worst, worst_total) <= 1.0:
+        fail(f"{name}: the clean run's first {n} steps off the one-process "
+             f"session's by {max(worst, worst_total)} x the tolerance")
+    for run in ("faulted", "resumed", "clean"):
+        for i, rk in enumerate(ranks):
+            want = _dist_launches(spec, "soak", device, rk["soak"][run])
+            if rk["soak"][run]["launches"] != want:
+                fail(f"{name} {run} rank {i}: launches "
+                     f"{rk['soak'][run]['launches']}, the design implies "
+                     f"{want}")
+            for k in launches:
+                launches[k] += rk["soak"][run]["launches"][k]
+    return {"steps": spec["soak_steps"], "faults": SOAK_FAULTS,
+            "events": f["events"], "report": rep,
+            "resumed_at": first["resumed_at"],
+            "resumed_report": r["report"], "clean_report": c["report"],
+            "listing": c["listing"], "bitwise_vs_clean": True,
+            "first_steps_err_vs_tol": max(worst, worst_total),
+            "wall_s": {k: first[k]["wall_s"] for k in
+                       ("faulted", "resumed", "clean")},
+            "allreduce_ms_per_step": {
+                k: first[k]["allreduce_s"] * 1e3 / max(1, len(
+                    first[k]["fingerprints"])) for k in
+                ("faulted", "resumed", "clean")}}
 
 
 # ---------------------------------------------------------------------------
@@ -5225,6 +5726,9 @@ def main():
                          "earlier commit's; with --sweep, the sweeps run "
                          "for it and for this checkout in turns: it, this, "
                          "this, it")
+    ap.add_argument("--phase", choices=("train_mtp", "train_dist"),
+                    help="only build the kernels and run this phase, then "
+                         "exit; no contract line")
     ap.add_argument("--once", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     src = args.src.resolve()
@@ -5250,6 +5754,11 @@ def main():
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": build["seconds"],
           "built": build["built"], "src": str(src)})
+    if args.phase:
+        _phase_start(torch, args.phase)
+        emit({"train_mtp": train_mtp_phase,
+              "train_dist": train_dist_phase}[args.phase](torch))
+        return
     if args.sweep:
         emit(edge_sweep(torch))
         emit(ss_sweep(torch))
@@ -5345,6 +5854,9 @@ def main():
     _phase_start(torch, "lm_dense12b")
     dense = lm_dense12b_phase(torch, lm_counters)
     emit(dense)
+    _phase_start(torch, "train_dist")
+    dist_ = train_dist_phase(torch)
+    emit(dist_)
     _phase_start(torch, "end")
     emit({"phase": "memory", "at_phase_start": MEMORY})
     # #1 on each training path's own embedding cotangent, at its shape
@@ -5402,13 +5914,15 @@ def main():
                             "train_mtp": mtp["launches"]["egnn_edge"],
                             "finetune":
                             fine["pretrain"]["launches"]["egnn_edge"]
-                            + fine["launches"]["egnn_edge"]},
+                            + fine["launches"]["egnn_edge"],
+                            "train_dist": dist_["launches"]["egnn_edge"]},
         "egnn_edge_fused_bwd": {
             "train": train["launches"]["egnn_edge_bwd"],
             "train_pipeline": pipe["launches"]["egnn_edge_bwd"],
             "train_mtp": mtp["launches"]["egnn_edge_bwd"],
             "finetune": fine["pretrain"]["launches"]["egnn_edge_bwd"]
-            + fine["launches"]["egnn_edge_bwd"]},
+            + fine["launches"]["egnn_edge_bwd"],
+            "train_dist": dist_["launches"]["egnn_edge_bwd"]},
         "egnn_edge_fused_bf16": {
             "gnn_bf16": s16["fused"]["launches"]["egnn_edge_bf16"]
             + t16["egnn_edge_bf16"]},
@@ -5424,7 +5938,8 @@ def main():
             "lm_moe": moe["launches"]["segment_sum_2d"],
             "lm_recurrent": rec["launches"]["segment_sum_2d"],
             "lm_frontends": front["launches"]["segment_sum_2d"],
-            "lm_dense12b": dense["launches"]["segment_sum_2d"]},
+            "lm_dense12b": dense["launches"]["segment_sum_2d"],
+            "train_dist": dist_["launches"]["segment_sum_2d"]},
         "flash_attention": {"lm_serve": sum(r["flash_attention"]
                                             for r in lm_runs),
                             "lm_moe": moe["launches"]["flash_attention"],

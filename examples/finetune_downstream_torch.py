@@ -22,7 +22,7 @@ import numpy as np
 from repro_torch import resolve_device
 from repro_torch.configs import get_smoke
 from repro_torch.core import gfm_eval_fn
-from repro_torch.core.mtl import gfm_loss_terms
+from repro_torch.core.mtl import gfm_batch_counts, gfm_loss_terms
 from repro_torch.data.synthetic_atoms import (generate_all, generate_source,
                                               source_dicts, to_batch_dict)
 from repro_torch.engine import (Session, SessionConfig, ShardingPlan,
@@ -38,19 +38,21 @@ N_HELD_OUT = 64
 def finetune_model(cfg, shared, seed=1) -> SingleTaskModel:
     """A fresh branch (drawn from ``seed``) on ``shared``, the trunk to
     tune: params ``{"branch", "shared"}``, the loss of one source's flat
-    batch (``gfm_loss_terms``)."""
+    batch (``gfm_loss_terms``); its counts are the batch's graphs and
+    atoms, so it trains data-parallel on a mesh too."""
     def init(_seed=None, device="cpu"):
         return {"branch": heads.branch_init(
                     cfg, rng=np.random.default_rng(seed), device=device),
                 "shared": shared}
 
-    def loss_fn(fp, batch):
+    def loss_fn(fp, batch, norm=None):
         feats = gnn.egnn_apply(fp["shared"], batch, cfg=cfg)
         e, f = heads.branch_apply(fp["branch"], feats, batch["node_mask"],
                                   cfg=cfg)
-        return gfm_loss_terms(e, f, batch)[0]
+        return gfm_loss_terms(e, f, batch, norm=norm)[0]
 
-    return SingleTaskModel(init=init, loss_fn=loss_fn, name="gfm-finetune")
+    return SingleTaskModel(init=init, loss_fn=loss_fn, name="gfm-finetune",
+                           batch_counts=gfm_batch_counts)
 
 
 def finetune(cfg, shared, batch, steps, *, lr=3e-3, seed=1, device="cpu",

@@ -43,9 +43,11 @@ def gfm_mtl_init(cfg, n_tasks: int, *, seed: int = 0, device="cpu",
 def gfm_loss_terms(e_pred, f_pred, batch_t, force_weight=1.0, norm=None):
     """Masked MSE on energy-per-atom + forces for one task's sub-batch. The
     batch dims are reduced from the right, so task-major inputs (leading T)
-    give one term per task. ``norm`` (``MultiTaskModel``'s contract): the
-    squared errors are summed and divided by the counts given — the graphs
-    and atoms of the task's whole batch when this is one shard of it."""
+    give one term per task. ``norm`` (``MultiTaskModel``'s and
+    ``SingleTaskModel``'s contract): the squared errors are summed and
+    divided by the counts given, ``norm["counts"][..., 0]`` graphs and
+    ``[..., 1]`` atoms — those of the task's whole batch when this is one
+    shard of it."""
     nm = batch_t["node_mask"]
     f_sq = (((f_pred - batch_t["forces"]) ** 2) * nm[..., None]).sum(
         (-3, -2, -1))
@@ -53,17 +55,19 @@ def gfm_loss_terms(e_pred, f_pred, batch_t, force_weight=1.0, norm=None):
         e_err = ((e_pred - batch_t["energy"]) ** 2).mean(-1)
         f_err = f_sq / torch.clamp(nm.sum((-2, -1)) * 3.0, min=1.0)
     else:
-        e_err = ((e_pred - batch_t["energy"]) ** 2).sum(-1) / norm["graphs"]
-        f_err = f_sq / torch.clamp(norm["atoms"] * 3.0, min=1.0)
+        graphs, atoms = norm["counts"][..., 0], norm["counts"][..., 1]
+        e_err = ((e_pred - batch_t["energy"]) ** 2).sum(-1) / graphs
+        f_err = f_sq / torch.clamp(atoms * 3.0, min=1.0)
     return e_err + force_weight * f_err, e_err, f_err
 
 
 def gfm_batch_counts(batch):
     """(T, 2) loss denominators of a task-major batch: graphs and atoms per
-    task row."""
+    task row; of a flat ``(B, ...)`` batch, (2,)."""
     nm = batch["node_mask"]
-    graphs = torch.full(nm.shape[:1], float(nm.shape[1]), device=nm.device)
-    return torch.stack([graphs, nm.sum((-2, -1)).float()], dim=1)
+    lead = nm.shape[:-2]
+    graphs = torch.full(lead, float(nm.shape[-2]), device=nm.device)
+    return torch.stack([graphs, nm.sum((-2, -1)).float()], dim=-1)
 
 
 def trunk_features(shared, batch, *, cfg):
@@ -140,6 +144,16 @@ def softmax_xent(logits, labels):
     return _xent(logits, labels).mean()
 
 
+def lm_batch_counts(batch):
+    """Loss denominators of an LM batch, its text tokens (the labels; media
+    positions are dropped before the mean): (T, 1) a task row of a
+    task-major batch, (1,) of a flat ``(B, S)`` batch."""
+    labels = batch["labels"]
+    B, S = labels.shape[-2:]
+    return torch.full(labels.shape[:-2] + (1,), float(B * S),
+                      device=labels.device)
+
+
 def make_lm_multitask(cfg, impl="chunked") -> MultiTaskModel:
     """``init(seed, device)`` -> ``{"shared": lm params, "heads": {"w":
     (T, d, V)}}`` (``lm_init``'s tree with its ``task_heads`` as the
@@ -149,7 +163,11 @@ def make_lm_multitask(cfg, impl="chunked") -> MultiTaskModel:
     slots unmasked, as ``repro`` computes them), plus
     ``cfg.router_aux_coef`` x the task's own MoE balance term: one trunk
     pass over every task's rows, each task's tokens routed as ``repro``'s
-    per-task map routes them (``segments``)."""
+    per-task map routes them (``segments``). With ``norm`` (a shard of
+    each task's rows, ``MultiTaskModel``'s contract) each task's
+    cross-entropy is summed and divided by its tokens over the head group
+    (``norm["counts"]``, from ``lm_batch_counts``), and its balance term is
+    the rank's share (``norm["balance"]``)."""
     if cfg.n_tasks <= 1:
         raise ValueError(f"lm-mtl needs cfg.n_tasks > 1, got {cfg.n_tasks}")
 
@@ -159,22 +177,21 @@ def make_lm_multitask(cfg, impl="chunked") -> MultiTaskModel:
         return {"shared": p, "heads": {"w": p.pop("task_heads")["w"]}}
 
     def loss_fn(shared, hp, batch, norm=None):
-        if norm is not None:
-            raise NotImplementedError(
-                "lm-mtl on a global-semantics task-parallel plan (loss "
-                "denominators over a task's ranks) is not ported: "
-                "ROADMAP.md, queue 1, item 9b")
         toks = batch["tokens"]
         T, B, S = toks.shape
         x = transformer.embed_inputs(shared, toks.reshape(T * B, S), cfg)
         h, _, aux = transformer.run_trunk(
             shared, x, cfg=cfg, positions=torch.arange(S, device=x.device),
-            mode="train", impl=impl, segments=T)
+            mode="train", impl=impl, segments=T,
+            balance=None if norm is None else norm["balance"])
         h = h.reshape(T, B, S, h.shape[-1])
         logits = torch.einsum("tbsd,tdv->tbsv", h.float(),
                               hp["w"].to(h.dtype).float())
-        return (_xent(logits, batch["labels"]).mean((1, 2))
-                + cfg.router_aux_coef * aux), {}
+        xent = _xent(logits, batch["labels"])
+        xent = xent.mean((1, 2)) if norm is None else \
+            xent.sum((1, 2)) / norm["counts"][:, 0]
+        return xent + cfg.router_aux_coef * aux, {}
 
     return MultiTaskModel(init=init, loss_fn=loss_fn,
-                          name=f"lm-mtl-{cfg.name}", n_tasks=cfg.n_tasks)
+                          name=f"lm-mtl-{cfg.name}", n_tasks=cfg.n_tasks,
+                          batch_counts=lm_batch_counts)

@@ -60,14 +60,15 @@ class MultiTaskModel(NamedTuple):
     (n_tasks,), metrics) over a task-major batch. n_tasks: number of
     heads/branches.
 
-    ``batch_counts(batch) -> (k, 2)`` gives each task row's loss
-    denominators, (graphs, atoms). A rank that holds a shard of a task's
-    batch passes the counts summed over the task's ranks as ``norm``
-    (``{"graphs", "atoms", "share"}``, each ``(k,)``): its loss is then its
-    share of the global loss, normalised over the whole batch, and the
-    shares of a task's ranks sum to that loss (``share`` scales the terms
-    that do not depend on the batch). None: normalise over the batch
-    given."""
+    ``batch_counts(batch) -> (k, c)`` gives each task row's loss
+    denominators (the GFM's graphs and atoms, an LM's tokens). A rank that
+    holds a shard of a task's batch passes the counts summed over the
+    task's ranks as ``norm``: ``{"counts": (k, c), "share": (k,),
+    "balance": models.moe.Balance}``; its loss is then its share of the
+    global loss, normalised over the whole batch, and the shares of a
+    task's ranks sum to that loss (``share`` scales the terms that do not
+    depend on the batch, ``balance`` names the ranks an MoE balance term
+    is shared by). None: normalise over the batch given."""
     init: Callable
     loss_fn: Callable
     name: str = "mtl"
@@ -170,15 +171,62 @@ def take_heads(tree, heads):
     return np.asarray(tree)[np.asarray(heads, np.int64)]
 
 
-def take_batch(batch: dict, shard: TaskShard, n_tasks: int) -> dict:
-    """A rank's view of a task-major batch: its task rows and its B rows.
-    Leaves without a leading ``(n_tasks,)`` dim pass whole."""
+def micro_rows(shard: TaskShard, batch_size: int, accum: int = 1):
+    """The B rows a rank holds of a batch that ``with_grad_accum`` splits
+    into ``accum`` microbatches, as ``repro`` splits the global batch
+    first and shards each microbatch: microbatch m is global rows
+    ``[m·B/accum, (m+1)·B/accum)``, and the rank holds its
+    ``batch_rows`` of each, in microbatch order — so splitting the rank's
+    rows into ``accum`` pieces gives its part of each microbatch. A slice
+    at ``accum`` 1, else an index array."""
+    if accum <= 1:
+        return shard.batch_rows(batch_size)
+    if batch_size % accum:
+        raise ValueError(f"batch dim {batch_size} not divisible by "
+                         f"accum={accum}")
+    per = batch_size // accum
+    own = np.arange(per)[shard.batch_rows(per)]
+    return np.concatenate([m * per + own for m in range(accum)])
+
+
+def _take_rows(v, rows, axis: int):
+    if isinstance(rows, slice):
+        return v[(slice(None),) * axis + (rows,)]
+    if isinstance(v, torch.Tensor):
+        return v.index_select(axis, torch.as_tensor(rows, device=v.device))
+    return np.take(v, rows, axis=axis)
+
+
+def take_batch(batch: dict, shard: TaskShard, n_tasks: int,
+               accum: int = 1) -> dict:
+    """A rank's view of a task-major batch: its task rows and its B rows
+    (``micro_rows``). Leaves without a leading ``(n_tasks,)`` dim pass
+    whole."""
     out = {}
     for k, v in batch.items():
         if getattr(v, "ndim", 0) >= 1 and v.shape[0] == n_tasks:
             v = take_heads(v, shard.heads)
             if v.ndim >= 2:
-                v = v[:, shard.batch_rows(v.shape[1])]
+                v = _take_rows(v, micro_rows(shard, v.shape[1], accum), 1)
+        out[k] = v
+    return out
+
+
+def take_flat_batch(batch: dict, shard: TaskShard, accum: int = 1) -> dict:
+    """A rank's rows of a flat ``(B, ...)`` batch of a single-task model:
+    B splits evenly over the ``shard.ranks`` (``repro``'s pjit shards dim
+    0 over the data axes; an uneven split raises), microbatch by
+    microbatch (``micro_rows``). 0-d leaves pass whole."""
+    out = {}
+    for k, v in batch.items():
+        if getattr(v, "ndim", 0) >= 1:
+            b = v.shape[0]
+            if (b // max(accum, 1)) % shard.size:
+                raise ValueError(
+                    f"'{k}': a flat batch of {b} rows in {accum} "
+                    f"microbatch(es) does not split evenly over "
+                    f"{shard.size} data ranks")
+            v = _take_rows(v, micro_rows(shard, b, accum), 0)
         out[k] = v
     return out
 
@@ -363,11 +411,13 @@ def mtp_value_and_grad_dist(model: MultiTaskModel, shard: TaskShard,
         tw, idx = on_device[dev]
         norm = None
         if not per_shard:
+            from repro_torch.models.moe import Balance
             counts = model.batch_counts(batch).float().contiguous()
             _all_reduce(counts, head_group, n)
-            norm = {"graphs": counts[:, 0], "atoms": counts[:, 1],
+            norm = {"counts": counts,
                     "share": torch.full((len(heads),), 1.0 / n,
-                                        device=dev)}
+                                        device=dev),
+                    "balance": Balance(head_group, n)}
         with torch.enable_grad():
             if norm is None:
                 pt, metrics = model.loss_fn(p["shared"], p["heads"], batch)

@@ -159,6 +159,11 @@ class Prefetcher:
         recovers the stream in place."""
         self._fault = exc
 
+    def clear_producer_fault(self):
+        """Drop an injected fault the producer has not raised yet: a
+        recovery that another rank's dead producer forced covers it."""
+        self._fault = None
+
     def next_batch(self):
         if self._err is not None and self._q.empty():
             raise self._err          # producer already died; don't block

@@ -18,7 +18,10 @@ each task's loss is normalised over its whole batch, so
     Σ_g Σ_{t∈g} ŵ_t L_t  ==  Σ_t ŵ_t L_t   (summation order only)
 
 and per-task losses are gathered back by head index. Every rank applies
-one AdamW update to the trunk and its heads.
+one AdamW update to the trunk and its heads. Gradient accumulation
+(``spec.accum``) microbatches the group's grad as ``repro``'s
+``with_grad_accum`` does; the rank's batch holds its rows of each
+microbatch of the global batch (``plan.slice_batch(batch, accum)``).
 
 ``repro`` runs every group from one controller and combines on the host;
 here every rank runs its own group's step (one program per rank, as the
@@ -30,7 +33,7 @@ import dataclasses
 
 from repro_torch.core.taskpar import hier_shard, mtp_value_and_grad_dist
 
-from .step import make_train_step, normalized_task_weights
+from .step import make_train_step, normalized_task_weights, with_grad_accum
 
 
 class HierCompiledStep:
@@ -51,10 +54,6 @@ class HierCompiledStep:
                             f"— got {type(spec).__name__}")
         if plan.placement is None:
             raise ValueError("hier plan needs a placement")
-        if spec.accum > 1:
-            raise NotImplementedError(
-                "gradient accumulation on a task-parallel plan is not "
-                "ported: use accum=1")
         self.plan = plan
         self.spec = spec
         self.placement = plan.placement
@@ -78,7 +77,8 @@ class HierCompiledStep:
                                         self.spec.task_weights),
                 head_group=plan.head_group)
             fn = self._groups[key] = make_train_step(
-                grad_fn, self.spec.optimizer, norm_fn=plan.norm_fn())
+                with_grad_accum(grad_fn, self.spec.accum, axis=1),
+                self.spec.optimizer, norm_fn=plan.norm_fn())
         return fn
 
     def __call__(self, state, batch):

@@ -19,6 +19,10 @@ batch:
     weights)
   * ``placement=..., backend="hier"``   -> a ``HeadPlacement``: heads on
     uneven rank groups (``engine.hier``), global semantics
+  * ``mesh=...`` without ``mtp``        -> a single-task model's data
+    parallelism: its flat ``(B, ...)`` batch splits over the ``data``
+    ranks (the ``model`` ranks compute the same rows), params whole on
+    every rank, global semantics
 
 ``donate``: a ``Session`` on the plan updates params and moments in their
 own storage (it builds ``adamw(donate=plan.donate)``), as ``repro``'s
@@ -37,7 +41,8 @@ import torch
 from repro_torch.core.taskpar import (HeadPlacement, MTPConfig, TaskShard,
                                       dist_global_norm, flat_shard,
                                       hier_shard, move_heads, take_batch,
-                                      take_heads)
+                                      take_flat_batch, take_heads)
+from repro_torch.optim.adamw import global_norm
 
 from .state import TrainState
 
@@ -86,6 +91,12 @@ class ShardingPlan:
         return self.resolved_backend != "jit"
 
     @property
+    def task_parallel(self) -> bool:
+        """Heads sharded over ranks (an ``mtp`` or a placement); False for
+        a single-task model's plan."""
+        return self.mtp is not None or self.placement is not None
+
+    @property
     def n_tasks(self) -> int:
         if self.placement is not None:
             return self.placement.n_heads
@@ -107,9 +118,12 @@ class ShardingPlan:
         """What ``rank`` holds under this plan (every rank can ask)."""
         if self.placement is not None:
             return hier_shard(self.placement, rank)
-        if self.mtp is None:
-            raise ValueError("a mesh plan needs mtp (an MTPConfig)")
         ranks = self._mesh_ranks()
+        if self.mtp is None:
+            # a single-task model: no heads, B over the rank's data column
+            d, m = (int(x) for x in np.argwhere(ranks == rank)[0])
+            col = tuple(int(r) for r in ranks[:, m])
+            return TaskShard(heads=(), ranks=col, index=d)
         if self.resolved_backend == "shard_map" and (
                 ranks.shape[1] != self.mtp.n_tasks or self.mtp.mode != "par"):
             raise ValueError(f"shard_map slices one head to a 'model' rank: "
@@ -121,8 +135,8 @@ class ShardingPlan:
     def shard(self) -> TaskShard:
         """This rank's ``TaskShard`` (the whole model on one device)."""
         if not self.distributed:
-            return TaskShard(heads=tuple(range(self.n_tasks)), ranks=(0,),
-                             index=0)
+            return TaskShard(heads=tuple(range(self.n_tasks)) if
+                             self.task_parallel else (), ranks=(0,), index=0)
         import torch.distributed as dist
         return self.shard_of(dist.get_rank())
 
@@ -134,9 +148,18 @@ class ShardingPlan:
         if self.placement is not None:
             meshes = make_group_meshes(self.placement)
             return next(m.group for m in meshes if m.group is not None)
-        if self.mtp.mode == "base":
+        if self.mtp is not None and self.mtp.mode == "base":
             return process_group(self.shard.ranks)
         return self.mesh.get_group("data")
+
+    @property
+    def model_lead(self) -> bool:
+        """Whether this rank is on the mesh's first ``model`` column: a
+        single-task model's ``model`` ranks compute the same rows, and only
+        the first column's gradients enter the sum (the others add zeros),
+        so one SUM over every rank leaves the same bits on each."""
+        import torch.distributed as dist
+        return dist.get_rank() in self._mesh_ranks()[:, 0]
 
     def all_heads(self) -> list:
         """The heads every rank holds, by rank."""
@@ -148,8 +171,8 @@ class ShardingPlan:
 
     def shard_params(self, params):
         """A full ``{"shared", "heads"}`` tree -> this rank's: the trunk and
-        its heads' rows."""
-        if not self.distributed:
+        its heads' rows (a single-task model's params, whole)."""
+        if not (self.distributed and self.task_parallel):
             return params
         return {"shared": params["shared"],
                 "heads": take_heads(params["heads"], self.shard.heads)}
@@ -158,7 +181,7 @@ class ShardingPlan:
         """A full TrainState -> this rank's: params and both moments keep
         the trunk and the rank's heads (the optimizer's other fields as
         they are)."""
-        if not self.distributed:
+        if not (self.distributed and self.task_parallel):
             return state
         opt = state.opt_state
         opt = opt._replace(m=self.shard_params(opt.m),
@@ -166,15 +189,20 @@ class ShardingPlan:
         return state._replace(params=self.shard_params(state.params),
                               opt_state=opt)
 
-    def slice_batch(self, batch: dict) -> dict:
-        """A task-major batch -> this rank's task rows and B rows (numpy or
-        tensors, where they are)."""
+    def slice_batch(self, batch: dict, accum: int = 1) -> dict:
+        """A task-major batch -> this rank's task rows and B rows; a
+        single-task model's flat batch -> its rows (numpy or tensors, where
+        they are). With ``accum`` microbatches the rank takes its rows of
+        each microbatch of the global batch (``core.taskpar.micro_rows``),
+        as ``repro`` shards each microbatch."""
         if not self.distributed:
             return batch
-        return take_batch(batch, self.shard, self.n_tasks)
+        if not self.task_parallel:
+            return take_flat_batch(batch, self.shard, accum)
+        return take_batch(batch, self.shard, self.n_tasks, accum)
 
-    def shard_batch(self, batch: dict, device=None) -> dict:
-        """This rank's slice of a task-major host batch, placed on
+    def shard_batch(self, batch: dict, device=None, accum: int = 1) -> dict:
+        """This rank's slice (``slice_batch``) of a host batch, placed on
         ``device`` (default: the rank's device; one device: ``cuda``,
         raising without a GPU — the CPU must be asked for)."""
         if device is None:
@@ -183,7 +211,7 @@ class ShardingPlan:
             device = rank_device() if self.distributed else resolve_device()
         return {k: (v if isinstance(v, torch.Tensor) else
                     torch.from_numpy(np.ascontiguousarray(v))).to(device)
-                for k, v in self.slice_batch(batch).items()}
+                for k, v in self.slice_batch(batch, accum).items()}
 
     def gather_heads(self, trees):
         """Every head's rows on every rank: this rank's head trees (e.g.
@@ -199,14 +227,18 @@ class ShardingPlan:
                           dist.get_rank())
 
     def gather_params(self, params):
-        """This rank's params -> the full tree (a collective)."""
-        if not self.distributed:
+        """This rank's params -> the full tree (a collective; a
+        single-task model's params are whole on every rank already)."""
+        if not (self.distributed and self.task_parallel):
             return params
         return {"shared": params["shared"],
                 "heads": self.gather_heads([params["heads"]])[0]}
 
     def norm_fn(self):
-        """The global gradient norm over this plan's reduced grads."""
+        """The global gradient norm over this plan's reduced grads (a
+        single-task model's are whole on every rank)."""
+        if not self.task_parallel:
+            return global_norm
         return dist_global_norm(self.shard)
 
     # -- compilation ---------------------------------------------------------

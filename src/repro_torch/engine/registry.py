@@ -58,10 +58,12 @@ def _lm_mtl(cfg, *, n_tasks=None, impl="chunked"):
 
 @register_model("lm")
 def _lm(cfg, *, n_tasks=None, impl="chunked"):
+    from repro_torch.core.mtl import lm_batch_counts
     from repro_torch.models.transformer import init_generator, lm_init
     from repro_torch.train.loop import make_lm_loss
     return SingleTaskModel(
         init=lambda seed=0, device="cpu": lm_init(
             init_generator(seed, device), cfg, device),
-        loss_fn=make_lm_loss(cfg, impl), name=f"lm-{cfg.name}")
+        loss_fn=make_lm_loss(cfg, impl), name=f"lm-{cfg.name}",
+        batch_counts=lm_batch_counts)
 

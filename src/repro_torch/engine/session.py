@@ -31,8 +31,15 @@ a step holds the state once, where the pure update holds it twice. A
 donating session owns its state: it copies the params ``model.init``
 returns (an init may hand back tensors its caller still holds, as
 fine-tuning's trunk is), and its guarded step decides before it updates.
-``device=None`` means ``cuda`` (a rank's own device in a job) and raises
-without a GPU; the CPU must be asked for (``device="cpu"``).
+A single-task model (``"lm"``, fine-tuning) on a mesh trains
+data-parallel: its flat batches split over the ``data`` ranks, its params
+whole on every rank. ``cfg.accum`` microbatches each global batch before
+a rank takes its rows of each microbatch, as ``repro`` does, and
+``cfg.resilience`` runs the resilient runner on every rank
+(``resilience.runner``; a hierarchical plan without a guard, as
+``repro``'s). ``device=None`` means ``cuda`` (a rank's own device in a
+job) and raises without a GPU; the CPU must be asked for
+(``device="cpu"``).
 """
 from __future__ import annotations
 
@@ -206,8 +213,9 @@ class Session:
     sources: list of per-task sample dicts (numpy arrays; task t feeds head
     t) or gather-style readers (``data.store.ShardedSource``); for a
     single-task model one sample dict (or a list of them with
-    ``cfg.mixing``). A single-task model trains on one device: a mesh or
-    ``cfg.placement`` raises. model: a built ``MultiTaskModel`` or
+    ``cfg.mixing``). A single-task model trains on one device or
+    data-parallel on a mesh; ``cfg.placement`` needs a multi-task model.
+    model: a built ``MultiTaskModel`` or
     ``SingleTaskModel`` in place of the registry's ``cfg.model`` (e.g. a
     fine-tuning model). batcher: a
     ready batcher in place of sources (e.g. a ``PrefetchingBatcher``; its
@@ -373,11 +381,6 @@ class Session:
                 raise RuntimeError(
                     "a task-parallel plan runs in a torch.distributed job: "
                     "call launch.mesh.init_distributed on every rank first")
-        if plan.distributed and cfg.resilience is not None:
-            raise NotImplementedError(
-                "the resilient runner's full-state checkpoints of a sharded "
-                "state are not ported: drop cfg.resilience on a "
-                "task-parallel plan")
         if task_weights is not None and plan.resolved_backend == "shard_map":
             raise ValueError(
                 "the shard_map backend supports uniform task weights only — "
@@ -529,6 +532,22 @@ class Session:
         self._quarantined |= set(tasks)
         self._rebuild_step()
 
+    def _local_tasks(self, tasks) -> list:
+        """Task indices -> this rank's rows of a task-major batch (the
+        tasks it does not hold drop out)."""
+        if not (self.plan.distributed and self.plan.task_parallel):
+            return sorted(tasks)
+        heads = self.plan.shard.heads
+        return [heads.index(t) for t in sorted(tasks) if t in heads]
+
+    def _local_fault(self, fault):
+        """A batch-corruption fault on this rank's batch: its ``source``
+        as the rank's row, None when the rank does not hold it."""
+        if fault.source is None:
+            return fault
+        rows = self._local_tasks([fault.source])
+        return dataclasses.replace(fault, source=rows[0]) if rows else None
+
     def _reapply_quarantine(self):
         """A rollback restores a datapipe snapshot that may predate a
         sampling quarantine, which would resurrect the source's weight:
@@ -553,7 +572,7 @@ class Session:
             raise ValueError("resume() needs cfg.resilience.ckpt_dir or an "
                              "explicit directory")
         mgr = CheckpointManager(d, getattr(self.cfg.resilience, "policy",
-                                           None))
+                                           None), plan=self.plan)
         path, state = mgr.load_latest(template=self.state)
         self.state = state
         if checkpoint.has_datapipe(path):
@@ -575,7 +594,7 @@ class Session:
         place = self._placer
 
         def transform(batch):        # this rank's slice, then the device
-            return place(self.plan.slice_batch(batch))
+            return place(self.plan.slice_batch(batch, self.cfg.accum))
         if self.cfg.prefetch:
             if self._prefetcher is None:
                 self._prefetcher = Prefetcher(

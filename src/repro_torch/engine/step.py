@@ -21,7 +21,10 @@ A task-parallel plan (``engine.plan.ShardingPlan`` with a mesh or a
 placement) makes ``make_grad_fn`` the two-scope distributed grad
 (``core.taskpar.mtp_value_and_grad_dist``) over the rank's params and batch
 slice; a hierarchical plan gets a ``HierStepSpec``, built into a step by
-``plan.compile``.
+``plan.compile``. A single-task model on a mesh is data parallelism
+(``data_parallel_grad_fn``). Gradient accumulation on any of them takes
+each microbatch from the global batch first and the rank's rows of it
+second (``plan.slice_batch(batch, accum)``), as ``repro`` does.
 """
 from __future__ import annotations
 
@@ -31,7 +34,8 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.core.taskpar import (MultiTaskModel, leaf_grads,
+from repro_torch.core.taskpar import (MultiTaskModel, _all_reduce, _flat,
+                                      _unflat, leaf_grads,
                                       mtp_value_and_grad_dist)
 from repro_torch.interop import leaves as tree_leaves
 from repro_torch.interop import tree_map, unflatten
@@ -45,12 +49,21 @@ TrainStep = Callable[[TrainState, Any], tuple[TrainState, StepOutput]]
 
 
 class SingleTaskModel(NamedTuple):
-    """init(seed, device) -> params; loss_fn(params, batch) -> scalar
-    loss. ``init`` takes a seed (or a generator) and a device, as
-    ``MultiTaskModel``'s does."""
+    """init(seed, device) -> params; loss_fn(params, batch, norm=None) ->
+    scalar loss. ``init`` takes a seed (or a generator) and a device, as
+    ``MultiTaskModel``'s does.
+
+    ``batch_counts(batch) -> (c,)`` gives the loss's denominators (an
+    LM's tokens, a GFM branch's graphs and atoms), the counterpart of
+    ``MultiTaskModel``'s: a rank that holds a shard of the batch passes
+    them summed over the ranks as ``norm`` (``{"counts": (c,), "share":
+    1 / ranks, "balance": models.moe.Balance}``), and its loss is then its
+    share of the loss over the whole batch. None: no data parallelism (a
+    distributed plan raises)."""
     init: Callable
     loss_fn: Callable
     name: str = "single"
+    batch_counts: Callable | None = None
 
 
 class HierStepSpec(NamedTuple):
@@ -86,6 +99,60 @@ def single_grad_fn(model: SingleTaskModel) -> Callable:
             loss = model.loss_fn(p, batch)
             grads = leaf_grads(loss, leaves)
         return loss.detach(), {}, unflatten(params, dict(zip(leaves, grads)))
+    return grad_fn
+
+
+def _reduce_leaves(tensors: list, group, size: int) -> list:
+    """SUM all-reduce of a list of tensors over ``group``: one flat buffer
+    a dtype."""
+    out = list(tensors)
+    for dt in dict.fromkeys(t.dtype for t in tensors):
+        idx = [i for i, t in enumerate(tensors) if t.dtype == dt]
+        buf = _all_reduce(_flat([tensors[i] for i in idx]), group, size)
+        for i, t in zip(idx, _unflat(buf, [tensors[i] for i in idx])):
+            out[i] = t
+    return out
+
+
+def data_parallel_grad_fn(model: SingleTaskModel, plan) -> Callable:
+    """grad_fn of a ``SingleTaskModel`` on a flat distributed plan (data
+    parallelism, ``repro``'s ``single_grad_fn`` under pjit): over the
+    rank's rows of the flat batch, with global semantics. The loss's
+    denominators (``model.batch_counts``) are summed over the ``data``
+    ranks that split the rows, so each rank's loss is its share of the
+    loss over the whole batch (``norm``), MoE balance terms included.
+    Gradients and the loss SUM over every rank, only the first ``model``
+    column's contributing (``plan.model_lead``): params stay bitwise equal
+    on every rank."""
+    if model.batch_counts is None:
+        raise ValueError(
+            f"single-task model '{model.name}' gives no batch_counts: data "
+            "parallelism normalises its loss over the whole batch from "
+            "counts summed over the ranks (SingleTaskModel.batch_counts); "
+            "averaging per-rank means is another loss")
+    import torch.distributed as dist
+
+    from repro_torch.models.moe import Balance
+    shard = plan.shard
+    n, group = shard.size, plan.head_group
+    world = dist.get_world_size()
+    lead = plan.model_lead
+    balance = Balance(group, n)
+
+    def grad_fn(params, batch):
+        counts = model.batch_counts(batch).float().contiguous()
+        _all_reduce(counts, group, n)
+        norm = {"counts": counts, "share": 1.0 / n, "balance": balance}
+        leaves, p = _requires_grad(params)
+        with torch.enable_grad():
+            loss = model.loss_fn(p, batch, norm=norm)
+            grads = leaf_grads(loss, leaves)
+        parts = grads + [loss.detach().float().reshape(1)]
+        if not lead:
+            parts = [torch.zeros_like(g) for g in parts]
+        parts = _reduce_leaves(parts, None, world)
+        return parts[-1][0], {}, unflatten(params, dict(zip(leaves,
+                                                            parts[:-1])))
     return grad_fn
 
 
@@ -245,15 +312,14 @@ def make_grad_fn(model, plan=None, *, task_weights=None) -> Callable:
     device). On a flat task-parallel plan it is the two-scope distributed
     grad over the rank's params and batch slice: ``"pjit"`` normalises each
     task's loss over its whole batch, ``"shard_map"`` over each rank's rows
-    (uniform task weights only)."""
+    (uniform task weights only). A single-task model on a distributed plan
+    gets ``data_parallel_grad_fn``."""
     if plan is not None and not isinstance(plan, ShardingPlan):
         raise TypeError(f"plan: a ShardingPlan or None, got "
                         f"{type(plan).__name__}")
     if not isinstance(model, MultiTaskModel):
         if plan is not None and plan.distributed:
-            raise NotImplementedError(
-                "a single-task model on a task-parallel plan (data "
-                "parallelism) is not ported: ROADMAP.md, queue 1, item 9b")
+            return data_parallel_grad_fn(model, plan)
         return single_grad_fn(model)
     if plan is None or not plan.distributed:
         return multitask_grad_fn(model, model.n_tasks, task_weights)
@@ -271,10 +337,6 @@ def make_grad_fn(model, plan=None, *, task_weights=None) -> Callable:
 
 
 def _grad_fn(model, plan, accum, task_weights):
-    if accum > 1 and isinstance(plan, ShardingPlan) and plan.distributed:
-        raise NotImplementedError(
-            "gradient accumulation on a task-parallel plan is not ported: "
-            "use accum=1")
     axis = 1 if isinstance(model, MultiTaskModel) else 0
     return with_grad_accum(make_grad_fn(model, plan,
                                         task_weights=task_weights), accum,
@@ -291,7 +353,9 @@ def make_step(model, optimizer, plan=None, *, accum: int = 1,
     """One call from model + optimizer (+ plan) to a TrainStep; run it
     through ``plan.compile(step)``. A hierarchical plan gets a
     ``HierStepSpec`` (same ``plan.compile()`` call, the rank's group step
-    built there)."""
+    built there). With ``accum`` > 1 on a distributed plan the step takes
+    ``plan.slice_batch(batch, accum)``: the rank's rows of each
+    microbatch."""
     if isinstance(plan, ShardingPlan) and plan.resolved_backend == "hier":
         if not isinstance(model, MultiTaskModel):
             raise TypeError("backend='hier' shards per-task heads — needs a "

@@ -198,9 +198,12 @@ def make_replica_meshes(n_replicas: int, *, devices_per_replica: int = 1,
 # the launcher
 # ---------------------------------------------------------------------------
 
-def _rank_main(rank, world, fn, args, init_method, backend, device,
-               threads, results):
+def _rank_main(rank, world, job, init_method, backend, device, threads,
+               results):
     try:
+        import pickle
+        with open(job, "rb") as f:
+            fn, args = pickle.load(f)
         if threads:
             torch.set_num_threads(threads)
         init_distributed(rank, world, backend=backend,
@@ -227,8 +230,16 @@ def run_ranks(fn: Callable, world: int, *, backend: str = "gloo",
     ``device``: ``"cpu"``, or ``"cuda"`` (None: ``"cuda"``, raising here
     when no GPU is available — the CPU must be asked for). On CUDA the
     kernels are built here first, so ranks only load them. ``threads``:
-    torch's intra-op threads per rank (None: torch's default)."""
+    torch's intra-op threads per rank (None: torch's default).
+
+    ``fn`` and ``args`` go to the ranks through one file beside the
+    rendezvous, which each rank reads once it has started: a spawned
+    process's own arguments come through a pipe that ``start()`` fills,
+    so arguments larger than the pipe held each start until that rank
+    had imported torch to read them, and the ranks started one after
+    another."""
     import multiprocessing as mp
+    import pickle
     from repro_torch import resolve_device
     device = resolve_device(device)
     if device.type == "cuda":
@@ -238,10 +249,13 @@ def run_ranks(fn: Callable, world: int, *, backend: str = "gloo",
     rdzv_dir = tempfile.mkdtemp(prefix="rdzv-") if own_dir else rdzv_dir
     init = os.path.join(os.path.abspath(rdzv_dir),
                         f"rdzv-{os.getpid()}-{uuid.uuid4().hex}")
+    job = init + ".job"
+    with open(job, "wb") as f:
+        pickle.dump((fn, args), f)
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     procs = [ctx.Process(target=_rank_main, daemon=True,
-                         args=(r, world, fn, args, f"file://{init}", backend,
+                         args=(r, world, job, f"file://{init}", backend,
                                device, threads, results))
              for r in range(world)]
     for p in procs:
@@ -287,5 +301,7 @@ def run_ranks(fn: Callable, world: int, *, backend: str = "gloo",
                 p.join()
         if own_dir:
             shutil.rmtree(rdzv_dir, ignore_errors=True)
-        elif os.path.exists(init):
-            os.unlink(init)
+        else:
+            for path in (init, job):
+                if os.path.exists(path):
+                    os.unlink(path)

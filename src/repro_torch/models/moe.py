@@ -9,6 +9,11 @@ one batched product over the expert axis in ``compute_dtype``, and the
 combine gathers each choice's row back and sums it gated. Optional
 DeepSeek-style shared experts; the Switch load-balance term as aux.
 
+Across ranks (``Balance``: the ranks that split a segment's rows between
+them) each rank routes its own tokens in ``repro``'s groups and returns its
+share of the balance term, so that the shares sum to ``repro``'s term over
+the whole segment and to its gradient.
+
 Every kept slot holds exactly one token's row, so the dispatch writes rows
 with an indexed copy (no accumulation) and the combine's backward writes
 each kept slot's cotangent with an indexed copy (``_Gather``): no float
@@ -19,6 +24,7 @@ values.
 from __future__ import annotations
 
 import math
+from typing import Any, NamedTuple
 
 import torch
 
@@ -41,6 +47,20 @@ def moe_init(rng, cfg, device="cpu") -> Params:
         p["shared"] = swiglu_init(rng, d, dff * cfg.n_shared_experts, dt,
                                   cfg.n_layers, device)
     return p
+
+
+class Balance(NamedTuple):
+    """The ``size`` ranks of process group ``group`` that split each
+    segment's rows evenly between them (a data-parallel group, or a task's
+    head group). The Switch term ``E·Σ_e frac_e·mp_e`` is bilinear over the
+    whole segment, so a sum of per-rank terms is not its value; ``frac``
+    comes from the choices and carries no gradient, so the ranks all-reduce
+    their per-expert counts (one small SUM a layer) and keep the
+    probability sums local, scaled by the segment's global token count:
+    the ranks' terms sum to the whole segment's, and so do their
+    gradients."""
+    group: Any
+    size: int
 
 
 def _capacity(gs: int, top_k: int, n_experts: int, factor: float) -> int:
@@ -82,22 +102,37 @@ def route(params: Params, xf, cfg):
 
 
 def moe_apply(params: Params, x, *, cfg, group_size: int = 512,
-              segments: int = 1):
+              segments: int = 1, balance: Balance | None = None):
     """x: (B, S, d) -> (y, aux). Token order is preserved.
 
     ``segments`` > 1 routes each of that many equal slices of the batch
     (rows ``B / segments`` each) as ``repro`` routes it alone — its own
     groups, capacity and balance term — and returns aux per slice,
     (segments,): the multi-task LM loss runs every task's rows through one
-    trunk pass, where ``repro`` maps the trunk over the tasks."""
+    trunk pass, where ``repro`` maps the trunk over the tasks.
+
+    ``balance``: ``x`` is this rank's share of rows that ``balance.size``
+    ranks split evenly; ``repro`` routes a segment's ``size·T`` tokens in
+    groups of ``min(group_size, size·T)``, so the rank's ``T`` tokens must
+    be a whole number of those groups (it raises otherwise, rather than
+    route in other groups), and aux is the rank's share of the segment's
+    term (``Balance``)."""
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     cd = cfg.compute_dtype
     if B % segments:
         raise ValueError(f"batch {B} not divisible into {segments} segments")
     T = B * S // segments
-    gs = min(group_size, T)
+    ranks = balance.size if balance is not None else 1
+    gs = min(group_size, T * ranks)
     if T % gs:
+        if balance is not None:
+            raise ValueError(
+                f"a rank's {T} tokens of a segment are not a whole number "
+                f"of routing groups: repro routes the segment's {T * ranks} "
+                f"tokens over {ranks} ranks in groups of {gs} "
+                f"(min(group_size, tokens)); give each rank a multiple of "
+                f"{gs} tokens a segment")
         raise ValueError(f"tokens {T} not divisible by group {gs}")
     per = T // gs                             # groups a segment
     G = per * segments
@@ -141,7 +176,19 @@ def moe_apply(params: Params, x, *, cfg, group_size: int = 512,
 
     # Switch-style load balance: E * sum_e fraction_e * mean_prob_e
     counts = torch.nn.functional.one_hot(choice, E).float()
-    frac = counts.reshape(segments, -1, E).mean(1) * k
-    mp = probs.reshape(segments, -1, E).mean(1)
+    if balance is None:
+        frac = counts.reshape(segments, -1, E).mean(1) * k
+        mp = probs.reshape(segments, -1, E).mean(1)
+    else:
+        # the segment's choices of each expert, summed over its ranks;
+        # the probabilities stay local: this rank's share of the mean
+        total = float(T * ranks)
+        chosen = counts.reshape(segments, -1, E).sum(1).contiguous()
+        if ranks > 1:
+            import torch.distributed as dist
+            dist.all_reduce(chosen, op=dist.ReduceOp.SUM,
+                            group=balance.group)
+        frac = chosen / total
+        mp = probs.reshape(segments, -1, E).sum(1) / total
     aux = E * (frac * mp).sum(-1)
     return y, (aux[0] if segments == 1 else aux)

@@ -126,7 +126,7 @@ def _shared_attn_params(shared: Params, bp: Params, cfg):
 
 def block_apply(bp: Params, x, *, btype, cfg, positions, cache=None,
                 mode="train", impl="chunked", segments=1, shared=None,
-                memory=None):
+                memory=None, balance=None):
     """Returns (x, new_cache, aux). mode=="train": no cache; "prefill":
     returns the block's new cache; "decode": consumes and updates the cache
     (an attention cache's slot in place; a recurrent state comes back as
@@ -135,7 +135,8 @@ def block_apply(bp: Params, x, *, btype, cfg, positions, cache=None,
     is ``params["shared_attn"]``, which a ``shared_attn`` block applies;
     ``memory`` (B, M, d) the encoder's output, which a ``dec_attn`` block
     cross-attends in every mode. An ``enc_attn`` block trains
-    bidirectionally (prefill and decode are causal, as ``repro``'s)."""
+    bidirectionally (prefill and decode are causal, as ``repro``'s).
+    ``balance``: the ranks that split the rows (``moe.Balance``)."""
     _check_block(btype)
     nrm = _norm(cfg)
     h = nrm(bp["ln1"], x)
@@ -179,7 +180,8 @@ def block_apply(bp: Params, x, *, btype, cfg, positions, cache=None,
     h2 = nrm(bp["ln2"], x)
     aux = 0.0
     if cfg.n_experts and btype != "enc_attn":
-        f, aux = moe_apply(bp["ffn"], h2, cfg=cfg, segments=segments)
+        f, aux = moe_apply(bp["ffn"], h2, cfg=cfg, segments=segments,
+                           balance=balance)
     else:
         f = swiglu_apply(bp["ffn"], h2, cfg.act, cfg.compute_dtype)
     return x + f, new_cache, aux
@@ -349,14 +351,17 @@ def _unstack(tree: Params, reps: int) -> list:
 
 
 def run_trunk(params: Params, x, *, cfg, positions, mode="train",
-              caches=None, impl="chunked", segments=1, memory=None):
+              caches=None, impl="chunked", segments=1, memory=None,
+              balance=None):
     """x: (B,S,d) embedded inputs -> (hidden, new_caches, aux). aux is the
     sum over blocks of the MoE balance terms (0 without experts); with
     ``segments`` > 1 one per equal slice of the batch, each routed as if
     alone (``moe_apply``). With ``cfg.remat`` a training pass keeps only
     each block's input and recomputes the block in the backward.
     ``memory`` is the encoder's output, handed to every block (a
-    ``dec_attn`` block cross-attends it)."""
+    ``dec_attn`` block cross-attends it). ``balance``: ``x`` holds this
+    rank's share of rows split over several ranks, and aux is its share of
+    the balance terms (``moe.Balance``)."""
     unit, reps, rem = _pattern_split(cfg)
     remat = _remat(cfg, mode)
     shared = params.get("shared_attn")
@@ -380,7 +385,8 @@ def run_trunk(params: Params, x, *, cfg, positions, mode="train",
                 x, nc, a = _block(bp, x, remat=remat, shared=shared,
                                   btype=btype, cfg=cfg, positions=positions,
                                   cache=c, mode=mode, impl=impl,
-                                  segments=segments, memory=memory)
+                                  segments=segments, memory=memory,
+                                  balance=balance)
                 aux = aux + a
                 per_unit[u].append(nc)
         if mode in ("prefill", "decode"):
@@ -393,7 +399,7 @@ def run_trunk(params: Params, x, *, cfg, positions, mode="train",
         x, nc, a = _block(params["rem"][f"r{i}"], x, remat=remat,
                           shared=shared, btype=btype, cfg=cfg,
                           positions=positions, cache=c, mode=mode, impl=impl,
-                          segments=segments, memory=memory)
+                          segments=segments, memory=memory, balance=balance)
         aux = aux + a
         if nc is not None:
             new_caches.setdefault("rem", {})[f"r{i}"] = nc
@@ -459,11 +465,11 @@ def encode(params, src_embed, cfg, impl="chunked"):
 
 def lm_apply(params: Params, tokens, *, cfg, media=None, memory=None,
              mode="train", caches=None, positions=None, impl="chunked",
-             task=None):
+             task=None, balance=None):
     """Full LM forward. Returns (logits, new_caches, aux). ``media``
     (prefill and train) is prepended through the projector; ``memory``
     (B, M, d_model), the encoder's output, is needed by an enc-dec model
-    in every mode."""
+    in every mode. ``balance`` as ``run_trunk``'s."""
     if mode == "decode":
         x = embed(params["embed"], tokens, cfg.compute_dtype)  # (B,1,d)
     else:
@@ -474,7 +480,7 @@ def lm_apply(params: Params, tokens, *, cfg, media=None, memory=None,
         raise ValueError("enc-dec model needs encoder memory")
     h, ncaches, aux = run_trunk(params, x, cfg=cfg, positions=positions,
                                 mode=mode, caches=caches, impl=impl,
-                                memory=memory)
+                                memory=memory, balance=balance)
     return lm_logits(params, h, cfg, task=task), ncaches, aux
 
 

@@ -14,6 +14,13 @@ A checkpoint holds the FULL ``TrainState`` under ``repro``'s keys:
 int32 scalars, as ``repro`` holds them, so a checkpoint written by either
 package restores in the other, f32 leaves bit for bit.
 
+On a distributed plan (``CheckpointManager(plan=...)``) every rank calls
+``save``: the head rows of params and both AdamW moments are gathered,
+rank 0 alone writes and prunes (with the retries), and its outcome, retry
+count and time reach every rank, so every rank proceeds or raises
+``CheckpointWriteError`` alike; ``latest()`` is rank 0's listing on every
+rank, and ``load`` gives each rank its own rows of the file rank 0 wrote.
+
 ``PreemptionHandler`` turns SIGTERM/SIGUSR1 (what SLURM-class schedulers
 deliver before reclaiming a node) into a cooperative flag the training loop
 polls between steps; ``trigger()`` delivers the same preemption
@@ -37,7 +44,7 @@ import torch
 from repro_torch import interop
 from repro_torch.train import checkpoint
 
-from .retry import with_retry
+from .retry import RetryError, with_retry
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,12 +112,16 @@ class CheckpointManager:
     ``fault_hook`` is the fault-injection seam, called at the START of
     every raw save attempt (it may raise); ``arm_failures(n)`` fails the
     next ``n`` attempts with ``CheckpointWriteError``, then lets them
-    succeed. ``save_ms`` records each successful save's wall time."""
+    succeed. ``save_ms`` records each successful save's wall time.
+    ``plan``: a distributed ``ShardingPlan`` makes saving and the latest
+    checkpoint collectives (module docstring); every rank names the same
+    directory."""
 
     def __init__(self, directory: str, policy: CheckpointPolicy | None = None,
                  *, attempts: int = 3, base_delay: float = 0.05,
-                 sleep=time.sleep):
+                 sleep=time.sleep, plan=None):
         self.dir = directory
+        self.plan = plan if plan is not None and plan.distributed else None
         self.policy = policy or CheckpointPolicy()
         self.io_retries = 0
         self.fault_hook = None
@@ -156,13 +167,24 @@ class CheckpointManager:
                 continue
         return sorted(out)
 
-    def latest(self) -> str | None:
+    def _last(self):
+        """The newest (step, path), or None: rank 0's, on every rank of a
+        distributed plan (a collective), so no rank reads a listing that
+        rank 0 is about to change."""
         cks = self.checkpoints()
-        return cks[-1][1] if cks else None
+        last = [cks[-1] if cks else None]
+        if self.plan is not None:
+            import torch.distributed as dist
+            dist.broadcast_object_list(last, src=0)
+        return last[0]
+
+    def latest(self) -> str | None:
+        last = self._last()
+        return last[1] if last else None
 
     def latest_step(self) -> int | None:
-        cks = self.checkpoints()
-        return cks[-1][0] if cks else None
+        last = self._last()
+        return last[0] if last else None
 
     def best(self) -> str | None:
         """Path of the smallest-metric checkpoint (None when none carries a
@@ -183,31 +205,70 @@ class CheckpointManager:
              metric: float | None = None, metadata: dict | None = None) -> str:
         """Write the full TrainState (params + optimizer + step + rng +
         guard) plus the datapipe sidecar for ``step = int(state.step)``,
-        with retries, then prune per the policy. Returns the path."""
+        with retries, then prune per the policy. Returns the path. On a
+        distributed plan every rank calls it (rank 0's datapipe state is
+        the one written: every rank draws the same global batches)."""
         step = int(state.step)
         path = self.path_for(step)
         meta = dict(metadata or {}, step=step)
         if metric is not None:
             meta["metric"] = float(metric)
-        tree = {"state": _host_tree(state)}
+        tree = {"state": _host_tree(self._gather(state))}
 
         def _write():
             self._maybe_fail("save")
             checkpoint.save(path, tree, metadata=meta, datapipe=datapipe)
 
-        t0 = time.perf_counter()
-        self._retry(_write)()
-        self.save_ms.append((time.perf_counter() - t0) * 1e3)
-        self.prune()
+        if self.plan is None:
+            t0 = time.perf_counter()
+            self._retry(_write)()
+            self.save_ms.append((time.perf_counter() - t0) * 1e3)
+            self.prune()
+            return path
+        import torch.distributed as dist
+        err, ms = None, 0.0
+        if dist.get_rank() == 0:
+            t0 = time.perf_counter()
+            try:
+                self._retry(_write)()
+                self.prune()
+            except (OSError, RetryError) as e:
+                err = e
+            ms = (time.perf_counter() - t0) * 1e3
+        # rank 0's outcome, retry count and time, to every rank: the
+        # broadcast also orders every later listing after the write
+        told = torch.tensor([float(err is None), float(self.io_retries), ms],
+                            dtype=torch.float64)
+        dist.broadcast(told, src=0)
+        ok, self.io_retries, ms = bool(told[0]), int(told[1]), float(told[2])
+        if not ok:
+            if err is not None:
+                raise err
+            raise CheckpointWriteError(f"rank 0 could not write {path}")
+        self.save_ms.append(ms)
         return path
+
+    def _gather(self, state):
+        """A rank's TrainState -> the full one: the head rows of params and
+        both moments gathered from their ranks (a collective; a
+        single-task model's state is whole on every rank)."""
+        if self.plan is None or not self.plan.task_parallel:
+            return state
+        opt = state.opt_state
+        p, m, v = self.plan.gather_heads([state.params["heads"],
+                                          opt.m["heads"], opt.v["heads"]])
+        return state._replace(
+            params=dict(state.params, heads=p),
+            opt_state=opt._replace(m=dict(opt.m, heads=m),
+                                   v=dict(opt.v, heads=v)))
 
     def load(self, path: str, template: Any) -> Any:
         """Restore a TrainState saved by ``save`` (by either package); the
         template (the session's live state) gives the structure, dtypes
-        and devices."""
+        and devices; on a distributed plan, the rank's own head rows."""
         def _read():
-            tree = checkpoint.restore(path,
-                                      {"state": _host_tree(template)})
+            tree = checkpoint.restore_sharded(
+                path, {"state": _host_tree(template)}, self.plan)
             return _like(tree["state"], template)
         return self._retry(_read)()
 

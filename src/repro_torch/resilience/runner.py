@@ -26,6 +26,18 @@ Per tick:
   5. on an accepted step: log/eval on the usual cadence and checkpoint per
      ``CheckpointPolicy`` (retried with exponential backoff).
 
+On a distributed plan (flat, or hierarchical without a guard, as
+``repro``) every rank runs this loop over its rows of the same global
+batches: the schedule fires each fault at the same tick on every rank,
+rank 0 writes the checkpoints that every rank restores its rows from
+(``CheckpointManager(plan=...)``), and one tiny all-reduce a tick makes a
+preemption that any rank sees, or a draw that fails on any rank, the whole
+job's at that tick — every rank flushes, or every rank rewinds its
+pipeline to the last consumed batch and draws again (a producer killed on
+one rank is then a recovery of all). The guard's decisions, rollback and
+quarantine come from the global loss, norm and per-task losses, equal on
+every rank.
+
 Determinism contract: for rollback-covered faults the run's final params,
 moments and step are bitwise equal to a never-faulted run — rollback
 restores them with the guard's scalars and the byte-identical datapipe
@@ -88,9 +100,10 @@ def run_resilient(session):
     res: ResilienceConfig = cfg.resilience
     if not res.ckpt_dir:
         raise ValueError("ResilienceConfig.ckpt_dir is required")
+    plan = session.plan
     mgr = CheckpointManager(res.ckpt_dir, res.policy,
                             attempts=res.retry_attempts,
-                            base_delay=res.retry_base_delay)
+                            base_delay=res.retry_base_delay, plan=plan)
     faults = res.faults if res.faults is not None else FaultSchedule()
     n_sources = getattr(session.model, "n_tasks", 0) or 0
     guard = StepGuard(res.guard, n_sources=n_sources) \
@@ -100,6 +113,7 @@ def run_resilient(session):
     early = EarlyStopping(patience=cfg.patience, min_delta=cfg.min_delta) \
         if cfg.patience > 0 else None
     log_every = cfg.log_every or cfg.eval_every
+    eval_fn = session._eval()
     batches = session._batches()
     state = session.state
     events: list[dict] = []
@@ -147,7 +161,25 @@ def run_resilient(session):
                 else:
                     pending_corrupt.append(f)
 
-            if preempt.triggered:
+            batch = err = None
+            before = session.datapipe_state() if plan.distributed else None
+            if not (preempt.triggered or sync_kill):
+                try:
+                    batch = batches()
+                except Exception as e:
+                    err = e
+            stop, err_name = preempt.triggered, \
+                None if err is None else type(err).__name__
+            if plan.distributed:
+                stop, err_name = _agree(stop, err_name)
+                if (stop or err_name) and batch is not None:
+                    # this rank drew a batch the job will not step on:
+                    # give it back, so every rank stays at one position
+                    session.restore_datapipe(before)
+                    session._reapply_quarantine()
+                    batch = None
+
+            if stop:
                 t0 = time.perf_counter()
                 save(metric=float(out.loss) if out is not None else None)
                 events.append({"kind": "preempt_flush", "tick": tick,
@@ -166,27 +198,33 @@ def run_resilient(session):
                                "error": "ProducerKilled", "ms": 0.0})
                 continue
 
-            try:
-                batch = batches()
-            except Exception as e:
+            if err_name is not None:
                 recoveries += 1
                 if recoveries > res.max_pipeline_recoveries:
-                    raise
+                    if err is not None:
+                        raise err
+                    raise RuntimeError(f"the input pipeline failed on "
+                                       f"another rank ({err_name})")
                 t0 = time.perf_counter()
                 if session._prefetcher is not None:
                     # rewind to the last CONSUMED position (read-ahead and
                     # the dying producer's partial draw are discarded) and
-                    # restart the producer
+                    # restart the producer; a fault injected into this
+                    # rank's producer is covered by the job's recovery
+                    session._prefetcher.clear_producer_fault()
                     session._prefetcher.restore(session._prefetcher.state())
                 events.append({"kind": "pipeline_recovery", "tick": tick,
-                               "error": type(e).__name__,
+                               "error": err_name,
                                "ms": (time.perf_counter() - t0) * 1e3})
                 continue
 
-            if session._quarantined:     # the port's batches are task-major
-                batch = zero_task_slices(batch, session._quarantined)
+            quarantined = session._local_tasks(session._quarantined)
+            if quarantined:              # the port's batches are task-major
+                batch = zero_task_slices(batch, quarantined)
             for f in pending_corrupt:
-                batch = corrupt_batch(batch, f)
+                f = session._local_fault(f)
+                if f is not None:
+                    batch = corrupt_batch(batch, f)
             pending_corrupt.clear()
 
             state, out = session.step_fn(state, batch)
@@ -221,9 +259,9 @@ def run_resilient(session):
             if is_eval or is_log:
                 extras = session._metric_fn(out)
                 row = logger.log(step_h, loss=out.loss, **extras)
-                if session.eval_fn is not None and is_eval:
+                if eval_fn is not None and is_eval:
                     row.update({k: float(v) for k, v
-                                in session.eval_fn(state.params).items()})
+                                in eval_fn(state.params).items()})
                 if cfg.verbose:
                     print(json.dumps({k: round(v, 5)
                                       if isinstance(v, float) else v
@@ -256,15 +294,30 @@ def run_resilient(session):
     if guard is not None:
         report.update(guard.report())
     if cfg.ckpt_path:
-        ckpt_mod.save(cfg.ckpt_path, {"params": state.params},
-                      metadata={"model": cfg.model, "arch": cfg.arch.name,
-                                "step": step_h,
-                                "final_loss": final_loss
-                                if out is not None else None},
-                      datapipe=session.datapipe_state())
+        ckpt_mod.save_sharded(
+            cfg.ckpt_path, {"params": state.params}, plan,
+            metadata={"model": cfg.model, "arch": cfg.arch.name,
+                      "step": step_h,
+                      "final_loss": final_loss if out is not None else None},
+            datapipe=session.datapipe_state())
     return SessionResult(
         state=state, logger=logger, final_loss=final_loss,
         last_metrics={} if out is None else
         {k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else v
          for k, v in out.metrics.items()},
         stopped_early=stopped, preempted=preempted, resilience=report)
+
+
+def _agree(stop: bool, err_name):
+    """One tiny all-reduce a tick over every rank: whether any rank saw a
+    preemption and whether any rank's draw failed; on a failure tick the
+    lowest failing rank's error name (else None) on every rank."""
+    import torch.distributed as dist
+    flags = torch.tensor([int(stop), int(err_name is not None)],
+                         dtype=torch.int32)
+    dist.all_reduce(flags, op=dist.ReduceOp.SUM)
+    if not flags[1]:
+        return bool(flags[0]), None
+    names = [None] * dist.get_world_size()
+    dist.all_gather_object(names, err_name)
+    return bool(flags[0]), next(n for n in names if n is not None)

@@ -168,9 +168,9 @@ def save_sharded(path: str, tree, plan, metadata: dict | None = None,
 def restore_sharded(path: str, template, plan):
     """``restore`` into a task-parallel rank's own template: a leaf under a
     ``heads`` subtree takes the rank's rows (``plan.shard.heads``) of the
-    stored ``(n_tasks, ...)`` leaf. Reads only; every rank may call it on
-    its own."""
-    if plan is None or not plan.distributed:
+    stored ``(n_tasks, ...)`` leaf (a single-task model's plan holds
+    every leaf whole). Reads only; every rank may call it on its own."""
+    if plan is None or not plan.distributed or not plan.task_parallel:
         return restore(path, template)
     rows = np.asarray(plan.shard.heads, np.int64)
     with np.load(_npz_path(path)) as data:

@@ -17,17 +17,22 @@ from dataclasses import dataclass, field
 
 
 def make_lm_loss(cfg, impl="chunked"):
-    """loss_fn(params, batch) -> the mean next-token cross-entropy of
-    ``{"tokens", "labels": (B, S)}`` over the padded vocab's f32 logits,
-    plus ``cfg.router_aux_coef`` x the trunk's MoE balance term with
-    experts (``repro``'s loss). An enc-dec batch without ``memory`` is
-    encoded from its ``src_embed`` frames (a batch with neither raises,
-    naming ``src_embed``); with ``media`` the media positions' logits are
-    dropped before the cross-entropy, so the labels are the text's."""
-    from repro_torch.core.mtl import softmax_xent
+    """loss_fn(params, batch, norm=None) -> the mean next-token
+    cross-entropy of ``{"tokens", "labels": (B, S)}`` over the padded
+    vocab's f32 logits, plus ``cfg.router_aux_coef`` x the trunk's MoE
+    balance term with experts (``repro``'s loss). An enc-dec batch without
+    ``memory`` is encoded from its ``src_embed`` frames (a batch with
+    neither raises, naming ``src_embed``); with ``media`` the media
+    positions' logits are dropped before the cross-entropy, so the labels
+    are the text's. ``norm`` (``SingleTaskModel``'s contract, this rank's
+    rows of a batch split over ranks): the cross-entropy is summed and
+    divided by ``norm["counts"][0]``, the text tokens of the whole batch
+    (``core.mtl.lm_batch_counts`` summed over the ranks), and the balance
+    term is the rank's share (``norm["balance"]``)."""
+    from repro_torch.core.mtl import _xent, softmax_xent
     from repro_torch.models import transformer
 
-    def loss_fn(params, batch):
+    def loss_fn(params, batch, norm=None):
         memory, media = batch.get("memory"), batch.get("media")
         if cfg.n_enc_layers and memory is None:
             if batch.get("src_embed") is None:
@@ -39,10 +44,14 @@ def make_lm_loss(cfg, impl="chunked"):
                                         impl)
         logits, _, aux = transformer.lm_apply(
             params, batch["tokens"], cfg=cfg, media=media, memory=memory,
-            mode="train", impl=impl)
+            mode="train", impl=impl,
+            balance=None if norm is None else norm["balance"])
         if media is not None:
             logits = logits[:, media.shape[1]:]
-        loss = softmax_xent(logits, batch["labels"])
+        if norm is None:
+            loss = softmax_xent(logits, batch["labels"])
+        else:
+            loss = _xent(logits, batch["labels"]).sum() / norm["counts"][0]
         if cfg.n_experts:
             loss = loss + cfg.router_aux_coef * aux
         return loss

@@ -349,9 +349,10 @@ def test_single_task_session_matches_repro(downstream, mixed):
 
 def test_single_task_session_refusals_and_guard(downstream, tmp_path):
     """``cfg.placement`` and several sources without mixing raise, as
-    ``repro`` asserts; a single-task model on a task-parallel plan raises
-    naming the ROADMAP item; the guarded step and the resilient runner
-    take a single-task model."""
+    ``repro`` asserts; a single-task model without ``batch_counts`` on a
+    distributed plan raises naming the field (data parallelism needs the
+    counts); the guarded step and the resilient runner take a single-task
+    model."""
     _, train, _ = downstream
     _, tcfg = _cfgs("fused")
     jcfg = _cfgs("fused")[0]
@@ -365,8 +366,8 @@ def test_single_task_session_refusals_and_guard(downstream, tmp_path):
     with pytest.raises(ValueError, match="cfg.mixing"):
         Session(base, sources=[train, train], model=model, device="cpu")
     plan = ShardingPlan(mesh=object(), backend="pjit")
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        make_grad_fn(model, plan)
+    with pytest.raises(ValueError, match="batch_counts"):
+        make_grad_fn(model._replace(batch_counts=None), plan)
     sess = Session(base.replace(resilience=ResilienceConfig(
         ckpt_dir=str(tmp_path / "res"))), sources=train, model=model,
         device="cpu")
