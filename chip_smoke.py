@@ -94,6 +94,26 @@ Phases, each printing one JSON line:
      fault kind (``SOAK_FAULTS``), then ``resume()`` in a fresh session:
      params, moments and step bitwise equal to a clean 12-step run; the
      report's events and each checkpoint write's ms;
+  4b2. analysis: ``repro_torch.analysis``'s sanitizers on the port's
+     seams at the same width. (a) the recompile budget: ``Session`` trains
+     (fp32, ``"fused"``, ``bucketing=3``: the data meets the (32, 128)
+     bucket, 5 x 8 graphs a step) one warm step; then a
+     ``RecompileSanitizer(budget=0)`` tracks the session
+     (``track_session``), #3's split plans (``gemm_plan.w1_splits``,
+     ``fwd_splits``) and the kernel libraries (``kernels._build``); 19
+     more steps add 0; ``quarantine_tasks([4])`` and one step add exactly
+     the session's 1 and ``check()`` raises (the seeded violation); #3, #4
+     and #1 launch 4, 4 and 1 a step; each probe's count printed. (b) a
+     router of 2 replicas (``ReplicaServeSession``) warmed over its
+     buckets serves 80 mixed-head requests under ``"fused"`` (#3, 4 x
+     batches): a ``RecompileSanitizer(budget=0)`` over ``jit_functions()``
+     counts 0 and no replica runs a shape outside its warmed set; a
+     ``ThreadSanitizer`` records 0 violations of three contracts: each
+     replica's ``RequestQueue`` drained by one worker (``get`` / ``drain``
+     as one exclusion group, through the closing drain), every launch
+     count moved under ``_build``'s counter lock, the serving streams'
+     pool's table touched under its lock. (c) the memory model is
+     ``train_mtp``'s check below;
   4c. train_mtp: multi-task parallelism (the paper's method) at the same
      width, the trunk cut to 2 of its 4 EGNN layers (``MTP_LAYERS``: the
      contract's time): ranks spawned by ``launch.mesh.run_ranks`` on the
@@ -106,8 +126,9 @@ Phases, each printing one JSON line:
      atol 1e-6 of the one-process session on the same batches; trunk
      params bitwise equal across ranks after every step; 2 + 2 edge-kernel
      launches a step a rank; each rank's params and moments equal to the
-     §4.3 model (``memory_per_device`` x 3 x 4 B) beside
-     ``memory_allocated``. (a) also: two runs bitwise equal, the checkpoint
+     §4.3 model, its group's ``hbm_bytes`` from
+     ``launch.memory.hier_group_memory`` (a flat plan's groups read off
+     its mesh by ``plan_placement``), beside ``memory_allocated``. (a) also: two runs bitwise equal, the checkpoint
      rank 0 writes read back by every rank (its own rows) and bitwise into
      a one-process session, and per rank the step's device time and
      host-clock ms and the trunk's and the group's all-reduce ms — ranks
@@ -319,8 +340,8 @@ Phases, each printing one JSON line:
      ``nvidia-smi`` line, and the final ``{"ok": true, "device": ...}``
      line.
 
-``--phase train_mtp`` or ``--phase train_dist`` builds the kernels and
-runs that phase alone (no contract line). ``--profile`` adds device time
+``--phase analysis``, ``--phase train_mtp`` or ``--phase train_dist``
+builds the kernels and runs that phase alone (no contract line). ``--profile`` adds device time
 by kernel (``torch.profiler``) for one
 served GNN batch, one training step, one LM prefill and one decode step,
 and the attention sweep: the device time of #5 over masks (beside SDPA on
@@ -348,6 +369,7 @@ it, the script exits nonzero before printing any result. It imports no JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
 import itertools
 import json
@@ -476,6 +498,7 @@ def device_profile(torch, fn, iters=20, warm=3, cpu=True) -> dict:
         with profile(activities=activities) as prof:
             for _ in range(iters):
                 fn()
+            # lint: allow(TRC003): the trace must close after its kernels
             torch.cuda.synchronize()
         by_kernel, launches = {}, 0
         for ev in prof.key_averages():
@@ -524,6 +547,7 @@ def _ss_library(torch, msg, routed, em, A):
     flat_msg = msg.reshape(-1, F)
 
     def library():
+        # lint: allow(ATM001): library_ms yardstick, on no port path
         torch.zeros((B * A + 1, F), device=msg.device).index_add_(
             0, flat_idx, flat_msg)
     return library
@@ -557,6 +581,7 @@ def check_segment_sum(torch, dev, g):
         got = ops.segment_sum(msg, dst, A, edge_mask=em)
         routed = torch.where(em, dst, torch.full_like(dst, A))
         ref = segment_sum_ref(msg, routed, A)
+        # lint: allow(TRC003): each case's check reads back anyway
         torch.cuda.synchronize()
         err, scale = scaled_err(torch, got, ref)
         if not err <= SS_TOL * scale:
@@ -677,8 +702,10 @@ def _edge_fwd_plain(torch, h, pos, src, dst, em, phi, dtype=None):
     z = gather(pi, sc) + gather(pj, dc) + d2 * w0[2 * H]
     s_e = z * torch.sigmoid(z) * valid[..., None]
     idx = torch.where(valid, dst, 0)
+    # lint: allow(ATM001): a plain version, held within a tol
     S = torch.zeros_like(h).scatter_add_(1, idx[..., None].expand_as(s_e),
                                          s_e)
+    # lint: allow(ATM001): a plain version, held within a tol
     deg = torch.zeros(h.shape[:2], dtype=dt, device=h.device).scatter_add_(
         1, idx, valid.to(dt))
     return out, pi, pj, S, deg
@@ -753,6 +780,7 @@ def check_egnn_edge(torch, dev, g, cd=None):
             fail(f"egnn_edge {cd} {name}: a call launched another kernel "
                  f"than #3 in its compute dtype")
         ref = egnn_edge_agg_ref(h, pos, src, dst, em, phi, **kw)
+        # lint: allow(TRC003): each case's check reads back anyway
         torch.cuda.synchronize()
         if got.dtype != h.dtype or not torch.equal(got, again):
             fail(f"egnn_edge {cd} {name}: out in {got.dtype}, or two calls "
@@ -940,6 +968,7 @@ def check_egnn_edge_bwd(torch, dev, g):
             return torch.autograd.grad(agg, wrt, gup, retain_graph=True)
         got = bwd()
         again = bwd()
+        # lint: allow(TRC003): each case's check reads back anyway
         torch.cuda.synchronize()
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
             fail(f"egnn_edge_bwd {name}: two calls differ bitwise")
@@ -1343,6 +1372,7 @@ def serve_scaleout_phase(torch, serve, counters):
             with ServeSession(params, cfg_i, spec=spec, max_batch=8,
                               mesh=mesh, max_wait_ms=20.0) as sh:
                 sh.warmup()
+                # lint: allow(TRC003): the timed requests start on an idle card
                 torch.cuda.synchronize()
                 for c in counters.values():
                     c.launches = 0
@@ -1986,6 +2016,227 @@ def train_pipeline_phase(torch, counters):
 
 
 # ---------------------------------------------------------------------------
+# phase 4b2: analysis — the recompile and thread sanitizers on the port's
+# seams
+# ---------------------------------------------------------------------------
+
+ANALYSIS_STEPS = 19                 # (a): steps after the warm one
+ANALYSIS_REPLICAS = 2               # (b): replicas behind the router
+ANALYSIS_QUARANTINE = 4             # (a): the task quarantined (a rebuild)
+
+
+def _analysis_counters():
+    from repro_torch.kernels.egnn_edge import ops as edge_ops
+    from repro_torch.kernels.segment_sum import ops as ss_ops
+    return {"egnn_edge": edge_ops.egnn_edge_agg,
+            "egnn_edge_bwd": edge_ops.egnn_edge_bwd,
+            "segment_sum": ss_ops.segment_sum,
+            "segment_sum_2d": ss_ops.segment_sum.two_d}
+
+
+def _analysis_train(torch, counters):
+    """(a) The recompile budget of training: a warm step, then a budget of
+    0 over the session's step functions, #3's split plans and the kernel
+    libraries for 19 steps; a quarantine's rebuild must count exactly 1
+    and break the budget."""
+    from repro_torch.analysis import RecompileBudgetError, RecompileSanitizer
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.egnn_edge import gemm_plan
+    sess = _pipe_session(torch, _train_sources(), steps=ANALYSIS_STEPS + 2,
+                         bucketing=3)
+    scfg = sess.cfg
+    _sync(torch, DEVICE)
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    with sess:
+        sess.cfg = scfg.replace(steps=1)
+        losses = [sess.run().final_loss]                 # the warm step
+        san = RecompileSanitizer(budget=0, label="analysis (a)")
+        san.track_session(sess)
+        probes = {"w1_splits": gemm_plan.w1_splits,
+                  "fwd_splits": gemm_plan.fwd_splits, "build": _build}
+        for name, obj in probes.items():
+            if not san.track(obj, name):
+                fail(f"analysis (a): {name} has no cache-size seam")
+        sizes = {"session": len(sess.compiled_functions()),
+                 **{k: int(f.cache_info().currsize)
+                    for k, f in probes.items() if k != "build"},
+                 "build": _build.cache_size()}
+        sess.cfg = scfg.replace(steps=ANALYSIS_STEPS)
+        losses.append(sess.run().final_loss)
+        steady = san.report()
+        if san.compilations() != 0:
+            fail(f"analysis (a): {ANALYSIS_STEPS} steps after the warm one "
+                 f"built {steady}, the budget is 0")
+        sess.quarantine_tasks([ANALYSIS_QUARANTINE])
+        sess.cfg = scfg.replace(steps=1)
+        losses.append(sess.run().final_loss)
+        rebuilt = san.report()
+        try:
+            san.check()
+        except RecompileBudgetError as e:
+            raised = str(e)
+        else:
+            fail("analysis (a): a rebuilt step did not break the budget")
+    _sync(torch, DEVICE)
+    wall = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    if rebuilt != dict(steady, session=1):
+        fail(f"analysis (a): the quarantine's rebuild counted {rebuilt}, "
+             "the design implies the session's 1 alone")
+    if not all(map(math.isfinite, losses)):
+        fail(f"analysis (a): losses {losses}")
+    steps = ANALYSIS_STEPS + 2
+    per = scfg.arch.gnn_layers * steps if DEVICE == "cuda" else 0
+    want = {"egnn_edge": per, "egnn_edge_bwd": per, "segment_sum": 0,
+            "segment_sum_2d": steps if DEVICE == "cuda" else 0}
+    if launches != want:
+        fail(f"analysis (a): launch counts {launches}, the design implies "
+             f"{want}")
+    return {"config": "hydragnn-gfm", "impl": "fused", "dtype": "float32",
+            "batch": "5 x 8", "bucket_shapes": sorted(
+                list(s) for s in sess.batcher.shapes_seen),
+            "warm_steps": 1, "steps": ANALYSIS_STEPS,
+            "quarantined": ANALYSIS_QUARANTINE, "cache_sizes": sizes,
+            "after_steps": steady, "after_rebuild": rebuilt,
+            "raised": raised, "launches": launches, "losses": losses,
+            "wall_s": wall}
+
+
+class _CounterView:
+    """A counted wrapper's ``launches``, read and written through an
+    object ``ThreadSanitizer.guard_attrs`` can instrument (a function's
+    attributes cannot be)."""
+
+    def __init__(self, target):
+        self.target = target
+
+    @property
+    def launches(self):
+        return self.target.launches
+
+    @launches.setter
+    def launches(self, n):
+        self.target.launches = n
+
+
+@contextlib.contextmanager
+def _thread_contracts(tsan):
+    """Instrument two lock contracts for ``tsan`` while the block runs:
+    every launch count moves under ``_build``'s counter lock (serving
+    replicas launch from several threads, and a bare ``+= 1`` loses
+    counts), and the serving streams' pool (``serve.engine.STREAMS``)
+    touches its table under its lock. Yields the names of what was
+    instrumented."""
+    from repro_torch.analysis import TrackedLock
+    from repro_torch.kernels import _build
+    from repro_torch.serve import engine
+    count_lock, views = TrackedLock(), {}
+    old_lock, old_count = _build._count_lock, _build.count_launch
+
+    def count(wrapper):
+        view = views.get(id(wrapper))
+        if view is None:
+            view = views[id(wrapper)] = tsan.guard_attrs(
+                _CounterView(wrapper), ("launches",), count_lock)
+        old_count(view)
+    pool = engine.STREAMS
+    pool_cls, pool_lock, stream_lock = type(pool), pool._lock, TrackedLock()
+    _build._count_lock, _build.count_launch = count_lock, count
+    pool._lock = stream_lock
+    tsan.guard_attrs(pool, ("_streams",), stream_lock)
+    try:
+        yield ["_build.count_launch: launches under _count_lock",
+               "serve.engine.STREAMS: _streams under its lock"]
+    finally:
+        pool.__class__ = pool_cls
+        pool._lock = pool_lock
+        _build._count_lock, _build.count_launch = old_lock, old_count
+
+
+def _analysis_serve(torch, counters):
+    """(b) Serving under both sanitizers: a router of 2 replicas warmed
+    over its buckets serves 80 mixed-head requests under ``"fused"`` (#3);
+    no shape outside the warmed set, 0 thread-contract violations."""
+    from repro_torch.analysis import RecompileSanitizer, ThreadSanitizer
+    from repro_torch.configs.hydragnn_gfm import CONFIG
+    from repro_torch.launch.mesh import make_replica_meshes
+    from repro_torch.serve import ReplicaServeSession
+    spec, params, samples, heads = serve_inputs(N_REQUESTS)
+    tsan = ThreadSanitizer()
+    san = RecompileSanitizer(budget=0, label="analysis (b)")
+    with _thread_contracts(tsan) as contracts:
+        rep = ReplicaServeSession(
+            params, CONFIG.replace(segment_sum_impl="fused"), spec=spec,
+            max_batch=8, max_wait_ms=20.0,
+            meshes=make_replica_meshes(ANALYSIS_REPLICAS,
+                                       devices=[DEVICE] * ANALYSIS_REPLICAS))
+        with rep:
+            for r, srv in enumerate(rep.replicas):
+                tsan.wrap_mutual_exclusion(srv.queue, ("get", "drain"),
+                                           group=f"replica {r} drain")
+                contracts.append(f"replica {r}'s RequestQueue: get/drain "
+                                 "by one worker")
+            t0 = time.perf_counter()
+            warmed = rep.warmup()
+            warm_s = time.perf_counter() - t0
+            shapes_warm = [set(s._shapes_compiled) for s in rep.replicas]
+            for r, fn in enumerate(rep.jit_functions()):
+                if not san.track(fn, f"replica {r}"):
+                    fail(f"analysis (b): replica {r}'s forward has no "
+                         "cache-size seam")
+            _sync(torch, DEVICE)
+            for c in counters.values():
+                c.launches = 0
+            t0 = time.perf_counter()
+            res = _served(rep.submit_many(samples, heads))
+            wall = time.perf_counter() - t0
+            launches = {k: c.launches for k, c in counters.items()}
+            st = rep.stats()
+        # closed: each worker drained its queue under the wrap
+    report = san.report()
+    shapes = [set(s._shapes_compiled) for s in rep.replicas]
+    batches = st["counters"]["batches"]
+    for r, s in zip(res, samples):
+        n = int(s["node_mask"].sum())
+        if not (math.isfinite(r["energy"]) and r["forces"].shape == (n, 3)):
+            fail("analysis (b): a non-finite or misshapen result")
+    if san.compilations() != 0 or any(s - w for s, w in
+                                      zip(shapes, shapes_warm)):
+        fail(f"analysis (b): {report} shapes built past the warm-up")
+    if tsan.violations:
+        fail("analysis (b): thread-contract violations: " +
+             "; ".join(map(str, tsan.violations[:5])))
+    if not (launches["egnn_edge"] == (4 * batches if DEVICE == "cuda"
+                                      else 0)
+            and launches["segment_sum"] == 0):
+        fail(f"analysis (b): launch counts {launches} vs {batches} batches")
+    return {"config": "hydragnn-gfm", "impl": "fused",
+            "kernel": "#3 egnn_edge_fused", "replicas": ANALYSIS_REPLICAS,
+            "requests": len(res), "batches": batches,
+            "warmed_shapes": warmed, "warmup_s": warm_s,
+            "compilations": report, "shapes_by_replica": [len(s) for s in
+                                                          shapes],
+            "contracts": contracts, "violations": len(tsan.violations),
+            "launches": launches, "wall_s": wall}
+
+
+def analysis_phase(torch):
+    """Phase analysis (see the module docstring)."""
+    counters = _analysis_counters()
+    t0 = time.perf_counter()
+    a = _analysis_train(torch, counters)
+    b = _analysis_serve(torch, counters)
+    launches = {k: a["launches"][k] + b["launches"][k] for k in counters}
+    return {"phase": "analysis", "a_train": a, "b_serve": b,
+            "c_memory": "train_mtp: each rank's params and moments equal "
+                        "its group's hbm_bytes from "
+                        "launch.memory.hier_group_memory",
+            "launches": launches, "seconds": time.perf_counter() - t0}
+
+
+# ---------------------------------------------------------------------------
 # phase 4c: multi-task parallelism (the paper's method), ranks on one card
 # ---------------------------------------------------------------------------
 
@@ -2067,10 +2318,12 @@ def _mtp_rank(rank, world, kind, arch, sources, device, ckpt, full):
     import torch
     import torch.distributed as dist
     from repro_torch import interop
-    from repro_torch.core import memory_per_device
     from repro_torch.data.loader import GroupBatcher
     from repro_torch.kernels.egnn_edge import ops as edge_ops
     from repro_torch.kernels.segment_sum import ops as ss_ops
+    from repro_torch.launch.memory import (hier_group_memory,
+                                           param_bytes_per_device,
+                                           plan_placement)
     from repro_torch.launch.mesh import make_host_mesh, rank_device
     from repro_torch.train import checkpoint
     counters = {"egnn_edge": edge_ops.egnn_edge_agg,
@@ -2108,16 +2361,20 @@ def _mtp_rank(rank, world, kind, arch, sources, device, ckpt, full):
     wall = time.perf_counter() - t0
     launches = {k: c.launches for k, c in counters.items()}
 
+    # the §4.3 model: this rank's group's params and AdamW moments
     template = sess.model.init(0, device="meta")
     p_s = sum(x.numel() for x in interop.leaves(template["shared"]).values())
     p_h = sum(x.numel() for x in
               interop.leaves(template["heads"]).values()) // T
+    groups = hier_group_memory(plan_placement(plan),
+                               param_bytes_per_device(template["shared"]),
+                               param_bytes_per_device(template["heads"]) // T)
+    want = next(g["hbm_bytes"] for g in groups
+                if tuple(g["heads"]) == plan.shard.heads)
     k = len(plan.shard.heads)
-    want = 12 * (memory_per_device(p_s, p_h, T, "base") if kind == "base"
-                 else memory_per_device(p_s, p_h * k, k, "par"))
-    held = sum(x.numel() * x.element_size() for tree in
+    held = sum(param_bytes_per_device(tree) for tree in
                (res.state.params, res.state.opt_state.m,
-                res.state.opt_state.v) for x in interop.leaves(tree).values())
+                res.state.opt_state.v))
     out = {"rank": rank, "heads": list(plan.shard.heads),
            "group": list(plan.shard.ranks),
            "losses": [r["loss"] for r in res.logger.history],
@@ -2242,8 +2499,8 @@ def train_mtp_phase(torch, device=DEVICE, arch=None):
                      f"{r['launches']}, the design implies {want}")
             if r["state_bytes"] != r["state_bytes_model"]:
                 fail(f"{name} rank {r['rank']}: {r['state_bytes']} bytes of "
-                     f"params and moments, the §4.3 model "
-                     f"{r['state_bytes_model']}")
+                     f"params and moments, its group's hbm_bytes "
+                     f"(hier_group_memory) {r['state_bytes_model']}")
             for k_ in launches:
                 launches[k_] += r["launches"][k_]
         heads = [r["heads"] for r in ranks]
@@ -2339,6 +2596,7 @@ def check_egnn_edge_bwd_bf16(torch, dev, g):
                 ops.egnn_edge_bwd.bf16.launches) != (before[0], before[1] + 2):
             fail(f"egnn_edge_bwd_bf16 {name}: a bf16 call launched another "
                  f"kernel than the bf16 backward")
+        # lint: allow(TRC003): each case's check reads back anyway
         torch.cuda.synchronize()
         if agg.dtype != bf16 or [x.dtype for x in got] != \
                 [x.dtype for x in wrt]:
@@ -2398,6 +2656,7 @@ def check_egnn_edge_bwd_bf16(torch, dev, g):
             return ops.egnn_edge_bwd(up[0], up[1], pos, sr, dr, up[2], up[3],
                                      pi, pj, s, deg, **kw)
         direct, want = call(), call32()
+        # lint: allow(TRC003): each case's check reads back anyway
         torch.cuda.synchronize()
         bitwise = {n: a is None or torch.equal(a, b)
                    for n, a, b in zip(names, direct, want)}
@@ -2857,6 +3116,7 @@ def _embed_kernel_times(torch, g, ids, V):
         "plain_ms": time_ms(torch, lambda: segment_sum_ref(g, ids, V),
                             iters=3, warm=1),
         "onehot_bf16_ms": time_ms(torch, onehot_bf16, iters=3, warm=1),
+        # lint: allow(ATM001): library_ms yardstick, on no port path
         "library_ms": time_ms(torch, lambda: torch.zeros(
             (V, D), dtype=g.dtype, device=g.device).index_add_(0, ids64, g),
             iters=20),
@@ -3281,6 +3541,7 @@ def _embed_times(torch, g, ids, V):
                           iters=20),
             "plain_ms": time_ms(torch, lambda: segment_sum_ref(g, ids, V),
                                 iters=3, warm=1),
+            # lint: allow(ATM001): library_ms yardstick, on no port path
             "library_ms": time_ms(torch, lambda: torch.zeros(
                 (V, D), dtype=g.dtype, device=g.device).index_add_(
                     0, ids64, g), iters=20),
@@ -4863,6 +5124,7 @@ def check_flash_attention(torch, dev, g):
         got = flash_attention(q, k, v, q_pos=qp, k_pos=kp, **kw)
         ref = flash_attention_ref(q, k, v, qp, kp, **kw)
         again = flash_attention(q, k, v, q_pos=qp, k_pos=kp, **kw)
+        # lint: allow(TRC003): each case's check reads back anyway
         torch.cuda.synchronize()
         err, share = _attn_err(torch, got, ref, f"flash_attention {name}")
         if not torch.equal(got, again):
@@ -4957,6 +5219,7 @@ def check_flash_decode(torch, dev, g):
             return combine_partials(m, l, acc).reshape(B, 1, H, D).to(dt)
         ref = plain()
         oracle = decode_ref(q, k, v, q_pos=qp, k_pos=kp)
+        # lint: allow(TRC003): each case's check reads back anyway
         torch.cuda.synchronize()
         err, share = _attn_err(torch, got, ref, f"flash_decode {name}")
         _attn_err(torch, got, oracle, f"flash_decode {name} vs decode_ref")
@@ -5292,6 +5555,7 @@ def attn_sweep(torch):
             q, k, v, q_pos=pos, k_pos=pos, **kw), iters=10),
             # the output's bits, to hold two versions to the same result
             "sha256": hashlib.sha256(
+                # lint: allow(TRC003): one output hash a case
                 got.view(torch.int16).cpu().numpy().tobytes()).hexdigest(),
             "sdpa_bool_mask": device_ms(
                 torch, lambda: F.scaled_dot_product_attention(
@@ -5429,6 +5693,7 @@ def _embed_sweep(torch, g):
             "ms_by_block_n": by_block,
             "first_block_ids": int((ids < 384).sum()),
             "top_id_count": int(ids.bincount().max()),
+            # lint: allow(ATM001): library_ms yardstick, on no port path
             "library_ms": device_ms(torch, lambda: torch.zeros(
                 (V, D), dtype=msg.dtype, device=dev).index_add_(
                     0, ids64, msg), iters=10)}
@@ -5438,6 +5703,7 @@ def _embed_sweep(torch, g):
 def _sha(tensors) -> str:
     h = hashlib.sha256()
     for t in tensors:
+        # lint: allow(TRC003): hashes each tensor's bytes in turn
         h.update(t.detach().contiguous().cpu().numpy().tobytes())
     return h.hexdigest()[:16]
 
@@ -5615,10 +5881,12 @@ def profile_phase(torch):
                 f = gnn.egnn_apply(params["shared"], batch, cfg=cfg)
                 return heads.branch_apply(hp, f, batch["node_mask"], cfg=cfg)
         fwd()
+        # lint: allow(TRC003): the trace spans exactly the kernels
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             fwd()
+            # lint: allow(TRC003): the trace spans exactly the kernels
             torch.cuda.synchronize()
         out[impl] = _device_time_by_kernel(torch, prof)
     # one full-width training step (5 tasks x 8 graphs, fused), after two
@@ -5726,7 +5994,8 @@ def main():
                          "earlier commit's; with --sweep, the sweeps run "
                          "for it and for this checkout in turns: it, this, "
                          "this, it")
-    ap.add_argument("--phase", choices=("train_mtp", "train_dist"),
+    ap.add_argument("--phase", choices=("analysis", "train_mtp",
+                                        "train_dist"),
                     help="only build the kernels and run this phase, then "
                          "exit; no contract line")
     ap.add_argument("--once", action="store_true", help=argparse.SUPPRESS)
@@ -5756,7 +6025,7 @@ def main():
           "built": build["built"], "src": str(src)})
     if args.phase:
         _phase_start(torch, args.phase)
-        emit({"train_mtp": train_mtp_phase,
+        emit({"analysis": analysis_phase, "train_mtp": train_mtp_phase,
               "train_dist": train_dist_phase}[args.phase](torch))
         return
     if args.sweep:
@@ -5819,6 +6088,9 @@ def main():
     _phase_start(torch, "train_pipeline")
     pipe = train_pipeline_phase(torch, gnn_counters)
     emit(pipe)
+    _phase_start(torch, "analysis")
+    analysis = analysis_phase(torch)
+    emit(analysis)
     _phase_start(torch, "train_mtp")
     mtp = train_mtp_phase(torch)
     emit(mtp)
@@ -5911,6 +6183,7 @@ def main():
                             scaleout["launches"]["egnn_edge"],
                             "train": train["launches"]["egnn_edge"],
                             "train_pipeline": pipe["launches"]["egnn_edge"],
+                            "analysis": analysis["launches"]["egnn_edge"],
                             "train_mtp": mtp["launches"]["egnn_edge"],
                             "finetune":
                             fine["pretrain"]["launches"]["egnn_edge"]
@@ -5919,6 +6192,7 @@ def main():
         "egnn_edge_fused_bwd": {
             "train": train["launches"]["egnn_edge_bwd"],
             "train_pipeline": pipe["launches"]["egnn_edge_bwd"],
+            "analysis": analysis["launches"]["egnn_edge_bwd"],
             "train_mtp": mtp["launches"]["egnn_edge_bwd"],
             "finetune": fine["pretrain"]["launches"]["egnn_edge_bwd"]
             + fine["launches"]["egnn_edge_bwd"],
@@ -5930,6 +6204,7 @@ def main():
         "segment_sum_2d": {
             "train": train["launches"]["segment_sum_2d"],
             "train_pipeline": pipe["launches"]["segment_sum_2d"],
+            "analysis": analysis["launches"]["segment_sum_2d"],
             "train_mtp": mtp["launches"]["segment_sum_2d"],
             "gnn_bf16": t16["segment_sum_2d"],
             "finetune": fine["pretrain"]["launches"]["segment_sum_2d"]

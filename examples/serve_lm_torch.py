@@ -57,8 +57,8 @@ def main(argv=None):
           f"new={args.new}  wall={dt:.2f}s "
           f"({args.batch * args.new / dt:.1f} tok/s on {dev.type})")
     print("sampled continuations (token ids):")
-    for row in out[:2]:
-        print(" ", row.tolist())
+    for row in out[:2].tolist():
+        print(" ", row)
     return out
 
 

@@ -14,10 +14,12 @@ fine-tuning) and the model registry (``available_models()``). ``ArchConfig.segme
 EGNN edge kernels (forward and backward) on the card. Multi-task
 parallelism on ``torch.distributed``: ``ShardingPlan`` (flat ``"pjit"`` /
 ``"shard_map"`` meshes, hierarchical ``"hier"`` placements),
-``make_grad_fn``, ``HierStepSpec`` and ``HierCompiledStep``.
+``make_grad_fn``, ``HierStepSpec`` and ``HierCompiledStep``;
+``plan.compile`` returns a ``CompiledStep`` (flat) or a
+``HierCompiledStep``, whose ``cache_size()`` a recompile sanitizer reads.
 """
 from .hier import HierCompiledStep  # noqa: F401
-from .plan import BACKENDS, ShardingPlan  # noqa: F401
+from .plan import BACKENDS, CompiledStep, ShardingPlan  # noqa: F401
 from .registry import (available_models, build_model,  # noqa: F401
                        register_model)
 from .session import Session, SessionConfig, SessionResult  # noqa: F401

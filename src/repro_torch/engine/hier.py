@@ -33,6 +33,7 @@ import dataclasses
 
 from repro_torch.core.taskpar import hier_shard, mtp_value_and_grad_dist
 
+from .plan import CompiledStep
 from .step import make_train_step, normalized_task_weights, with_grad_accum
 
 
@@ -76,9 +77,9 @@ class HierCompiledStep:
                 normalized_task_weights(self.n_tasks,
                                         self.spec.task_weights),
                 head_group=plan.head_group)
-            fn = self._groups[key] = make_train_step(
+            fn = self._groups[key] = CompiledStep(make_train_step(
                 with_grad_accum(grad_fn, self.spec.accum, axis=1),
-                self.spec.optimizer, norm_fn=plan.norm_fn())
+                self.spec.optimizer, norm_fn=plan.norm_fn()))
         return fn
 
     def __call__(self, state, batch):
@@ -116,7 +117,9 @@ class HierCompiledStep:
     # -- probe seams -----------------------------------------------------------
 
     def functions(self):
-        """Every group step function built so far on this rank."""
+        """Every group step function built so far on this rank, each a
+        ``CompiledStep`` (``Session.compiled_functions()`` hands them to a
+        recompile sanitizer)."""
         return tuple(self._groups.values())
 
     def cache_size(self) -> int:

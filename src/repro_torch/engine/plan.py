@@ -245,9 +245,9 @@ class ShardingPlan:
 
     def compile(self, step):
         """The one public way to build a step. Eager PyTorch compiles
-        nothing: a flat plan's step is returned as it is; hierarchical plans
-        take the ``HierStepSpec`` from ``make_step`` and return a
-        ``HierCompiledStep`` (same call signature)."""
+        nothing: a flat plan's step comes back as a ``CompiledStep`` around
+        it; hierarchical plans take the ``HierStepSpec`` from ``make_step``
+        and return a ``HierCompiledStep`` (same call signature)."""
         from .step import HierStepSpec
         if self.resolved_backend == "hier":
             from .hier import HierCompiledStep
@@ -256,4 +256,22 @@ class ShardingPlan:
             raise TypeError(f"a HierStepSpec can only be compiled by a hier "
                             f"plan (this plan resolves to "
                             f"'{self.resolved_backend}')")
-        return step
+        return CompiledStep(step)
+
+
+class CompiledStep:
+    """A step function as ``plan.compile`` returns it: called as the step
+    itself, with ``cache_size()`` the seam ``repro_torch.analysis.
+    RecompileSanitizer`` reads (``repro``'s ``CompiledStep.cache_size``).
+    Eager PyTorch builds no executable, so the one "compilation" is the
+    build: 1 from construction on, and a rebuilt step is a new object that
+    counts 1 again."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def __call__(self, state, batch):
+        return self.fn(state, batch)
+
+    def cache_size(self) -> int:
+        return 1

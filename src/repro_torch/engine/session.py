@@ -405,7 +405,19 @@ class Session:
             step = make_step(self.model, self.optimizer, self.plan,
                              accum=self.cfg.accum,
                              task_weights=self.task_weights)
-        self.step_fn = self.plan.compile(step)
+        self.compiled_step = self.step_fn = self.plan.compile(step)
+
+    def compiled_functions(self):
+        """The session's built step functions, re-read live — the probe seam
+        for ``repro_torch.analysis.RecompileSanitizer.track_session`` (a
+        step rebuilt by quarantine replaces ``compiled_step``, so trackers
+        must not cache the object; ``step_fn`` is the callable the loop
+        runs, which a caller may wrap). A hierarchical session gives one
+        step function per (heads, ranks) group built on this rank."""
+        fns = getattr(self.compiled_step, "functions", None)
+        if callable(fns):
+            return tuple(fns())
+        return (self.compiled_step,)
 
     @classmethod
     def from_config(cls, cfg: SessionConfig, **kw) -> "Session":
@@ -427,8 +439,9 @@ class Session:
             else (1.0,) * len(self.task_names)
         placement = _resolve_placement(placement, len(self.task_names),
                                        loads, self.cfg.seed)
-        self.state = self.step_fn.update_placement(placement, self.state)
-        self.plan = self.step_fn.plan
+        self.state = self.compiled_step.update_placement(placement,
+                                                         self.state)
+        self.plan = self.compiled_step.plan
         if self._prefetcher is not None:
             # read-ahead was sliced for the old placement: draw it again
             self._prefetcher.restore(self._prefetcher.state())

@@ -116,6 +116,14 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
+def cache_size() -> int:
+    """Kernel libraries loaded in this process: the seam
+    ``repro_torch.analysis.RecompileSanitizer`` reads (``track(_build)``) —
+    a library built or loaded again would count."""
+    with _lock:
+        return len(_libs)
+
+
 def check(lib: ctypes.CDLL, code: int, what: str):
     if code != 0:
         raise RuntimeError(f"{what}: CUDA error {code} "

@@ -57,13 +57,15 @@ def _resolve_blocks(block_e, block_h, A, E, H, *, bwd=False):
 
 
 def _lib(name, fn_name, n_ptr, n_int):
+    """``lib<name>.so`` with its launcher ``fn_name`` declared (``n_ptr``
+    pointers, ``n_int`` ints, the stream)."""
     lib = _build.load(name)
     fn = getattr(lib, fn_name)
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + \
             [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    return lib, fn
+    return lib
 
 
 def _ptr(t):
@@ -110,12 +112,12 @@ def _launch_fwd(h, pos, sr, dr, w0, b0, w1, b1, cd, block_e, block_h, *,
     if cd == torch.bfloat16:
         if splits not in (None, (1, 1)):
             raise ValueError(f"the bf16 forward is unsplit, got {splits}")
-        lib, fn = _lib("egnn_edge", "egnn_edge_fwd_bf16_launch", 13, 6)
-        code = fn(h.data_ptr(), pos.data_ptr(), sr.data_ptr(), dr.data_ptr(),
-                  w0.data_ptr(), b0.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-                  out.data_ptr(), pi.data_ptr(), pj.data_ptr(), s.data_ptr(),
-                  deg.data_ptr(), B, A, E, H, be, block_h,
-                  _build.stream_ptr(h))
+        lib = _lib("egnn_edge", "egnn_edge_fwd_bf16_launch", 13, 6)
+        code = lib.egnn_edge_fwd_bf16_launch(
+            h.data_ptr(), pos.data_ptr(), sr.data_ptr(), dr.data_ptr(),
+            w0.data_ptr(), b0.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+            out.data_ptr(), pi.data_ptr(), pj.data_ptr(), s.data_ptr(),
+            deg.data_ptr(), B, A, E, H, be, block_h, _build.stream_ptr(h))
         _build.check(lib, code, "egnn_edge_fwd_bf16_launch")
         _build.count_launch(egnn_edge_agg.bf16)
         return out, pi, pj, s, deg
@@ -124,12 +126,13 @@ def _launch_fwd(h, pos, sr, dr, w0, b0, w1, b1, cd, block_e, block_h, *,
         if proj > 1 else None
     out_part = torch.empty((fc1, B * A, H), dtype=f32, device=dev) \
         if fc1 > 1 else None
-    lib, fn = _lib("egnn_edge", "egnn_edge_fwd_launch", 15, 8)
-    code = fn(h.data_ptr(), pos.data_ptr(), sr.data_ptr(), dr.data_ptr(),
-              w0.data_ptr(), b0.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-              out.data_ptr(), pi.data_ptr(), pj.data_ptr(), s.data_ptr(),
-              deg.data_ptr(), _ptr(part), _ptr(out_part), B, A, E, H, be,
-              block_h, proj, fc1, _build.stream_ptr(h))
+    lib = _lib("egnn_edge", "egnn_edge_fwd_launch", 15, 8)
+    code = lib.egnn_edge_fwd_launch(
+        h.data_ptr(), pos.data_ptr(), sr.data_ptr(), dr.data_ptr(),
+        w0.data_ptr(), b0.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+        out.data_ptr(), pi.data_ptr(), pj.data_ptr(), s.data_ptr(),
+        deg.data_ptr(), _ptr(part), _ptr(out_part), B, A, E, H, be,
+        block_h, proj, fc1, _build.stream_ptr(h))
     _build.check(lib, code, "egnn_edge_fwd_launch")
     _build.count_launch(egnn_edge_agg)
     return out, pi, pj, s, deg
@@ -174,14 +177,15 @@ def egnn_edge_bwd(g, h, pos, src, dst, w0, w1, pi, pj, s, deg, *,
         if need_dpos else None
     w1_part = torch.empty((splits, H + 1, H), dtype=f32, device=dev) \
         if splits > 1 else None
-    lib, fn = _lib("egnn_edge_bwd", "egnn_edge_bwd_launch", 23, 8)
-    code = fn(g.data_ptr(), h.data_ptr(), pos.data_ptr(), src.data_ptr(),
-              dst.data_ptr(), w0.data_ptr(), w1.data_ptr(), pi.data_ptr(), pj.data_ptr(), s.data_ptr(), deg.data_ptr(),
-              dh.data_ptr(), _ptr(dpos), dw0.data_ptr(), db0.data_ptr(),
-              dw1.data_ptr(), db1.data_ptr(), ds.data_ptr(), dpi.data_ptr(),
-              dpj.data_ptr(), dw0d_part.data_ptr(), _ptr(dd2_part),
-              _ptr(w1_part), B, A, E, H, be, block_h, splits, int(bf16),
-              _build.stream_ptr(h))
+    lib = _lib("egnn_edge_bwd", "egnn_edge_bwd_launch", 23, 8)
+    code = lib.egnn_edge_bwd_launch(
+        g.data_ptr(), h.data_ptr(), pos.data_ptr(), src.data_ptr(),
+        dst.data_ptr(), w0.data_ptr(), w1.data_ptr(), pi.data_ptr(),
+        pj.data_ptr(), s.data_ptr(), deg.data_ptr(), dh.data_ptr(),
+        _ptr(dpos), dw0.data_ptr(), db0.data_ptr(), dw1.data_ptr(),
+        db1.data_ptr(), ds.data_ptr(), dpi.data_ptr(), dpj.data_ptr(),
+        dw0d_part.data_ptr(), _ptr(dd2_part), _ptr(w1_part), B, A, E, H, be,
+        block_h, splits, int(bf16), _build.stream_ptr(h))
     _build.check(lib, code, "egnn_edge_bwd_launch")
     _build.count_launch(egnn_edge_bwd.bf16 if bf16 else egnn_edge_bwd)
     return dh, dpos, dw0, db0, dw1, db1

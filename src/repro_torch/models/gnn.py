@@ -61,6 +61,7 @@ def segment_sum_nodes(messages, dst, n_nodes, *, edge_mask, impl="scatter",
     out = torch.zeros((B, n_nodes) + tuple(messages.shape[2:]),
                       dtype=messages.dtype, device=messages.device)
     b_idx = torch.arange(B, device=messages.device)[:, None].expand_as(dst)
+    # lint: allow(ATM001): no path held bitwise trains on "scatter"
     return out.index_put_((b_idx[keep], dst[keep].long()), messages[keep],
                           accumulate=True)
 

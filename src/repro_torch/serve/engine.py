@@ -137,10 +137,21 @@ class StreamPool:
             return self._streams[key]
 
     def __len__(self) -> int:
-        return len(self._streams)
+        with self._lock:
+            return len(self._streams)
 
 
 STREAMS = StreamPool()
+
+
+def _copied(device: torch.device):
+    """An event on ``device``'s current stream, marking the copies queued
+    before it (None off CUDA, where a copy has finished on return)."""
+    if device.type != "cuda":
+        return None
+    done = torch.cuda.Event()
+    done.record()
+    return done
 
 
 def _pinned(device) -> torch.device:
@@ -156,6 +167,20 @@ def _pinned(device) -> torch.device:
         if d.index is None:
             d = torch.device("cuda", torch.cuda.current_device())
     return d
+
+
+class _Forward:
+    """A serving session's forward as ``jit_functions()`` hands it out."""
+
+    def __init__(self, session):
+        self.session = session
+
+    def __call__(self, head: int, batch: dict, own_streams: bool = True):
+        return self.session._predict(head, batch, own_streams)
+
+    def cache_size(self) -> int:
+        """Bucket shapes the session has run (``_shapes_compiled``)."""
+        return len(self.session._shapes_compiled)
 
 
 class ServeSession:
@@ -216,6 +241,7 @@ class ServeSession:
             if d not in copies:
                 copies[d] = interop.to_torch(params, d)
                 if d.type == "cuda":    # the copies land before any stream
+                    # lint: allow(TRC003): once a card, building the session
                     torch.cuda.synchronize(d)
         fwd_heads = {k: v for k, v in copies[devices[0]]["heads"].items()
                      if k not in _NON_FORWARD_HEAD_KEYS}
@@ -348,9 +374,12 @@ class ServeSession:
         return len(self._shapes_compiled)
 
     def jit_functions(self):
-        """The session's forward callables (``repro``'s jit seam). PyTorch
-        runs eagerly, so there is no jit cache behind them."""
-        return (self._predict,)
+        """The session's forward callables (``repro``'s jit seam): one
+        ``_Forward``, called as ``_predict``, whose ``cache_size()`` is the
+        padded bucket shapes this session has run — the counterpart of
+        ``repro``'s ``_predict._cache_size()``, read by
+        ``repro_torch.analysis.RecompileSanitizer``."""
+        return (_Forward(self),)
 
     def stats(self) -> dict:
         """Metrics snapshot + shape-cache occupancy (plain dict)."""
@@ -431,12 +460,19 @@ class ServeSession:
                     outs.append(heads_mod.branch_apply(
                         ent.heads[head], feats, tb["node_mask"],
                         cfg=self.arch))
+            # every entry's copy back is queued before the host waits for
+            # the first (pinned host memory: the copies do not block)
             host = []
             for ent, (e, f) in zip(self._entries, outs):
                 with self._on(ent, own_streams):
-                    host.append((e.cpu().numpy(), f.cpu().numpy()))
-        return (np.concatenate([e for e, _ in host]),
-                np.concatenate([f for _, f in host]))
+                    host.append((e.to("cpu", non_blocking=True),
+                                 f.to("cpu", non_blocking=True),
+                                 _copied(ent.device)))
+            for _, _, done in host:
+                if done is not None:
+                    done.synchronize()
+        return (np.concatenate([e.numpy() for e, _, _ in host]),
+                np.concatenate([f.numpy() for _, f, _ in host]))
 
     def _executable(self, bucket: tuple, head: int):
         """The per-(bucket, head) cache entry: the forward with this head

@@ -227,8 +227,9 @@ class ReplicaServeSession:
 
     def jit_functions(self):
         """Every replica's forward callable, as
-        ``ServeSession.jit_functions`` gives them."""
-        return tuple(srv._predict for srv in self.replicas)
+        ``ServeSession.jit_functions`` gives them (each with the
+        ``cache_size()`` of its replica's shapes)."""
+        return tuple(f for srv in self.replicas for f in srv.jit_functions())
 
     def stats(self) -> dict:
         """Shared-metrics snapshot + aggregate shape-cache occupancy. The

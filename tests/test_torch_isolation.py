@@ -32,11 +32,14 @@ def test_port_imports_without_jax_or_repro():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     # every submodule was imported, the training, LM serving, serving
-    # scale-out, MoE / MLA and recurrent slices' among them
-    assert int(r.stdout.strip()) >= 77
+    # scale-out, MoE / MLA, recurrent and analysis slices' among them
+    assert int(r.stdout.strip()) >= 90
     for mod in ("models.moe", "configs.granite_moe_3b_a800m",
                 "configs.deepseek_v2_236b", "models.ssm",
-                "configs.zamba2_1_2b", "configs.xlstm_125m"):
+                "configs.zamba2_1_2b", "configs.xlstm_125m",
+                "analysis.findings", "analysis.baseline", "analysis.rules",
+                "analysis.lint", "analysis.recompile", "analysis.tsan",
+                "launch.memory"):
         assert (SRC / "repro_torch" / (mod.replace(".", "/") + ".py")
                 ).is_file(), mod
 

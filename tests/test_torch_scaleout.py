@@ -238,7 +238,8 @@ def test_session_on_a_one_device_mesh_serves(served):
         plan = srv.stats()["plan"]
         assert (plan["mode"], plan["devices"], plan["device"]) == \
             ("single", 1, "cpu")
-        assert srv.jit_functions() == (srv._predict,)
+        (fwd,) = srv.jit_functions()    # the forward, with its shape count
+        assert fwd.cache_size() == len(srv._shapes_compiled) == 1
     with pytest.raises(ValueError, match="not both"):
         ServeSession(params, CFG, spec=SPEC, mesh=mesh, device="cpu")
 
