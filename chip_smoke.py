@@ -73,7 +73,10 @@ Phases, each printing one JSON line:
      token-order sum and within the rounding bound of the one-hot
      product, in f32 and bf16 (``_check_embed``; so too in train_pipeline,
      gnn_bf16, finetune and lm_train); two 3-step runs from one seed
-     end with bitwise equal parameters;
+     end with bitwise equal parameters under each of ``"fused"``,
+     ``"scatter"``, ``"jnp"`` and ``"pallas"`` (``TRAIN_REPLAY_IMPLS``: on
+     the card ``"scatter"`` and ``"pallas"`` sum with #2 and every node
+     gather's backward sums with #2 in edge order);
      ``ServeSession.from_checkpoint`` serves requests from the written
      checkpoint;
   4b. train_pipeline: the multi-source pre-training path at the same
@@ -207,11 +210,12 @@ Phases, each printing one JSON line:
      backward was before, ``index_add_`` and the byte bound;
   6c. lm_moe: the MoE family at full width, weights drawn on the card
      from a seed, bf16 compute: granite-moe-3b-a800m (d=1536, 24/8 heads
-     of 64, 40 experts top-8 of width 512, fp32 weights) cut to 16 of its
+     of 64, 40 experts top-8 of width 512, fp32 weights) cut to 8 of its
      32 layers (``GRANITE_LAYERS``) and
      deepseek-v2-236b (d=5120, 128 heads, MLA latent 512 / q 1536, rope
      64 + nope 128, 160 experts top-6 of width 1536 plus 2 shared, bf16
-     weights) cut to 4 layers served and 1 trained. Each is served by
+     weights) cut to 2 layers served and 1 trained. Each
+     is served by
      ``greedy_generate(impl="pallas")`` (B=8, a 1024-token prompt, 32 new)
      twice, bitwise equal, launches counted from zero (#5 once a layer a
      prefill; #6 once a layer a decode step on granite's GQA, never on
@@ -233,7 +237,8 @@ Phases, each printing one JSON line:
      drawn on the card from a seed, bf16 compute: zamba2-1.2b (38
      layers, d=2048: Mamba2 blocks of 64 heads and state 64, and one
      shared attention block, 32 heads of 64, window 4096, applied at 6
-     layers through per-layer LoRA adapters; served at full depth) and
+     layers through per-layer LoRA adapters; served at 18 layers, three
+     applications: ``REC_ZAMBA_LAYERS``) and
      xlstm-125m (d=768, mLSTM and sLSTM in turn; 2 of its 12 layers,
      ``REC_XLSTM_LAYERS``: its host-bound scans run no kernel of the
      port). Each is served by
@@ -258,8 +263,10 @@ Phases, each printing one JSON line:
      phases freed and the peak counter reset; the ``memory`` line gives
      the bytes still allocated at each phase's start, before and after;
   6e. lm_frontends: the modality frontends and the encoder-decoder at
-     full width and depth, fp32 weights drawn on the card from a seed,
-     bf16 compute: internvl2-1b (24 layers, d=896, 14 / 2 heads of 64,
+     full width, cut in depth (``FRONT_SERVE_LAYERS``:
+     internvl2 12 of its 24 layers, seamless 6 + 6 of its 12 + 12), fp32
+     weights drawn on the card from a seed, bf16 compute: internvl2-1b
+     (24 layers, d=896, 14 / 2 heads of 64,
      qkv bias, a vision projector putting 256 seeded frames of width 1024
      before the text) and seamless-m4t-medium (12 encoder and 12 decoder
      layers, d=1024, 16 heads of 64, layernorm, an audio projector, 4096
@@ -291,7 +298,7 @@ Phases, each printing one JSON line:
      window layers (1024) to one full-attention layer, vocab 262,144;
      11.77 B parameters) and stablelm-12b (40 layers, d=5120, 32 / 8
      heads of 160, vocab 100,352; 11.63 B). Each served at full width, cut
-     in depth to 24 / 20 layers (``DENSE_SERVE_LAYERS``: the contract's
+     in depth to 12 / 12 layers (``DENSE_SERVE_LAYERS``: the contract's
      time), by ``greedy_generate(impl="pallas")`` at (a) B=8, 1024 + 32,
      twice, bitwise, and gemma3 at (b) B=1, 4200 + 16 past its window (#5
      once a layer a prefill, #6 once a layer a step); the kernel path's
@@ -335,13 +342,33 @@ Phases, each printing one JSON line:
      step with the same events and checkpoint listing; gloo's all-reduce
      ms a step a rank, each case's peak, and the job's startup, ranks and
      teardown seconds (time-shared, not a scaling result);
+  6h. dryrun: one rank's program of a sharded plan, counted and run
+     (``repro_torch.launch.dryrun``). The process opens a fake world (the
+     ``"fake"`` process-group backend: collectives move nothing) as rank 0
+     of (a) the paper's mesh, 100 x 5 = 500 ranks, hydragnn-gfm at full
+     width, ``"par"``, ``"fused"``, one graph a task a rank, and (b) the
+     16 x 16 production pod, granite-moe-3b-a800m (``fsdp=True``) at
+     ``train_4k`` cut to ``DRY_LM_LAYERS`` = 3 of 32 layers, 16 x 4096
+     tokens a rank at accum 2; each rank's step is counted on fake tensors
+     (FLOPs, op bytes, collectives, ``MemTracker``'s peak; (b)'s fitted
+     from 1 and 2 layers, as the sweep fits every deep model), then run on
+     the card at full depth with seeded tensors and the kernels. Signals: the rank's state
+     bytes (params, m, v) equal on the card, in the count and by
+     ``param_bytes_per_device``'s sharded count; the collectives' kinds and
+     counts equal; the measured peak within ``DRY_PEAK_BAND`` of the
+     static one; a finite loss; launches #3 4, #4 4, #1 1 for (a) and #1
+     one a microbatch for (b). train_dist's case ``lm_spec`` trains
+     qwen1.5-0.5b on a ``spec_fn`` plan over a (1, 2) mesh (each rank its
+     blocks: 16 heads split head-aligned) against one process, the bytes
+     a rank holds equal to its blocks';
   7. the ``kernels`` summary line (#1 ``segment_sum_2d`` apart from #2
      ``segment_sum`` since #1 runs every embedding's backward), the
      ``nvidia-smi`` line, and the final ``{"ok": true, "device": ...}``
      line.
 
-``--phase analysis``, ``--phase train_mtp`` or ``--phase train_dist``
-builds the kernels and runs that phase alone (no contract line). ``--profile`` adds device time
+``--phase analysis``, ``train_mtp``, ``train_dist``, ``train`` or
+``dryrun`` builds the kernels and runs that phase alone (no contract
+line). ``--profile`` adds device time
 by kernel (``torch.profiler``) for one
 served GNN batch, one training step, one LM prefill and one decode step,
 and the attention sweep: the device time of #5 over masks (beside SDPA on
@@ -440,6 +467,8 @@ BF16_GRAD_NORM_TOL = 0.1           # bf16 compute, each gradient leaf's
                                    # leaf reads ~1
 N_REQUESTS = 80                    # mixed-head requests per serving pass
 TRAIN_STEPS = 10
+TRAIN_REPLAY_IMPLS = ("fused", "scatter", "jnp", "pallas")  # phase train's
+                                   # seed replay, two 3-step runs each
 DEVICE = "cuda"                    # the serve_scaleout, train and lm_serve
                                    # phases' device
 
@@ -1514,10 +1543,11 @@ def _check_embed(torch, calls, what):
     return rec
 
 
-def _train_session(torch, sources, steps, ckpt=None, cfg=None):
+def _train_session(torch, sources, steps, ckpt=None, cfg=None,
+                   impl="fused"):
     from repro_torch.configs.hydragnn_gfm import CONFIG
     from repro_torch.engine import Session, SessionConfig
-    cfg = (cfg or CONFIG).replace(segment_sum_impl="fused")
+    cfg = (cfg or CONFIG).replace(segment_sum_impl=impl)
     scfg = SessionConfig(model="gfm-mtl", arch=cfg, steps=steps,
                          batch_per_task=8, lr=1e-3, warmup=2, log_every=1,
                          eval_every=10 ** 9, seed=0, ckpt_path=ckpt,
@@ -1577,13 +1607,17 @@ def train_phase(torch, counters):
     for impl in ("fused", "jnp"):
         model = make_gfm_mtl(CONFIG.replace(segment_sum_impl=impl),
                              len(sources))
+        for c in counters.values():
+            c.launches = 0
         (loss, metrics, g), calls = _capture_embed(
             lambda: multitask_grad_fn(model, len(sources))(params, batch))
         grads[impl] = (float(loss), interop.leaves(g))
         if impl == "fused":
             embed_grad = _check_embed(torch, calls, "train")
-        elif calls:
-            fail("train: the plain path launched #1")
+        elif calls or any(c.launches for c in counters.values()):
+            # the plain path sums with the one-hot product throughout
+            fail(f"train: the plain path launched kernels "
+                 f"{ {k: c.launches for k, c in counters.items()} }")
     torch.cuda.synchronize()
     worst_leaf, worst = None, 0.0
     for k, ref in grads["jnp"][1].items():
@@ -1598,15 +1632,27 @@ def train_phase(torch, counters):
     if not loss_rel <= GRAD_TOL:
         fail(f"train loss fused vs plain: relative error {loss_rel}")
 
-    # bitwise replay: two 3-step runs from one seed
-    ends = []
-    for _ in range(2):
-        with _train_session(torch, sources, 3) as s:
-            ends.append(interop.leaves(s.run().params))
-    torch.cuda.synchronize()
-    if not all(torch.equal(ends[0][k], ends[1][k]) for k in ends[0]):
-        fail("train: two 3-step runs from one seed end with different "
-             "parameters")
+    # bitwise replay: two 3-step runs from one seed under every
+    # aggregation impl (each sums in a fixed order on the card: #3/#4 for
+    # "fused", #2 for "scatter" and "pallas" and every node gather's
+    # backward, the one-hot product for "jnp")
+    replay = {}
+    for impl in TRAIN_REPLAY_IMPLS:
+        ends = []
+        for c in counters.values():
+            c.launches = 0
+        for _ in range(2):
+            with _train_session(torch, sources, 3, impl=impl) as s:
+                ends.append(interop.leaves(s.run().params))
+        # lint: allow(TRC003): each impl's comparison reads back anyway
+        torch.cuda.synchronize()
+        same = all(torch.equal(ends[0][k], ends[1][k]) for k in ends[0])
+        replay[impl] = {"bitwise": same, "launches": {
+            k: c.launches for k, c in counters.items()}}
+        if not same:
+            fail(f"train: two 3-step runs from one seed under impl "
+                 f"'{impl}' end with different parameters")
+        del ends
 
     # serve from the written checkpoint
     cfg = CONFIG.replace(segment_sum_impl="fused")
@@ -1630,7 +1676,104 @@ def train_phase(torch, counters):
                               "loss_rel_err": loss_rel,
                               "tolerance": GRAD_TOL},
             "embed_grad": embed_grad,
-            "replay_bitwise": True, "served_from_ckpt": len(served)}
+            "replay_bitwise": True, "replay": replay,
+            "served_from_ckpt": len(served)}
+
+
+# ---------------------------------------------------------------------------
+# phase dryrun: one rank's program of a sharded plan, counted and run
+# ---------------------------------------------------------------------------
+
+DRY_LM = "granite-moe-3b-a800m"     # (b): fsdp=True, 40 experts (EP needs
+                                    # 16 | 40: TP over the expert hidden)
+DRY_LM_LAYERS = 3                   # (b) of 32 layers: the count fitted
+                                    # from 1 and 2, held at 3 on the card
+DRY_PEAK_BAND = (0.9, 1.25)         # measured / static peak, each case
+
+
+def _dry_case(torch, counters, arch, shape, mesh, cfg=None):
+    """One dry-run entry counted on fake tensors and run materialised on
+    the card, with the launch counts zeroed just before."""
+    from repro_torch.launch.memory import param_bytes_per_device as nbytes
+    from repro_torch.launch import dryrun
+    _free(torch)
+    for c in counters.values():
+        c.launches = 0
+    keep = {}
+    t0 = time.perf_counter()
+    e = dryrun.run_one(arch, shape, mesh, device=DEVICE, cfg_override=cfg,
+                       materialize_too=True, keep=keep)
+    wall = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    name = f"dryrun {arch} {shape} {mesh}"
+    if e["status"] != "ok":
+        fail(f"{name}: {e.get('error')}\n{e.get('trace', '')}")
+    mem, mat = e["memory"], e["materialized"]
+    state = keep["args"][0]
+    real = nbytes(state.params) + nbytes(state.opt_state.m) + \
+        nbytes(state.opt_state.v)
+    static = mem["param_bytes"] + mem["moment_bytes"]
+    model = 3 * mem["param_bytes_model"]
+    if not real == static == model:
+        fail(f"{name}: state bytes {real} on the card, {static} counted, "
+             f"{model} by param_bytes_per_device")
+    ratio = mat["peak_bytes"] / mem["peak_bytes"]
+    if not DRY_PEAK_BAND[0] <= ratio <= DRY_PEAK_BAND[1]:
+        fail(f"{name}: peak {mat['peak_bytes']} B is {ratio} x the static "
+             f"{mem['peak_bytes']} B, outside {DRY_PEAK_BAND}")
+    kinds = {k: v["count"] for k, v in mat["collectives"].items()}
+    want = {k: v["count"] for k, v in e["hlo"]["collectives"].items()}
+    if kinds != want:
+        fail(f"{name}: collectives {kinds} on the card, {want} counted")
+    loss = float(keep["out"][1].loss)
+    if not math.isfinite(loss):
+        fail(f"{name}: loss {loss}")
+    del keep, state
+    return {"static": {"memory": mem, "flops": e["hlo"]["flops"],
+                       "traffic_bytes": e["hlo"]["traffic_bytes"],
+                       "collectives": e["hlo"]["collectives"],
+                       "traced": e["hlo"]["traced"]},
+            "materialized": {k: mat[k] for k in (
+                "peak_bytes", "peak_bytes_tracked", "step_s",
+                "collectives", "flops_visible")},
+            "state_bytes": real, "peak_ratio": ratio, "loss": loss,
+            "launches": launches, "wall_s": wall,
+            **{k: e[k] for k in ("kind", "mtp_mode", "accum", "accum_run")
+               if k in e}}
+
+
+def _dry_lm_cfg():
+    from repro_torch.configs import get
+    return get(DRY_LM).replace(n_layers=DRY_LM_LAYERS)
+
+
+def dryrun_phase(torch, counters):
+    """Phase dryrun (see the module docstring): (a) hydragnn-gfm, rank 0
+    of the paper mesh in a fake world of 500 ranks, ``"par"``; (b)
+    ``DRY_LM`` at ``train_4k``, rank 0 of the 16 x 16 production mesh,
+    cut to ``DRY_LM_LAYERS``."""
+    out = {"phase": "dryrun", "peak_band": list(DRY_PEAK_BAND),
+           "tolerance": {"state_bytes": "exact", "collectives": "kinds "
+                         "and counts exact", "peak": "measured / static "
+                         "within peak_band"}}
+    a = _dry_case(torch, counters, "hydragnn-gfm", "train_4k", "paper")
+    want = {"egnn_edge": 4, "egnn_edge_bwd": 4, "segment_sum": 0,
+            "segment_sum_2d": 1}
+    if a["launches"] != want or a.get("mtp_mode") != "par":
+        fail(f"dryrun (a): mode {a.get('mtp_mode')}, launches "
+             f"{a['launches']}, the design implies 'par' and {want}")
+    out["gfm_paper"] = a
+    b = _dry_case(torch, counters, DRY_LM, "train_4k", "pod", _dry_lm_cfg())
+    want = {"egnn_edge": 0, "egnn_edge_bwd": 0, "segment_sum": 0,
+            "segment_sum_2d": b["accum_run"]}
+    if b["launches"] != want:
+        fail(f"dryrun (b): launches {b['launches']}, the design implies "
+             f"{want} (one embedding backward a microbatch)")
+    b["layers"] = DRY_LM_LAYERS
+    out["lm_fsdp"] = b
+    out["launches"] = {k: a["launches"][k] + b["launches"][k]
+                       for k in a["launches"]}
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3253,8 +3396,9 @@ MOE_ND = (2, 248, 8)                # decode vs the full forward: B, prefill,
                                     # 256 tokens are one 512-token group)
 MOE_TRAIN_B = 2                     # x LM_S tokens a step
 MOE_TRAIN_STEPS = 3
-DEEPSEEK_LAYERS = (4, 1)            # served, trained (of 60: 7.9 GB a layer)
-GRANITE_LAYERS = 16                 # served and trained (of 32: the
+DEEPSEEK_LAYERS = (2, 1)            # served, trained (of 60: 7.9 GB a
+                                    # layer; the contract's time)
+GRANITE_LAYERS = 8                  # served and trained (of 32: the
                                     # contract's time limit)
 
 
@@ -3553,11 +3697,11 @@ def _embed_times(torch, g, ids, V):
 
 def lm_moe_phase(torch, counters):
     """granite-moe-3b-a800m at full width (d=1536, 24/8 heads of 64, 40
-    experts top-8 of width 512, fp32 weights, bf16 compute) cut to 16 of
-    its 32 layers, and deepseek-v2-236b at full width (d=5120, 128 heads, MLA
-    latent 512 / q 1536, rope 64 + nope 128, 160 experts top-6 of width
-    1536 plus 2 shared, bf16 weights) cut to 4 layers served and 1
-    trained; weights drawn on the card from a seed."""
+    experts top-8 of width 512, fp32 weights, bf16 compute) cut to
+    ``GRANITE_LAYERS`` of its 32 layers, and deepseek-v2-236b at full
+    width (d=5120, 128 heads, MLA latent 512 / q 1536, rope 64 + nope 128,
+    160 experts top-6 of width 1536 plus 2 shared, bf16 weights) cut to
+    ``DEEPSEEK_LAYERS``; weights drawn on the card from a seed."""
     out = {"phase": "lm_moe", "compute_dtype": "bfloat16",
            "serve_impl": "pallas", "train_impl": "chunked",
            "tolerance": {"teacher_forced": f"{LM_TOL_BF16} x max|logit|",
@@ -3600,6 +3744,10 @@ REC_TRAIN_STEPS = 3
 REC_TRAIN_LAYERS = {"zamba2-1.2b": 12}  # trained cut in depth (two shared-
                                     # attention applications), served at
                                     # full depth
+REC_ZAMBA_LAYERS = 18               # zamba2 served at three of its six
+                                    # units of 38 layers (three shared-
+                                    # attention applications: the
+                                    # contract's time)
 REC_XLSTM_LAYERS = 2                # xlstm served and trained at 2 of 12
                                     # layers (one mLSTM / sLSTM pair): no
                                     # kernel of the port is on its path, and
@@ -3619,10 +3767,10 @@ def _tick(msg):
 
 
 def _recurrent_configs():
-    """zamba2-1.2b at full width and depth, xlstm-125m at full width cut to
-    ``REC_XLSTM_LAYERS``."""
+    """zamba2-1.2b at full width cut to ``REC_ZAMBA_LAYERS``, xlstm-125m at
+    full width cut to ``REC_XLSTM_LAYERS``."""
     from repro_torch.configs import xlstm_125m, zamba2_1_2b
-    return [zamba2_1_2b.CONFIG,
+    return [zamba2_1_2b.CONFIG.replace(n_layers=REC_ZAMBA_LAYERS),
             xlstm_125m.CONFIG.replace(n_layers=REC_XLSTM_LAYERS)]
 
 
@@ -3906,15 +4054,21 @@ FRONT_TRAIN = {"internvl2-1b": (8, 768),       # B, text tokens a sequence
                                     # at B=2 x 4096 frames
 FRONT_TRAIN_LAYERS = {"seamless-m4t-medium": 6}  # trained cut in depth
                                     # (6 of 12 decoder and 6 of 12 encoder
-                                    # layers), served at full depth
+                                    # layers)
+FRONT_SERVE_LAYERS = {"internvl2-1b": 12,        # of 24 and of 12 + 12:
+                      "seamless-m4t-medium": 6}  # the contract's time
 FRONT_TRAIN_STEPS = 3
 FRONT_SOURCE_ROWS = 16              # sequences in each training source
 
 
 def _frontend_configs():
-    """internvl2-1b and seamless-m4t-medium at full width and depth."""
+    """internvl2-1b and seamless-m4t-medium at full width, cut in depth to
+    ``FRONT_SERVE_LAYERS`` (seamless: decoder and encoder alike)."""
     from repro_torch.configs import internvl2_1b, seamless_m4t_medium
-    return [internvl2_1b.CONFIG, seamless_m4t_medium.CONFIG]
+    i, s = internvl2_1b.CONFIG, seamless_m4t_medium.CONFIG
+    cut = FRONT_SERVE_LAYERS
+    return [i.replace(n_layers=cut[i.name]),
+            s.replace(n_layers=cut[s.name], n_enc_layers=cut[s.name])]
 
 
 def _frames(torch, B, n, seed):
@@ -4203,8 +4357,9 @@ def lm_frontends_phase(torch, counters):
     """internvl2-1b (24 layers, d=896, 14/2 heads of 64, a vision
     projector's 256 media before the text) and seamless-m4t-medium (12
     encoder and 12 decoder layers, d=1024, 16 heads of 64, an audio
-    projector, cross-attention to 4096 frames) at full width and depth,
-    fp32 weights drawn on the card from a seed, bf16 compute."""
+    projector, cross-attention to 4096 frames) at full width, cut in
+    depth to ``FRONT_SERVE_LAYERS``, fp32 weights drawn on the card from a
+    seed, bf16 compute."""
     out = {"phase": "lm_frontends", "compute_dtype": "bfloat16",
            "serve_impl": "pallas", "train_impl": "chunked",
            "tolerance": {"teacher_forced": f"{LM_TOL_BF16} x max|logit|",
@@ -4241,8 +4396,8 @@ DENSE_SERVE = {"a": (8, 1024, 32),  # B, prompt, new tokens: lm_serve's (a)
 DENSE_TF_STEPS = {"a": 8, "b": 4}   # teacher-forced decode steps
 DENSE_ND = (2, 248, 8)              # decode vs the full forward under
                                     # gemma3's window: B, prefill, steps
-DENSE_SERVE_LAYERS = {"gemma3-12b": 24,     # four 5:1 units of 48 layers
-                      "stablelm-12b": 20}   # of 40: the contract's time
+DENSE_SERVE_LAYERS = {"gemma3-12b": 12,     # two 5:1 units of 48 layers
+                      "stablelm-12b": 12}   # of 40: the contract's time
 DENSE_TRAIN_LAYERS = {"gemma3-12b": 6,      # one 5:1 unit of 48 layers
                       "stablelm-12b": 8}    # of 40: each cut in depth only
 DENSE_TRAIN_B = 2                   # x LM_S tokens a step
@@ -4311,7 +4466,7 @@ def _dense_teacher_forced(torch, params, cfg, B, S, steps, seed, what):
 
 
 def _dense_serve(torch, cfg, counters):
-    """Serve ``cfg`` at full width and depth, weights drawn on the card:
+    """Serve ``cfg`` (full width, cut in depth) with weights drawn on the card:
     run (a) twice (bitwise) and, where the config has a window, run (b)
     past it; the kernel path's teacher-forced logits against the plain
     path's at both runs' shapes and against teacher forcing (gated under
@@ -4427,7 +4582,7 @@ def lm_dense12b_phase(torch, counters):
     window layers (1024) to one full-attention layer, vocab 262,144, θ 1e6)
     and stablelm-12b (40 layers, d=5120, 32 / 8 heads of 160, vocab
     100,352) at full width, served cut in depth to ``DENSE_SERVE_LAYERS``
-    (24 / 20) and trained cut to ``DENSE_TRAIN_LAYERS``; fp32 weights
+    (12 / 12) and trained cut to ``DENSE_TRAIN_LAYERS``; fp32 weights
     drawn on the card from a seed, bf16 compute."""
     out = {"phase": "lm_dense12b", "compute_dtype": "bfloat16",
            "serve_impl": "pallas", "train_impl": "chunked",
@@ -4464,7 +4619,9 @@ def lm_dense12b_phase(torch, counters):
 DIST_WORLD = 2                      # ranks of the one job, on the one card
 DIST_STEPS = 2                      # steps of each case (a)-(d): at 3,
                                     # lm-mtl's rounding drift reached 1.67
-                                    # x the tolerance (PERF.md §6)
+                                    # x the tolerance; one process summing
+                                    # in the ranks' order drifts the same
+                                    # (PERF.md §7)
 DIST_LM = (2, 512)                  # a rank's LM rows a step: B x S tokens
 DIST_MOE_LAYERS = 2                 # granite-moe trained at 2 of 32 layers
 DIST_SOAK_STEPS = 12                # accepted steps of the soak (e)
@@ -4472,6 +4629,61 @@ DIST_TIMEOUT_S = 600                # the job, spawn to exit
 DIST_V_TOL = 1e-3                   # relative: the sum of AdamW's v (a
                                     # gradient off by c moves it by c^2)
 DIST_CASES = ("finetune", "lm", "lm_accum2", "lm_mtl", "moe")
+DIST_SPEC_MESH = (1, 2)             # (f): qwen's spec_fn plan, (data, model)
+
+
+def _spec_lm(torch, spec, device, mesh=None):
+    """(f) of phase train_dist: qwen1.5-0.5b ``lm`` at full width (f32
+    compute) on a plan whose ``spec_fn`` cuts its leaves over ``mesh``'s
+    ``model`` axis (16 heads: head-aligned), ``spec["steps"]`` steps of
+    ``DIST_LM`` rows from a seeded generator; ``mesh`` None is the one
+    process the ranks are held to. Returns the losses, the sum of AdamW's
+    v, the full params' fingerprint after every step and, on a rank, the
+    bytes it holds beside its blocks' count."""
+    from repro_torch import interop
+    from repro_torch.configs.sharding import make_spec_fn
+    from repro_torch.launch.memory import param_bytes_per_device as nbytes
+    from repro_torch.engine import (ShardingPlan, TrainState, build_model,
+                                    make_step)
+    from repro_torch.optim import adamw
+    cfg = spec["qwen"]
+    B, S = spec["lm"]
+    dev = torch.device(device)
+    model = build_model("lm", cfg)
+    opt = adamw(3e-4, weight_decay=0.01, grad_clip=1.0)
+    plan = None if mesh is None else ShardingPlan(
+        mesh=mesh, spec_fn=make_spec_fn(cfg, mesh))
+    full = model.init(0, device=dev)
+    layout = {} if plan is None else plan.layout(full)
+    params = full if plan is None else plan.shard_params(full)
+    out = {}
+    if plan is not None:
+        out["held_bytes"] = 3 * nbytes(params)
+        out["blocks_bytes"] = 3 * nbytes(
+            full, specs={p: s for p, (_, s) in layout.items()}, mesh=mesh)
+        out["cut_leaves"] = len(layout)
+    del full
+    state = TrainState.create(params, opt)
+    step = make_step(model, opt, plan)
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    losses, prints = [], []
+    for _ in range(spec["steps"]):
+        toks = torch.randint(0, cfg.vocab, (2, B, S), generator=g,
+                             device=dev).to(torch.int32)
+        batch = {"tokens": toks[0], "labels": toks[1]}
+        if plan is not None:
+            batch = plan.shard_batch(batch, device=dev)
+        state, o = step(state, batch)
+        losses.append(float(o.loss))
+        whole = state.params if plan is None else plan.gather(state.params,
+                                                               layout)
+        prints.append(_fingerprint(torch, whole))
+    v = state.opt_state.v if plan is None else plan.gather(
+        state.opt_state.v, layout)
+    out.update(losses=losses, fingerprints=prints, v_sum=float(sum(
+        x.double().sum() for x in interop.leaves(v).values())))
+    return out
 
 
 def _dist_spec():
@@ -4699,6 +4911,16 @@ def _dist_rank(rank, world, spec, device):
             out["cases"][case] = run
             del sess, result
             _rank_free(torch, dev)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        for c in counters.values():
+            c.launches = 0
+        run = _spec_lm(torch, spec, device, make_host_mesh(*DIST_SPEC_MESH))
+        run.update(launches={k: c.launches for k, c in counters.items()},
+                   peak_mem_bytes=torch.cuda.max_memory_allocated(dev)
+                   if dev.type == "cuda" else None)
+        out["cases"]["lm_spec"] = run
+        _rank_free(torch, dev)
         out["soak"] = _dist_soak(torch, spec, device, mesh, counters, dev)
     finally:
         dist.all_reduce = real
@@ -4758,6 +4980,9 @@ def train_dist_phase(torch, device=DEVICE, spec=None):
         del sess, res
         if device == "cuda":
             _free(torch)
+    refs["lm_spec"] = _spec_lm(torch, spec, device)
+    if device == "cuda":
+        _free(torch)
     out["reference_s"] = time.perf_counter() - t0
     shutil.rmtree(spec["soak_dir"], ignore_errors=True)
     rdzv = ROOT / "build" / "chip_smoke"
@@ -4823,6 +5048,10 @@ def train_dist_phase(torch, device=DEVICE, spec=None):
              "allreduce_ms_per_step": r["allreduce_s"] * 1e3
              / spec["steps"], "heads": r["heads"]} for r in runs])
         out["cases"][case] = row
+    out["cases"]["lm_spec"] = row = _spec_check(spec, ranks, refs, device,
+                                                off, launches)
+    print(f"chip_smoke: train_dist lm_spec: {json.dumps(row)}",
+          file=sys.stderr, flush=True)
     if off:
         fail("; ".join(off))
     out["soak"] = _dist_soak_check(spec, ranks, refs["soak"], device,
@@ -4830,6 +5059,40 @@ def train_dist_phase(torch, device=DEVICE, spec=None):
     out["launches"] = launches
     shutil.rmtree(spec["soak_dir"], ignore_errors=True)
     return out
+
+
+def _spec_check(spec, ranks, refs, device, off, launches) -> dict:
+    """(f): the ranks' losses and v against one process, params equal
+    across ranks after every step, a rank's bytes equal to its blocks',
+    one embedding backward (#1) a step on the card."""
+    name, ref = "train_dist lm_spec", refs["lm_spec"]
+    runs = [r["cases"]["lm_spec"] for r in ranks]
+    worst = max(_close_rows([r["losses"]], [ref["losses"]]) for r in runs)
+    v_err = max(abs(r["v_sum"] - ref["v_sum"]) for r in runs) / \
+        abs(ref["v_sum"])
+    if not worst <= 1.0:
+        off.append(f"{name}: losses off the one-process step's by {worst} "
+                   "x the tolerance")
+    if not v_err <= DIST_V_TOL:
+        off.append(f"{name}: AdamW's second moments sum to {v_err} "
+                   "(relative) off the one-process step's")
+    _dist_agree(name, runs, spec["steps"])
+    for i, r in enumerate(runs):
+        if r["held_bytes"] != r["blocks_bytes"]:
+            fail(f"{name} rank {i}: holds {r['held_bytes']} B, its blocks "
+                 f"are {r['blocks_bytes']} B")
+        want = dict(_dist_launches(spec, "lm", device))
+        if r["launches"] != want:
+            fail(f"{name} rank {i}: launches {r['launches']}, the design "
+                 f"implies {want}")
+        for k in launches:
+            launches[k] += r["launches"][k]
+    return {"mesh": list(DIST_SPEC_MESH), "loss_err_vs_tol": worst,
+            "losses": runs[0]["losses"], "reference": ref["losses"],
+            "v_sum_rel_err": v_err, "cut_leaves": runs[0]["cut_leaves"],
+            "held_bytes": [r["held_bytes"] for r in runs],
+            "launches_per_rank": runs[0]["launches"],
+            "peak_mem_bytes": [r["peak_mem_bytes"] for r in runs]}
 
 
 def _dist_agree(name, runs, steps):
@@ -5995,7 +6258,7 @@ def main():
                          "for it and for this checkout in turns: it, this, "
                          "this, it")
     ap.add_argument("--phase", choices=("analysis", "train_mtp",
-                                        "train_dist"),
+                                        "train_dist", "dryrun", "train"),
                     help="only build the kernels and run this phase, then "
                          "exit; no contract line")
     ap.add_argument("--once", action="store_true", help=argparse.SUPPRESS)
@@ -6025,8 +6288,14 @@ def main():
           "built": build["built"], "src": str(src)})
     if args.phase:
         _phase_start(torch, args.phase)
+        counters = {"egnn_edge": edge_ops.egnn_edge_agg,
+                    "egnn_edge_bwd": edge_ops.egnn_edge_bwd,
+                    "segment_sum": ss_ops.segment_sum,
+                    "segment_sum_2d": ss_ops.segment_sum.two_d}
         emit({"analysis": analysis_phase, "train_mtp": train_mtp_phase,
-              "train_dist": train_dist_phase}[args.phase](torch))
+              "train_dist": train_dist_phase,
+              "dryrun": lambda t: dryrun_phase(t, counters),
+              "train": lambda t: train_phase(t, counters)}[args.phase](torch))
         return
     if args.sweep:
         emit(edge_sweep(torch))
@@ -6129,6 +6398,9 @@ def main():
     _phase_start(torch, "train_dist")
     dist_ = train_dist_phase(torch)
     emit(dist_)
+    _phase_start(torch, "dryrun")
+    dry = dryrun_phase(torch, gnn_counters)
+    emit(dry)
     _phase_start(torch, "end")
     emit({"phase": "memory", "at_phase_start": MEMORY})
     # #1 on each training path's own embedding cotangent, at its shape
@@ -6177,7 +6449,10 @@ def main():
         "segment_sum": {"serve": serve["pallas"]["launches"]["segment_sum"],
                         "serve_scaleout":
                         scaleout["launches"]["segment_sum"],
-                        "gnn_bf16": s16["pallas"]["launches"]["segment_sum"]},
+                        "gnn_bf16": s16["pallas"]["launches"]["segment_sum"],
+                        "train_replay": sum(
+                            r["launches"]["segment_sum"]
+                            for r in train["replay"].values())},
         "egnn_edge_fused": {"serve": serve["fused"]["launches"]["egnn_edge"],
                             "serve_scaleout":
                             scaleout["launches"]["egnn_edge"],
@@ -6188,7 +6463,8 @@ def main():
                             "finetune":
                             fine["pretrain"]["launches"]["egnn_edge"]
                             + fine["launches"]["egnn_edge"],
-                            "train_dist": dist_["launches"]["egnn_edge"]},
+                            "train_dist": dist_["launches"]["egnn_edge"],
+                            "dryrun": dry["launches"]["egnn_edge"]},
         "egnn_edge_fused_bwd": {
             "train": train["launches"]["egnn_edge_bwd"],
             "train_pipeline": pipe["launches"]["egnn_edge_bwd"],
@@ -6196,7 +6472,8 @@ def main():
             "train_mtp": mtp["launches"]["egnn_edge_bwd"],
             "finetune": fine["pretrain"]["launches"]["egnn_edge_bwd"]
             + fine["launches"]["egnn_edge_bwd"],
-            "train_dist": dist_["launches"]["egnn_edge_bwd"]},
+            "train_dist": dist_["launches"]["egnn_edge_bwd"],
+            "dryrun": dry["launches"]["egnn_edge_bwd"]},
         "egnn_edge_fused_bf16": {
             "gnn_bf16": s16["fused"]["launches"]["egnn_edge_bf16"]
             + t16["egnn_edge_bf16"]},
@@ -6214,7 +6491,8 @@ def main():
             "lm_recurrent": rec["launches"]["segment_sum_2d"],
             "lm_frontends": front["launches"]["segment_sum_2d"],
             "lm_dense12b": dense["launches"]["segment_sum_2d"],
-            "train_dist": dist_["launches"]["segment_sum_2d"]},
+            "train_dist": dist_["launches"]["segment_sum_2d"],
+            "dryrun": dry["launches"]["segment_sum_2d"]},
         "flash_attention": {"lm_serve": sum(r["flash_attention"]
                                             for r in lm_runs),
                             "lm_moe": moe["launches"]["flash_attention"],

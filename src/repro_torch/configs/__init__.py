@@ -1,11 +1,12 @@
 """Config registry of the ported architectures: ``get(name)`` /
 ``get_smoke(name)`` / ``ARCHS``, every arch ``repro`` knows, in its
-registry's order. An unknown name raises ``KeyError``."""
+registry's order; ``ASSIGNED``, the LM archs the dry run sweeps; ``SHAPES``,
+the input shapes of the dry run. An unknown name raises ``KeyError``."""
 from __future__ import annotations
 
 import importlib
 
-from .base import ArchConfig
+from .base import SHAPES, ArchConfig, ShapeConfig
 
 _MODULES = {
     "granite-moe-3b-a800m": "granite_moe_3b_a800m",
@@ -21,6 +22,7 @@ _MODULES = {
     "hydragnn-gfm": "hydragnn_gfm",
 }
 ARCHS = tuple(_MODULES)
+ASSIGNED = tuple(a for a in ARCHS if a != "hydragnn-gfm")
 
 
 def _mod(name: str):
@@ -37,4 +39,5 @@ def get_smoke(name: str) -> ArchConfig:
     return _mod(name).smoke()
 
 
-__all__ = ["ARCHS", "ArchConfig", "get", "get_smoke"]
+__all__ = ["ARCHS", "ASSIGNED", "SHAPES", "ArchConfig", "ShapeConfig",
+           "get", "get_smoke"]

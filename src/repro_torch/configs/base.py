@@ -5,10 +5,11 @@ dataclass holding only the fields its ported paths read: the EGNN trunk and
 the MTL heads, and the decoder-only LM trunk (GQA ``attn``/``swa``,
 DeepSeek-V2 ``mla``, the recurrent ``mamba2``/``mlstm``/``slstm`` blocks
 and zamba's ``shared_attn``, the MoE feed-forward, per-block
-rematerialisation in training), plus the sharding and memory fields the
-ported configs set (``fsdp``, ``train_accum``, ``naive_tp``,
-``moment_dtype``, ``swa_variant_window``, ``long_context_ok``), which the
-port carries for parity and does not read. Field names and defaults match
+rematerialisation in training), plus the sharding and memory fields
+(``fsdp`` and ``naive_tp``, which ``configs.sharding`` reads;
+``train_accum``, ``moment_dtype``, ``swa_variant_window``,
+``long_context_ok`` and ``supports_decode``, which ``launch.dryrun`` and
+``configs.specs`` read). Field names and defaults match
 the reference; so do the encoder-decoder (``enc_attn``/``dec_attn``) and
 modality-frontend fields (``n_enc_layers``, ``enc_memory_len``,
 ``modality``, ``n_media_tokens``)."""
@@ -72,13 +73,15 @@ class ArchConfig:
     # modality frontends (stubs) ----------------------------------------------
     modality: str = "text"         # text | vision_embed | audio_embed
     n_media_tokens: int = 0        # prepended embedding tokens for vlm/audio
-    # carried for parity with the reference's configs, not read -------------
-    naive_tp: bool = False
+    # sharding and serving (``configs.sharding``, ``launch.dryrun``) --------
+    naive_tp: bool = False         # head-fractional TP (the reference's
+                                   # pre-head-aligned rule)
     moment_dtype: Any = torch.float32
-    fsdp: bool = False
-    train_accum: int = 1
-    swa_variant_window: int = 0
-    long_context_ok: bool = False
+    fsdp: bool = False             # ZeRO-3-style param sharding over "data"
+    train_accum: int = 1           # gradient-accumulation microbatches
+    supports_decode: bool = True
+    long_context_ok: bool = False  # native sub-quadratic path for long_500k
+    swa_variant_window: int = 0    # >0: the SWA serve variant for long_500k
     # multi-task: one branch (GNN) or one LM head (LM) per data source -----
     n_tasks: int = 1
     # GNN (hydragnn-gfm) ----------------------------------------------------
@@ -123,3 +126,19 @@ class ArchConfig:
 
     def replace(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                      # "train" | "prefill" | "decode"
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}

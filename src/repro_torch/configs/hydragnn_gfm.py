@@ -11,6 +11,7 @@ CONFIG = ArchConfig(
     gnn_hidden=866, gnn_layers=4, head_hidden=889, head_layers=3,
     n_tasks=5, n_species=64, max_atoms=64, max_edges=2048,
     compute_dtype=torch.float32,   # paper trains fp32; GNN heads are small
+    supports_decode=False,
 )
 
 

@@ -20,9 +20,23 @@ batch:
   * ``placement=..., backend="hier"``   -> a ``HeadPlacement``: heads on
     uneven rank groups (``engine.hier``), global semantics
   * ``mesh=...`` without ``mtp``        -> a single-task model's data
-    parallelism: its flat ``(B, ...)`` batch splits over the ``data``
-    ranks (the ``model`` ranks compute the same rows), params whole on
-    every rank, global semantics
+    parallelism: its flat ``(B, ...)`` batch splits over the data ranks
+    (``pod`` and ``data``; the ``model`` ranks compute the same rows),
+    params whole on every rank, global semantics
+
+``spec_fn`` (a single-task model's flat params) and ``shared_spec_fn``
+(the trunk of the multi-task layout) shard parameters: ``fn(path, leaf)
+-> spec`` (``configs.sharding.make_spec_fn``), and a rank stores only its
+block of every leaf whose spec names an axis, for the params and both
+AdamW moments. The step (``engine.step.make_step``) gathers every such
+leaf before the forward, computes the rank's rows with the whole tree,
+reduces the gradients as the unsharded plan does, and keeps the rank's
+block of each; the clip norm sums each block once across the ranks
+(``norm_fn``). Semantics stay global: one device's training up to
+summation order. A gather is a SUM all-reduce, over the ranks that hold
+the leaf's blocks between them, of a buffer that holds the rank's block
+and ``-0.0`` everywhere else (``-0.0`` is the exact additive identity),
+which gloo runs on CUDA tensors too.
 
 ``donate``: a ``Session`` on the plan updates params and moments in their
 own storage (it builds ``adamw(donate=plan.donate)``), as ``repro``'s
@@ -33,7 +47,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -42,11 +56,23 @@ from repro_torch.core.taskpar import (HeadPlacement, MTPConfig, TaskShard,
                                       dist_global_norm, flat_shard,
                                       hier_shard, move_heads, take_batch,
                                       take_flat_batch, take_heads)
+from repro_torch.configs.sharding import (holds_first_copy, local_shard,
+                                         rank_slices, spec_axes, tree_specs)
+from repro_torch.interop import leaves, unflatten
 from repro_torch.optim.adamw import global_norm
 
 from .state import TrainState
 
 BACKENDS = ("auto", "jit", "pjit", "shard_map", "hier")
+
+
+def _mesh_array(mesh) -> np.ndarray:
+    """A ``DeviceMesh``'s ranks as numpy, read outside any dispatch mode
+    (the dry run builds plans under ``FakeTensorMode``; the mesh's rank
+    tensor is a real one)."""
+    from torch.utils._python_dispatch import _disable_current_modes
+    with _disable_current_modes():
+        return np.asarray(mesh.mesh.tolist())
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,6 +85,8 @@ class ShardingPlan:
     # core.solve_placement) INSTEAD of a mesh — the plan deals the ranks
     # into per-group sub-groups itself
     placement: HeadPlacement | None = None
+    shared_spec_fn: Callable | None = None   # trunk params (multitask layout)
+    spec_fn: Callable | None = None          # flat params (single-task layout)
 
     def __post_init__(self):
         if self.backend not in BACKENDS:
@@ -77,6 +105,10 @@ class ShardingPlan:
             if self.backend not in ("auto", "hier"):
                 raise ValueError(f"placement needs backend 'auto' or "
                                  f"'hier', got '{self.backend}'")
+        if (self.spec_fn or self.shared_spec_fn) is not None and (
+                self.mesh is None or self.backend == "shard_map"):
+            raise ValueError("spec_fn / shared_spec_fn shard params over a "
+                             "mesh with global semantics: a 'pjit' plan")
 
     @property
     def resolved_backend(self) -> str:
@@ -107,12 +139,14 @@ class ShardingPlan:
     # -- which rows each rank holds ------------------------------------------
 
     def _mesh_ranks(self) -> np.ndarray:
-        ranks = np.asarray(self.mesh.mesh.tolist())
-        if ranks.ndim != 2 or tuple(self.mesh.mesh_dim_names) != (
-                "data", "model"):
+        """The mesh's ranks as (data, model): a multi-pod mesh's ``pod``
+        and ``data`` axes flattened, pod-major."""
+        ranks = _mesh_array(self.mesh)
+        names = tuple(self.mesh.mesh_dim_names)
+        if names not in (("data", "model"), ("pod", "data", "model")):
             raise ValueError("a flat plan's mesh has dims ('data', 'model') "
-                             "(launch.mesh.make_host_mesh)")
-        return ranks
+                             "or ('pod', 'data', 'model') (launch.mesh)")
+        return ranks.reshape(-1, ranks.shape[-1])
 
     def shard_of(self, rank: int) -> TaskShard:
         """What ``rank`` holds under this plan (every rank can ask)."""
@@ -161,6 +195,113 @@ class ShardingPlan:
         import torch.distributed as dist
         return dist.get_rank() in self._mesh_ranks()[:, 0]
 
+    # -- parameter sharding (spec_fn / shared_spec_fn) -----------------------
+
+    @property
+    def sharded(self) -> bool:
+        """Whether the plan cuts parameter leaves over its mesh."""
+        return self.distributed and (self.spec_fn is not None or
+                                     self.shared_spec_fn is not None)
+
+    def coords_of(self, rank: int) -> dict:
+        """``{axis: index}`` of ``rank`` on the mesh."""
+        idx = np.argwhere(_mesh_array(self.mesh) == rank)[0]
+        return dict(zip(self.mesh.mesh_dim_names, (int(i) for i in idx)))
+
+    @functools.cached_property
+    def coords(self) -> dict:
+        import torch.distributed as dist
+        return self.coords_of(dist.get_rank())
+
+    def layout(self, params) -> dict:
+        """``{path: (full shape, spec)}`` of the leaves of a full params
+        tree that the plan cuts (a spec naming at least one axis); every
+        other leaf is whole on every rank. The multi-task layout's trunk
+        goes through ``shared_spec_fn`` with paths inside the trunk, as
+        ``repro``'s ``param_shardings`` builds them; heads are sliced by
+        task, not here."""
+        if not self.sharded:
+            return {}
+        if set(params) == {"shared", "heads"}:
+            if self.shared_spec_fn is None:
+                return {}
+            specs = {f"shared/{p}": s for p, s in tree_specs(
+                params["shared"], self.shared_spec_fn).items()}
+        else:
+            if self.spec_fn is None:
+                return {}
+            specs = tree_specs(params, self.spec_fn)
+        flat = leaves(params)
+        return {p: (tuple(flat[p].shape), s) for p, s in specs.items()
+                if any(e is not None for e in s)}
+
+    def param_layout(self, model) -> dict:
+        """``layout`` of ``model``'s full tree, read off a ``meta``
+        init (no allocation)."""
+        return self.layout(model.init(0, device="meta"))
+
+    def cut(self, tree, layout: dict):
+        """A full tree -> this rank's: each leaf of ``layout`` cut to the
+        rank's block (contiguous), the others as they are."""
+        if not layout:
+            return tree
+        flat = leaves(tree)
+        return unflatten(tree, {
+            p: (local_shard(x, layout[p][1], self.mesh, self.coords)
+                if p in layout else x) for p, x in flat.items()})
+
+    @functools.cached_property
+    def _gather_groups(self) -> dict:
+        return {}
+
+    def gather_group(self, spec):
+        """The process group of the ranks that share this rank's
+        coordinates on every mesh axis ``spec`` does not name: between them
+        they hold each block of the leaf once. One named axis takes the
+        mesh's own group of that axis; several take a group of their
+        product, which every rank creates for every such row of the mesh
+        in one order (``launch.mesh.process_group``), the world when they
+        are all the axes."""
+        names = tuple(self.mesh.mesh_dim_names)
+        named = tuple(n for n in names if n in spec_axes(spec))
+        if named not in self._gather_groups:
+            if len(named) == 1:
+                group = self.mesh.get_group(named[0])
+            else:
+                from repro_torch.launch.mesh import process_group
+                keep = [i for i, n in enumerate(names) if n in named]
+                rest = [i for i, n in enumerate(names) if n not in named]
+                ranks = _mesh_array(self.mesh).transpose(rest + keep)
+                group = None
+                for row in ranks.reshape(
+                        -1, int(np.prod(ranks.shape[len(rest):]))):
+                    group = process_group(row) or group
+            self._gather_groups[named] = group
+        return self._gather_groups[named]
+
+    def gather(self, tree, layout: dict):
+        """This rank's tree -> the full one (a collective: every rank
+        calls it). Each cut leaf is one SUM all-reduce, over the ranks
+        that hold its blocks between them (``gather_group``), of a
+        full-size buffer holding the rank's block and -0.0 elsewhere, so
+        the result is the blocks' exact bits."""
+        if not layout:
+            return tree
+        import torch.distributed as dist
+        flat = leaves(tree)
+        out = {}
+        for p, x in flat.items():
+            if p not in layout:
+                out[p] = x
+                continue
+            shape, spec = layout[p]
+            buf = torch.full(shape, -0.0, dtype=x.dtype, device=x.device)
+            buf[rank_slices(shape, spec, self.mesh, self.coords)] = x
+            dist.all_reduce(buf, op=dist.ReduceOp.SUM,
+                            group=self.gather_group(spec))
+            out[p] = buf
+        return unflatten(tree, out)
+
     def all_heads(self) -> list:
         """The heads every rank holds, by rank."""
         import torch.distributed as dist
@@ -171,17 +312,21 @@ class ShardingPlan:
 
     def shard_params(self, params):
         """A full ``{"shared", "heads"}`` tree -> this rank's: the trunk and
-        its heads' rows (a single-task model's params, whole)."""
+        its heads' rows (a single-task model's params, whole); with
+        ``spec_fn`` / ``shared_spec_fn`` each cut leaf is the rank's block.
+        """
+        layout = self.layout(params)
         if not (self.distributed and self.task_parallel):
-            return params
-        return {"shared": params["shared"],
-                "heads": take_heads(params["heads"], self.shard.heads)}
+            return self.cut(params, layout)
+        return self.cut({"shared": params["shared"],
+                         "heads": take_heads(params["heads"],
+                                             self.shard.heads)}, layout)
 
     def shard_state(self, state: TrainState) -> TrainState:
         """A full TrainState -> this rank's: params and both moments keep
         the trunk and the rank's heads (the optimizer's other fields as
         they are)."""
-        if not (self.distributed and self.task_parallel):
+        if not (self.distributed and (self.task_parallel or self.sharded)):
             return state
         opt = state.opt_state
         opt = opt._replace(m=self.shard_params(opt.m),
@@ -234,12 +379,44 @@ class ShardingPlan:
         return {"shared": params["shared"],
                 "heads": self.gather_heads([params["heads"]])[0]}
 
-    def norm_fn(self):
+    def norm_fn(self, layout: dict | None = None):
         """The global gradient norm over this plan's reduced grads (a
-        single-task model's are whole on every rank)."""
-        if not self.task_parallel:
-            return global_norm
-        return dist_global_norm(self.shard)
+        single-task model's are whole on every rank). With a ``layout``
+        each cut leaf's block adds its squares once, at its first holder,
+        to one SUM over the world (with the heads' when task-parallel)."""
+        if not layout:
+            if not self.task_parallel:
+                return global_norm
+            return dist_global_norm(self.shard)
+        import torch.distributed as dist
+        mesh, coords = self.mesh, self.coords
+        own = [p for p, (_, s) in layout.items()
+               if holds_first_copy(s, mesh, coords)]
+        heads = self.task_parallel and self.shard.index == 0
+
+        def norm_fn(grads):
+            flat = leaves(grads)
+            sq = {p: (g.float() ** 2).sum() for p, g in flat.items()}
+            whole = sum(v for p, v in sq.items() if p not in layout and
+                        not p.startswith("heads/"))
+            cut = sum((sq[p] for p in own), torch.zeros(
+                (), device=next(iter(sq.values())).device))
+            if heads:
+                cut = cut + sum(v for p, v in sq.items()
+                                if p.startswith("heads/"))
+            cut = cut.reshape(1)
+            dist.all_reduce(cut, op=dist.ReduceOp.SUM)
+            return torch.sqrt(whole + cut[0])
+
+        return norm_fn
+
+    def state_template(self, init_fn, optimizer):
+        """This rank's ``TrainState`` of ``meta`` tensors (no
+        allocation): ``init_fn(seed, device="meta")``'s tree cut as the
+        rank holds it, and the optimizer's state over it."""
+        params = self.shard_params(init_fn(0, device="meta"))
+        return TrainState(params=params, opt_state=optimizer.init(params),
+                          step=0)
 
     # -- compilation ---------------------------------------------------------
 

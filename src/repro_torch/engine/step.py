@@ -25,6 +25,20 @@ slice; a hierarchical plan gets a ``HierStepSpec``, built into a step by
 (``data_parallel_grad_fn``). Gradient accumulation on any of them takes
 each microbatch from the global batch first and the rank's rows of it
 second (``plan.slice_batch(batch, accum)``), as ``repro`` does.
+
+A plan with ``spec_fn`` / ``shared_spec_fn`` (``engine.plan``) keeps each
+rank's block of every cut leaf; its step gathers them (``plan.gather``,
+one all-reduce a cut leaf over the ranks that hold its blocks), runs the grad_fn above on the whole tree —
+the rank's rows, all gradients reduced as the unsharded plan reduces them
+— and keeps the rank's block of each gradient for AdamW, whose clip norm
+sums each block once across the ranks (``plan.norm_fn(layout)``). This
+is ZeRO-3's storage with data-parallel compute: every rank computes with
+the whole tree, where ``repro``'s GSPMD partitions the products
+themselves (local heads, row-parallel partial sums, a vocab-parallel
+loss). Its peak holds the whole tree and its gradients for the step, and
+its gradients are all-reduced whole before the rank keeps its blocks:
+gathering a layer just before its use and reduce-scattering each gradient
+into the rank's block (FSDP's peak and traffic) is the next step.
 """
 from __future__ import annotations
 
@@ -336,15 +350,30 @@ def make_grad_fn(model, plan=None, *, task_weights=None) -> Callable:
         head_group=plan.head_group, per_shard=per_shard)
 
 
-def _grad_fn(model, plan, accum, task_weights):
+def sharded_grad_fn(grad_fn: Callable, plan, layout: dict) -> Callable:
+    """``grad_fn`` over the whole tree, on a rank that holds blocks:
+    gather the cut leaves (``plan.gather``), run it, keep the rank's block
+    of each reduced gradient (``plan.cut``)."""
+    def fn(params, batch):
+        loss, metrics, grads = grad_fn(plan.gather(params, layout), batch)
+        return loss, metrics, plan.cut(grads, layout)
+    return fn
+
+
+def _layout(model, plan) -> dict:
+    return plan.param_layout(model) if isinstance(plan, ShardingPlan) and \
+        plan.sharded else {}
+
+
+def _grad_fn(model, plan, accum, task_weights, layout=None):
     axis = 1 if isinstance(model, MultiTaskModel) else 0
-    return with_grad_accum(make_grad_fn(model, plan,
-                                        task_weights=task_weights), accum,
-                           axis)
+    fn = with_grad_accum(make_grad_fn(model, plan,
+                                      task_weights=task_weights), accum, axis)
+    return sharded_grad_fn(fn, plan, layout) if layout else fn
 
 
-def _norm_fn(plan):
-    return plan.norm_fn() if plan is not None and plan.distributed \
+def _norm_fn(plan, layout=None):
+    return plan.norm_fn(layout) if plan is not None and plan.distributed \
         else global_norm
 
 
@@ -362,8 +391,9 @@ def make_step(model, optimizer, plan=None, *, accum: int = 1,
                             "MultiTaskModel")
         return HierStepSpec(model=model, optimizer=optimizer, accum=accum,
                             task_weights=task_weights)
-    return make_train_step(_grad_fn(model, plan, accum, task_weights),
-                           optimizer, _norm_fn(plan))
+    layout = _layout(model, plan)
+    return make_train_step(_grad_fn(model, plan, accum, task_weights, layout),
+                           optimizer, _norm_fn(plan, layout))
 
 
 def make_guarded_step(model, optimizer, plan=None, *, guard,
@@ -376,6 +406,7 @@ def make_guarded_step(model, optimizer, plan=None, *, guard,
         raise NotImplementedError(
             "guarded stepping (resilience.guard) is not supported on the "
             "hierarchical backend")
+    layout = _layout(model, plan)
     return make_guarded_train_step(
-        _grad_fn(model, plan, accum, task_weights), optimizer, guard,
-        _norm_fn(plan))
+        _grad_fn(model, plan, accum, task_weights, layout), optimizer, guard,
+        _norm_fn(plan, layout))

@@ -12,10 +12,13 @@ nothing — the ``>= n_nodes`` pad contract shared with ``repro``.
 (E,F) calls (``segment_sum_2d``'s: the embedding's backward,
 ``models.common.embed``): one per CUDA call, none for an empty output.
 
-The kernel has no backward, as ``repro``'s Pallas segment-sum has no
+The wrapper has no backward, as ``repro``'s Pallas segment-sum has no
 ``custom_vjp``: a CUDA call on messages that require grad raises instead of
-returning a detached result. ``segment_sum_impl="fused"`` is the trainable
-kernel path (``kernels.egnn_edge``).
+returning a detached result. The trainable paths wrap it:
+``models.gnn``'s ``"scatter"`` / ``"pallas"`` aggregation (an autograd
+Function whose backward is a gather) and its node gathers' backward (#2
+over the edge list), and ``segment_sum_impl="fused"``
+(``kernels.egnn_edge``).
 """
 from __future__ import annotations
 

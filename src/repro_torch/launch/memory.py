@@ -7,28 +7,45 @@ group g holds ``P_s + Σ_{t∈g} P_h(t)`` parameters (one head a group gives
 ``P_s + P_h``), and AdamW's two moments triple it. A flat plan is the
 same model with its groups read off the mesh (``plan_placement``).
 
-``repro`` estimates a device's bytes from a sharded template's
-``PartitionSpec`` s; a rank of the port holds only its own tree, so
-``param_bytes_per_device`` sums the tree it is given.
+``param_bytes_per_device`` sums the tree it is given — a rank's own tree
+— or, given the specs of a full tree and a mesh, counts what one rank of
+that mesh holds of it (``repro``'s estimate from a sharded template's
+``PartitionSpec`` s); the two agree on a rank's real blocks.
 """
 from __future__ import annotations
 
+from repro_torch.configs.sharding import shard_count
 from repro_torch.core.taskpar import HeadPlacement
 
 
-def param_bytes_per_device(tree) -> int:
-    """Bytes of a rank's own parameter tree (nested dicts of tensors,
-    ``meta`` tensors or numpy arrays): each leaf's elements times its
-    item size."""
-    if isinstance(tree, dict):
-        return sum(param_bytes_per_device(v) for v in tree.values())
+def _leaf_bytes(leaf) -> int:
     n = 1
-    for d in tree.shape:
+    for d in leaf.shape:
         n *= int(d)
-    size = getattr(tree, "itemsize", None)       # numpy
+    size = getattr(leaf, "itemsize", None)       # numpy
     if size is None:
-        size = tree.element_size()               # torch
+        size = leaf.element_size()               # torch
     return n * int(size)
+
+
+def param_bytes_per_device(tree, specs: dict | None = None, mesh=None,
+                           _prefix: str = "") -> int:
+    """Bytes of a tree (nested dicts, tuples or lists of tensors, ``meta``
+    tensors or numpy arrays: params, moments, caches, a batch): each
+    leaf's elements times its item size.
+    With ``specs`` (``{path: spec}``, ``configs.sharding``'s tuples) and
+    ``mesh``, ``tree`` is the full tree and a leaf with a spec counts its
+    bytes over the product of the sizes of the mesh axes the spec names,
+    rounded up — one rank's share."""
+    if isinstance(tree, (dict, tuple, list)):
+        items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+        return sum(param_bytes_per_device(
+            v, specs, mesh, f"{_prefix}/{k}" if _prefix else str(k))
+            for k, v in items)
+    size = _leaf_bytes(tree)
+    if specs and _prefix in specs:
+        size = -(-size // shard_count(specs[_prefix], mesh))
+    return size
 
 
 def hier_group_memory(placement, shared_bytes: int, head_bytes,

@@ -7,6 +7,11 @@ this module touches no process group:
   * ``make_host_mesh(data, model)`` / ``make_gfm_paper_mesh(n_tasks, dp)``:
     a ``DeviceMesh`` with dims ``("data", "model")`` — the flat plans'
     meshes, the task axis as ``model``;
+  * ``make_production_mesh(multi_pod=)`` / ``make_alt_mesh(model=)``: the
+    production pod, 16 x 16 ``("data", "model")`` or 2 x 16 x 16 ``("pod",
+    "data", "model")``, and the pod reshaped to 256 / model x model — they
+    need a world of 256 or 512 ranks, which ``fake_world`` gives one process
+    (the dry run: one rank's program, collectives that move no data);
   * ``make_group_meshes(placement)``: one ``GroupMesh`` per group of a
     ``HeadPlacement``, ranks dealt contiguously by ``device_counts``, one
     ``dist.new_group`` per group (every rank creates every group, in the
@@ -25,6 +30,7 @@ staging them through the host.
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
 import queue
@@ -105,6 +111,50 @@ def make_gfm_paper_mesh(n_tasks: int = 5, dp: int | None = None):
     if dp is None:
         dp = dist.get_world_size() // n_tasks
     return _mesh((dp, n_tasks), ("data", "model"))
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """The production pod: 16 x 16 ``("data", "model")``, or two pods, 2 x
+    16 x 16 ``("pod", "data", "model")`` (a world of 256 / 512 ranks)."""
+    if multi_pod:
+        return _mesh((2, 16, 16), ("pod", "data", "model"))
+    return _mesh((16, 16), ("data", "model"))
+
+
+def make_alt_mesh(model: int = 8):
+    """The same 256-rank pod reshaped so the tensor-parallel degree divides
+    awkward head counts (granite's 24 heads on ``model=8``)."""
+    return _mesh((256 // model, model), ("data", "model"))
+
+
+@contextlib.contextmanager
+def fake_world(world: int, rank: int = 0, device=None):
+    """Run the enclosed code as rank ``rank`` of a job of ``world`` ranks in
+    this one process: the ``"fake"`` process-group backend, whose
+    collectives complete without moving data (every rank's result is the
+    rank's own input). The meshes above build over it, and every
+    collective a step makes is issued as the real job would issue it.
+    ``device``: the rank's device (None: ``cuda``, raising without a GPU).
+    The world is torn down on exit; a process that is already in a job
+    raises."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch import resolve_device
+    if dist.is_initialized():
+        raise RuntimeError("fake_world: this process is already in a job")
+    dev = resolve_device(device)
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=world)
+    prev = _state["device"]
+    _state["device"] = dev
+    _groups.clear()
+    try:
+        yield dev
+    finally:
+        dist.destroy_process_group()
+        _state["device"] = prev
+        _groups.clear()
 
 
 class GroupMesh(NamedTuple):

@@ -144,19 +144,18 @@ def _scaled(got, want, tol, msg=""):
 @pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("smoke", [False, True])
 def test_configs_match_repro(arch, smoke):
-    """Every field of the port's config equals ``repro``'s (the carried
-    ``fsdp``, ``train_accum``, ``long_context_ok`` and
-    ``swa_variant_window`` included; ``repro``'s one other field,
-    ``supports_decode``, is read only by its dry-run tooling), and so do
-    the derived ``hd``, ``padded_vocab`` and ``pattern``; the dtypes by
-    name (fp32 weights, bf16 compute)."""
+    """Every field of ``repro``'s config is the port's and equal to it
+    (``fsdp``, ``train_accum``, ``long_context_ok``,
+    ``swa_variant_window`` and, since the port's dry run,
+    ``supports_decode`` included), and so are the derived ``hd``,
+    ``padded_vocab`` and ``pattern``; the dtypes by name (fp32 weights,
+    bf16 compute)."""
     j = j_get_smoke(arch) if smoke else j_get(arch)
     t = tconfigs.get_smoke(arch) if smoke else tconfigs.get(arch)
     names = [f.name for f in dataclasses.fields(t)]
-    assert set(f.name for f in dataclasses.fields(j)) - set(names) == {
-        "supports_decode"}
+    assert set(f.name for f in dataclasses.fields(j)) - set(names) == set()
     for f in ("fsdp", "train_accum", "long_context_ok",
-              "swa_variant_window"):
+              "swa_variant_window", "supports_decode"):
         assert f in names
     for f in names + ["hd", "padded_vocab", "pattern"]:
         want, got = getattr(j, f), getattr(t, f)

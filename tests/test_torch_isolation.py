@@ -39,7 +39,8 @@ def test_port_imports_without_jax_or_repro():
                 "configs.zamba2_1_2b", "configs.xlstm_125m",
                 "analysis.findings", "analysis.baseline", "analysis.rules",
                 "analysis.lint", "analysis.recompile", "analysis.tsan",
-                "launch.memory"):
+                "launch.memory", "configs.sharding", "configs.specs",
+                "launch.cost", "launch.dryrun"):
         assert (SRC / "repro_torch" / (mod.replace(".", "/") + ".py")
                 ).is_file(), mod
 

@@ -157,15 +157,19 @@ def test_inline_allow_cannot_suppress_det_or_krn(src):
 
 
 def test_the_scatter_paths_allow_is_what_silences_it():
-    """``models/gnn.py``'s ``"scatter"`` aggregation is the port's one
-    float-atomic path, allowed with its reason: without the pragma ATM001
-    fires there."""
+    """``models/gnn.py``'s ``"scatter"`` aggregation was the port's one
+    float-atomic path, allowed with its reason; it now sums in edge order
+    (``edge_order_sum`` on the CPU, #2 on the card), so the file lints
+    clean with no allow at all, and the scatter-add it was still fires
+    without one."""
     path = REPO / "src" / "repro_torch" / "models" / "gnn.py"
     src = path.read_text()
+    assert "lint: allow(ATM001)" not in src
     assert run_rules("gnn.py", src) == []
-    bare = "\n".join(l for l in src.splitlines()
-                     if "lint: allow(ATM001)" not in l)
-    assert [f.rule for f in run_rules("gnn.py", bare)] == ["ATM001"]
+    was = ("import torch\n"
+           "def agg(out, idx, m):\n"
+           "    return out.index_put_(idx, m, accumulate=True)\n")
+    assert [f.rule for f in run_rules("gnn.py", was)] == ["ATM001"]
 
 
 def test_krn_rules_see_every_launch_of_the_port():
