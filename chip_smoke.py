@@ -210,7 +210,7 @@ Phases, each printing one JSON line:
      backward was before, ``index_add_`` and the byte bound;
   6c. lm_moe: the MoE family at full width, weights drawn on the card
      from a seed, bf16 compute: granite-moe-3b-a800m (d=1536, 24/8 heads
-     of 64, 40 experts top-8 of width 512, fp32 weights) cut to 8 of its
+     of 64, 40 experts top-8 of width 512, fp32 weights) cut to 6 of its
      32 layers (``GRANITE_LAYERS``) and
      deepseek-v2-236b (d=5120, 128 heads, MLA latent 512 / q 1536, rope
      64 + nope 128, 160 experts top-6 of width 1536 plus 2 shared, bf16
@@ -237,7 +237,7 @@ Phases, each printing one JSON line:
      drawn on the card from a seed, bf16 compute: zamba2-1.2b (38
      layers, d=2048: Mamba2 blocks of 64 heads and state 64, and one
      shared attention block, 32 heads of 64, window 4096, applied at 6
-     layers through per-layer LoRA adapters; served at 18 layers, three
+     layers through per-layer LoRA adapters; served at 12 layers, two
      applications: ``REC_ZAMBA_LAYERS``) and
      xlstm-125m (d=768, mLSTM and sLSTM in turn; 2 of its 12 layers,
      ``REC_XLSTM_LAYERS``: its host-bound scans run no kernel of the
@@ -264,7 +264,7 @@ Phases, each printing one JSON line:
      the bytes still allocated at each phase's start, before and after;
   6e. lm_frontends: the modality frontends and the encoder-decoder at
      full width, cut in depth (``FRONT_SERVE_LAYERS``:
-     internvl2 12 of its 24 layers, seamless 6 + 6 of its 12 + 12), fp32
+     internvl2 8 of its 24 layers, seamless 4 + 4 of its 12 + 12), fp32
      weights drawn on the card from a seed, bf16 compute: internvl2-1b
      (24 layers, d=896, 14 / 2 heads of 64,
      qkv bias, a vision projector putting 256 seeded frames of width 1024
@@ -298,7 +298,7 @@ Phases, each printing one JSON line:
      window layers (1024) to one full-attention layer, vocab 262,144;
      11.77 B parameters) and stablelm-12b (40 layers, d=5120, 32 / 8
      heads of 160, vocab 100,352; 11.63 B). Each served at full width, cut
-     in depth to 12 / 12 layers (``DENSE_SERVE_LAYERS``: the contract's
+     in depth to 6 / 6 layers (``DENSE_SERVE_LAYERS``: the contract's
      time), by ``greedy_generate(impl="pallas")`` at (a) B=8, 1024 + 32,
      twice, bitwise, and gemma3 at (b) B=1, 4200 + 16 past its window (#5
      once a layer a prefill, #6 once a layer a step); the kernel path's
@@ -327,7 +327,13 @@ Phases, each printing one JSON line:
      = 2 x 512 tokens a rank, at accum 1 and 2; (c) ``lm-mtl`` on qwen's
      two task heads on the ``"base"`` plan, each task's rows split over
      both ranks; (d) granite-moe-3b-a800m ``lm`` cut in depth to
-     ``DIST_MOE_LAYERS`` = 2 of 32 (the balance term across ranks); the
+     ``DIST_MOE_LAYERS`` = 2 of 32 (the balance term across ranks); (d')
+     ``moe_spec``: the same granite on a ``spec_fn`` plan over a
+     ``DIST_DP_SPEC_MESH`` = (1, 2) mesh (each rank its blocks, the
+     experts and heads split over ``model``), whose family keeps the
+     data-parallel step (``engine.step.sharded_grad_fn``: the cut leaves
+     gathered whole over gloo, the whole gradient all-reduced), 2 steps
+     against one process, the bytes a rank holds equal to its blocks'; the
      LMs in f32 compute (``_dist_spec`` says why); 2 steps each; (e) the
      GFM-MTL soak on the ``"base"`` plan under ``SOAK_FAULTS`` (the five
      fault classes), ``resume()``, and a clean 2-rank run. Signals: per-task
@@ -335,13 +341,29 @@ Phases, each printing one JSON line:
      (the soak: its clean run's first 2 steps) and the sum of AdamW's
      second moments within ``DIST_V_TOL`` (a gradient off by a constant
      factor, which AdamW's update hides from the losses, moves it); the
-     full params equal on every rank after every step (a fingerprint of
-     each leaf's bits); launches a rank from zero, as the design
+     params equal on every rank that holds them after every step (a
+     fingerprint of each leaf's or block's bits); launches a rank from zero, as the design
      implies (#3 and #4 4 a GNN step, #1 one a microbatch); the soak's
      resumed run bitwise equal to the clean one, every rank at the same
      step with the same events and checkpoint listing; gloo's all-reduce
      ms a step a rank, each case's peak, and the job's startup, ranks and
-     teardown seconds (time-shared, not a scaling result);
+     teardown seconds (time-shared, not a scaling result). Then a job of
+     its own, 4 gloo ranks on a ``DIST_SPEC_MESH`` = (2, 2) ``(data,
+     model)`` mesh, computes qwen1.5-0.5b (full width: 24 layers, d 1024,
+     16 heads, vocab 151,936; f32, ``fsdp=True``) tensor-parallel on a
+     ``spec_fn`` plan: each rank its blocks, 8 of the 16 heads, half the
+     vocab, the FSDP leaves all-gathered a layer at a time and their
+     gradients reduce-scattered, on CUDA tensors through gloo: (f)
+     ``lm_spec`` trains 2 steps of ``DIST_LM`` rows against one process
+     (losses and v as (a)-(d), params bitwise across ranks, the bytes a
+     rank holds equal to its blocks', #1 once a step over its vocab
+     block); (g) ``tp_serve`` (``fsdp=True`` too: every prefill and
+     decode step all-gathers each layer's FSDP leaves over ``data``)
+     prefills the ``DIST_LM`` rows (one a data rank) and takes
+     ``DIST_TP_NEW`` = 8 greedy tokens by
+     ``greedy_generate(impl="pallas")``: tokens equal to one process's,
+     logits within ``LM_TOL_F32``, #5 24 times and #6 24 a step on every
+     rank; each case's peak and host seconds a rank;
   6h. dryrun: one rank's program of a sharded plan, counted and run
      (``repro_torch.launch.dryrun``). The process opens a fake world (the
      ``"fake"`` process-group backend: collectives move nothing) as rank 0
@@ -357,10 +379,8 @@ Phases, each printing one JSON line:
      ``param_bytes_per_device``'s sharded count; the collectives' kinds and
      counts equal; the measured peak within ``DRY_PEAK_BAND`` of the
      static one; a finite loss; launches #3 4, #4 4, #1 1 for (a) and #1
-     one a microbatch for (b). train_dist's case ``lm_spec`` trains
-     qwen1.5-0.5b on a ``spec_fn`` plan over a (1, 2) mesh (each rank its
-     blocks: 16 heads split head-aligned) against one process, the bytes
-     a rank holds equal to its blocks';
+     one a microbatch for (b). (b) is MoE, outside tensor-parallel
+     compute: its rank gathers every cut leaf whole (data-parallel);
   7. the ``kernels`` summary line (#1 ``segment_sum_2d`` apart from #2
      ``segment_sum`` since #1 runs every embedding's backward), the
      ``nvidia-smi`` line, and the final ``{"ok": true, "device": ...}``
@@ -3398,7 +3418,7 @@ MOE_TRAIN_B = 2                     # x LM_S tokens a step
 MOE_TRAIN_STEPS = 3
 DEEPSEEK_LAYERS = (2, 1)            # served, trained (of 60: 7.9 GB a
                                     # layer; the contract's time)
-GRANITE_LAYERS = 8                  # served and trained (of 32: the
+GRANITE_LAYERS = 6                  # served and trained (of 32: the
                                     # contract's time limit)
 
 
@@ -3744,8 +3764,8 @@ REC_TRAIN_STEPS = 3
 REC_TRAIN_LAYERS = {"zamba2-1.2b": 12}  # trained cut in depth (two shared-
                                     # attention applications), served at
                                     # full depth
-REC_ZAMBA_LAYERS = 18               # zamba2 served at three of its six
-                                    # units of 38 layers (three shared-
+REC_ZAMBA_LAYERS = 12               # zamba2 served at two of its six
+                                    # units of 38 layers (two shared-
                                     # attention applications: the
                                     # contract's time)
 REC_XLSTM_LAYERS = 2                # xlstm served and trained at 2 of 12
@@ -4055,8 +4075,8 @@ FRONT_TRAIN = {"internvl2-1b": (8, 768),       # B, text tokens a sequence
 FRONT_TRAIN_LAYERS = {"seamless-m4t-medium": 6}  # trained cut in depth
                                     # (6 of 12 decoder and 6 of 12 encoder
                                     # layers)
-FRONT_SERVE_LAYERS = {"internvl2-1b": 12,        # of 24 and of 12 + 12:
-                      "seamless-m4t-medium": 6}  # the contract's time
+FRONT_SERVE_LAYERS = {"internvl2-1b": 8,         # of 24 and of 12 + 12:
+                      "seamless-m4t-medium": 4}  # the contract's time
 FRONT_TRAIN_STEPS = 3
 FRONT_SOURCE_ROWS = 16              # sequences in each training source
 
@@ -4396,8 +4416,8 @@ DENSE_SERVE = {"a": (8, 1024, 32),  # B, prompt, new tokens: lm_serve's (a)
 DENSE_TF_STEPS = {"a": 8, "b": 4}   # teacher-forced decode steps
 DENSE_ND = (2, 248, 8)              # decode vs the full forward under
                                     # gemma3's window: B, prefill, steps
-DENSE_SERVE_LAYERS = {"gemma3-12b": 12,     # two 5:1 units of 48 layers
-                      "stablelm-12b": 12}   # of 40: the contract's time
+DENSE_SERVE_LAYERS = {"gemma3-12b": 6,      # one 5:1 unit of 48 layers
+                      "stablelm-12b": 6}    # of 40: the contract's time
 DENSE_TRAIN_LAYERS = {"gemma3-12b": 6,      # one 5:1 unit of 48 layers
                       "stablelm-12b": 8}    # of 40: each cut in depth only
 DENSE_TRAIN_B = 2                   # x LM_S tokens a step
@@ -4629,24 +4649,36 @@ DIST_TIMEOUT_S = 600                # the job, spawn to exit
 DIST_V_TOL = 1e-3                   # relative: the sum of AdamW's v (a
                                     # gradient off by c moves it by c^2)
 DIST_CASES = ("finetune", "lm", "lm_accum2", "lm_mtl", "moe")
-DIST_SPEC_MESH = (1, 2)             # (f): qwen's spec_fn plan, (data, model)
+DIST_SPEC_MESH = (2, 2)             # (f) and (g): qwen's spec_fn plan,
+                                    # (data, model), fsdp=True: a job of
+                                    # its own, 4 ranks
+DIST_DP_SPEC_MESH = (1, 2)          # (d'): granite's spec_fn plan, in the
+                                    # 2-rank job
+SPEC_CASES = {                      # case: (arch of the spec, fsdp, mesh)
+    "moe_spec": ("moe", False, DIST_DP_SPEC_MESH),
+    "lm_spec": ("qwen", True, DIST_SPEC_MESH)}
+DIST_TP_NEW = 8                     # (g): greedy tokens after the prefill
 
 
-def _spec_lm(torch, spec, device, mesh=None):
-    """(f) of phase train_dist: qwen1.5-0.5b ``lm`` at full width (f32
-    compute) on a plan whose ``spec_fn`` cuts its leaves over ``mesh``'s
-    ``model`` axis (16 heads: head-aligned), ``spec["steps"]`` steps of
-    ``DIST_LM`` rows from a seeded generator; ``mesh`` None is the one
-    process the ranks are held to. Returns the losses, the sum of AdamW's
-    v, the full params' fingerprint after every step and, on a rank, the
-    bytes it holds beside its blocks' count."""
+def _spec_lm(torch, spec, device, mesh=None, case="lm_spec"):
+    """A ``SPEC_CASES`` case of phase train_dist: ``lm`` on a plan whose
+    ``spec_fn`` cuts its leaves over ``mesh``, ``spec["steps"]`` steps of
+    ``DIST_LM`` rows from a seeded generator. (f) ``lm_spec``: qwen1.5-0.5b
+    at full width, ``fsdp=True``, computed tensor-parallel (16 heads and
+    the vocab over ``model``, FSDP over ``data``); (d') ``moe_spec``:
+    granite-moe, whose family keeps the data-parallel step. ``mesh`` None
+    is the one process the ranks are held to. Returns the losses, the sum
+    of AdamW's v (each block once), each step's host seconds and, on a
+    rank, the fingerprint of each block it holds after every step (nothing
+    is gathered whole) and the bytes it holds beside its blocks' count."""
     from repro_torch import interop
     from repro_torch.configs.sharding import make_spec_fn
     from repro_torch.launch.memory import param_bytes_per_device as nbytes
     from repro_torch.engine import (ShardingPlan, TrainState, build_model,
                                     make_step)
     from repro_torch.optim import adamw
-    cfg = spec["qwen"]
+    arch, fsdp, _ = SPEC_CASES[case]
+    cfg = spec[arch].replace(fsdp=fsdp)
     B, S = spec["lm"]
     dev = torch.device(device)
     model = build_model("lm", cfg)
@@ -4667,22 +4699,125 @@ def _spec_lm(torch, spec, device, mesh=None):
     step = make_step(model, opt, plan)
     g = torch.Generator(device=dev)
     g.manual_seed(5)
-    losses, prints = [], []
+    losses, prints, step_s = [], [], []
     for _ in range(spec["steps"]):
         toks = torch.randint(0, cfg.vocab, (2, B, S), generator=g,
                              device=dev).to(torch.int32)
         batch = {"tokens": toks[0], "labels": toks[1]}
         if plan is not None:
             batch = plan.shard_batch(batch, device=dev)
+        _sync(torch, dev)
+        t0 = time.perf_counter()
         state, o = step(state, batch)
         losses.append(float(o.loss))
-        whole = state.params if plan is None else plan.gather(state.params,
-                                                               layout)
-        prints.append(_fingerprint(torch, whole))
-    v = state.opt_state.v if plan is None else plan.gather(
-        state.opt_state.v, layout)
-    out.update(losses=losses, fingerprints=prints, v_sum=float(sum(
-        x.double().sum() for x in interop.leaves(v).values())))
+        step_s.append(time.perf_counter() - t0)
+        if plan is not None:
+            prints.append(_block_prints(torch, state.params, plan, layout))
+    out.update(losses=losses, fingerprints=prints, step_s=step_s,
+               v_sum=_v_sum_blocks(torch, state.opt_state.v, plan, layout))
+    return out
+
+
+def _block_prints(torch, params, plan, layout) -> dict:
+    """``{path: (the block this rank holds, its fingerprint)}``: two
+    ranks that hold the same block of a leaf (or the whole leaf) must
+    hold the same bits."""
+    from repro_torch import interop
+    from repro_torch.configs.sharding import rank_slices
+    flat = interop.leaves(params)
+    keys = {p: str(rank_slices(*layout[p], plan.mesh, plan.coords))
+            if p in layout else "whole" for p in flat}
+    return dict(zip(sorted(flat), zip(
+        (keys[p] for p in sorted(flat)),
+        map(tuple, _fingerprint(torch, params)))))
+
+
+def _v_sum_blocks(torch, v, plan, layout) -> float:
+    """The sum of AdamW's v over the whole tree, each block once: a
+    rank adds the blocks it is the first holder of (a whole leaf: rank
+    0) and one SUM over the ranks adds them (None: one process)."""
+    from repro_torch import interop
+    from repro_torch.configs.sharding import holds_first_copy
+    flat = interop.leaves(v)
+    if plan is None:
+        return float(sum(x.double().sum() for x in flat.values()))
+    import torch.distributed as dist
+    first = all(i == 0 for i in plan.coords.values())
+    mine = [x for p, x in flat.items() if (
+        holds_first_copy(layout[p][1], plan.mesh, plan.coords)
+        if p in layout else first)]
+    total = torch.tensor([float(sum(x.double().sum() for x in mine))],
+                         dtype=torch.float64)
+    dist.all_reduce(total)
+    return float(total[0])
+
+
+def _tp_serve(torch, spec, device, mesh=None):
+    """(g) of phase train_dist: qwen1.5-0.5b (f32 compute) served by
+    ``greedy_generate(impl="pallas")``: the prefill of the ``DIST_LM``
+    rows and ``DIST_TP_NEW`` greedy tokens. On ``mesh`` each rank serves
+    its data rank's rows tensor-parallel from its blocks (#5 and #6 on its
+    8 heads, its vocab block's argmax), with ``fsdp=True`` as ``lm_spec``:
+    the prefill and every decode step gather each layer's FSDP leaves over
+    ``data`` (``gather_unit`` under no_grad) and the outer leaves once a
+    pass (``outer_units``). ``mesh`` None is the one process it is held
+    to. Returns the tokens, the logits each was taken from (the whole
+    vocab, gathered over ``model``) and the host seconds of the prefill
+    and the decode steps."""
+    from repro_torch.configs.sharding import make_spec_fn
+    from repro_torch.engine import ShardingPlan, build_model
+    from repro_torch.train.serve import greedy_generate
+    cfg = spec["qwen"].replace(fsdp=True)
+    B, S = spec["lm"]
+    dev = torch.device(device)
+    params = build_model("lm", cfg).init(0, device=dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(6)
+    prompt = torch.randint(0, cfg.vocab, (B, S), generator=g,
+                           device=dev).to(torch.int32)
+    plan = None
+    if mesh is not None:
+        plan = ShardingPlan(mesh=mesh, spec_fn=make_spec_fn(cfg, mesh))
+        params = plan.shard_params(params)
+        prompt = plan.slice_batch({"tokens": prompt})["tokens"]
+    timings = {}
+    toks, logits = greedy_generate(params, cfg, prompt, DIST_TP_NEW,
+                                   impl="pallas", device=dev,
+                                   return_logits=True, timings=timings,
+                                   plan=plan)
+    # numpy, not a tensor: a rank's tensor crosses the result queue as a
+    # shared-memory handle that dies with the rank's process
+    return {"tokens": toks.cpu().tolist(), "logits": logits.cpu().numpy(),
+            "rows": None if plan is None else plan.shard.index, **timings}
+
+
+def _tp_rank(rank, world, spec, device):
+    """One rank of phase train_dist's tensor-parallel job on a
+    ``DIST_SPEC_MESH`` mesh: (f) ``lm_spec``, then (g) ``tp_serve``, each
+    with the launch counts zeroed just before it and the peak reset."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_decode import ops as fd_ops
+    from repro_torch.kernels.segment_sum import ops as ss_ops
+    from repro_torch.launch.mesh import make_host_mesh, rank_device
+    entered = time.monotonic()
+    dev = rank_device()
+    counters = {"segment_sum_2d": ss_ops.segment_sum.two_d,
+                "flash_attention": fa_ops.flash_attention,
+                "flash_decode": fd_ops.flash_decode}
+    real = _timed_all_reduce(dist, torch, dev)
+    mesh = make_host_mesh(*DIST_SPEC_MESH)
+    out = {"rank": rank, "t_enter": entered, "t_import": _IMPORTED,
+           "cases": {}}
+    try:
+        out["cases"]["lm_spec"] = _case_run(torch, dev, counters, _spec_lm,
+                                            torch, spec, device, mesh)
+        out["cases"]["tp_serve"] = _case_run(torch, dev, counters, _tp_serve,
+                                             torch, spec, device, mesh)
+    finally:
+        dist.all_reduce = real
+    out["t_exit"] = time.monotonic()
     return out
 
 
@@ -4776,8 +4911,8 @@ def _dist_run(torch, sess, counters, dev):
 
     def traced(state, batch):
         state, out = inner(state, batch)
-        prints.append(_fingerprint(torch, sess.plan.gather_params(
-            state.params)))
+        prints.append({"params": ("whole", _fingerprint(
+            torch, sess.plan.gather_params(state.params)))})
         return state, out
     sess.step_fn = traced
     _sync(torch, dev)
@@ -4868,6 +5003,24 @@ def _dist_soak(torch, spec, device, mesh, counters, dev):
     return out
 
 
+def _case_run(torch, dev, counters, fn, *args, **kw) -> dict:
+    """``fn(*args, **kw)``'s result dict with the launch counts and the
+    all-reduce clock zeroed and the peak reset just before; adds the
+    launches, the all-reduce seconds and the peak, then frees the rank."""
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    for c in counters.values():
+        c.launches = 0
+    _ALLREDUCE[0] = 0.0
+    run = fn(*args, **kw)
+    run.update(launches={k: c.launches for k, c in counters.items()},
+               allreduce_s=_ALLREDUCE[0],
+               peak_mem_bytes=torch.cuda.max_memory_allocated(dev)
+               if dev.type == "cuda" else None)
+    _rank_free(torch, dev)
+    return run
+
+
 def _rank_free(torch, dev):
     import gc
     gc.collect()
@@ -4877,10 +5030,11 @@ def _rank_free(torch, dev):
 
 
 def _dist_rank(rank, world, spec, device):
-    """One rank of phase train_dist: cases (a)-(d), then the soak (e), on
-    a (world, 1) mesh; per case the losses, the launch counts from zero,
-    the full params' fingerprint after every step, the sum of AdamW's v,
-    the seconds in gloo's all-reduce, and the peak."""
+    """One rank of phase train_dist: cases (a)-(d) on a (world, 1) mesh,
+    (d') ``moe_spec`` on a ``DIST_DP_SPEC_MESH`` mesh, then the soak (e);
+    per case the losses, the launch counts from zero, the params'
+    fingerprint after every step, the sum of AdamW's v, the seconds in
+    gloo's all-reduce, and the peak."""
     import torch
     import torch.distributed as dist
     from repro_torch.kernels.egnn_edge import ops as edge_ops
@@ -4896,31 +5050,21 @@ def _dist_rank(rank, world, spec, device):
     mesh = make_host_mesh(world, 1)
     out = {"rank": rank, "t_enter": entered, "t_import": _IMPORTED,
            "cases": {}}
+
+    def session_case(case):
+        sess = _dist_session(spec, case, device, mesh)
+        heads = list(sess.plan.shard.heads)
+        result, run = _dist_run(torch, sess, counters, dev)
+        return dict(run, losses=[r["loss"] for r in result.logger.history],
+                    per_task=_per_task(result, 2)
+                    if case == "lm_mtl" else None, heads=heads)
     try:
         for case in DIST_CASES:
-            if dev.type == "cuda":
-                torch.cuda.reset_peak_memory_stats(dev)
-            sess = _dist_session(spec, case, device, mesh)
-            heads = list(sess.plan.shard.heads)
-            result, run = _dist_run(torch, sess, counters, dev)
-            run.update(losses=[r["loss"] for r in result.logger.history],
-                       per_task=_per_task(result, 2)
-                       if case == "lm_mtl" else None, heads=heads,
-                       peak_mem_bytes=torch.cuda.max_memory_allocated(dev)
-                       if dev.type == "cuda" else None)
-            out["cases"][case] = run
-            del sess, result
-            _rank_free(torch, dev)
-        if dev.type == "cuda":
-            torch.cuda.reset_peak_memory_stats(dev)
-        for c in counters.values():
-            c.launches = 0
-        run = _spec_lm(torch, spec, device, make_host_mesh(*DIST_SPEC_MESH))
-        run.update(launches={k: c.launches for k, c in counters.items()},
-                   peak_mem_bytes=torch.cuda.max_memory_allocated(dev)
-                   if dev.type == "cuda" else None)
-        out["cases"]["lm_spec"] = run
-        _rank_free(torch, dev)
+            out["cases"][case] = _case_run(torch, dev, counters,
+                                           session_case, case)
+        out["cases"]["moe_spec"] = _case_run(
+            torch, dev, counters, _spec_lm, torch, spec, device,
+            make_host_mesh(*DIST_DP_SPEC_MESH), case="moe_spec")
         out["soak"] = _dist_soak(torch, spec, device, mesh, counters, dev)
     finally:
         dist.all_reduce = real
@@ -4950,7 +5094,6 @@ def _dist_launches(spec, case, device, soak=None) -> dict:
 
 def train_dist_phase(torch, device=DEVICE, spec=None):
     """Phase train_dist (see the module docstring)."""
-    from repro_torch.launch.mesh import run_ranks
     spec = spec or _dist_spec()
     n = spec["world"]
     out = {"phase": "train_dist", "backend": "gloo", "world": n,
@@ -4980,35 +5123,22 @@ def train_dist_phase(torch, device=DEVICE, spec=None):
         del sess, res
         if device == "cuda":
             _free(torch)
-    refs["lm_spec"] = _spec_lm(torch, spec, device)
+    for case in SPEC_CASES:
+        refs[case] = _spec_lm(torch, spec, device, case=case)
+        if device == "cuda":
+            _free(torch)
+    refs["tp_serve"] = _tp_serve(torch, spec, device)
     if device == "cuda":
         _free(torch)
     out["reference_s"] = time.perf_counter() - t0
     shutil.rmtree(spec["soak_dir"], ignore_errors=True)
-    rdzv = ROOT / "build" / "chip_smoke"
-    rdzv.mkdir(parents=True, exist_ok=True)
-    t0, spawned = time.perf_counter(), time.monotonic()
-    try:
-        ranks = run_ranks(_dist_rank, n, backend="gloo", device=device,
-                          args=(spec, device), timeout=DIST_TIMEOUT_S,
-                          rdzv_dir=str(rdzv))
-    except Exception as e:                        # noqa: BLE001
-        fail(f"train_dist: {e}")
-    back = time.perf_counter()
-    out.update(wall_s=back - t0,
-               startup_s=max(r["t_enter"] for r in ranks) - spawned,
-               import_s=max(r["t_import"] for r in ranks) - spawned,
-               ranks_s=max(r["t_exit"] for r in ranks)
-               - max(r["t_enter"] for r in ranks),
-               teardown_s=time.monotonic() - max(r["t_exit"]
-                                                 for r in ranks))
-    print("chip_smoke: train_dist job: " + json.dumps(
-        {k: out[k] for k in ("reference_s", "wall_s", "import_s",
-                             "startup_s", "ranks_s", "teardown_s")}),
-        file=sys.stderr,
-        flush=True)
+    ranks, job = _dist_job(_dist_rank, (n, 1), spec, device, "train_dist job")
+    out.update(job)
+    tp_ranks, out["tp_job"] = _dist_job(_tp_rank, DIST_SPEC_MESH, spec,
+                                        device,
+                                        "train_dist tensor-parallel job")
     launches = {"egnn_edge": 0, "egnn_edge_bwd": 0, "segment_sum": 0,
-                "segment_sum_2d": 0}
+                "segment_sum_2d": 0, "flash_attention": 0, "flash_decode": 0}
     off = []          # every case is checked and shown before a failure
     for case in DIST_CASES:
         name, ref = f"train_dist {case}", refs[case]
@@ -5035,22 +5165,22 @@ def train_dist_phase(torch, device=DEVICE, spec=None):
         if not v_err <= DIST_V_TOL:
             off.append(f"{name}: AdamW's second moments sum to {v_err} "
                        "(relative) off the one-process session's")
-        _dist_agree(name, runs, spec["steps"])
+        _blocks_agree(name, runs, spec["steps"])
         want = _dist_launches(spec, case, device)
-        for i, r in enumerate(runs):
-            if r["launches"] != want:
-                fail(f"{name} rank {i}: launches {r['launches']}, the "
-                     f"design implies {want}")
-            for k in launches:
-                launches[k] += r["launches"][k]
+        _launches_as_designed(name, runs, want, launches)
         row.update(launches_per_rank=want, ranks=[
             {"wall_s": r["wall_s"], "peak_mem_bytes": r["peak_mem_bytes"],
              "allreduce_ms_per_step": r["allreduce_s"] * 1e3
              / spec["steps"], "heads": r["heads"]} for r in runs])
         out["cases"][case] = row
-    out["cases"]["lm_spec"] = row = _spec_check(spec, ranks, refs, device,
-                                                off, launches)
-    print(f"chip_smoke: train_dist lm_spec: {json.dumps(row)}",
+    for case, job in (("moe_spec", ranks), ("lm_spec", tp_ranks)):
+        out["cases"][case] = row = _spec_check(spec, case, job, refs,
+                                               device, off, launches)
+        print(f"chip_smoke: train_dist {case}: {json.dumps(row)}",
+              file=sys.stderr, flush=True)
+    out["cases"]["tp_serve"] = row = _tp_serve_check(spec, tp_ranks, refs,
+                                                     device, off, launches)
+    print(f"chip_smoke: train_dist tp_serve: {json.dumps(row)}",
           file=sys.stderr, flush=True)
     if off:
         fail("; ".join(off))
@@ -5061,12 +5191,68 @@ def train_dist_phase(torch, device=DEVICE, spec=None):
     return out
 
 
-def _spec_check(spec, ranks, refs, device, off, launches) -> dict:
-    """(f): the ranks' losses and v against one process, params equal
-    across ranks after every step, a rank's bytes equal to its blocks',
-    one embedding backward (#1) a step on the card."""
-    name, ref = "train_dist lm_spec", refs["lm_spec"]
-    runs = [r["cases"]["lm_spec"] for r in ranks]
+def _dist_job(fn, mesh, spec, device, label):
+    """``fn(rank, world, spec, device)`` on the ranks of a ``mesh`` =
+    (data, model) job of phase train_dist (the 2-rank job's ranks make
+    their own meshes too). Returns the ranks' results and the job's wall,
+    import, startup, ranks and teardown seconds."""
+    from repro_torch.launch.mesh import run_ranks
+    world = mesh[0] * mesh[1]
+    rdzv = ROOT / "build" / "chip_smoke"
+    rdzv.mkdir(parents=True, exist_ok=True)
+    t0, spawned = time.perf_counter(), time.monotonic()
+    try:
+        ranks = run_ranks(fn, world, backend="gloo", device=device,
+                          args=(spec, device), timeout=DIST_TIMEOUT_S,
+                          rdzv_dir=str(rdzv))
+    except Exception as e:                        # noqa: BLE001
+        fail(f"{label}: {e}")
+    entered = max(r["t_enter"] for r in ranks)
+    job = {"world": world, "mesh": list(mesh),
+           "wall_s": time.perf_counter() - t0,
+           "import_s": max(r["t_import"] for r in ranks) - spawned,
+           "startup_s": entered - spawned,
+           "ranks_s": max(r["t_exit"] for r in ranks) - entered,
+           "teardown_s": time.monotonic() - max(r["t_exit"] for r in ranks)}
+    print(f"chip_smoke: {label}: " + json.dumps(job), file=sys.stderr,
+          flush=True)
+    return ranks, job
+
+
+def _spec_launches(spec, case, device) -> dict:
+    """The launches a rank's run of a ``SPEC_CASES`` case or (g) implies:
+    one embedding backward (#1; (f) over the rank's vocab block) a step;
+    (g) #5 once a layer in the prefill and #6 once a layer a decode step
+    (on the rank's 8 of 16 heads); none off the card."""
+    if case == "moe_spec":          # the 2-rank job's counters, as (d)
+        return _dist_launches(spec, "moe", device)
+    zero = {"segment_sum_2d": 0, "flash_attention": 0, "flash_decode": 0}
+    if device != "cuda":
+        return zero
+    if case in SPEC_CASES:
+        return dict(zero, segment_sum_2d=spec["steps"])
+    L = spec["qwen"].n_layers
+    return dict(zero, flash_attention=L, flash_decode=L * (DIST_TP_NEW - 1))
+
+
+def _launches_as_designed(name, runs, want, launches):
+    """Each rank's launches equal to the design's ``want``; added to the
+    phase's ``launches``."""
+    for i, r in enumerate(runs):
+        if r["launches"] != want:
+            fail(f"{name} rank {i}: launches {r['launches']}, the design "
+                 f"implies {want}")
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+
+
+def _spec_check(spec, case, ranks, refs, device, off, launches) -> dict:
+    """A ``SPEC_CASES`` case: the ranks' losses and v against one process,
+    each block equal on the ranks that hold it after every step, a rank's
+    bytes equal to its blocks', one embedding backward (#1) a step on the
+    card."""
+    name, ref = f"train_dist {case}", refs[case]
+    runs = [r["cases"][case] for r in ranks]
     worst = max(_close_rows([r["losses"]], [ref["losses"]]) for r in runs)
     v_err = max(abs(r["v_sum"] - ref["v_sum"]) for r in runs) / \
         abs(ref["v_sum"])
@@ -5076,33 +5262,73 @@ def _spec_check(spec, ranks, refs, device, off, launches) -> dict:
     if not v_err <= DIST_V_TOL:
         off.append(f"{name}: AdamW's second moments sum to {v_err} "
                    "(relative) off the one-process step's")
-    _dist_agree(name, runs, spec["steps"])
+    _blocks_agree(name, runs, spec["steps"])
     for i, r in enumerate(runs):
         if r["held_bytes"] != r["blocks_bytes"]:
             fail(f"{name} rank {i}: holds {r['held_bytes']} B, its blocks "
                  f"are {r['blocks_bytes']} B")
-        want = dict(_dist_launches(spec, "lm", device))
-        if r["launches"] != want:
-            fail(f"{name} rank {i}: launches {r['launches']}, the design "
-                 f"implies {want}")
-        for k in launches:
-            launches[k] += r["launches"][k]
-    return {"mesh": list(DIST_SPEC_MESH), "loss_err_vs_tol": worst,
-            "losses": runs[0]["losses"], "reference": ref["losses"],
-            "v_sum_rel_err": v_err, "cut_leaves": runs[0]["cut_leaves"],
+    want = _spec_launches(spec, case, device)
+    _launches_as_designed(name, runs, want, launches)
+    arch, fsdp, mesh = SPEC_CASES[case]
+    return {"arch": spec[arch].name, "mesh": list(mesh), "fsdp": fsdp,
+            "loss_err_vs_tol": worst, "losses": runs[0]["losses"],
+            "reference": ref["losses"], "v_sum_rel_err": v_err,
+            "cut_leaves": runs[0]["cut_leaves"],
             "held_bytes": [r["held_bytes"] for r in runs],
-            "launches_per_rank": runs[0]["launches"],
-            "peak_mem_bytes": [r["peak_mem_bytes"] for r in runs]}
+            "step_s": [r["step_s"] for r in runs],
+            "reference_step_s": ref["step_s"], "launches_per_rank": want,
+            "peak_mem_bytes": [r["peak_mem_bytes"] for r in runs],
+            "allreduce_s": [r["allreduce_s"] for r in runs]}
 
 
-def _dist_agree(name, runs, steps):
-    """The ranks' params bitwise equal after every step (fingerprints)."""
+def _tp_serve_check(spec, ranks, refs, device, off, launches) -> dict:
+    """(g): each rank's greedy tokens equal to the one process's for its
+    rows, the logits each was taken from within ``LM_TOL_F32``, #5 and
+    #6 once a layer a pass on every rank."""
+    name, ref = "train_dist tp_serve", refs["tp_serve"]
+    runs = [r["cases"]["tp_serve"] for r in ranks]
+    n = len(ref["tokens"]) // DIST_SPEC_MESH[0]
+    atol, rtol = LM_TOL_F32
+    worst = 0.0
+    for i, r in enumerate(runs):
+        rows = slice(r["rows"] * n, (r["rows"] + 1) * n)
+        if r["tokens"] != ref["tokens"][rows]:
+            off.append(f"{name} rank {i}: tokens {r['tokens']}, one process "
+                       f"gave {ref['tokens'][rows]}")
+        want = ref["logits"][rows]
+        err = float((abs(r["logits"] - want) / (atol + rtol * abs(want)))
+                    .max())
+        worst = max(worst, err)
+    if not worst <= 1.0:
+        off.append(f"{name}: logits off the one process's by {worst} x "
+                   "the tolerance")
+    want = _spec_launches(spec, "tp_serve", device)
+    _launches_as_designed(name, runs, want, launches)
+    return {"mesh": list(DIST_SPEC_MESH), "fsdp": True,
+            "rows_a_data_rank": n, "prompt": list(spec["lm"]),
+            "new": DIST_TP_NEW, "tokens": runs[0]["tokens"],
+            "logit_err_vs_tol": worst,
+            "prefill_s": [r["prefill_s"] for r in runs],
+            "decode_s": [r["decode_s"] for r in runs],
+            "reference_prefill_s": ref["prefill_s"],
+            "reference_decode_s": ref["decode_s"], "launches_per_rank": want,
+            "peak_mem_bytes": [r["peak_mem_bytes"] for r in runs],
+            "allreduce_s": [r["allreduce_s"] for r in runs]}
+
+
+def _blocks_agree(name, runs, steps):
+    """Every block of every leaf (or the whole tree, ``"params"``) bitwise
+    equal on the ranks that hold it, after every step."""
     if len(runs[0]["fingerprints"]) != steps:
         fail(f"{name}: {len(runs[0]['fingerprints'])} steps, not {steps}")
     for i in range(steps):
-        if any(r["fingerprints"][i] != runs[0]["fingerprints"][i]
-               for r in runs):
-            fail(f"{name}: params differ across ranks after step {i}")
+        for path in runs[0]["fingerprints"][i]:
+            held = {}
+            for r in runs:
+                block, fp = r["fingerprints"][i][path]
+                if held.setdefault(block, fp) != fp:
+                    fail(f"{name}: {path} block {block} differs across the "
+                         f"ranks that hold it after step {i}")
 
 
 def _dist_soak_check(spec, ranks, ref, device, launches):
@@ -5144,13 +5370,10 @@ def _dist_soak_check(spec, ranks, ref, device, launches):
              f"session's by {max(worst, worst_total)} x the tolerance")
     for run in ("faulted", "resumed", "clean"):
         for i, rk in enumerate(ranks):
-            want = _dist_launches(spec, "soak", device, rk["soak"][run])
-            if rk["soak"][run]["launches"] != want:
-                fail(f"{name} {run} rank {i}: launches "
-                     f"{rk['soak'][run]['launches']}, the design implies "
-                     f"{want}")
-            for k in launches:
-                launches[k] += rk["soak"][run]["launches"][k]
+            _launches_as_designed(
+                f"{name} {run} rank {i} of", [rk["soak"][run]],
+                _dist_launches(spec, "soak", device, rk["soak"][run]),
+                launches)
     return {"steps": spec["soak_steps"], "faults": SOAK_FAULTS,
             "events": f["events"], "report": rep,
             "resumed_at": first["resumed_at"],
@@ -6501,13 +6724,15 @@ def main():
                             "lm_frontends":
                             front["launches"]["flash_attention"],
                             "lm_dense12b":
-                            dense["launches"]["flash_attention"]},
+                            dense["launches"]["flash_attention"],
+                            "train_dist": dist_["launches"]["flash_attention"]},
         "flash_decode": {"lm_serve": sum(r["flash_decode"]
                                          for r in lm_runs),
                          "lm_moe": moe["launches"]["flash_decode"],
                          "lm_recurrent": rec["launches"]["flash_decode"],
                          "lm_frontends": front["launches"]["flash_decode"],
-                         "lm_dense12b": dense["launches"]["flash_decode"]}}
+                         "lm_dense12b": dense["launches"]["flash_decode"],
+                         "train_dist": dist_["launches"]["flash_decode"]}}
     launches = {k: sum(v.values()) for k, v in by_path.items()}
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")

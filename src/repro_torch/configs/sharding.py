@@ -19,12 +19,21 @@ default ``model`` axis of 16, nothing fitted).
 mesh holds (the counterpart of ``tree_shardings``); a dim whose axes a
 spec names is cut into equal blocks, the block index the rank's
 coordinates on those axes, row-major.
+
+``read_spec`` reads a spec for compute, in the layout it names: a dim
+cut over ``model`` stays local (the product runs on the block), a dim cut
+over ``data`` is FSDP's (gathered just before use, freed after), and a
+leaf that names no axis is replicated compute. ``tensor_parallel_family``
+says which configs a ``spec_fn`` plan computes so (``engine.plan``).
 """
 from __future__ import annotations
 
 import re
+from typing import NamedTuple
 
 MODEL = "model"
+FSDP = "data"                      # the axis FSDP cuts params over
+TP_BLOCKS = ("attn", "swa")        # the blocks tensor-parallel compute covers
 
 
 def _rules(cfg, model_size: int = 16):
@@ -218,3 +227,51 @@ def check_divisibility(cfg, mesh) -> list[str]:
         if dim and dim % m:
             issues.append(f"{nm}={dim} % model={m} != 0")
     return issues
+
+
+class LeafCut(NamedTuple):
+    """A spec read for compute: the dims cut over ``model`` (local: the
+    product runs on the rank's block) and those cut over ``data`` (FSDP:
+    gathered over ``plan.gather_group`` of the data axes just before use,
+    and the gradient reduce-scattered back into the block). A leaf with
+    neither is whole on every rank: replicated compute, as ``repro``'s
+    GSPMD repeats it."""
+    model: tuple
+    fsdp: tuple
+
+
+def read_spec(spec) -> LeafCut:
+    """``spec``'s ``model``-local and FSDP-gathered dims."""
+    spec = tuple(spec)
+    return LeafCut(
+        model=tuple(i for i, e in enumerate(spec) if MODEL in _axes(e)),
+        fsdp=tuple(i for i, e in enumerate(spec) if FSDP in _axes(e)))
+
+
+def tensor_parallel_reason(cfg) -> str | None:
+    """Why a ``spec_fn`` plan does NOT compute ``cfg`` tensor-parallel
+    (None: it does). Tensor-parallel compute covers the dense GQA
+    transformers: ``attn`` / ``swa`` blocks with a dense SwiGLU, text
+    only, one LM head, head-aligned rules. The others keep the
+    data-parallel step (every cut leaf gathered whole)."""
+    if cfg.family == "gnn" or not cfg.n_layers:
+        return "not a transformer LM"
+    if cfg.n_experts:
+        return "MoE feed-forward (expert parallelism is not ported)"
+    if cfg.naive_tp:
+        return "naive_tp's fractional heads"
+    if cfg.n_tasks > 1:
+        return "per-source task_heads (lm-mtl)"
+    if cfg.n_enc_layers:
+        return "encoder-decoder cross-attention"
+    if cfg.modality != "text":
+        return f"{cfg.modality} frontend"
+    other = sorted({b for b in cfg.block_pattern if b not in TP_BLOCKS})
+    if other:
+        return f"blocks {other} (only {list(TP_BLOCKS)} are tensor-parallel)"
+    return None
+
+
+def tensor_parallel_family(cfg) -> bool:
+    """Whether a ``spec_fn`` plan computes ``cfg`` on local blocks."""
+    return tensor_parallel_reason(cfg) is None

@@ -133,10 +133,27 @@ def gfm_eval_fn(cfg):
 # LM multi-task: shared transformer trunk + per-source vocab heads
 # ---------------------------------------------------------------------------
 
-def _xent(logits, labels):
-    """Per-position ``logsumexp - gold`` of f32 logits (..., V)."""
-    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
-    return torch.logsumexp(logits, -1) - gold
+def _xent(logits, labels, tp=None):
+    """Per-position ``logsumexp - gold`` of f32 logits (..., V). With a
+    vocab-parallel ``tp`` (``models.common.TensorParallel``) ``logits``
+    are the rank's vocab block (..., V / model): the max is reduced over
+    ``model`` with MAX (a constant: the result does not depend on it),
+    the sum of exponentials and the gold logit (on the rank whose block
+    holds the label, zero elsewhere) with SUM, Megatron's g."""
+    if tp is None or not tp.vocab:
+        gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+        return torch.logsumexp(logits, -1) - gold
+    from repro_torch.launch.mesh import all_reduce
+    block = logits.shape[-1]
+    m = logits.detach().amax(-1)
+    if tp.size > 1:
+        all_reduce(m, tp.group, "max")
+    total = tp.reduce(torch.exp(logits - m[..., None]).sum(-1))
+    local = labels.long() - tp.index * block
+    inside = (local >= 0) & (local < block)
+    gold = logits.gather(-1, local.clamp(0, block - 1)[..., None])[..., 0]
+    gold = tp.reduce(torch.where(inside, gold, torch.zeros_like(gold)))
+    return torch.log(total) + m - gold
 
 
 def softmax_xent(logits, labels):

@@ -28,15 +28,23 @@ batch:
 (the trunk of the multi-task layout) shard parameters: ``fn(path, leaf)
 -> spec`` (``configs.sharding.make_spec_fn``), and a rank stores only its
 block of every leaf whose spec names an axis, for the params and both
-AdamW moments. The step (``engine.step.make_step``) gathers every such
-leaf before the forward, computes the rank's rows with the whole tree,
+AdamW moments. A dense GQA transformer (``configs.sharding.
+tensor_parallel_family``) then computes in the layout ``repro``'s specs
+name (``tensor_parallel``): a dim cut over ``model`` stays local and its
+product runs on the block, a dim cut over ``data`` (FSDP) is gathered
+just before use by ``gather_unit`` — one all-gather a block unit, inside
+its remat checkpoint, whose backward reduce-scatters the gradients into
+the rank's blocks — and a leaf that names no axis is replicated compute;
+``engine.step`` says how the gradients are reduced. Every other model
+keeps the data-parallel step: it gathers every cut leaf before the
+forward (``gather``), computes the rank's rows with the whole tree,
 reduces the gradients as the unsharded plan does, and keeps the rank's
-block of each; the clip norm sums each block once across the ranks
-(``norm_fn``). Semantics stay global: one device's training up to
-summation order. A gather is a SUM all-reduce, over the ranks that hold
-the leaf's blocks between them, of a buffer that holds the rank's block
-and ``-0.0`` everywhere else (``-0.0`` is the exact additive identity),
-which gloo runs on CUDA tensors too.
+block of each. On both the clip norm sums each block once across the
+ranks (``norm_fn``). Semantics stay global: one device's training up to
+summation order. ``gather``'s collective is a SUM all-reduce, over the
+ranks that hold the leaf's blocks between them, of a buffer that holds
+the rank's block and ``-0.0`` everywhere else (``-0.0`` is the exact
+additive identity), which gloo runs on CUDA tensors too.
 
 ``donate``: a ``Session`` on the plan updates params and moments in their
 own storage (it builds ``adamw(donate=plan.donate)``), as ``repro``'s
@@ -56,8 +64,10 @@ from repro_torch.core.taskpar import (HeadPlacement, MTPConfig, TaskShard,
                                       dist_global_norm, flat_shard,
                                       hier_shard, move_heads, take_batch,
                                       take_flat_batch, take_heads)
-from repro_torch.configs.sharding import (holds_first_copy, local_shard,
-                                         rank_slices, spec_axes, tree_specs)
+from repro_torch.configs.sharding import (FSDP, MODEL, holds_first_copy,
+                                         local_shard, mesh_shape,
+                                         rank_slices, read_spec, spec_axes,
+                                         tree_specs)
 from repro_torch.interop import leaves, unflatten
 from repro_torch.optim.adamw import global_norm
 
@@ -302,6 +312,77 @@ class ShardingPlan:
             out[p] = buf
         return unflatten(tree, out)
 
+    # -- tensor-parallel compute (the dense GQA families) -------------------
+
+    def data_axes(self) -> tuple:
+        """The mesh's axes other than ``model``: the batch's rows split
+        over them, and a row's ``model`` ranks share it."""
+        return tuple(n for n in self.mesh.mesh_dim_names if n != MODEL)
+
+    def gather_unit(self, tree, path: str, layout: dict):
+        """``tree``, the params at ``path`` of this rank's tree (one
+        repetition of a stacked unit: its leaves lack the leading ``reps``
+        dim), with every leaf that ``layout`` cuts over ``data`` gathered
+        whole along that dim: one all-gather a dtype over the FSDP group
+        (``gather_group`` of ``data``), whose backward reduce-scatters the
+        unit's gradients into the rank's blocks. A dim cut over ``model``
+        stays the rank's block (a collective: every rank calls it for the
+        same units in the same order)."""
+        flat = leaves(tree)
+        cut = {}
+        for sub, x in flat.items():
+            entry = layout.get(f"{path}/{sub}")
+            if entry is None:
+                continue
+            spec = entry[1][len(entry[1]) - x.dim():]
+            dims = read_spec(spec).fsdp
+            if dims:
+                if len(dims) > 1:
+                    raise ValueError(f"{path}/{sub}: {spec} cuts more than "
+                                     "one dim over data")
+                cut[sub] = dims[0]
+        if not cut:
+            return tree
+        group = self.gather_group((FSDP,))
+        size = mesh_shape(self.mesh)[FSDP]
+        out = dict(flat)
+        for dt in dict.fromkeys(flat[k].dtype for k in cut):
+            keys = [k for k in cut if flat[k].dtype == dt]
+            whole = _GatherUnit.apply(group, size, tuple(cut[k] for k in keys),
+                                      *(flat[k] for k in keys))
+            out.update(zip(keys, whole))
+        return unflatten(tree, out)
+
+    def tensor_parallel(self, layout: dict):
+        """The ``models.common.TensorParallel`` of this rank for a params
+        tree cut by ``layout``: which products the ``model`` axis cuts
+        (read off the leaves' specs: ``wq``'s and ``wk``'s columns,
+        ``w_gate``'s, the embedding's rows) and, when a leaf is cut over
+        ``data``, ``gather_unit`` over the layout."""
+        import re
+
+        from repro_torch.models.common import TensorParallel
+
+        def cut(pattern, dim) -> bool:
+            for p, (_, spec) in layout.items():
+                if re.search(pattern, p):
+                    return dim in [i - len(spec) for i in
+                                   read_spec(spec).model]
+            return False
+        fsdp = any(read_spec(s).fsdp for _, s in layout.values())
+        size = mesh_shape(self.mesh)[MODEL]
+        vocab = cut(r"^embed/table$", -2)
+        if "lm_head/w" in layout and cut(r"^lm_head/w$", -1) != vocab:
+            raise ValueError("the embedding's rows and lm_head's columns "
+                             "are cut differently over model")
+        return TensorParallel(
+            group=self.mesh.get_group(MODEL), size=size,
+            index=self.coords[MODEL], heads=cut(r"attn/wq/w$", -1),
+            kv=cut(r"attn/wk/w$", -1), ffn=cut(r"ffn/w_gate/w$", -1),
+            vocab=vocab,
+            gather=functools.partial(self.gather_unit, layout=layout)
+            if fsdp else None)
+
     def all_heads(self) -> list:
         """The heads every rank holds, by rank."""
         import torch.distributed as dist
@@ -434,6 +515,47 @@ class ShardingPlan:
                             f"plan (this plan resolves to "
                             f"'{self.resolved_backend}')")
         return CompiledStep(step)
+
+
+class _GatherUnit(torch.autograd.Function):
+    """A unit's FSDP-cut blocks -> the leaves whole along their cut dim:
+    one all-gather of the blocks flattened into one buffer (the group's
+    rank ``i`` holds block ``i`` of each, ``configs.sharding.
+    rank_slices``); backward, the whole gradients cut the same way and
+    reduce-scattered, so each rank receives its blocks' gradients summed
+    over the group."""
+
+    @staticmethod
+    def forward(ctx, group, size, dims, *blocks):
+        from repro_torch.launch.mesh import all_gather_flat
+        ctx.group, ctx.size, ctx.dims = group, size, dims
+        ctx.shapes = [tuple(b.shape) for b in blocks]
+        parts = all_gather_flat(torch.cat([b.reshape(-1) for b in blocks]),
+                                group, size)
+        out, off = [], 0
+        for b, d in zip(blocks, dims):
+            n = b.numel()
+            p = parts[:, off:off + n].reshape((size,) + tuple(b.shape))
+            out.append(p.movedim(0, d).reshape(
+                b.shape[:d] + (size * b.shape[d],) + b.shape[d + 1:]))
+            off += n
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        from repro_torch.launch.mesh import reduce_scatter_flat
+        n = ctx.size
+        pieces = []
+        for g, shape, d in zip(grads, ctx.shapes, ctx.dims):
+            g = g.reshape(shape[:d] + (n, shape[d]) + shape[d + 1:])
+            pieces.append(g.movedim(d, 0).reshape(n, -1))
+        mine = reduce_scatter_flat(torch.cat(pieces, dim=1), ctx.group, n)
+        out, off = [], 0
+        for shape in ctx.shapes:
+            k = int(np.prod(shape))
+            out.append(mine[off:off + k].reshape(shape))
+            off += k
+        return (None, None, None) + tuple(out)
 
 
 class CompiledStep:

@@ -65,5 +65,5 @@ def _lm(cfg, *, n_tasks=None, impl="chunked"):
         init=lambda seed=0, device="cpu": lm_init(
             init_generator(seed, device), cfg, device),
         loss_fn=make_lm_loss(cfg, impl), name=f"lm-{cfg.name}",
-        batch_counts=lm_batch_counts)
+        batch_counts=lm_batch_counts, cfg=cfg)
 

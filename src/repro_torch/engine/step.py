@@ -27,18 +27,25 @@ each microbatch from the global batch first and the rank's rows of it
 second (``plan.slice_batch(batch, accum)``), as ``repro`` does.
 
 A plan with ``spec_fn`` / ``shared_spec_fn`` (``engine.plan``) keeps each
-rank's block of every cut leaf; its step gathers them (``plan.gather``,
-one all-reduce a cut leaf over the ranks that hold its blocks), runs the grad_fn above on the whole tree —
-the rank's rows, all gradients reduced as the unsharded plan reduces them
-— and keeps the rank's block of each gradient for AdamW, whose clip norm
-sums each block once across the ranks (``plan.norm_fn(layout)``). This
-is ZeRO-3's storage with data-parallel compute: every rank computes with
-the whole tree, where ``repro``'s GSPMD partitions the products
-themselves (local heads, row-parallel partial sums, a vocab-parallel
-loss). Its peak holds the whole tree and its gradients for the step, and
-its gradients are all-reduced whole before the rank keeps its blocks:
-gathering a layer just before its use and reduce-scattering each gradient
-into the rank's block (FSDP's peak and traffic) is the next step.
+rank's block of every cut leaf, and the clip norm sums each block once
+across the ranks (``plan.norm_fn(layout)``). A dense GQA transformer
+(``SingleTaskModel.cfg`` in ``configs.sharding.tensor_parallel_family``)
+computes in the layout ``repro``'s specs name (``tensor_parallel_grad_fn``): the
+batch's rows split over the data axes only, a row's ``model`` ranks
+share it, and the forward runs on the rank's blocks — local heads,
+column- then row-parallel SwiGLU, a vocab-parallel embedding, logits and
+loss, each block unit's FSDP-cut leaves gathered just before use and
+their gradients reduce-scattered into the rank's blocks over ``data``.
+The gradients of the other leaves, ``model``-local or replicated, are
+summed over the data axes only (a replicated leaf's is already whole and
+equal on every ``model`` rank), and nothing is gathered whole. Every
+other model keeps the data-parallel step (``sharded_grad_fn``): it
+gathers the cut leaves (``plan.gather``, one all-reduce a cut leaf over
+the ranks that hold its blocks), runs the grad_fn above on the whole tree
+— the rank's rows, all gradients reduced as the unsharded plan reduces
+them — and keeps the rank's block of each gradient for AdamW: ZeRO-3's
+storage with data-parallel compute, its peak the whole tree and its
+gradients.
 """
 from __future__ import annotations
 
@@ -71,13 +78,17 @@ class SingleTaskModel(NamedTuple):
     LM's tokens, a GFM branch's graphs and atoms), the counterpart of
     ``MultiTaskModel``'s: a rank that holds a shard of the batch passes
     them summed over the ranks as ``norm`` (``{"counts": (c,), "share":
-    1 / ranks, "balance": models.moe.Balance}``), and its loss is then its
-    share of the loss over the whole batch. None: no data parallelism (a
-    distributed plan raises)."""
+    1 / ranks, "balance": models.moe.Balance}``, and on a tensor-parallel
+    plan ``"tp"``, the rank's ``models.common.TensorParallel``), and its
+    loss is then its share of the loss over the whole batch. None: no data
+    parallelism (a distributed plan raises). ``cfg``: an LM's config,
+    which decides whether a ``spec_fn`` plan computes it
+    tensor-parallel."""
     init: Callable
     loss_fn: Callable
     name: str = "single"
     batch_counts: Callable | None = None
+    cfg: Any = None          # an LM's ArchConfig (tensor-parallel plans)
 
 
 class HierStepSpec(NamedTuple):
@@ -360,6 +371,55 @@ def sharded_grad_fn(grad_fn: Callable, plan, layout: dict) -> Callable:
     return fn
 
 
+def tensor_parallel_grad_fn(model: SingleTaskModel, plan, layout: dict
+                            ) -> Callable:
+    """grad_fn of a dense GQA LM on a ``spec_fn`` plan, over this rank's
+    blocks and its rows (see the module docstring). The loss's
+    denominators and the loss are summed over the data axes; the
+    gradients of leaves cut over ``data`` come out of ``gather_unit``'s
+    reduce-scatter summed over ``data`` and are summed over ``pod`` where
+    the mesh has one; the others are summed over every data axis, one
+    flat buffer a dtype."""
+    from repro_torch.configs.sharding import FSDP, mesh_shape, read_spec
+    from repro_torch.models.moe import Balance
+    tp = plan.tensor_parallel(layout)
+    sizes = mesh_shape(plan.mesh)
+    axes = plan.data_axes()
+    rows, n = plan.gather_group(axes), int(np.prod([sizes[a] for a in axes]))
+    pod = tuple(a for a in axes if a != FSDP)
+    pod_group, pod_n = (plan.gather_group(pod), n // sizes[FSDP]) if pod \
+        else (None, 1)
+    fsdp = {p for p, (_, s) in layout.items() if read_spec(s).fsdp}
+    balance = Balance(rows, n)
+
+    def grad_fn(params, batch):
+        counts = model.batch_counts(batch).float().contiguous()
+        _all_reduce(counts, rows, n)
+        norm = {"counts": counts, "share": 1.0 / n, "balance": balance,
+                "tp": tp}
+        leaves, p = _requires_grad(params)
+        with torch.enable_grad():
+            loss = model.loss_fn(p, batch, norm=norm)
+            grads = leaf_grads(loss, leaves)
+        names = list(leaves)
+        cut = [i for i, k in enumerate(names) if k in fsdp]
+        rest = [i for i, k in enumerate(names) if k not in fsdp]
+        parts = _reduce_leaves([grads[i] for i in rest] +
+                               [loss.detach().float().reshape(1)], rows, n)
+        out = dict(zip([names[i] for i in rest], parts))
+        if cut:
+            out.update(zip([names[i] for i in cut], _reduce_leaves(
+                [grads[i] for i in cut], pod_group, pod_n)))
+        return parts[-1][0], {}, unflatten(params, out)
+    return grad_fn
+
+
+def _tensor_parallel(model, layout) -> bool:
+    from repro_torch.configs.sharding import tensor_parallel_family
+    return bool(layout) and isinstance(model, SingleTaskModel) and \
+        model.cfg is not None and tensor_parallel_family(model.cfg)
+
+
 def _layout(model, plan) -> dict:
     return plan.param_layout(model) if isinstance(plan, ShardingPlan) and \
         plan.sharded else {}
@@ -367,6 +427,9 @@ def _layout(model, plan) -> dict:
 
 def _grad_fn(model, plan, accum, task_weights, layout=None):
     axis = 1 if isinstance(model, MultiTaskModel) else 0
+    if _tensor_parallel(model, layout):
+        return with_grad_accum(tensor_parallel_grad_fn(model, plan, layout),
+                               accum, axis)
     fn = with_grad_accum(make_grad_fn(model, plan,
                                       task_weights=task_weights), accum, axis)
     return sharded_grad_fn(fn, plan, layout) if layout else fn

@@ -12,9 +12,12 @@ reports its FLOPs, the bytes its ops move, its collectives and its peak:
 
   * train: the ``lm`` step on ``ShardingPlan(mesh, spec_fn=make_spec_fn)``
     with ``cfg.train_accum`` microbatches of the rank's rows;
-  * prefill: the whole tree gathered, the rank's rows, ``logits[:, -1:]``;
+  * prefill: the rank's rows through ``train.serve.make_prefill_step``
+    (every position unembedded, as the port serves), then
+    ``logits[:, -1:]``, as ``repro``'s dry run slices its ``lm_apply``;
   * decode: one step over ``cache_specs`` (a cache split over its length
-    is gathered first; one split over the batch keeps the rank's rows);
+    is gathered over the data axes first; one split over the batch keeps
+    the rank's rows);
   * the GFM: the task-parallel step on the paper mesh (``"par"`` when the
     ``model`` axis takes the tasks, else ``"base"``), ``repro``'s batch
     rule, with the edge path the port trains (``"fused"``); ``hier``:
@@ -34,10 +37,17 @@ entry says so (``hlo.traced``). A blocked attention call outside autograd
 from the same call at 1 x 1, 1 x 2 and 2 x 2 blocks, extrapolated as a +
 nq b + nq nk c (the per-pair body and the per-query-block work repeat
 exactly; the call's prologue, which converts q, k and v whole, is counted
-at the traced sizes, and its blocks' temporaries are not in the peak). The step computes what the port computes:
-every rank gathers the whole tree and runs its rows through it
-(``engine.step``), so its FLOPs are data-parallel compute, not ``repro``'s
-tensor-parallel products.
+at the traced sizes, and its blocks' temporaries are not in the peak).
+
+The step computes what the port computes (``figures`` in an entry's
+``memory`` and ``hlo`` says which): a dense GQA model
+(``configs.sharding.tensor_parallel_family``) runs its products on the
+rank's blocks — local heads, column- and row-parallel SwiGLU, a
+vocab-parallel embedding, logits and loss, each unit's FSDP leaves
+gathered before use and reduce-scattered after — and its caches hold the
+rank's kv heads, the layout ``repro``'s specs name; every other model
+gathers every cut leaf whole and runs its rows through the whole tree
+(data-parallel compute).
 
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen1.5-0.5b --shape train_4k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both --out results/dryrun_torch.json
@@ -68,14 +78,25 @@ WORLD = {"pod": 256, "multipod": 512, "pod32x8": 256, "paper": 500,
          "hier": 512}
 NOTES = ("static count: fake CPU tensors, so every hand kernel runs its "
          "plain version (impl 'chunked' attention, the fused edge path's "
-         "plain version, the one-hot segment sum); the ranks gather the "
-         "whole tree and compute data-parallel")
+         "plain version, the one-hot segment sum)")
 # what a spec_fn plan's figures are (``figures`` in ``memory`` and ``hlo``)
-FIGURES = ("data-parallel: every cut leaf is gathered whole before the "
-           "forward and the gradients are all-reduced whole, the rank "
-           "keeping its blocks between steps; peak_bytes and "
-           "collective_bytes are this plan's, not those of FSDP's gathers "
-           "a layer before use and reduce-scatters")
+TENSOR_PARALLEL = ("tensor-parallel: the products run on the rank's blocks "
+                   "(local heads, column/row-parallel SwiGLU, a "
+                   "vocab-parallel embedding, logits and loss), FSDP leaves "
+                   "gathered a unit before use and reduce-scattered: "
+                   "the layout repro's specs name")
+DATA_PARALLEL = ("data-parallel: every cut leaf is gathered whole before "
+                 "the forward and the gradients are all-reduced whole, the "
+                 "rank keeping its blocks between steps; peak_bytes and "
+                 "collective_bytes are this plan's, not those of repro's "
+                 "tensor-parallel layout")
+
+
+def figures(cfg) -> str:
+    """What a ``spec_fn`` plan's figures for ``cfg`` are."""
+    from repro_torch.configs.sharding import tensor_parallel_reason
+    why = tensor_parallel_reason(cfg)
+    return TENSOR_PARALLEL if why is None else f"{DATA_PARALLEL} ({why})"
 
 
 def skip_reason(arch: str, shape_name: str) -> str | None:
@@ -210,21 +231,24 @@ def _cut_params(cfg, mesh):
 
 
 def _lm_prefill(cfg, shape, mesh, accum, device, micro, seed=0):
+    from repro_torch.configs.sharding import tensor_parallel_family
     from repro_torch.models import transformer
+    from repro_torch.train.serve import make_prefill_step
     plan, layout, local = _cut_params(cfg, mesh)
     rows = _rank_rows(input_specs(cfg, shape), mesh, plan.coords,
                       shape.global_batch)
+    tp = tensor_parallel_family(cfg)
+    step = make_prefill_step(cfg, "chunked", plan=plan if tp else None)
 
     @torch.no_grad()
     def prefill(params, batch):
-        full = plan.gather(params, layout)
+        full = params if tp else plan.gather(params, layout)
         memory = None
         if cfg.n_enc_layers:
             memory = transformer.encode(full, batch["src_embed"], cfg,
                                         "chunked")
-        logits, caches, _ = transformer.lm_apply(
-            full, batch["tokens"], cfg=cfg, media=batch.get("media"),
-            memory=memory, mode="prefill", impl="chunked")
+        logits, caches = step(full, batch["tokens"], media=batch.get("media"),
+                              memory=memory)
         return logits[:, -1:], caches
 
     def make(fake):
@@ -241,14 +265,20 @@ def _lm_decode(cfg, shape, mesh, accum, device, micro, seed=0):
 
     from torch.utils._pytree import tree_flatten, tree_unflatten
 
-    from repro_torch.configs.sharding import holds_first_copy, local_shard
-    from repro_torch.train.serve import make_decode_step
+    from repro_torch.configs.sharding import (local_shard,
+                                             tensor_parallel_family)
+    from repro_torch.models.transformer import local_caches
+    from repro_torch.train.serve import make_decode_step, serving_tp
     caches_meta, eff = cache_specs(cfg, shape)
     plan, layout, local = _cut_params(eff, mesh)
     B = shape.global_batch
     coords = plan.coords
+    tp = tensor_parallel_family(eff)
+    specs = [cache_leaf_spec(v, mesh, B)
+             for v in tree_flatten(caches_meta)[0]]
+    if tp:      # the rank's kv heads; the data axes' split as cache_specs
+        caches_meta = local_caches(caches_meta, eff, serving_tp(eff, plan))
     flat, tree = tree_flatten(caches_meta)
-    specs = [cache_leaf_spec(v, mesh, B) for v in flat]
     c_local = tree_unflatten([local_shard(v, s, mesh, coords)
                               for v, s in zip(flat, specs)], tree)
     rows = _rank_rows(input_specs(eff, shape), mesh, coords, B)
@@ -257,23 +287,23 @@ def _lm_decode(cfg, shape, mesh, accum, device, micro, seed=0):
         mem = torch.empty((rows["token"].shape[0], cfg.enc_memory_len,
                            cfg.d_model), dtype=cfg.compute_dtype,
                           device="meta")
-    dec = make_decode_step(eff, impl="chunked")
-    # a cache split over its length is gathered (the step attends to all
-    # of it); one split over the batch holds the rank's rows already
+    dec = make_decode_step(eff, impl="chunked", plan=plan if tp else None)
+    # a cache split over its length is gathered over the data axes (the
+    # step attends to all of it); one split over the batch holds the
+    # rank's rows already
     bdim = [0 if v.dim() and v.shape[0] == B else 1 for v in flat]
     gather = [i for i, s in enumerate(specs)
               if any(e is not None for d, e in enumerate(s) if d != bdim[i])]
 
     def decode(params, token, caches, pos, memory):
-        full = plan.gather(params, layout)
+        full = params if tp else plan.gather(params, layout)
         cl = tree_flatten(caches)[0]
         for i in gather:
             shape_, s, x = tuple(flat[i].shape), specs[i], cl[i]
             buf = torch.full(shape_, -0.0 if x.is_floating_point() else 0,
                              dtype=x.dtype, device=x.device)
-            if holds_first_copy(s, mesh, coords):
-                buf[rank_slices(shape_, s, mesh, coords)] = x
-            dist.all_reduce(buf)
+            buf[rank_slices(shape_, s, mesh, coords)] = x
+            dist.all_reduce(buf, group=plan.gather_group(s))
             cl[i] = buf
         return dec(full, token, tree_unflatten(cl, tree), pos, memory=memory)
 
@@ -530,8 +560,10 @@ def _static_at(arch_cfg, shape, mesh, mesh_kind, accum, device):
     reps = _pattern_split(arch_cfg)[1] if arch_cfg.family != "gnn" else 0
     # a decode cache's batch axis is found by its size (``repro``'s rule):
     # at one unit a (reps, B, ...) leaf with B = 1 would read as batch-major,
-    # so decode traces two and three units
-    depths = [2, 3] if shape.kind == "decode" else [1, 2]
+    # so decode traces two and three units; so does prefill, whose first
+    # unit's peak holds the embedding's transients, off the line the
+    # later units' caches follow
+    depths = [2, 3] if shape.kind in ("decode", "prefill") else [1, 2]
     if reps <= depths[-1]:
         depths = [None]
     info0 = build(arch_cfg, shape, mesh, accum, device, None)[2]
@@ -627,7 +659,7 @@ def run_one(arch: str, shape_name: str, mesh_kind: str, *, accum: int = 1,
             info["full"], info["specs"] = _full_tree(cfg, shape, info)
             entry["memory"] = _state_bytes(info)
             if info["plan"].sharded:
-                entry["memory"]["figures"] = FIGURES
+                entry["memory"]["figures"] = figures(cfg)
             if compile_too:
                 entry["memory"]["peak_bytes"] = total["peak_bytes"]
                 entry["cost"] = {"flops": total["flops"],
@@ -638,7 +670,7 @@ def run_one(arch: str, shape_name: str, mesh_kind: str, *, accum: int = 1,
                 entry["hlo"]["traced"] = traced
                 entry["hlo"]["notes"] = NOTES
                 if info["plan"].sharded:
-                    entry["hlo"]["figures"] = FIGURES
+                    entry["hlo"]["figures"] = figures(cfg)
                 entry["collectives_once"] = once
                 entry["top_ops"] = total["top_ops"]
             else:

@@ -27,6 +27,16 @@ Several ranks may share one GPU only over gloo: NCCL refuses two ranks on
 one card, and ``init_distributed`` raises for that rather than switch
 backends. gloo runs ``all_reduce`` and ``broadcast`` on CUDA tensors by
 staging them through the host.
+
+The collectives of tensor parallelism and FSDP (``models.common.
+TensorParallel``, ``engine.plan.ShardingPlan.gather_unit``) go through
+``all_reduce``, ``all_gather_flat`` and ``reduce_scatter_flat`` here. On
+a gloo group a CUDA tensor's all-gather and reduce-scatter run on a
+pinned host copy (chosen by the group's backend): gloo's own CUDA
+staging covers ``all_reduce`` and ``broadcast`` only. Every other backend
+(``nccl``, ``fake_world``'s ``"fake"``, gloo on CPU tensors) takes the
+tensors as they are, and ``launch.cost.count`` sees each call as one
+``all-reduce``, ``all-gather`` or ``reduce-scatter``.
 """
 from __future__ import annotations
 
@@ -176,6 +186,64 @@ def process_group(ranks) -> object:
             _groups[ranks] = dist.new_group(list(ranks))
     g = _groups[ranks]
     return g if dist.get_rank() in ranks else None
+
+
+def _via_host(group, x) -> bool:
+    """Whether ``x``'s gather or scatter over ``group`` is staged through
+    pinned host memory: a CUDA tensor on a gloo group."""
+    import torch.distributed as dist
+    return x.is_cuda and dist.get_backend(group) == "gloo"
+
+
+def _pinned(x) -> torch.Tensor:
+    host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    return host.copy_(x)
+
+
+def all_reduce(x, group=None, op: str = "sum"):
+    """``x`` reduced in place over ``group`` (None: the world) with
+    ``op`` (``"sum"``, ``"max"`` or ``"min"``); every rank receives the
+    same bits. Returns ``x``."""
+    import torch.distributed as dist
+    dist.all_reduce(x, op={"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
+                           "min": dist.ReduceOp.MIN}[op], group=group)
+    return x
+
+
+def all_gather_flat(x, group, size: int) -> torch.Tensor:
+    """This rank's flat ``(n,)`` buffer -> ``(size, n)``, row ``i`` the
+    buffer of the group's rank ``i`` (one all-gather)."""
+    import torch.distributed as dist
+    if size == 1:
+        return x[None]
+    gather = getattr(dist, "all_gather_single", None) or \
+        dist.all_gather_into_tensor
+    n = x.numel()
+    if _via_host(group, x):
+        out = torch.empty(size * n, dtype=x.dtype, pin_memory=True)
+        gather(out, _pinned(x.reshape(-1)), group=group)
+        return out.to(x.device).view(size, n)
+    out = x.new_empty(size * n)
+    gather(out, x.contiguous().reshape(-1), group=group)
+    return out.view(size, n)
+
+
+def reduce_scatter_flat(x, group, size: int) -> torch.Tensor:
+    """``(size, n)`` -> ``(n,)``: row ``i`` summed over the group's ranks
+    lands on its rank ``i`` (one reduce-scatter)."""
+    import torch.distributed as dist
+    if size == 1:
+        return x[0]
+    scatter = getattr(dist, "reduce_scatter_single", None) or \
+        dist.reduce_scatter_tensor
+    n = x.shape[1]
+    if _via_host(group, x):
+        out = torch.empty(n, dtype=x.dtype, pin_memory=True)
+        scatter(out, _pinned(x.reshape(-1)), group=group)
+        return out.to(x.device)
+    out = x.new_empty(n)
+    scatter(out, x.contiguous().reshape(-1), group=group)
+    return out
 
 
 def make_group_meshes(placement) -> list:

@@ -16,6 +16,15 @@ its slot into ``k``/``v`` in place (``index_copy_``), so a token moves one
 row per layer rather than copying the cache; the values are ``repro``'s.
 Cache layout (MLA): ``{"ckv": (B, C, r), "krope": (B, C, dr), "pos"}``,
 written in place the same way.
+
+Tensor-parallel GQA (``gqa_apply(tp=)``, ``models.common.TensorParallel``
+with ``tp.heads``): a rank computes its q heads (``wq``'s local columns)
+and the kv heads they read — its block of ``wk``/``wv`` when ``model``
+divides the kv heads, else the columns of the replicated ones that its
+heads' groups need —, RoPE and attention (#5 / #6 under ``"pallas"``) on
+them, and ``wo``'s rows as a partial sum that is summed over ``model``
+(Megatron's f at the input, g after ``wo``). Its decode cache holds those
+kv heads (``local_kv_heads``).
 """
 from __future__ import annotations
 
@@ -147,18 +156,63 @@ def gqa_init(rng, cfg, device="cpu") -> Params:
     }
 
 
+def local_kv_heads(cfg, tp=None):
+    """-> (q heads [h0, h1), kv heads [k0, k1), ``owner``) of this rank
+    under ``tp`` (every head without it, or when the q heads are whole).
+    ``owner`` is None when each kv head of the range serves an equal run
+    of the local q heads, in order (plain GQA on the local heads); else
+    the index in [k0, k1) of each local q head's kv head, and the kv heads
+    are repeated to one a q head."""
+    H, K = cfg.n_heads, cfg.n_kv_heads
+    if tp is None or not tp.heads:
+        return (0, H), (0, K), None
+    hl = H // tp.size
+    h0 = tp.index * hl
+    if tp.kv:
+        kl = K // tp.size
+        return (h0, h0 + hl), (tp.index * kl, (tp.index + 1) * kl), None
+    G = H // K
+    k0, k1 = h0 // G, (h0 + hl - 1) // G + 1
+    owner = [h // G - k0 for h in range(h0, h0 + hl)]
+    run = hl // (k1 - k0)
+    if hl % (k1 - k0) == 0 and owner == [i // run for i in range(hl)]:
+        owner = None
+    return (h0, h0 + hl), (k0, k1), owner
+
+
+def _kv_columns(p: Params, k0: int, k1: int, hd: int, tp) -> Params:
+    """The columns of replicated ``wk``/``wv`` (and bias) for kv heads
+    [k0, k1); their gradient is summed over ``model`` (each rank's heads
+    read some of them)."""
+    out = {"w": tp.copy(p["w"])[:, k0 * hd:k1 * hd]}
+    if "b" in p:
+        out["b"] = tp.copy(p["b"])[k0 * hd:k1 * hd]
+    return out
+
+
 def gqa_apply(params: Params, x, *, cfg, positions, window=0, cache=None,
-              impl="chunked"):
+              impl="chunked", tp=None):
     """x: (B,S,d). cache None => train/prefill (returns a new cache if
     requested via cache == "init"); else a decode step (S == 1) that writes
     its slot of ``cache["k"]``/``cache["v"]`` in place and returns
-    (out, new_cache)."""
+    (out, new_cache). ``tp``: tensor-parallel over the local heads (see
+    the module docstring); the output is whole on every rank."""
     B, S, d = x.shape
-    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    hd = cfg.hd
     cd = cfg.compute_dtype
+    split = tp is not None and tp.heads
+    (h0, h1), (k0, k1), owner = local_kv_heads(cfg, tp)
+    H, K = h1 - h0, k1 - k0
+    if split:
+        x = tp.copy(x)
+        if not tp.kv:
+            params = dict(params, wk=_kv_columns(params["wk"], k0, k1, hd, tp),
+                          wv=_kv_columns(params["wv"], k0, k1, hd, tp))
     q = dense(params["wq"], x, cd).reshape(B, S, H, hd)
     k = dense(params["wk"], x, cd).reshape(B, S, K, hd)
     v = dense(params["wv"], x, cd).reshape(B, S, K, hd)
+    if owner is not None:
+        k, v = k[:, :, owner], v[:, :, owner]
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
 
@@ -166,6 +220,8 @@ def gqa_apply(params: Params, x, *, cfg, positions, window=0, cache=None,
         o = sdpa(q, k, v, q_pos=positions, k_pos=positions, causal=True,
                  window=window, impl=impl)
         out = dense(params["wo"], o.reshape(B, S, H * hd), cd)
+        if split:
+            out = tp.reduce(out)
         if cache == "init":
             pos = torch.tensor(S, dtype=torch.int32, device=x.device)
             return out, {"k": k, "v": v, "pos": pos}
@@ -192,6 +248,8 @@ def gqa_apply(params: Params, x, *, cfg, positions, window=0, cache=None,
         o = sdpa_naive(q, ck, cv, q_pos=positions, k_pos=k_pos, causal=True,
                        window=0)
     out = dense(params["wo"], o.reshape(B, 1, H * hd), cd)
+    if split:
+        out = tp.reduce(out)
     return out, {"k": ck, "v": cv, "pos": pos + 1}
 
 

@@ -1,5 +1,5 @@
 """Common building blocks: initializers, norms, RoPE, dense, embedding,
-activations.
+activations, and the tensor-parallel context (``TensorParallel``).
 
 Parameters are plain nested dicts of tensors with ``repro``'s layout —
 dense weights are ``(d_in, d_out)`` and ``dense`` computes ``x @ w`` — so a
@@ -15,7 +15,7 @@ which is what checkpoint templates use.
 from __future__ import annotations
 
 import math
-from typing import Callable
+from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -132,13 +132,18 @@ class _Embed(torch.autograd.Function):
     every run; with ``plain`` it takes the one-hot product on any device.
     Indexing's own backward accumulates with ``index_put_``, which on CUDA
     adds with float atomics in no fixed order — training would not replay
-    bitwise."""
+    bitwise. With ``masked`` an id at or past the table's rows (a token
+    of another rank's vocab block) looks up a zero row and adds nothing
+    in the backward (#1's ``>= n`` sentinel)."""
 
     @staticmethod
-    def forward(ctx, table, ids, plain):
+    def forward(ctx, table, ids, plain, masked=False):
         ctx.save_for_backward(ids)
         ctx.vocab, ctx.plain = table.shape[0], plain
-        return table[ids]
+        if not masked:
+            return table[ids]
+        out = table[ids.clamp(max=table.shape[0] - 1)]
+        return out.masked_fill((ids >= table.shape[0])[..., None], 0)
 
     @staticmethod
     def backward(ctx, g):
@@ -146,25 +151,124 @@ class _Embed(torch.autograd.Function):
         (ids,) = ctx.saved_tensors
         fn = segment_sum_ref if ctx.plain else segment_sum
         return fn(g.reshape(-1, g.shape[-1]), ids.reshape(-1),
-                  ctx.vocab), None, None
+                  ctx.vocab), None, None, None
 
 
 def embed(params: Params, ids: torch.Tensor, compute_dtype=None, *,
-          plain: bool = False):
+          plain: bool = False, tp: "TensorParallel | None" = None):
     """``table[ids]`` in ``compute_dtype``; ``plain`` keeps kernel #1 out
-    of its backward (the parity oracle's path)."""
+    of its backward (the parity oracle's path). With a vocab-parallel
+    ``tp`` (``tp.vocab``) the table is the rank's rows ``[index * V_l,
+    (index + 1) * V_l)`` (FSDP-cut dims gathered by the caller,
+    ``transformer.outer_units``): the ids in its block are looked up, zero
+    rows elsewhere, summed over ``model``; its backward is #1 over the
+    block, the other ids masked."""
     t = params["table"]
     if compute_dtype is not None:
         t = t.to(compute_dtype)
-    return _Embed.apply(t, ids.long(), plain)
+    if tp is None or not tp.vocab:
+        return _Embed.apply(t, ids.long(), plain)
+    rows = t.shape[0]
+    local = ids.long() - tp.index * rows
+    local = local.masked_fill((local < 0) | (local >= rows), rows)
+    return tp.reduce(_Embed.apply(t, local, plain, True))
 
 
-def unembed(params: Params, x: torch.Tensor) -> torch.Tensor:
+def unembed(params: Params, x: torch.Tensor,
+            tp: "TensorParallel | None" = None) -> torch.Tensor:
     """Tied unembedding ``x @ table.T``: the table cast to x's dtype, the
     products summed in f32 (both operands widened exactly to f32, so the
-    result is the f32-accumulated product of the x-dtype values)."""
+    result is the f32-accumulated product of the x-dtype values). With a
+    vocab-parallel ``tp`` the table is the rank's rows, the logits its
+    vocab block (..., V / model) and ``x``'s gradient is summed over
+    ``model``."""
+    if tp is not None and tp.vocab:
+        x = tp.copy(x)
     t = params["table"].to(x.dtype)
     return x.float() @ t.float().T
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism over the mesh's ``model`` axis (Megatron's f and g)
+# ---------------------------------------------------------------------------
+
+def _sum_over(x, group):
+    """``x`` summed over ``group``'s ranks in f32 (a bf16 partial sum is
+    widened first and the sum rounded once, as ``repro``'s compiled
+    program sums its partial products), in ``x``'s dtype."""
+    from repro_torch.launch.mesh import all_reduce
+    return all_reduce(x.float().contiguous().clone(), group).to(x.dtype)
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Megatron's f: identity forward, the gradient summed over the
+    ``model`` ranks backward (the input of a column-parallel product)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_over(g, ctx.group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """Megatron's g: the partial sums of a row-parallel product summed
+    over the ``model`` ranks forward, identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _sum_over(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class TensorParallel(NamedTuple):
+    """A rank's share of the forward of a ``spec_fn`` plan that computes
+    tensor-parallel (``engine.plan.ShardingPlan.tensor_parallel``): the
+    ``model`` axis's group, its size and this rank's index on it; which
+    products are cut over it (the q heads — ``wq``'s columns and ``wo``'s
+    rows —, the kv heads, SwiGLU's ``d_ff``, the padded vocab); and
+    ``gather(tree, path)``, which gives a unit of the rank's params with
+    its FSDP-cut dims whole (None: nothing is cut over ``data``). A
+    product that is not cut runs whole on every rank, as ``repro``'s
+    GSPMD repeats it."""
+    group: Any
+    size: int
+    index: int
+    heads: bool
+    kv: bool
+    ffn: bool
+    vocab: bool
+    gather: Callable | None = None
+
+    def unit(self, tree, path: str):
+        """``tree`` (the params at ``path``, a rep of a stacked unit
+        included) with its FSDP-cut leaves gathered."""
+        return tree if self.gather is None else self.gather(tree, path)
+
+    def copy(self, x):
+        """Megatron's f (identity forward, SUM over ``model`` backward)."""
+        return x if self.size == 1 else _CopyToModel.apply(x, self.group)
+
+    def reduce(self, x):
+        """Megatron's g (SUM over ``model`` forward, identity backward)."""
+        return x if self.size == 1 else _ReduceFromModel.apply(x, self.group)
+
+    def gather_vocab(self, x):
+        """Vocab-parallel logits (..., V_l) -> the whole vocab (..., V)
+        on every rank (one all-gather; no gradient)."""
+        from repro_torch.launch.mesh import all_gather_flat
+        if not self.vocab or self.size == 1:
+            return x
+        parts = all_gather_flat(x.detach().contiguous().reshape(-1),
+                                self.group, self.size)
+        parts = parts.reshape((self.size,) + tuple(x.shape))
+        return parts.movedim(0, -2).reshape(x.shape[:-1] + (-1,))
 
 
 def gelu(x):

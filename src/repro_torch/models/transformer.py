@@ -24,6 +24,14 @@ Mamba2's ``ssm`` (reps, B, H, P, N) and ``conv``) and whose ``pos`` is
 (reps,). Remainder layers (n_layers not a multiple of the unit) are
 unrolled under ``params["rem"]``. The MoE balance terms of the blocks are
 summed into the trunk's aux.
+
+``tp`` (``models.common.TensorParallel``, a dense GQA model on a
+``spec_fn`` plan): ``params`` are this rank's blocks. Each block unit's
+FSDP-cut leaves are gathered inside its remat checkpoint (the recompute
+gathers them again, so the peak holds one gathered unit; the embedding
+and ``lm_head`` once a forward, ``outer_units``), the blocks run
+on their local heads and ``d_ff`` columns, the embedding and the logits
+are vocab-parallel, and the caches hold the local kv heads.
 """
 from __future__ import annotations
 
@@ -126,7 +134,7 @@ def _shared_attn_params(shared: Params, bp: Params, cfg):
 
 def block_apply(bp: Params, x, *, btype, cfg, positions, cache=None,
                 mode="train", impl="chunked", segments=1, shared=None,
-                memory=None, balance=None):
+                memory=None, balance=None, tp=None):
     """Returns (x, new_cache, aux). mode=="train": no cache; "prefill":
     returns the block's new cache; "decode": consumes and updates the cache
     (an attention cache's slot in place; a recurrent state comes back as
@@ -136,7 +144,9 @@ def block_apply(bp: Params, x, *, btype, cfg, positions, cache=None,
     ``memory`` (B, M, d) the encoder's output, which a ``dec_attn`` block
     cross-attends in every mode. An ``enc_attn`` block trains
     bidirectionally (prefill and decode are causal, as ``repro``'s).
-    ``balance``: the ranks that split the rows (``moe.Balance``)."""
+    ``balance``: the ranks that split the rows (``moe.Balance``); ``tp``
+    the tensor-parallel context of an ``attn`` / ``swa`` block with a
+    SwiGLU (``models.common.TensorParallel``)."""
     _check_block(btype)
     nrm = _norm(cfg)
     h = nrm(bp["ln1"], x)
@@ -157,7 +167,7 @@ def block_apply(bp: Params, x, *, btype, cfg, positions, cache=None,
         kw = {"window": cfg.window}
     else:
         attend, ap = gqa_apply, bp["attn"]
-        kw = {"window": cfg.window if btype == "swa" else 0}
+        kw = {"window": cfg.window if btype == "swa" else 0, "tp": tp}
     if mode == "decode":
         o, new_cache = attend(ap, h, cfg=cfg, positions=positions,
                               cache=cache["self"] if btype == "dec_attn"
@@ -183,7 +193,7 @@ def block_apply(bp: Params, x, *, btype, cfg, positions, cache=None,
         f, aux = moe_apply(bp["ffn"], h2, cfg=cfg, segments=segments,
                            balance=balance)
     else:
-        f = swiglu_apply(bp["ffn"], h2, cfg.act, cfg.compute_dtype)
+        f = swiglu_apply(bp["ffn"], h2, cfg.act, cfg.compute_dtype, tp)
     return x + f, new_cache, aux
 
 
@@ -331,15 +341,24 @@ def _remat(cfg, mode):
     return cfg.remat and mode == "train" and torch.is_grad_enabled()
 
 
+def _unit_apply(bp, x, *, path=None, tp=None, **kw):
+    """``block_apply`` on the unit at ``path`` with its FSDP-cut leaves
+    gathered first (``tp.unit``)."""
+    if tp is not None:
+        bp = tp.unit(bp, path)
+    return block_apply(bp, x, tp=tp, **kw)
+
+
 def _block(bp, x, *, remat, shared=None, **kw):
     """One block, recomputed in the backward with ``remat``. ``shared``
     (zamba's shared attention weights) goes to the checkpoint as an input
     beside the block's own tree: its gradient sums over every
-    application."""
+    application. A tensor-parallel block's FSDP gather runs inside the
+    checkpoint: the recompute gathers again, every rank in one order."""
     if not remat:
-        return block_apply(bp, x, shared=shared, **kw)
+        return _unit_apply(bp, x, shared=shared, **kw)
     from torch.utils.checkpoint import checkpoint
-    return checkpoint(block_apply, bp, x, use_reentrant=False,
+    return checkpoint(_unit_apply, bp, x, use_reentrant=False,
                       shared=shared, **kw)
 
 
@@ -352,7 +371,7 @@ def _unstack(tree: Params, reps: int) -> list:
 
 def run_trunk(params: Params, x, *, cfg, positions, mode="train",
               caches=None, impl="chunked", segments=1, memory=None,
-              balance=None):
+              balance=None, tp=None):
     """x: (B,S,d) embedded inputs -> (hidden, new_caches, aux). aux is the
     sum over blocks of the MoE balance terms (0 without experts); with
     ``segments`` > 1 one per equal slice of the batch, each routed as if
@@ -361,7 +380,8 @@ def run_trunk(params: Params, x, *, cfg, positions, mode="train",
     ``memory`` is the encoder's output, handed to every block (a
     ``dec_attn`` block cross-attends it). ``balance``: ``x`` holds this
     rank's share of rows split over several ranks, and aux is its share of
-    the balance terms (``moe.Balance``)."""
+    the balance terms (``moe.Balance``). ``tp``: see the module
+    docstring."""
     unit, reps, rem = _pattern_split(cfg)
     remat = _remat(cfg, mode)
     shared = params.get("shared_attn")
@@ -386,7 +406,8 @@ def run_trunk(params: Params, x, *, cfg, positions, mode="train",
                                   btype=btype, cfg=cfg, positions=positions,
                                   cache=c, mode=mode, impl=impl,
                                   segments=segments, memory=memory,
-                                  balance=balance)
+                                  balance=balance, tp=tp,
+                                  path=f"scan/u{u}")
                 aux = aux + a
                 per_unit[u].append(nc)
         if mode in ("prefill", "decode"):
@@ -399,7 +420,8 @@ def run_trunk(params: Params, x, *, cfg, positions, mode="train",
         x, nc, a = _block(params["rem"][f"r{i}"], x, remat=remat,
                           shared=shared, btype=btype, cfg=cfg,
                           positions=positions, cache=c, mode=mode, impl=impl,
-                          segments=segments, memory=memory, balance=balance)
+                          segments=segments, memory=memory, balance=balance,
+                          tp=tp, path=f"rem/r{i}")
         aux = aux + a
         if nc is not None:
             new_caches.setdefault("rem", {})[f"r{i}"] = nc
@@ -407,31 +429,40 @@ def run_trunk(params: Params, x, *, cfg, positions, mode="train",
     return x, (new_caches if new_caches else None), aux
 
 
-def embed_inputs(params, tokens, cfg, media=None):
+def embed_inputs(params, tokens, cfg, media=None, tp=None):
     """tokens: (B, S_text) int; media: raw frontend embeddings
     (B, n_media, d_frontend) or None -> (B, n_media + S_text, d_model),
-    the projected media first."""
-    x = embed(params["embed"], tokens, cfg.compute_dtype)
+    the projected media first. ``tp``: the embedding is vocab-parallel
+    (``models.common.embed``)."""
+    x = embed(params["embed"], tokens, cfg.compute_dtype, tp=tp)
     if media is not None:
         media = projector_apply(params["projector"], media, cfg)
         x = torch.cat([media.to(x.dtype), x], dim=1)
     return x
 
 
-def _mask_pad_vocab(logits, cfg):
-    """Padded vocab slots get -1e30 so softmax/argmax ignore them."""
+def _mask_pad_vocab(logits, cfg, first: int = 0):
+    """Padded vocab slots get -1e30 so softmax/argmax ignore them;
+    ``logits`` cover the vocab ids from ``first`` on (a rank's block).
+    In place: ``logits`` is the unembedding's own product (no backward
+    reads it), and a copy would hold the (..., V) f32 logits twice."""
     if cfg.padded_vocab > cfg.vocab:
-        vid = torch.arange(cfg.padded_vocab, device=logits.device)
-        return logits.masked_fill(vid >= cfg.vocab, -1e30)
+        vid = torch.arange(first, first + logits.shape[-1],
+                           device=logits.device)
+        return logits.masked_fill_(vid >= cfg.vocab, -1e30)
     return logits
 
 
-def lm_logits(params, hidden, cfg, task: int | None = None):
+def lm_logits(params, hidden, cfg, task: int | None = None, tp=None):
     """f32 logits over the padded vocab. With ``cfg.n_tasks > 1`` the
     per-source heads ``task_heads`` decode: ``task`` picks one head for
     hidden (..., d); without it hidden is the task-major (T, B, S, d)
     layout and every head decodes its own rows. Weights are cast to the
-    hidden dtype and the products summed in f32."""
+    hidden dtype and the products summed in f32. With a vocab-parallel
+    ``tp`` the logits are the rank's block of the vocab, (..., V /
+    model), from the rank's rows of the table or columns of ``lm_head``
+    (FSDP-cut dims gathered: ``outer_units``)."""
+    vocab = tp is not None and tp.vocab
     if cfg.n_tasks > 1:
         w = params["task_heads"]["w"]
         if task is not None:
@@ -440,10 +471,12 @@ def lm_logits(params, hidden, cfg, task: int | None = None):
             out = torch.einsum("tbsd,tdv->tbsv", hidden.float(),
                                w.to(hidden.dtype).float())
     elif "lm_head" in params:
-        out = dense(params["lm_head"], hidden, cfg.compute_dtype).float()
+        out = dense(params["lm_head"], tp.copy(hidden) if vocab else hidden,
+                    cfg.compute_dtype).float()
     else:
-        out = unembed(params["embed"], hidden)
-    return _mask_pad_vocab(out, cfg)
+        out = unembed(params["embed"], hidden, tp)
+    return _mask_pad_vocab(out, cfg, tp.index * out.shape[-1] if vocab
+                           else 0)
 
 
 def encode(params, src_embed, cfg, impl="chunked"):
@@ -463,25 +496,66 @@ def encode(params, src_embed, cfg, impl="chunked"):
     return _norm(cfg)(params["enc"]["ln_f"], x)
 
 
+def outer_units(params: Params, tp) -> Params:
+    """``params`` with the embedding and ``lm_head`` units' FSDP-cut
+    leaves gathered (``tp.unit``), once for a forward: a tied table
+    serves the embedding and the unembedding from one gather, whose
+    backward reduce-scatters both gradients."""
+    if tp is None or tp.gather is None:
+        return params
+    out = dict(params, embed=tp.unit(params["embed"], "embed"))
+    if "lm_head" in params:
+        out["lm_head"] = tp.unit(params["lm_head"], "lm_head")
+    return out
+
+
 def lm_apply(params: Params, tokens, *, cfg, media=None, memory=None,
              mode="train", caches=None, positions=None, impl="chunked",
-             task=None, balance=None):
+             task=None, balance=None, tp=None):
     """Full LM forward. Returns (logits, new_caches, aux). ``media``
     (prefill and train) is prepended through the projector; ``memory``
     (B, M, d_model), the encoder's output, is needed by an enc-dec model
-    in every mode. ``balance`` as ``run_trunk``'s."""
+    in every mode. ``balance`` as ``run_trunk``'s; ``tp``: this rank's
+    blocks, computed tensor-parallel (the module docstring), the logits
+    the rank's vocab block."""
+    params = outer_units(params, tp)
     if mode == "decode":
-        x = embed(params["embed"], tokens, cfg.compute_dtype)  # (B,1,d)
+        x = embed(params["embed"], tokens, cfg.compute_dtype,
+                  tp=tp)                                         # (B,1,d)
     else:
-        x = embed_inputs(params, tokens, cfg, media)
+        x = embed_inputs(params, tokens, cfg, media, tp)
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)
     if cfg.n_enc_layers and memory is None and mode != "decode":
         raise ValueError("enc-dec model needs encoder memory")
     h, ncaches, aux = run_trunk(params, x, cfg=cfg, positions=positions,
                                 mode=mode, caches=caches, impl=impl,
-                                memory=memory, balance=balance)
-    return lm_logits(params, h, cfg, task=task), ncaches, aux
+                                memory=memory, balance=balance, tp=tp)
+    return lm_logits(params, h, cfg, task=task, tp=tp), ncaches, aux
+
+
+def local_caches(caches: Params, cfg, tp) -> Params:
+    """Whole decode caches -> this rank's under ``tp``: each GQA
+    ``k``/``v`` leaf (..., K, hd) keeps the kv heads the rank's q heads
+    read (``attention.local_kv_heads``), the other leaves as they are."""
+    from .attention import local_kv_heads
+    _, (k0, k1), owner = local_kv_heads(cfg, tp)
+    heads = [k0 + i for i in owner] if owner is not None else None
+
+    def cut(tree):
+        if isinstance(tree, tuple):
+            return tuple(cut(t) for t in tree)
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, (dict, tuple)):
+                out[k] = cut(v)
+            elif k in ("k", "v"):
+                out[k] = v[..., k0:k1, :] if heads is None else \
+                    v[..., heads, :]
+            else:
+                out[k] = v
+        return out
+    return cut(caches)
 
 
 def lm_cache_init(params, cfg, batch: int, cache_len: int) -> Params:

@@ -28,11 +28,15 @@ def make_lm_loss(cfg, impl="chunked"):
     rows of a batch split over ranks): the cross-entropy is summed and
     divided by ``norm["counts"][0]``, the text tokens of the whole batch
     (``core.mtl.lm_batch_counts`` summed over the ranks), and the balance
-    term is the rank's share (``norm["balance"]``)."""
+    term is the rank's share (``norm["balance"]``); ``norm["tp"]``, where
+    present, is the rank's tensor-parallel context
+    (``models.common.TensorParallel``: ``params`` are its blocks, the
+    logits and the cross-entropy vocab-parallel)."""
     from repro_torch.core.mtl import _xent, softmax_xent
     from repro_torch.models import transformer
 
     def loss_fn(params, batch, norm=None):
+        tp = None if norm is None else norm.get("tp")
         memory, media = batch.get("memory"), batch.get("media")
         if cfg.n_enc_layers and memory is None:
             if batch.get("src_embed") is None:
@@ -45,13 +49,14 @@ def make_lm_loss(cfg, impl="chunked"):
         logits, _, aux = transformer.lm_apply(
             params, batch["tokens"], cfg=cfg, media=media, memory=memory,
             mode="train", impl=impl,
-            balance=None if norm is None else norm["balance"])
+            balance=None if norm is None else norm["balance"], tp=tp)
         if media is not None:
             logits = logits[:, media.shape[1]:]
         if norm is None:
             loss = softmax_xent(logits, batch["labels"])
         else:
-            loss = _xent(logits, batch["labels"]).sum() / norm["counts"][0]
+            loss = _xent(logits, batch["labels"], tp).sum() / \
+                norm["counts"][0]
         if cfg.n_experts:
             loss = loss + cfg.router_aux_coef * aux
         return loss

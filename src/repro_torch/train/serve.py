@@ -12,6 +12,13 @@ PyTorch paths. A vision model's media go through
 layer's cache (k/v, or MLA's ckv/krope) in place (see
 ``models.attention``), so the caches handed to it are updated; the values
 are ``repro``'s.
+
+On a ``spec_fn`` plan (``plan=``) a dense GQA model is served
+tensor-parallel from the rank's blocks (``serving_tp``): its ``model``
+ranks share the rows they are given, each computes its local heads, its
+caches hold its kv heads, and the logits are its vocab block; greedy
+decoding takes the argmax over the ``model`` ranks (the lowest index on
+a tie, as ``torch.argmax`` and ``jnp.argmax`` take it).
 """
 from __future__ import annotations
 
@@ -57,20 +64,62 @@ def extend_caches(caches, cfg, capacity: int):
     return fix(caches)
 
 
-def make_prefill_step(cfg, impl="chunked"):
+def serving_tp(cfg, plan):
+    """The ``models.common.TensorParallel`` a rank serves ``cfg`` with on
+    ``plan`` (None without a sharded plan). A model outside
+    ``configs.sharding.tensor_parallel_family`` raises: its ranks would
+    have to gather every cut leaf whole (``plan.gather``) and serve the
+    whole tree."""
+    if plan is None or not plan.sharded:
+        return None
+    from ..configs.sharding import tensor_parallel_reason
+    why = tensor_parallel_reason(cfg)
+    if why is not None:
+        raise ValueError(f"{cfg.name}: no tensor-parallel serving ({why}); "
+                         "gather the params whole (plan.gather) and serve "
+                         "without a plan")
+    import numpy as np
+    meta = transformer.lm_init(np.random.default_rng(0), cfg, "meta")
+    return plan.tensor_parallel(plan.layout(meta))
+
+
+def greedy_tokens(logits, tp=None):
+    """(..., V) or a rank's vocab block (..., V / model) -> the argmax
+    ids, int32: under a vocab-parallel ``tp`` the local max and its
+    index, then the largest value over ``model`` (MAX) and the lowest
+    index that holds it (MIN), the index ``argmax`` of the whole row
+    gives."""
+    if tp is None or not tp.vocab or tp.size == 1:
+        return logits.argmax(-1).to(torch.int32)
+    from ..launch.mesh import all_reduce
+    idx = logits.argmax(-1)
+    val = logits.gather(-1, idx[..., None])[..., 0]
+    top = all_reduce(val.clone(), tp.group, "max")
+    ids = idx + tp.index * logits.shape[-1]
+    ids = torch.where(val == top, ids, torch.full_like(ids, 2 ** 62))
+    return all_reduce(ids, tp.group, "min").to(torch.int32)
+
+
+def make_prefill_step(cfg, impl="chunked", plan=None):
+    tp = serving_tp(cfg, plan)
+
     @torch.no_grad()
     def prefill(params, tokens, media=None, memory=None):
         """tokens: (B, S_text) ints; ``media`` (B, n_media, d_frontend)
         frames projected and put first; ``memory`` (B, M, d_model) the
-        encoder's output for an enc-dec model."""
+        encoder's output for an enc-dec model. On a tensor-parallel plan
+        ``params`` are the rank's blocks, the caches its kv heads and the
+        logits its vocab block."""
         logits, caches, _ = transformer.lm_apply(
             params, tokens, cfg=cfg, media=media, memory=memory,
-            mode="prefill", impl=impl)
+            mode="prefill", impl=impl, tp=tp)
         return logits, caches
     return prefill
 
 
-def make_decode_step(cfg, impl="chunked", task=None):
+def make_decode_step(cfg, impl="chunked", task=None, plan=None):
+    tp = serving_tp(cfg, plan)
+
     @torch.no_grad()
     def decode(params, token, caches, pos, memory=None):
         """token: (B,1) int; pos: the absolute position (an int or a 0-d
@@ -82,7 +131,7 @@ def make_decode_step(cfg, impl="chunked", task=None):
         positions = torch.as_tensor(pos, device=token.device).reshape(1)
         logits, caches, _ = transformer.lm_apply(
             params, token, cfg=cfg, mode="decode", caches=caches,
-            positions=positions, memory=memory, impl=impl, task=task)
+            positions=positions, memory=memory, impl=impl, task=task, tp=tp)
         return logits, caches
     return decode
 
@@ -90,7 +139,7 @@ def make_decode_step(cfg, impl="chunked", task=None):
 def greedy_generate(params, cfg, prompt_tokens, n_new: int, *,
                     impl="chunked", capacity: int | None = None,
                     memory=None, device=None, return_logits=False,
-                    timings=None):
+                    timings=None, plan=None):
     """prompt_tokens: (B, S) ints; ``memory`` (B, M, d_model) the
     encoder's output for an enc-dec model, cross-attended at prefill and at
     every step. Returns the (B, n_new) int32 greedy continuation on
@@ -100,7 +149,10 @@ def greedy_generate(params, cfg, prompt_tokens, n_new: int, *,
     ``device`` None means ``cuda`` (raises without a GPU); ``params`` must
     already live there (``interop.to_torch(tree, device)``). A
     ``timings`` dict receives ``prefill_s`` and ``decode_s``, host clock
-    around device-synchronised phases."""
+    around device-synchronised phases. ``plan``: a ``spec_fn`` plan whose
+    rank serves these rows tensor-parallel from its blocks (the module
+    docstring); the tokens, and the logits gathered over the vocab, are
+    the same on its ``model`` ranks (a collective: each calls it)."""
     dev = resolve_device(device)
     table = params["embed"]["table"]
     if table.device.type != dev.type:
@@ -111,8 +163,9 @@ def greedy_generate(params, cfg, prompt_tokens, n_new: int, *,
         memory = torch.as_tensor(memory).to(dev)
     B, S = tokens.shape
     capacity = capacity or (S + n_new)
-    prefill = make_prefill_step(cfg, impl)
-    decode = make_decode_step(cfg, impl)
+    tp = serving_tp(cfg, plan)
+    prefill = make_prefill_step(cfg, impl, plan)
+    decode = make_decode_step(cfg, impl, plan=plan)
 
     def sync():
         if dev.type == "cuda":
@@ -122,14 +175,14 @@ def greedy_generate(params, cfg, prompt_tokens, n_new: int, *,
     logits, caches = prefill(params, tokens, memory=memory)
     caches = extend_caches(caches, cfg, capacity)
     last = logits[:, -1:]
-    tok = last.argmax(-1).to(torch.int32)
+    tok = greedy_tokens(last, tp)
     out, outs_logits = [tok], [last]
     sync()
     t1 = time.perf_counter()
     pos = torch.tensor(S, dtype=torch.int64, device=dev)
     for _ in range(n_new - 1):
         logits, caches = decode(params, tok, caches, pos, memory=memory)
-        tok = logits[:, -1:].argmax(-1).to(torch.int32)
+        tok = greedy_tokens(logits[:, -1:], tp)
         out.append(tok)
         outs_logits.append(logits[:, -1:])
         pos = pos + 1
@@ -138,5 +191,6 @@ def greedy_generate(params, cfg, prompt_tokens, n_new: int, *,
         timings.update(prefill_s=t1 - t0, decode_s=time.perf_counter() - t1)
     toks = torch.cat(out, dim=1)
     if return_logits:
-        return toks, torch.cat(outs_logits, dim=1)
+        lg = torch.cat(outs_logits, dim=1)
+        return toks, (lg if tp is None else tp.gather_vocab(lg))
     return toks

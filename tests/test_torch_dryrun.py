@@ -19,7 +19,8 @@
   * an entry on a fake world (a smoke config with ``fsdp=True`` on the
     16 x 16 pod, rank 0, 32 x 256 tokens): ``ok``, the rank's params equal
     the sharded count of ``param_bytes_per_device``, its moments twice
-    that; the counts from one and two block units extrapolated to four
+    that, its figures tensor-parallel (all-gathers and reduce-scatters
+    beside the all-reduces); the counts from one and two block units extrapolated to four
     equal the direct count of four (FLOPs and collectives exactly, op
     bytes to 1e-6); materialised on the CPU, its collectives and peak
     equal the static count's;
@@ -146,9 +147,12 @@ def test_entry_on_the_pod_counts_its_blocks_and_extrapolates(small_train):
     full = nbytes(build_model("lm", cfg).init(0, device="meta"))
     assert mem["param_bytes"] < full / 16
     assert e["hlo"]["traced"]["depth_units"] == [1, 2]
-    # a spec_fn plan's peak and collectives are data-parallel figures
-    assert mem["figures"] == e["hlo"]["figures"] == dryrun.FIGURES
-    assert e["hlo"]["collectives"]["all-reduce"]["count"] > 0
+    # a dense GQA model's spec_fn plan computes tensor-parallel: its
+    # figures say so, and its FSDP leaves are gathered a unit at a time
+    # and their gradients reduce-scattered
+    assert mem["figures"] == e["hlo"]["figures"] == dryrun.TENSOR_PARALLEL
+    for kind in ("all-reduce", "all-gather", "reduce-scatter"):
+        assert e["hlo"]["collectives"][kind]["count"] > 0, kind
     # the direct count of four units equals the extrapolation from 1 and 2
     with fake_world(256, 0, "cpu"):
         direct, _ = dryrun._count(dryrun._lm_train, cfg,

@@ -12,7 +12,9 @@ against ``repro``.
   * ``spec_fn`` training: four gloo ranks on a (2, 2) mesh (one
     subprocess, this file as a script) train a smoke config with
     ``fsdp=True`` for 2 steps — granite's MoE (4 experts: expert-parallel
-    over ``model``) and qwen (dense, heads split over ``model``) — against
+    over ``model``; its step gathers every cut leaf whole and computes
+    data-parallel) and qwen (dense, heads split over ``model``; its step
+    computes tensor-parallel, ``tests/test_torch_tp.py``) — against
     ``repro``'s one-device jitted step from the same params on the same
     batches: each step's loss within rtol 5e-5, atol 1e-6 (``repro``'s
     cross-plan tolerance), the first step's gradients, gathered, each leaf
