@@ -328,12 +328,13 @@ Phases, each printing one JSON line:
      two task heads on the ``"base"`` plan, each task's rows split over
      both ranks; (d) granite-moe-3b-a800m ``lm`` cut in depth to
      ``DIST_MOE_LAYERS`` = 2 of 32 (the balance term across ranks); (d')
-     ``moe_spec``: the same granite on a ``spec_fn`` plan over a
-     ``DIST_DP_SPEC_MESH`` = (1, 2) mesh (each rank its blocks, the
-     experts and heads split over ``model``), whose family keeps the
-     data-parallel step (``engine.step.sharded_grad_fn``: the cut leaves
-     gathered whole over gloo, the whole gradient all-reduced), 2 steps
-     against one process, the bytes a rank holds equal to its blocks'; the
+     ``dp_spec``: xlstm-125m (2 of 12 layers, ``REC_XLSTM_LAYERS``) on a
+     ``spec_fn`` plan over a ``DIST_DP_SPEC_MESH`` = (1, 2) mesh (each
+     rank its blocks, the mixers' projections and the vocab split over
+     ``model``), whose recurrent family keeps the data-parallel step
+     (``engine.step.sharded_grad_fn``: the cut leaves gathered whole over
+     gloo, the whole gradient all-reduced), 2 steps against one process,
+     the bytes a rank holds equal to its blocks'; the
      LMs in f32 compute (``_dist_spec`` says why); 2 steps each; (e) the
      GFM-MTL soak on the ``"base"`` plan under ``SOAK_FAULTS`` (the five
      fault classes), ``resume()``, and a clean 2-rank run. Signals: per-task
@@ -363,7 +364,19 @@ Phases, each printing one JSON line:
      ``DIST_TP_NEW`` = 8 greedy tokens by
      ``greedy_generate(impl="pallas")``: tokens equal to one process's,
      logits within ``LM_TOL_F32``, #5 24 times and #6 24 a step on every
-     rank; each case's peak and host seconds a rank;
+     rank; (h) ``moe_tp``: granite-moe-3b-a800m at full width (d 1536,
+     24 / 8 heads, 40 experts top-8, ``d_ff_expert`` 512) cut to
+     ``DIST_MOE_LAYERS``, f32, ``fsdp=True``, trained as (f): 20 of the 40
+     experts a rank, its routing replicated and one SUM over ``model`` a
+     layer, held as (f), #1 once a step; (i) ``mla_serve``:
+     deepseek-v2-236b at full width cut to ``DEEPSEEK_LAYERS[1]`` = 1
+     layer, bf16 as configured, ``fsdp=False``, served as (g): 64 of 128
+     MLA heads and 80 of 160 experts a rank (~5 GB of its ~10 GB), #5 once
+     a layer at q/k head dim 192 and no #6 (the absorbed decode), tokens
+     equal to one process's but where its top two logits lie within
+     ``LM_TOL_BF16`` (the near-tie rule, printed), logits within
+     ``LM_TOL_BF16`` x max|logit|; each case's peak and host seconds a
+     rank;
   6h. dryrun: one rank's program of a sharded plan, counted and run
      (``repro_torch.launch.dryrun``). The process opens a fake world (the
      ``"fake"`` process-group backend: collectives move nothing) as rank 0
@@ -379,8 +392,9 @@ Phases, each printing one JSON line:
      ``param_bytes_per_device``'s sharded count; the collectives' kinds and
      counts equal; the measured peak within ``DRY_PEAK_BAND`` of the
      static one; a finite loss; launches #3 4, #4 4, #1 1 for (a) and #1
-     one a microbatch for (b). (b) is MoE, outside tensor-parallel
-     compute: its rank gathers every cut leaf whole (data-parallel);
+     one a microbatch for (b). (b) keeps the data-parallel step on the
+     pod (naive_tp's fractional heads: 24 over ``model`` 16): its rank
+     gathers every cut leaf whole;
   7. the ``kernels`` summary line (#1 ``segment_sum_2d`` apart from #2
      ``segment_sum`` since #1 runs every embedding's backward), the
      ``nvidia-smi`` line, and the final ``{"ok": true, "device": ...}``
@@ -4649,28 +4663,56 @@ DIST_TIMEOUT_S = 600                # the job, spawn to exit
 DIST_V_TOL = 1e-3                   # relative: the sum of AdamW's v (a
                                     # gradient off by c moves it by c^2)
 DIST_CASES = ("finetune", "lm", "lm_accum2", "lm_mtl", "moe")
-DIST_SPEC_MESH = (2, 2)             # (f) and (g): qwen's spec_fn plan,
-                                    # (data, model), fsdp=True: a job of
-                                    # its own, 4 ranks
-DIST_DP_SPEC_MESH = (1, 2)          # (d'): granite's spec_fn plan, in the
+DIST_SPEC_MESH = (2, 2)             # (f)-(i): the spec_fn plans computed
+                                    # tensor-parallel, (data, model): a
+                                    # job of its own, 4 ranks
+DIST_DP_SPEC_MESH = (1, 2)          # (d'): xlstm's spec_fn plan, in the
                                     # 2-rank job
 SPEC_CASES = {                      # case: (arch of the spec, fsdp, mesh)
-    "moe_spec": ("moe", False, DIST_DP_SPEC_MESH),
-    "lm_spec": ("qwen", True, DIST_SPEC_MESH)}
-DIST_TP_NEW = 8                     # (g): greedy tokens after the prefill
+    "dp_spec": ("xlstm", False, DIST_DP_SPEC_MESH),
+    "lm_spec": ("qwen", True, DIST_SPEC_MESH),
+    "moe_tp": ("moe", True, DIST_SPEC_MESH)}
+SERVE_CASES = {                     # case: (arch of the spec, fsdp)
+    "tp_serve": ("qwen", True),
+    "mla_serve": ("deepseek", False)}
+DIST_TP_NEW = 8                     # (g), (i): greedy tokens after the
+                                    # prefill
+NEAR_TIE_REL = 2.0 ** -6            # (i): a router near-tie, the k-th and
+                                    # (k+1)-th probabilities of a token
+                                    # within two bf16 roundings (2^-7 each:
+                                    # 8 significant bits) of each other
+
+
+def _tp_layout(cfg, plan, layout) -> dict | None:
+    """What a rank of a tensor-parallel ``spec_fn`` plan computes (None:
+    the plan keeps the data-parallel step): its q heads (GQA's or MLA's),
+    its experts' range, whether ``d_ff_expert`` and the vocab are cut."""
+    from repro_torch.configs.sharding import (MODEL, mesh_shape,
+                                             tensor_parallel_family)
+    m = mesh_shape(plan.mesh)[MODEL]
+    if not tensor_parallel_family(cfg, m):
+        return None
+    tp = plan.tensor_parallel(layout)
+    return {"heads": cfg.n_heads // m if tp.heads or tp.mla
+            else cfg.n_heads, "mla": tp.mla,
+            "experts": list(tp.experts) if tp.experts else None,
+            "expert_ffn": tp.expert_ffn, "vocab": tp.vocab}
 
 
 def _spec_lm(torch, spec, device, mesh=None, case="lm_spec"):
     """A ``SPEC_CASES`` case of phase train_dist: ``lm`` on a plan whose
     ``spec_fn`` cuts its leaves over ``mesh``, ``spec["steps"]`` steps of
-    ``DIST_LM`` rows from a seeded generator. (f) ``lm_spec``: qwen1.5-0.5b
-    at full width, ``fsdp=True``, computed tensor-parallel (16 heads and
-    the vocab over ``model``, FSDP over ``data``); (d') ``moe_spec``:
-    granite-moe, whose family keeps the data-parallel step. ``mesh`` None
-    is the one process the ranks are held to. Returns the losses, the sum
-    of AdamW's v (each block once), each step's host seconds and, on a
-    rank, the fingerprint of each block it holds after every step (nothing
-    is gathered whole) and the bytes it holds beside its blocks' count."""
+    ``DIST_LM`` rows (one a data rank) from a seeded generator. (f)
+    ``lm_spec``: qwen1.5-0.5b at full width, ``fsdp=True``, computed
+    tensor-parallel (16 heads and the vocab over ``model``, FSDP over
+    ``data``); (h) ``moe_tp``: granite-moe likewise, its 40 experts over
+    ``model`` (20 a rank), its 24 / 8 heads 12 / 4 a rank; (d')
+    ``dp_spec``: xlstm-125m, whose family keeps the data-parallel step.
+    ``mesh`` None is the one process the ranks are held to. Returns the
+    losses, the sum of AdamW's v (each block once), each step's host
+    seconds and, on a rank, the fingerprint of each block it holds after
+    every step (nothing is gathered whole), the bytes it holds beside its
+    blocks' count and what it computes (``_tp_layout``)."""
     from repro_torch import interop
     from repro_torch.configs.sharding import make_spec_fn
     from repro_torch.launch.memory import param_bytes_per_device as nbytes
@@ -4694,6 +4736,7 @@ def _spec_lm(torch, spec, device, mesh=None, case="lm_spec"):
         out["blocks_bytes"] = 3 * nbytes(
             full, specs={p: s for p, (_, s) in layout.items()}, mesh=mesh)
         out["cut_leaves"] = len(layout)
+        out["tp"] = _tp_layout(cfg, plan, layout)
     del full
     state = TrainState.create(params, opt)
     step = make_step(model, opt, plan)
@@ -4752,22 +4795,48 @@ def _v_sum_blocks(torch, v, plan, layout) -> float:
     return float(total[0])
 
 
-def _tp_serve(torch, spec, device, mesh=None):
-    """(g) of phase train_dist: qwen1.5-0.5b (f32 compute) served by
+@contextlib.contextmanager
+def _routes():
+    """A list that receives, for every MoE routing made while the block
+    runs (``models.moe.route``), each token's chosen experts and its top
+    k + 1 router probabilities (device tensors; numpy after the block)."""
+    from repro_torch.models import moe
+    real, rec = moe.route, []
+
+    def recorded(params, xf, cfg):
+        probs, gate, choice = real(params, xf, cfg)
+        rec.append((choice, probs.topk(cfg.top_k + 1, dim=-1).values))
+        return probs, gate, choice
+    moe.route = recorded
+    try:
+        yield rec
+    finally:
+        moe.route = real
+    rec[:] = [(c.cpu().numpy(), t.float().cpu().numpy()) for c, t in rec]
+
+
+def _tp_serve(torch, spec, device, mesh=None, case="tp_serve"):
+    """A ``SERVE_CASES`` case of phase train_dist, served by
     ``greedy_generate(impl="pallas")``: the prefill of the ``DIST_LM``
     rows and ``DIST_TP_NEW`` greedy tokens. On ``mesh`` each rank serves
-    its data rank's rows tensor-parallel from its blocks (#5 and #6 on its
-    8 heads, its vocab block's argmax), with ``fsdp=True`` as ``lm_spec``:
-    the prefill and every decode step gather each layer's FSDP leaves over
-    ``data`` (``gather_unit`` under no_grad) and the outer leaves once a
-    pass (``outer_units``). ``mesh`` None is the one process it is held
-    to. Returns the tokens, the logits each was taken from (the whole
-    vocab, gathered over ``model``) and the host seconds of the prefill
-    and the decode steps."""
+    its data rank's rows tensor-parallel from its blocks, its vocab
+    block's argmax. (g) ``tp_serve``: qwen1.5-0.5b (f32 compute), #5 and
+    #6 on its 8 heads, with ``fsdp=True`` as ``lm_spec``: the prefill and
+    every decode step gather each layer's FSDP leaves over ``data``
+    (``gather_unit`` under no_grad) and the outer leaves once a pass
+    (``outer_units``); (i) ``mla_serve``: deepseek-v2 (bf16 as
+    configured, ``fsdp=False``), #5 at q/k head dim 192 on its 64 of 128
+    heads after the replicated latent, the absorbed decode on them, its
+    80 of 160 experts. ``mesh`` None is the one process it is held to.
+    Returns the tokens, the logits each was taken from (the whole vocab,
+    gathered over ``model``), the host seconds of the prefill and the
+    decode steps and, for a MoE, every routing's choices and top router
+    probabilities (``_routes``: ``_tp_serve_check``'s near-tie rule)."""
     from repro_torch.configs.sharding import make_spec_fn
     from repro_torch.engine import ShardingPlan, build_model
     from repro_torch.train.serve import greedy_generate
-    cfg = spec["qwen"].replace(fsdp=True)
+    arch, fsdp = SERVE_CASES[case]
+    cfg = spec[arch].replace(fsdp=fsdp)
     B, S = spec["lm"]
     dev = torch.device(device)
     params = build_model("lm", cfg).init(0, device=dev)
@@ -4775,26 +4844,32 @@ def _tp_serve(torch, spec, device, mesh=None):
     g.manual_seed(6)
     prompt = torch.randint(0, cfg.vocab, (B, S), generator=g,
                            device=dev).to(torch.int32)
-    plan = None
+    plan, out = None, {}
     if mesh is not None:
         plan = ShardingPlan(mesh=mesh, spec_fn=make_spec_fn(cfg, mesh))
+        layout = plan.layout(params)
         params = plan.shard_params(params)
+        out["tp"] = _tp_layout(cfg, plan, layout)
         prompt = plan.slice_batch({"tokens": prompt})["tokens"]
     timings = {}
-    toks, logits = greedy_generate(params, cfg, prompt, DIST_TP_NEW,
-                                   impl="pallas", device=dev,
-                                   return_logits=True, timings=timings,
-                                   plan=plan)
+    with _routes() as routes:
+        toks, logits = greedy_generate(params, cfg, prompt, DIST_TP_NEW,
+                                       impl="pallas", device=dev,
+                                       return_logits=True, timings=timings,
+                                       plan=plan)
     # numpy, not a tensor: a rank's tensor crosses the result queue as a
     # shared-memory handle that dies with the rank's process
-    return {"tokens": toks.cpu().tolist(), "logits": logits.cpu().numpy(),
-            "rows": None if plan is None else plan.shard.index, **timings}
+    return {"tokens": toks.cpu().tolist(),
+            "logits": logits.float().cpu().numpy(),
+            "rows": None if plan is None else plan.shard.index, **timings,
+            "routes": routes, **out}
 
 
 def _tp_rank(rank, world, spec, device):
     """One rank of phase train_dist's tensor-parallel job on a
-    ``DIST_SPEC_MESH`` mesh: (f) ``lm_spec``, then (g) ``tp_serve``, each
-    with the launch counts zeroed just before it and the peak reset."""
+    ``DIST_SPEC_MESH`` mesh: (f) ``lm_spec``, (g) ``tp_serve``, (h)
+    ``moe_tp``, then (i) ``mla_serve``, each with the launch counts zeroed
+    just before it and the peak reset."""
     import torch
     import torch.distributed as dist
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -4815,6 +4890,12 @@ def _tp_rank(rank, world, spec, device):
                                             torch, spec, device, mesh)
         out["cases"]["tp_serve"] = _case_run(torch, dev, counters, _tp_serve,
                                              torch, spec, device, mesh)
+        out["cases"]["moe_tp"] = _case_run(torch, dev, counters, _spec_lm,
+                                           torch, spec, device, mesh,
+                                           case="moe_tp")
+        out["cases"]["mla_serve"] = _case_run(
+            torch, dev, counters, _tp_serve, torch, spec, device, mesh,
+            case="mla_serve")
     finally:
         dist.all_reduce = real
     out["t_exit"] = time.monotonic()
@@ -4822,21 +4903,27 @@ def _tp_rank(rank, world, spec, device):
 
 
 def _dist_spec():
-    """What the phase trains, passed whole to the ranks (their module is
-    this file imported anew): full width; granite-moe cut in depth. The
-    LMs compute in f32: in bf16 each rank rounds its partial gradient
-    sums to bf16 where one process rounds the whole sum once, and a
-    router's top-k flips where two logits lie within a bf16 rounding, so
-    only f32 compute holds the ranks to the one-process session within
-    repro's cross-plan tolerance."""
+    """What the phase trains and serves, passed whole to the ranks (their
+    module is this file imported anew): full width; granite-moe, xlstm and
+    deepseek-v2 cut in depth. The LMs it trains compute in f32: in bf16
+    each rank rounds its partial gradient sums to bf16 where one process
+    rounds the whole sum once, and a router's top-k flips where two logits
+    lie within a bf16 rounding, so only f32 compute holds the ranks to the
+    one-process session within repro's cross-plan tolerance. deepseek-v2
+    is only served (``mla_serve``), bf16 as configured, held to one
+    process by the near-tie rule (``_tp_serve_check``)."""
     import torch
-    from repro_torch.configs import (granite_moe_3b_a800m, hydragnn_gfm,
-                                     qwen1_5_0_5b)
+    from repro_torch.configs import (deepseek_v2_236b, granite_moe_3b_a800m,
+                                     hydragnn_gfm, qwen1_5_0_5b, xlstm_125m)
     f32 = {"compute_dtype": torch.float32}
     return {"gfm": hydragnn_gfm.CONFIG.replace(segment_sum_impl="fused"),
             "qwen": qwen1_5_0_5b.CONFIG.replace(**f32),
             "moe": granite_moe_3b_a800m.CONFIG.replace(
                 n_layers=DIST_MOE_LAYERS, **f32),
+            "xlstm": xlstm_125m.CONFIG.replace(n_layers=REC_XLSTM_LAYERS,
+                                               **f32),
+            "deepseek": deepseek_v2_236b.CONFIG.replace(
+                n_layers=DEEPSEEK_LAYERS[1]),
             "lm": DIST_LM, "steps": DIST_STEPS,
             "soak_steps": DIST_SOAK_STEPS, "world": DIST_WORLD,
             "soak_dir": str(ROOT / "build" / "chip_smoke" / "dist_soak")}
@@ -5031,7 +5118,7 @@ def _rank_free(torch, dev):
 
 def _dist_rank(rank, world, spec, device):
     """One rank of phase train_dist: cases (a)-(d) on a (world, 1) mesh,
-    (d') ``moe_spec`` on a ``DIST_DP_SPEC_MESH`` mesh, then the soak (e);
+    (d') ``dp_spec`` on a ``DIST_DP_SPEC_MESH`` mesh, then the soak (e);
     per case the losses, the launch counts from zero, the params'
     fingerprint after every step, the sum of AdamW's v, the seconds in
     gloo's all-reduce, and the peak."""
@@ -5062,9 +5149,9 @@ def _dist_rank(rank, world, spec, device):
         for case in DIST_CASES:
             out["cases"][case] = _case_run(torch, dev, counters,
                                            session_case, case)
-        out["cases"]["moe_spec"] = _case_run(
+        out["cases"]["dp_spec"] = _case_run(
             torch, dev, counters, _spec_lm, torch, spec, device,
-            make_host_mesh(*DIST_DP_SPEC_MESH), case="moe_spec")
+            make_host_mesh(*DIST_DP_SPEC_MESH), case="dp_spec")
         out["soak"] = _dist_soak(torch, spec, device, mesh, counters, dev)
     finally:
         dist.all_reduce = real
@@ -5127,9 +5214,10 @@ def train_dist_phase(torch, device=DEVICE, spec=None):
         refs[case] = _spec_lm(torch, spec, device, case=case)
         if device == "cuda":
             _free(torch)
-    refs["tp_serve"] = _tp_serve(torch, spec, device)
-    if device == "cuda":
-        _free(torch)
+    for case in SERVE_CASES:
+        refs[case] = _tp_serve(torch, spec, device, case=case)
+        if device == "cuda":
+            _free(torch)
     out["reference_s"] = time.perf_counter() - t0
     shutil.rmtree(spec["soak_dir"], ignore_errors=True)
     ranks, job = _dist_job(_dist_rank, (n, 1), spec, device, "train_dist job")
@@ -5173,15 +5261,17 @@ def train_dist_phase(torch, device=DEVICE, spec=None):
              "allreduce_ms_per_step": r["allreduce_s"] * 1e3
              / spec["steps"], "heads": r["heads"]} for r in runs])
         out["cases"][case] = row
-    for case, job in (("moe_spec", ranks), ("lm_spec", tp_ranks)):
+    for case, job in (("dp_spec", ranks), ("lm_spec", tp_ranks),
+                      ("moe_tp", tp_ranks)):
         out["cases"][case] = row = _spec_check(spec, case, job, refs,
                                                device, off, launches)
         print(f"chip_smoke: train_dist {case}: {json.dumps(row)}",
               file=sys.stderr, flush=True)
-    out["cases"]["tp_serve"] = row = _tp_serve_check(spec, tp_ranks, refs,
-                                                     device, off, launches)
-    print(f"chip_smoke: train_dist tp_serve: {json.dumps(row)}",
-          file=sys.stderr, flush=True)
+    for case in SERVE_CASES:
+        out["cases"][case] = row = _tp_serve_check(
+            spec, case, tp_ranks, refs, device, off, launches)
+        print(f"chip_smoke: train_dist {case}: {json.dumps(row)}",
+              file=sys.stderr, flush=True)
     if off:
         fail("; ".join(off))
     out["soak"] = _dist_soak_check(spec, ranks, refs["soak"], device,
@@ -5220,19 +5310,22 @@ def _dist_job(fn, mesh, spec, device, label):
 
 
 def _spec_launches(spec, case, device) -> dict:
-    """The launches a rank's run of a ``SPEC_CASES`` case or (g) implies:
-    one embedding backward (#1; (f) over the rank's vocab block) a step;
-    (g) #5 once a layer in the prefill and #6 once a layer a decode step
-    (on the rank's 8 of 16 heads); none off the card."""
-    if case == "moe_spec":          # the 2-rank job's counters, as (d)
-        return _dist_launches(spec, "moe", device)
+    """The launches a rank's run of a ``SPEC_CASES`` or ``SERVE_CASES``
+    case implies: one embedding backward (#1; (f) and (h) over the rank's
+    vocab block) a step; (g) #5 once a layer in the prefill and #6 once a
+    layer a decode step (on the rank's 8 of 16 heads); (i) #5 once a
+    layer in the prefill (at head dim 192 on its 64 heads) and no #6 (MLA
+    decodes absorbed, by plain products); none off the card."""
+    if case == "dp_spec":           # the 2-rank job's counters, as (b)
+        return _dist_launches(spec, "lm", device)
     zero = {"segment_sum_2d": 0, "flash_attention": 0, "flash_decode": 0}
     if device != "cuda":
         return zero
     if case in SPEC_CASES:
         return dict(zero, segment_sum_2d=spec["steps"])
-    L = spec["qwen"].n_layers
-    return dict(zero, flash_attention=L, flash_decode=L * (DIST_TP_NEW - 1))
+    L = spec[SERVE_CASES[case][0]].n_layers
+    decode = 0 if case == "mla_serve" else L * (DIST_TP_NEW - 1)
+    return dict(zero, flash_attention=L, flash_decode=decode)
 
 
 def _launches_as_designed(name, runs, want, launches):
@@ -5274,6 +5367,7 @@ def _spec_check(spec, case, ranks, refs, device, off, launches) -> dict:
             "loss_err_vs_tol": worst, "losses": runs[0]["losses"],
             "reference": ref["losses"], "v_sum_rel_err": v_err,
             "cut_leaves": runs[0]["cut_leaves"],
+            "tp": [r["tp"] for r in runs],
             "held_bytes": [r["held_bytes"] for r in runs],
             "step_s": [r["step_s"] for r in runs],
             "reference_step_s": ref["step_s"], "launches_per_rank": want,
@@ -5281,33 +5375,133 @@ def _spec_check(spec, case, ranks, refs, device, off, launches) -> dict:
             "allreduce_s": [r["allreduce_s"] for r in runs]}
 
 
-def _tp_serve_check(spec, ranks, refs, device, off, launches) -> dict:
-    """(g): each rank's greedy tokens equal to the one process's for its
-    rows, the logits each was taken from within ``LM_TOL_F32``, #5 and
-    #6 once a layer a pass on every rank."""
-    name, ref = "train_dist tp_serve", refs["tp_serve"]
-    runs = [r["cases"]["tp_serve"] for r in ranks]
+def _row_routing(routes, call, row, S, cfg):
+    """Row ``row``'s tokens in MoE routing ``call`` (``_routes``' record;
+    ``S`` tokens a row in that call): their experts (n, k), their top k
+    + 1 router probabilities and which choices their groups' capacity
+    kept (``models.moe``'s token-major queue)."""
+    import numpy as np
+
+    from repro_torch.models.moe import _capacity
+    choice, top = routes[call]
+    G, gs, k = choice.shape
+    C = _capacity(gs, k, cfg.n_experts, cfg.capacity_factor)
+    keep = np.zeros(choice.shape, bool)
+    for g in range(G):
+        seen = {}
+        for i in range(gs):
+            for c in range(k):
+                e = int(choice[g, i, c])
+                keep[g, i, c] = seen.get(e, 0) < C
+                seen[e] = seen.get(e, 0) + 1
+    sl = slice(row * S, (row + 1) * S)
+    return (choice.reshape(-1, k)[sl], top.reshape(-1, k + 1)[sl],
+            keep.reshape(-1, k)[sl])
+
+
+def _routing_near_tie(got, ref, rows, j, t, S, cfg) -> dict | None:
+    """Whether step ``t`` of a served row routed otherwise than one
+    process: None when the served position kept the same experts in
+    every MoE layer (a prompt token reaches it only through the capacity
+    queue at 1 layer); else the one process's relative gap (p_k -
+    p_{k+1}) / p_k of every token of the row whose experts differ."""
+    L = cfg.n_layers
+    n = S if t == 0 else 1                 # tokens a row in the call
+    gaps, same = [], True
+    for call in range(t * L, (t + 1) * L):
+        gc, _, gk = _row_routing(got["routes"], call, j, n, cfg)
+        rc, rt, rk = _row_routing(ref["routes"], call, rows.start + j, n,
+                                  cfg)
+        k = cfg.top_k
+        same &= set(gc[-1][gk[-1]]) == set(rc[-1][rk[-1]])
+        for i in range(n):
+            if set(gc[i]) != set(rc[i]):
+                gaps.append(float((rt[i, k - 1] - rt[i, k]) / rt[i, k - 1]))
+    return None if same else {"step": t, "router_gaps": sorted(gaps)}
+
+
+def _tp_serve_check(spec, case, ranks, refs, device, off, launches) -> dict:
+    """A ``SERVE_CASES`` case: each rank's greedy tokens equal to the one
+    process's for its rows and the logits each was taken from within
+    ``LM_TOL_F32`` ((g), f32 compute) or ``LM_TOL_BF16`` x max|logit| ((i),
+    bf16); #5 (and #6) once a layer a pass on every rank. In bf16 the two
+    packages' roundings differ (a rank sums its heads' and experts'
+    partials over ``model``), and a token whose router's k-th and
+    (k+1)-th probabilities lie within ``NEAR_TIE_REL`` of each other may
+    take another expert (ROADMAP §3's near-tie rule for bf16 routing): a
+    step whose served position kept other experts than one process's is
+    printed with those gaps and its logits error, and accepted only where
+    every gap is within ``NEAR_TIE_REL``; a row that parts from one
+    process's tokens is accepted only where that step's top-two logit
+    gap is within ``LM_TOL_BF16`` x max|logit| (printed); a row's later
+    steps, whose contexts differ, are not compared."""
+    name, ref = f"train_dist {case}", refs[case]
+    runs = [r["cases"][case] for r in ranks]
     n = len(ref["tokens"]) // DIST_SPEC_MESH[0]
+    bf16 = case == "mla_serve"
+    cfg = spec[SERVE_CASES[case][0]]
+    S = spec["lm"][1]
     atol, rtol = LM_TOL_F32
-    worst = 0.0
+    worst, partings, near_ties = 0.0, [], []
     for i, r in enumerate(runs):
         rows = slice(r["rows"] * n, (r["rows"] + 1) * n)
-        if r["tokens"] != ref["tokens"][rows]:
-            off.append(f"{name} rank {i}: tokens {r['tokens']}, one process "
-                       f"gave {ref['tokens'][rows]}")
-        want = ref["logits"][rows]
-        err = float((abs(r["logits"] - want) / (atol + rtol * abs(want)))
-                    .max())
-        worst = max(worst, err)
+        want_logits = ref["logits"][rows]
+        for j, (got, want) in enumerate(zip(r["tokens"],
+                                            ref["tokens"][rows])):
+            part = next((t for t, (a, b) in enumerate(zip(got, want))
+                         if a != b), len(want))
+            for t in range(min(part + 1, len(want))):
+                w = want_logits[j, t]
+                d = abs(r["logits"][j, t] - w)
+                if bf16:
+                    err = float(d.max() / (LM_TOL_BF16 * abs(w).max()))
+                else:
+                    err = float((d / (atol + rtol * abs(w))).max())
+                tie = _routing_near_tie(r, ref, rows, j, t, S, cfg) \
+                    if cfg.n_experts else None
+                if tie is None:
+                    worst = max(worst, err)
+                    continue
+                tie.update(rank=i, row=j, logit_err_vs_tol=err)
+                near_ties.append(tie)
+                print(f"chip_smoke: {name} rank {i} row {j} step {t}: "
+                      f"routed otherwise than one process (router gaps "
+                      f"{tie['router_gaps'][:8]}, near-tie limit "
+                      f"{NEAR_TIE_REL}); logits {err} x the tolerance",
+                      file=sys.stderr, flush=True)
+                if not (bf16 and max(tie["router_gaps"], default=1.0)
+                        <= NEAR_TIE_REL):
+                    off.append(f"{name} rank {i} row {j} step {t}: routed "
+                               "otherwise than one process past a near-tie "
+                               f"(router gaps {tie['router_gaps'][:8]})")
+            if part == len(want):
+                continue
+            top2 = want_logits[j, part].copy()
+            top2.sort()
+            gap = float(top2[-1] - top2[-2])
+            limit = LM_TOL_BF16 * float(abs(want_logits[j, part]).max())
+            partings.append({"rank": i, "row": j, "step": part, "gap": gap,
+                             "limit": limit})
+            print(f"chip_smoke: {name} rank {i} row {j}: tokens part at "
+                  f"step {part}; the one process's top-two gap {gap} "
+                  f"(near-tie limit {limit})", file=sys.stderr, flush=True)
+            if not (bf16 and gap <= limit):
+                off.append(f"{name} rank {i}: tokens {got}, one process "
+                           f"gave {want} (top-two gap {gap} at step "
+                           f"{part})")
     if not worst <= 1.0:
         off.append(f"{name}: logits off the one process's by {worst} x "
                    "the tolerance")
-    want = _spec_launches(spec, "tp_serve", device)
+    want = _spec_launches(spec, case, device)
     _launches_as_designed(name, runs, want, launches)
-    return {"mesh": list(DIST_SPEC_MESH), "fsdp": True,
+    arch, fsdp = SERVE_CASES[case]
+    return {"arch": spec[arch].name, "layers": spec[arch].n_layers,
+            "mesh": list(DIST_SPEC_MESH), "fsdp": fsdp,
             "rows_a_data_rank": n, "prompt": list(spec["lm"]),
             "new": DIST_TP_NEW, "tokens": runs[0]["tokens"],
-            "logit_err_vs_tol": worst,
+            "logit_err_vs_tol": worst, "partings": partings,
+            "routing_near_ties": near_ties,
+            "tp": [r["tp"] for r in runs],
             "prefill_s": [r["prefill_s"] for r in runs],
             "decode_s": [r["decode_s"] for r in runs],
             "reference_prefill_s": ref["prefill_s"],

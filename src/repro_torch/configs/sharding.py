@@ -24,7 +24,8 @@ coordinates on those axes, row-major.
 cut over ``model`` stays local (the product runs on the block), a dim cut
 over ``data`` is FSDP's (gathered just before use, freed after), and a
 leaf that names no axis is replicated compute. ``tensor_parallel_family``
-says which configs a ``spec_fn`` plan computes so (``engine.plan``).
+says which configs a ``spec_fn`` plan computes so on a mesh's ``model``
+axis (``engine.plan``).
 """
 from __future__ import annotations
 
@@ -33,7 +34,8 @@ from typing import NamedTuple
 
 MODEL = "model"
 FSDP = "data"                      # the axis FSDP cuts params over
-TP_BLOCKS = ("attn", "swa")        # the blocks tensor-parallel compute covers
+TP_BLOCKS = ("attn", "swa", "mla")  # the blocks tensor-parallel compute
+                                     # covers
 
 
 def _rules(cfg, model_size: int = 16):
@@ -248,18 +250,25 @@ def read_spec(spec) -> LeafCut:
         fsdp=tuple(i for i, e in enumerate(spec) if FSDP in _axes(e)))
 
 
-def tensor_parallel_reason(cfg) -> str | None:
-    """Why a ``spec_fn`` plan does NOT compute ``cfg`` tensor-parallel
-    (None: it does). Tensor-parallel compute covers the dense GQA
-    transformers: ``attn`` / ``swa`` blocks with a dense SwiGLU, text
-    only, one LM head, head-aligned rules. The others keep the
+def tensor_parallel_reason(cfg, model_size: int) -> str | None:
+    """Why a ``spec_fn`` plan whose ``model`` axis has ``model_size`` ranks
+    does NOT compute ``cfg`` tensor-parallel (None: it does).
+    Tensor-parallel compute covers the transformer LMs of ``attn`` /
+    ``swa`` / ``mla`` blocks, each with a dense SwiGLU or a MoE (experts
+    over ``model``, or every expert's ``d_ff_expert`` cut over it), text
+    only, one LM head, every head whole on a rank. The others keep the
     data-parallel step (every cut leaf gathered whole)."""
+    m = model_size
     if cfg.family == "gnn" or not cfg.n_layers:
         return "not a transformer LM"
-    if cfg.n_experts:
-        return "MoE feed-forward (expert parallelism is not ported)"
     if cfg.naive_tp:
-        return "naive_tp's fractional heads"
+        for what, n in (("heads", cfg.n_heads), ("kv heads", cfg.n_kv_heads)):
+            if n % m:
+                return (f"naive_tp's fractional heads ({n} {what} over "
+                        f"model {m})")
+    if "mla" in cfg.block_pattern and cfg.n_heads % m:
+        return (f"MLA's heads would split ({cfg.n_heads} heads over model "
+                f"{m}: wq_b's columns are cut by columns, not heads)")
     if cfg.n_tasks > 1:
         return "per-source task_heads (lm-mtl)"
     if cfg.n_enc_layers:
@@ -272,6 +281,7 @@ def tensor_parallel_reason(cfg) -> str | None:
     return None
 
 
-def tensor_parallel_family(cfg) -> bool:
-    """Whether a ``spec_fn`` plan computes ``cfg`` on local blocks."""
-    return tensor_parallel_reason(cfg) is None
+def tensor_parallel_family(cfg, model_size: int) -> bool:
+    """Whether a ``spec_fn`` plan with ``model_size`` ``model`` ranks
+    computes ``cfg`` on local blocks."""
+    return tensor_parallel_reason(cfg, model_size) is None

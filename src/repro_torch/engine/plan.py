@@ -28,8 +28,9 @@ batch:
 (the trunk of the multi-task layout) shard parameters: ``fn(path, leaf)
 -> spec`` (``configs.sharding.make_spec_fn``), and a rank stores only its
 block of every leaf whose spec names an axis, for the params and both
-AdamW moments. A dense GQA transformer (``configs.sharding.
-tensor_parallel_family``) then computes in the layout ``repro``'s specs
+AdamW moments. A transformer LM of GQA or MLA attention with a dense or a
+MoE feed-forward (``configs.sharding.tensor_parallel_family`` at the
+mesh's ``model`` size) then computes in the layout ``repro``'s specs
 name (``tensor_parallel``): a dim cut over ``model`` stays local and its
 product runs on the block, a dim cut over ``data`` (FSDP) is gathered
 just before use by ``gather_unit`` — one all-gather a block unit, inside
@@ -312,7 +313,7 @@ class ShardingPlan:
             out[p] = buf
         return unflatten(tree, out)
 
-    # -- tensor-parallel compute (the dense GQA families) -------------------
+    # -- tensor-parallel compute (the transformer LM families) --------------
 
     def data_axes(self) -> tuple:
         """The mesh's axes other than ``model``: the batch's rows split
@@ -323,11 +324,13 @@ class ShardingPlan:
         """``tree``, the params at ``path`` of this rank's tree (one
         repetition of a stacked unit: its leaves lack the leading ``reps``
         dim), with every leaf that ``layout`` cuts over ``data`` gathered
-        whole along that dim: one all-gather a dtype over the FSDP group
-        (``gather_group`` of ``data``), whose backward reduce-scatters the
-        unit's gradients into the rank's blocks. A dim cut over ``model``
-        stays the rank's block (a collective: every rank calls it for the
-        same units in the same order)."""
+        whole along that dim, whichever it is (a 3-D expert leaf's is
+        ``d_model``, dim 1 of ``w_gate`` / ``w_up`` and 2 of ``w_down``):
+        one all-gather a dtype over the FSDP group (``gather_group`` of
+        ``data``), whose backward reduce-scatters the unit's gradients
+        into the rank's blocks. A dim cut over ``model`` stays the rank's
+        block (a collective: every rank calls it for the same units in
+        the same order)."""
         flat = leaves(tree)
         cut = {}
         for sub, x in flat.items():
@@ -357,31 +360,45 @@ class ShardingPlan:
         """The ``models.common.TensorParallel`` of this rank for a params
         tree cut by ``layout``: which products the ``model`` axis cuts
         (read off the leaves' specs: ``wq``'s and ``wk``'s columns,
-        ``w_gate``'s, the embedding's rows) and, when a leaf is cut over
-        ``data``, ``gather_unit`` over the layout."""
+        ``w_gate``'s, the embedding's rows; a MoE's experts or their
+        ``d_ff_expert`` columns, its shared experts' ``w_gate`` columns;
+        MLA's ``wq_b`` columns) and, when a leaf is cut over ``data``,
+        ``gather_unit`` over the layout."""
         import re
 
         from repro_torch.models.common import TensorParallel
 
+        def find(pattern):
+            return next(((shape, spec) for p, (shape, spec) in layout.items()
+                         if re.search(pattern, p)), None)
+
         def cut(pattern, dim) -> bool:
-            for p, (_, spec) in layout.items():
-                if re.search(pattern, p):
-                    return dim in [i - len(spec) for i in
-                                   read_spec(spec).model]
-            return False
+            hit = find(pattern)
+            return hit is not None and dim in [
+                i - len(hit[1]) for i in read_spec(hit[1]).model]
         fsdp = any(read_spec(s).fsdp for _, s in layout.values())
         size = mesh_shape(self.mesh)[MODEL]
+        index = self.coords[MODEL]
         vocab = cut(r"^embed/table$", -2)
         if "lm_head/w" in layout and cut(r"^lm_head/w$", -1) != vocab:
             raise ValueError("the embedding's rows and lm_head's columns "
                              "are cut differently over model")
+        experts = None
+        if cut(r"ffn/w_gate$", -3):         # (E, d, f): whole experts
+            n = find(r"ffn/w_gate$")[0][-3] // size
+            experts = (index * n, (index + 1) * n)
+        mla = cut(r"attn/wq_b/w$", -1)
+        if mla and not cut(r"attn/wo/w$", -2):
+            raise ValueError("MLA's wq_b columns are cut over model and its "
+                             "wo rows are not")
         return TensorParallel(
-            group=self.mesh.get_group(MODEL), size=size,
-            index=self.coords[MODEL], heads=cut(r"attn/wq/w$", -1),
-            kv=cut(r"attn/wk/w$", -1), ffn=cut(r"ffn/w_gate/w$", -1),
-            vocab=vocab,
+            group=self.mesh.get_group(MODEL), size=size, index=index,
+            heads=cut(r"attn/wq/w$", -1), kv=cut(r"attn/wk/w$", -1),
+            ffn=cut(r"ffn/w_gate/w$", -1), vocab=vocab,
             gather=functools.partial(self.gather_unit, layout=layout)
-            if fsdp else None)
+            if fsdp else None,
+            experts=experts, expert_ffn=cut(r"ffn/w_gate$", -1),
+            shared=cut(r"ffn/shared/w_gate/w$", -1), mla=mla)
 
     def all_heads(self) -> list:
         """The heads every rank holds, by rank."""

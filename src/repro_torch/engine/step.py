@@ -28,17 +28,22 @@ second (``plan.slice_batch(batch, accum)``), as ``repro`` does.
 
 A plan with ``spec_fn`` / ``shared_spec_fn`` (``engine.plan``) keeps each
 rank's block of every cut leaf, and the clip norm sums each block once
-across the ranks (``plan.norm_fn(layout)``). A dense GQA transformer
-(``SingleTaskModel.cfg`` in ``configs.sharding.tensor_parallel_family``)
-computes in the layout ``repro``'s specs name (``tensor_parallel_grad_fn``): the
-batch's rows split over the data axes only, a row's ``model`` ranks
-share it, and the forward runs on the rank's blocks — local heads,
-column- then row-parallel SwiGLU, a vocab-parallel embedding, logits and
+across the ranks (``plan.norm_fn(layout)``). A transformer LM
+(``SingleTaskModel.cfg`` in ``configs.sharding.tensor_parallel_family`` at
+the mesh's ``model`` size: GQA or MLA attention, a dense SwiGLU or a MoE)
+computes in the layout ``repro``'s specs name (``tensor_parallel_grad_fn``):
+the batch's rows split over the data axes only, a row's ``model`` ranks
+share it, and the forward runs on the rank's blocks — local heads (MLA's
+after the replicated latent), column- then row-parallel SwiGLU, a MoE's
+local experts or ``d_ff_expert`` columns with its routing replicated and
+one SUM over ``model`` a layer, a vocab-parallel embedding, logits and
 loss, each block unit's FSDP-cut leaves gathered just before use and
 their gradients reduce-scattered into the rank's blocks over ``data``.
 The gradients of the other leaves, ``model``-local or replicated, are
 summed over the data axes only (a replicated leaf's is already whole and
-equal on every ``model`` rank), and nothing is gathered whole. Every
+equal on every ``model`` rank: a MoE's router, MLA's ``wq_a`` and
+``wkv_a``), and nothing is gathered whole; bf16 params (deepseek's) go
+through the same flat reductions, one buffer a dtype. Every
 other model keeps the data-parallel step (``sharded_grad_fn``): it
 gathers the cut leaves (``plan.gather``, one all-reduce a cut leaf over
 the ranks that hold its blocks), runs the grad_fn above on the whole tree
@@ -373,7 +378,7 @@ def sharded_grad_fn(grad_fn: Callable, plan, layout: dict) -> Callable:
 
 def tensor_parallel_grad_fn(model: SingleTaskModel, plan, layout: dict
                             ) -> Callable:
-    """grad_fn of a dense GQA LM on a ``spec_fn`` plan, over this rank's
+    """grad_fn of a transformer LM on a ``spec_fn`` plan, over this rank's
     blocks and its rows (see the module docstring). The loss's
     denominators and the loss are summed over the data axes; the
     gradients of leaves cut over ``data`` come out of ``gather_unit``'s
@@ -414,10 +419,12 @@ def tensor_parallel_grad_fn(model: SingleTaskModel, plan, layout: dict
     return grad_fn
 
 
-def _tensor_parallel(model, layout) -> bool:
-    from repro_torch.configs.sharding import tensor_parallel_family
+def _tensor_parallel(model, plan, layout) -> bool:
+    from repro_torch.configs.sharding import (MODEL, mesh_shape,
+                                             tensor_parallel_family)
     return bool(layout) and isinstance(model, SingleTaskModel) and \
-        model.cfg is not None and tensor_parallel_family(model.cfg)
+        model.cfg is not None and tensor_parallel_family(
+            model.cfg, mesh_shape(plan.mesh)[MODEL])
 
 
 def _layout(model, plan) -> dict:
@@ -427,7 +434,7 @@ def _layout(model, plan) -> dict:
 
 def _grad_fn(model, plan, accum, task_weights, layout=None):
     axis = 1 if isinstance(model, MultiTaskModel) else 0
-    if _tensor_parallel(model, layout):
+    if _tensor_parallel(model, plan, layout):
         return with_grad_accum(tensor_parallel_grad_fn(model, plan, layout),
                                accum, axis)
     fn = with_grad_accum(make_grad_fn(model, plan,

@@ -19,7 +19,12 @@ shapes only, nothing allocated, nothing computed):
     bytes (views move nothing and are not counted);
   * ``collectives``: ``{kind: {"count", "bytes"}}`` of the ``c10d`` ops the
     step issues (``all-reduce``, ``broadcast``, ``all-gather``, ...; the
-    bytes of the tensors each moves), and ``collective_bytes``, their sum;
+    bytes of the tensors each moves), and ``collective_bytes``, their sum.
+    A tensor-parallel step's sums over ``model`` are all-reduces: a
+    row-parallel product's partial sums (Megatron's g: one a MoE layer,
+    its routed and shared experts' partials together, one after MLA's or
+    GQA's ``wo``) and, backward, the gradients of a replicated input of
+    local products (Megatron's f);
   * ``top_ops``: the most frequent ops, ``[(name, count)]``;
   * ``peak_bytes``: ``torch.distributed._tools.mem_tracker.MemTracker``'s
     peak over the tensors the step allocates and those passed as

@@ -40,14 +40,17 @@ exactly; the call's prologue, which converts q, k and v whole, is counted
 at the traced sizes, and its blocks' temporaries are not in the peak).
 
 The step computes what the port computes (``figures`` in an entry's
-``memory`` and ``hlo`` says which): a dense GQA model
-(``configs.sharding.tensor_parallel_family``) runs its products on the
-rank's blocks — local heads, column- and row-parallel SwiGLU, a
+``memory`` and ``hlo`` says which, entry by entry): a transformer LM of
+GQA or MLA attention with a dense or a MoE feed-forward
+(``configs.sharding.tensor_parallel_family`` at the mesh's ``model``
+size) runs its products on the rank's blocks — local heads (MLA's after
+the replicated latent), column- and row-parallel SwiGLU, a MoE's local
+experts or ``d_ff_expert`` columns with one SUM over ``model`` a layer, a
 vocab-parallel embedding, logits and loss, each unit's FSDP leaves
 gathered before use and reduce-scattered after — and its caches hold the
-rank's kv heads, the layout ``repro``'s specs name; every other model
-gathers every cut leaf whole and runs its rows through the whole tree
-(data-parallel compute).
+rank's kv heads (MLA's latent cache whole), the layout ``repro``'s specs
+name; every other model gathers every cut leaf whole and runs its rows
+through the whole tree (data-parallel compute), and its entry says why.
 
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen1.5-0.5b --shape train_4k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both --out results/dryrun_torch.json
@@ -81,10 +84,12 @@ NOTES = ("static count: fake CPU tensors, so every hand kernel runs its "
          "plain version, the one-hot segment sum)")
 # what a spec_fn plan's figures are (``figures`` in ``memory`` and ``hlo``)
 TENSOR_PARALLEL = ("tensor-parallel: the products run on the rank's blocks "
-                   "(local heads, column/row-parallel SwiGLU, a "
-                   "vocab-parallel embedding, logits and loss), FSDP leaves "
-                   "gathered a unit before use and reduce-scattered: "
-                   "the layout repro's specs name")
+                   "(local heads, MLA's after the replicated latent; "
+                   "column/row-parallel SwiGLU; a MoE's local experts or "
+                   "d_ff_expert columns, its routing replicated, one SUM "
+                   "over model a layer; a vocab-parallel embedding, logits "
+                   "and loss), FSDP leaves gathered a unit before use and "
+                   "reduce-scattered: the layout repro's specs name")
 DATA_PARALLEL = ("data-parallel: every cut leaf is gathered whole before "
                  "the forward and the gradients are all-reduced whole, the "
                  "rank keeping its blocks between steps; peak_bytes and "
@@ -92,11 +97,17 @@ DATA_PARALLEL = ("data-parallel: every cut leaf is gathered whole before "
                  "tensor-parallel layout")
 
 
-def figures(cfg) -> str:
-    """What a ``spec_fn`` plan's figures for ``cfg`` are."""
+def figures(cfg, model_size: int) -> str:
+    """What a ``spec_fn`` plan's figures for ``cfg`` are on a mesh whose
+    ``model`` axis has ``model_size`` ranks."""
     from repro_torch.configs.sharding import tensor_parallel_reason
-    why = tensor_parallel_reason(cfg)
+    why = tensor_parallel_reason(cfg, model_size)
     return TENSOR_PARALLEL if why is None else f"{DATA_PARALLEL} ({why})"
+
+
+def _model_size(mesh) -> int:
+    from repro_torch.configs.sharding import MODEL, mesh_shape
+    return mesh_shape(mesh).get(MODEL, 1)
 
 
 def skip_reason(arch: str, shape_name: str) -> str | None:
@@ -237,7 +248,7 @@ def _lm_prefill(cfg, shape, mesh, accum, device, micro, seed=0):
     plan, layout, local = _cut_params(cfg, mesh)
     rows = _rank_rows(input_specs(cfg, shape), mesh, plan.coords,
                       shape.global_batch)
-    tp = tensor_parallel_family(cfg)
+    tp = tensor_parallel_family(cfg, _model_size(mesh))
     step = make_prefill_step(cfg, "chunked", plan=plan if tp else None)
 
     @torch.no_grad()
@@ -273,7 +284,7 @@ def _lm_decode(cfg, shape, mesh, accum, device, micro, seed=0):
     plan, layout, local = _cut_params(eff, mesh)
     B = shape.global_batch
     coords = plan.coords
-    tp = tensor_parallel_family(eff)
+    tp = tensor_parallel_family(eff, _model_size(mesh))
     specs = [cache_leaf_spec(v, mesh, B)
              for v in tree_flatten(caches_meta)[0]]
     if tp:      # the rank's kv heads; the data axes' split as cache_specs
@@ -659,7 +670,7 @@ def run_one(arch: str, shape_name: str, mesh_kind: str, *, accum: int = 1,
             info["full"], info["specs"] = _full_tree(cfg, shape, info)
             entry["memory"] = _state_bytes(info)
             if info["plan"].sharded:
-                entry["memory"]["figures"] = figures(cfg)
+                entry["memory"]["figures"] = figures(cfg, _model_size(mesh))
             if compile_too:
                 entry["memory"]["peak_bytes"] = total["peak_bytes"]
                 entry["cost"] = {"flops": total["flops"],
@@ -670,7 +681,7 @@ def run_one(arch: str, shape_name: str, mesh_kind: str, *, accum: int = 1,
                 entry["hlo"]["traced"] = traced
                 entry["hlo"]["notes"] = NOTES
                 if info["plan"].sharded:
-                    entry["hlo"]["figures"] = figures(cfg)
+                    entry["hlo"]["figures"] = entry["memory"]["figures"]
                 entry["collectives_once"] = once
                 entry["top_ops"] = total["top_ops"]
             else:

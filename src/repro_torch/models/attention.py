@@ -25,6 +25,15 @@ heads' groups need —, RoPE and attention (#5 / #6 under ``"pallas"``) on
 them, and ``wo``'s rows as a partial sum that is summed over ``model``
 (Megatron's f at the input, g after ``wo``). Its decode cache holds those
 kv heads (``local_kv_heads``).
+
+Tensor-parallel MLA (``mla_apply(tp=)`` with ``tp.mla``): the latents —
+``q_norm(wq_a x)``, ``kv_norm`` of ``wkv_a``'s first ``kv_lora`` columns
+and the RoPE'd shared key — are replicated compute; ``wq_b``, ``wk_b``
+and ``wv_b`` give the rank's H/m heads from them (Megatron's f on each
+latent where it enters that compute), attention (#5 at q/k head dim dn +
+dr under ``"pallas"``) or the absorbed decode runs on those heads, and
+``wo``'s rows give a partial sum summed over ``model``. The latent cache
+is whole on every ``model`` rank.
 """
 from __future__ import annotations
 
@@ -287,11 +296,19 @@ def mla_init(rng, cfg, device="cpu") -> Params:
     }
 
 
-def _mla_project_q(params, x, cfg, positions):
+def _mla_heads(cfg, tp) -> int:
+    """The MLA heads this rank computes (all of them without ``tp.mla``)."""
+    return cfg.n_heads // tp.size if tp is not None and tp.mla \
+        else cfg.n_heads
+
+
+def _mla_project_q(params, x, cfg, positions, tp=None):
     B, S, _ = x.shape
-    H, dn, dr = cfg.n_heads, cfg.hd, cfg.rope_dims
+    H, dn, dr = _mla_heads(cfg, tp), cfg.hd, cfg.rope_dims
     cd = cfg.compute_dtype
     qa = rmsnorm(params["q_norm"], dense(params["wq_a"], x, cd))
+    if tp is not None and tp.mla:
+        qa = tp.copy(qa)
     qb = dense(params["wq_b"], qa, cd).reshape(B, S, H, dn + dr)
     q_nope, q_rope = qb[..., :dn], qb[..., dn:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
@@ -299,18 +316,21 @@ def _mla_project_q(params, x, cfg, positions):
 
 
 def mla_apply(params: Params, x, *, cfg, positions, cache=None,
-              impl="chunked"):
+              impl="chunked", tp=None):
     """x: (B,S,d). Train/prefill: the latent is up-projected to per-head
     k/v and attention runs over q/k of head dim dn + dr with v zero-padded
     to it (``repro``'s semantics: the shared ``sdpa`` at scale 1/√(dn+dr),
     then the padding sliced off). Decode (S == 1, cache given): the
     absorbed form over the latent cache in f32 scores; the token's
-    ``ckv``/``krope`` rows are written in place at ``pos`` (no rolling)."""
+    ``ckv``/``krope`` rows are written in place at ``pos`` (no rolling).
+    ``tp``: tensor-parallel over the rank's heads (the module docstring);
+    the output is whole on every rank."""
     B, S, d = x.shape
-    H, r = cfg.n_heads, cfg.kv_lora
+    split = tp is not None and tp.mla
+    H, r = _mla_heads(cfg, tp), cfg.kv_lora
     dn, dr, dv = cfg.hd, cfg.rope_dims, cfg.v_head_dim
     cd = cfg.compute_dtype
-    q_nope, q_rope = _mla_project_q(params, x, cfg, positions)
+    q_nope, q_rope = _mla_project_q(params, x, cfg, positions, tp)
 
     kv = dense(params["wkv_a"], x, cd)
     ckv, k_rope = kv[..., :r], kv[..., r:]
@@ -320,14 +340,16 @@ def mla_apply(params: Params, x, *, cfg, positions, cache=None,
     scale = 1.0 / math.sqrt(dn + dr)
 
     if cache is None or (isinstance(cache, str) and cache == "init"):
-        k_nope = dense(params["wk_b"], ckv, cd).reshape(B, S, H, dn)
-        vv = dense(params["wv_b"], ckv, cd).reshape(B, S, H, dv)
+        lat, kr = (tp.copy(ckv), tp.copy(k_rope)) if split else (ckv, k_rope)
+        k_nope = dense(params["wk_b"], lat, cd).reshape(B, S, H, dn)
+        vv = dense(params["wv_b"], lat, cd).reshape(B, S, H, dv)
         q = torch.cat([q_nope, q_rope], -1)
-        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, dr)],
-                      -1)
+        k = torch.cat([k_nope, kr[:, :, None, :].expand(B, S, H, dr)], -1)
         o = sdpa(q, k, F.pad(vv, (0, dn + dr - dv)), q_pos=positions,
                  k_pos=positions, causal=True, impl=impl, scale=scale)
         out = dense(params["wo"], o[..., :dv].reshape(B, S, H * dv), cd)
+        if split:
+            out = tp.reduce(out)
         if cache == "init":
             pos = torch.tensor(S, dtype=torch.int32, device=x.device)
             return out, {"ckv": ckv, "krope": k_rope, "pos": pos}
@@ -340,6 +362,7 @@ def mla_apply(params: Params, x, *, cfg, positions, cache=None,
     cc = cache["ckv"].index_copy_(1, at, ckv.to(cache["ckv"].dtype))
     cr = cache["krope"].index_copy_(1, at, k_rope.to(cache["krope"].dtype))
     # absorb W_uk into q: q_lat[b,h,r'] = sum_dn q_nope[b,h,dn] Wk_b[r',h,dn]
+    # (the rank's heads: wk_b's and wv_b's local columns)
     wkb = params["wk_b"]["w"].reshape(r, H, dn).to(cd)
     q_lat = torch.einsum("bhd,rhd->bhr", q_nope[:, 0], wkb)
     s = (torch.einsum("bhr,bsr->bhs", q_lat.float(), cc.float())
@@ -353,6 +376,8 @@ def mla_apply(params: Params, x, *, cfg, positions, cache=None,
     wvb = params["wv_b"]["w"].reshape(r, H, dv).to(cd)
     o = torch.einsum("bhr,rhd->bhd", o_lat.to(cd), wvb)
     out = dense(params["wo"], o.reshape(B, 1, H * dv), cd)
+    if split:
+        out = tp.reduce(out)
     return out, {"ckv": cc, "krope": cr, "pos": pos + 1}
 
 

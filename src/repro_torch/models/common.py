@@ -232,11 +232,14 @@ class TensorParallel(NamedTuple):
     tensor-parallel (``engine.plan.ShardingPlan.tensor_parallel``): the
     ``model`` axis's group, its size and this rank's index on it; which
     products are cut over it (the q heads — ``wq``'s columns and ``wo``'s
-    rows —, the kv heads, SwiGLU's ``d_ff``, the padded vocab); and
-    ``gather(tree, path)``, which gives a unit of the rank's params with
-    its FSDP-cut dims whole (None: nothing is cut over ``data``). A
-    product that is not cut runs whole on every rank, as ``repro``'s
-    GSPMD repeats it."""
+    rows —, the kv heads, SwiGLU's ``d_ff``, the padded vocab; a MoE's
+    experts — ``experts``, this rank's range [e0, e1) of them — or each
+    expert's ``d_ff_expert`` columns (``expert_ffn``), its shared experts'
+    ``d_ff`` (``shared``); MLA's heads after the latent, ``wq_b``'s
+    columns by whole heads (``mla``)); and ``gather(tree, path)``, which
+    gives a unit of the rank's params with its FSDP-cut dims whole (None:
+    nothing is cut over ``data``). A product that is not cut runs whole on
+    every rank, as ``repro``'s GSPMD repeats it."""
     group: Any
     size: int
     index: int
@@ -245,6 +248,10 @@ class TensorParallel(NamedTuple):
     ffn: bool
     vocab: bool
     gather: Callable | None = None
+    experts: tuple | None = None
+    expert_ffn: bool = False
+    shared: bool = False
+    mla: bool = False
 
     def unit(self, tree, path: str):
         """``tree`` (the params at ``path``, a rep of a stacked unit

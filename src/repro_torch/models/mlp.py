@@ -21,18 +21,20 @@ def swiglu_init(rng, d: int, d_ff: int, dtype=torch.float32,
 
 
 def swiglu_apply(params: Params, x, act="silu", compute_dtype=None,
-                 tp=None):
+                 tp=None, reduce: bool = True):
     """``w_down(act(w_gate x) * w_up x)``. With a ``tp`` that cuts d_ff
     (``tp.ffn``, ``models.common.TensorParallel``) ``w_gate``/``w_up``
     are the rank's columns and ``w_down`` its rows: column-parallel, then
-    row-parallel, the partial sums summed over ``model``."""
+    row-parallel, the partial sums summed over ``model`` — or, with
+    ``reduce=False``, returned as this rank's partial sum (a MoE's shared
+    experts, summed with the routed experts' partial output once)."""
     split = tp is not None and tp.ffn
     if split:
         x = tp.copy(x)
     g = dense(params["w_gate"], x, compute_dtype)
     u = dense(params["w_up"], x, compute_dtype)
     out = dense(params["w_down"], ACT[act](g) * u, compute_dtype)
-    return tp.reduce(out) if split else out
+    return tp.reduce(out) if split and reduce else out
 
 
 def mlp_init(rng, d_in: int, hidden: int, d_out: int, n_hidden: int,

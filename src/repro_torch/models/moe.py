@@ -14,6 +14,24 @@ them) each rank routes its own tokens in ``repro``'s groups and returns its
 share of the balance term, so that the shares sum to ``repro``'s term over
 the whole segment and to its gradient.
 
+Tensor-parallel (``moe_apply(tp=)``, ``models.common.TensorParallel`` of a
+``spec_fn`` plan): the ``model`` ranks of a row share its tokens, and each
+routes all of them alike — the same router, cumsum, positions and capacity
+over all E experts, so slots, keeps and drops are one process's. With
+experts over ``model`` (``tp.experts``) a rank's dispatch buffer holds the
+slots of its E/m experts only (a choice of another rank's expert goes to
+the dump row) and the batched products run on them; with ``d_ff_expert``
+cut (``tp.expert_ffn``) every expert runs on the rank's columns of
+``w_gate``/``w_up`` and rows of ``w_down``. Either way the combine gives
+the rank's partial output, the shared experts' row-parallel partial is
+added to it, and one SUM over ``model`` a layer makes it whole: T·d values
+a layer, where an all-to-all of the capacity buffer would move about
+k·cf·T·d each way, and no token crosses ranks. The router's logits reach
+the loss through the balance term (whole on every rank) and through the
+gates (partial): Megatron's f (``tp.copy``) on the gates and on the
+dispatched rows, not on the block's input, leaves the router's gradient
+whole and equal on every ``model`` rank.
+
 Every kept slot holds exactly one token's row, so the dispatch writes rows
 with an indexed copy (no accumulation) and the combine's backward writes
 each kept slot's cotangent with an indexed copy (``_Gather``): no float
@@ -102,7 +120,7 @@ def route(params: Params, xf, cfg):
 
 
 def moe_apply(params: Params, x, *, cfg, group_size: int = 512,
-              segments: int = 1, balance: Balance | None = None):
+              segments: int = 1, balance: Balance | None = None, tp=None):
     """x: (B, S, d) -> (y, aux). Token order is preserved.
 
     ``segments`` > 1 routes each of that many equal slices of the batch
@@ -116,7 +134,11 @@ def moe_apply(params: Params, x, *, cfg, group_size: int = 512,
     groups of ``min(group_size, size·T)``, so the rank's ``T`` tokens must
     be a whole number of those groups (it raises otherwise, rather than
     route in other groups), and aux is the rank's share of the segment's
-    term (``Balance``)."""
+    term (``Balance``).
+
+    ``tp``: ``params`` are this rank's blocks, computed tensor-parallel
+    (the module docstring); y is whole and aux the same on every ``model``
+    rank."""
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     cd = cfg.compute_dtype
@@ -137,6 +159,8 @@ def moe_apply(params: Params, x, *, cfg, group_size: int = 512,
     per = T // gs                             # groups a segment
     G = per * segments
     C = _capacity(gs, k, E, cfg.capacity_factor)
+    e0, e1 = tp.experts if tp is not None and tp.experts else (0, E)
+    split = tp is not None and (tp.experts is not None or tp.expert_ffn)
 
     xf = x.reshape(G, gs, d)
     probs, gate, choice = route(params, xf, cfg)
@@ -146,14 +170,19 @@ def moe_apply(params: Params, x, *, cfg, group_size: int = 512,
     oh = torch.nn.functional.one_hot(cf, E).to(torch.int32)     # (G,gs*k,E)
     pos = (torch.cumsum(oh, dim=1) * oh).sum(-1) - 1            # (G,gs*k)
     keep = pos < C
-    slot = torch.where(keep, cf * C + pos, torch.full_like(cf, E * C))
+    if e1 - e0 < E:                   # this rank's experts' slots only
+        keep = keep & (cf >= e0) & (cf < e1)
+    El = e1 - e0
+    slot = torch.where(keep, (cf - e0) * C + pos,
+                       torch.full_like(cf, El * C))
     gi = torch.arange(G, device=x.device)[:, None]
 
     # ---- dispatch: one token's row to each kept slot ---------------------
-    xr = xf[:, :, None, :].expand(G, gs, k, d).reshape(G, gs * k, d)
-    buf = torch.zeros((G, E * C + 1, d), dtype=cd, device=x.device)
+    xd = tp.copy(xf) if split else xf
+    xr = xd[:, :, None, :].expand(G, gs, k, d).reshape(G, gs * k, d)
+    buf = torch.zeros((G, El * C + 1, d), dtype=cd, device=x.device)
     buf = buf.index_put((gi, slot), xr.to(cd))
-    ein = buf[:, :E * C].reshape(G, E, C, d)
+    ein = buf[:, :El * C].reshape(G, El, C, d)
 
     # ---- expert FFN, batched over the expert axis ------------------------
     wg = params["w_gate"].to(cd)
@@ -161,19 +190,31 @@ def moe_apply(params: Params, x, *, cfg, group_size: int = 512,
     wd = params["w_down"].to(cd)
     h = ACT[cfg.act](torch.einsum("gecd,edf->gecf", ein, wg)) * \
         torch.einsum("gecd,edf->gecf", ein, wu)
-    eout = torch.einsum("gecf,efd->gecd", h, wd)                # (G,E,C,d)
+    eout = torch.einsum("gecf,efd->gecd", h, wd)                # (G,El,C,d)
 
     # ---- combine (gather) -------------------------------------------------
-    flat = torch.cat([eout.reshape(G, E * C, d),
+    flat = torch.cat([eout.reshape(G, El * C, d),
                       torch.zeros((G, 1, d), dtype=cd, device=x.device)], 1)
     yk = _Gather.apply(flat, gi, slot)                          # (G,gs*k,d)
-    yk = yk * (gate.reshape(G, gs * k, 1).to(cd) * keep[..., None])
+    gk = tp.copy(gate) if split else gate
+    yk = yk * (gk.reshape(G, gs * k, 1).to(cd) * keep[..., None])
     y = yk.reshape(G, gs, k, d).sum(2).reshape(B, S, d)
 
-    # ---- shared experts + aux loss ----------------------------------------
+    # ---- shared experts; the partial sums made whole ---------------------
+    ys = None
     if "shared" in params:
-        y = y + swiglu_apply(params["shared"], x, cfg.act, cd)
+        stp = None if tp is None else tp._replace(ffn=tp.shared)
+        joint = split and tp.shared       # both partial: one SUM for both
+        ys = swiglu_apply(params["shared"], x, cfg.act, cd, stp,
+                          reduce=not joint)
+        if joint:
+            y, ys = y + ys, None
+    if split:
+        y = tp.reduce(y)
+    if ys is not None:
+        y = y + ys
 
+    # ---- aux loss ----------------------------------------------------------
     # Switch-style load balance: E * sum_e fraction_e * mean_prob_e
     counts = torch.nn.functional.one_hot(choice, E).float()
     if balance is None:

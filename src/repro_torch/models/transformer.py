@@ -25,13 +25,15 @@ Mamba2's ``ssm`` (reps, B, H, P, N) and ``conv``) and whose ``pos`` is
 unrolled under ``params["rem"]``. The MoE balance terms of the blocks are
 summed into the trunk's aux.
 
-``tp`` (``models.common.TensorParallel``, a dense GQA model on a
+``tp`` (``models.common.TensorParallel``, a transformer LM on a
 ``spec_fn`` plan): ``params`` are this rank's blocks. Each block unit's
 FSDP-cut leaves are gathered inside its remat checkpoint (the recompute
 gathers them again, so the peak holds one gathered unit; the embedding
-and ``lm_head`` once a forward, ``outer_units``), the blocks run
-on their local heads and ``d_ff`` columns, the embedding and the logits
-are vocab-parallel, and the caches hold the local kv heads.
+and ``lm_head`` once a forward, ``outer_units``), the blocks run on
+their local heads (GQA's, or MLA's after the latent) and ``d_ff``
+columns, or a MoE's local experts or ``d_ff_expert`` columns, the
+embedding and the logits are vocab-parallel, and the caches hold the
+local kv heads (MLA's latent cache whole).
 """
 from __future__ import annotations
 
@@ -145,8 +147,11 @@ def block_apply(bp: Params, x, *, btype, cfg, positions, cache=None,
     cross-attends in every mode. An ``enc_attn`` block trains
     bidirectionally (prefill and decode are causal, as ``repro``'s).
     ``balance``: the ranks that split the rows (``moe.Balance``); ``tp``
-    the tensor-parallel context of an ``attn`` / ``swa`` block with a
-    SwiGLU (``models.common.TensorParallel``)."""
+    the tensor-parallel context (``models.common.TensorParallel``) of an
+    ``attn`` / ``swa`` block (local heads) or an ``mla`` block (local
+    heads after the latent), each with a SwiGLU (``d_ff`` columns) or a
+    MoE (local experts or ``d_ff_expert`` columns, the shared experts'
+    ``d_ff``)."""
     _check_block(btype)
     nrm = _norm(cfg)
     h = nrm(bp["ln1"], x)
@@ -161,7 +166,7 @@ def block_apply(bp: Params, x, *, btype, cfg, positions, cache=None,
             o = apply(bp["mixer"], h, cfg=cfg)
         return x + o, new_cache, 0.0
     if btype == "mla":
-        attend, ap, kw = mla_apply, bp["attn"], {}
+        attend, ap, kw = mla_apply, bp["attn"], {"tp": tp}
     elif btype == "shared_attn":
         attend, ap = gqa_apply, _shared_attn_params(shared, bp, cfg)
         kw = {"window": cfg.window}
@@ -191,7 +196,7 @@ def block_apply(bp: Params, x, *, btype, cfg, positions, cache=None,
     aux = 0.0
     if cfg.n_experts and btype != "enc_attn":
         f, aux = moe_apply(bp["ffn"], h2, cfg=cfg, segments=segments,
-                           balance=balance)
+                           balance=balance, tp=tp)
     else:
         f = swiglu_apply(bp["ffn"], h2, cfg.act, cfg.compute_dtype, tp)
     return x + f, new_cache, aux
@@ -537,7 +542,8 @@ def lm_apply(params: Params, tokens, *, cfg, media=None, memory=None,
 def local_caches(caches: Params, cfg, tp) -> Params:
     """Whole decode caches -> this rank's under ``tp``: each GQA
     ``k``/``v`` leaf (..., K, hd) keeps the kv heads the rank's q heads
-    read (``attention.local_kv_heads``), the other leaves as they are."""
+    read (``attention.local_kv_heads``), the other leaves — MLA's latent
+    ``ckv`` / ``krope``, replicated over ``model`` — as they are."""
     from .attention import local_kv_heads
     _, (k0, k1), owner = local_kv_heads(cfg, tp)
     heads = [k0 + i for i in owner] if owner is not None else None

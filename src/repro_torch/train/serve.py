@@ -13,12 +13,13 @@ layer's cache (k/v, or MLA's ckv/krope) in place (see
 ``models.attention``), so the caches handed to it are updated; the values
 are ``repro``'s.
 
-On a ``spec_fn`` plan (``plan=``) a dense GQA model is served
-tensor-parallel from the rank's blocks (``serving_tp``): its ``model``
-ranks share the rows they are given, each computes its local heads, its
-caches hold its kv heads, and the logits are its vocab block; greedy
-decoding takes the argmax over the ``model`` ranks (the lowest index on
-a tie, as ``torch.argmax`` and ``jnp.argmax`` take it).
+On a ``spec_fn`` plan (``plan=``) a transformer LM (GQA or MLA, dense
+or MoE) is served tensor-parallel from the rank's blocks (``serving_tp``):
+its ``model`` ranks share the rows they are given, each computes its
+local heads and experts (or ``d_ff_expert`` columns), its caches hold its
+kv heads (MLA's latent cache whole), and the logits are its vocab block;
+greedy decoding takes the argmax over the ``model`` ranks (the lowest
+index on a tie, as ``torch.argmax`` and ``jnp.argmax`` take it).
 """
 from __future__ import annotations
 
@@ -72,8 +73,8 @@ def serving_tp(cfg, plan):
     whole tree."""
     if plan is None or not plan.sharded:
         return None
-    from ..configs.sharding import tensor_parallel_reason
-    why = tensor_parallel_reason(cfg)
+    from ..configs.sharding import MODEL, mesh_shape, tensor_parallel_reason
+    why = tensor_parallel_reason(cfg, mesh_shape(plan.mesh)[MODEL])
     if why is not None:
         raise ValueError(f"{cfg.name}: no tensor-parallel serving ({why}); "
                          "gather the params whole (plan.gather) and serve "

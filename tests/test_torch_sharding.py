@@ -12,9 +12,10 @@ against ``repro``.
   * ``spec_fn`` training: four gloo ranks on a (2, 2) mesh (one
     subprocess, this file as a script) train a smoke config with
     ``fsdp=True`` for 2 steps — granite's MoE (4 experts: expert-parallel
-    over ``model``; its step gathers every cut leaf whole and computes
-    data-parallel) and qwen (dense, heads split over ``model``; its step
-    computes tensor-parallel, ``tests/test_torch_tp.py``) — against
+    over ``model``, its 2 heads one a rank; its step computes
+    tensor-parallel, ``tests/test_torch_tp_moe.py``) and qwen (dense,
+    heads split over ``model``; its step computes tensor-parallel,
+    ``tests/test_torch_tp.py``) — against
     ``repro``'s one-device jitted step from the same params on the same
     batches: each step's loss within rtol 5e-5, atol 1e-6 (``repro``'s
     cross-plan tolerance), the first step's gradients, gathered, each leaf
@@ -28,7 +29,10 @@ against ``repro``.
     ``model`` column) with its trunk cut by the same rules on the four
     ranks, 2 steps, against the port's one-process step (itself held to
     ``repro`` by ``tests/test_torch_lm_train.py``): total and per-task
-    losses within the same tolerance, the rank's trunk bytes its blocks';
+    losses within the same tolerance, the rank's trunk bytes its blocks'.
+    Per-source heads keep the data-parallel step (every cut trunk leaf
+    gathered whole, ``plan.gather``), so this case holds that step on the
+    CPU;
   * the scatter repair (``models.gnn``): on the CPU the ``"scatter"`` sum
     keeps the values of ``index_put_(accumulate=True)`` and the ordered
     gather's gradient equals ``torch.take_along_dim``'s.

@@ -19,6 +19,17 @@ XLA's:
   * the counted peak within 0.5-2 x argument + temp bytes;
   * the entry's ``figures`` read tensor-parallel.
 
+deepseek-v2-236b's ``train_4k`` on the same pod, counted in the same
+process while ``repro``'s compile runs: its experts over ``model`` and
+its MLA heads local, the entry reads tensor-parallel, the counted peak a
+rank is under one H100's 80 GB (the data-parallel step's read 1,619 GB),
+and its FLOPs under a quarter of the data-parallel step's 18,379 TFLOP
+(no band against ``repro``'s compiled figures: XLA leaves the specs'
+layout for these MoE programs, whose FLOPs are 0.33-1.2 x the
+data-parallel count, so the port's count is held by its own arithmetic,
+``tests/test_torch_tp_moe.py``). granite-moe's entry on the pod keeps
+the data-parallel step, its reason the fractional heads.
+
 Run as a script, ``python tests/test_torch_tp_dryrun.py --dots ARCH
 SHAPE`` compiles ``repro``'s step on the pod and prints its dot products
 grouped by shape, each weighted by its loop count (the same HLO walk as
@@ -38,6 +49,9 @@ ARCH = "qwen1.5-0.5b"
 SHAPES = ("train_4k", "prefill_32k")
 FLOP_BAND = (0.8, 1.25)
 BYTE_BAND = (0.5, 2.0)
+H100_BYTES = 80e9                # one card's memory
+DP_TFLOP = 18379                 # deepseek train_4k on the pod, the
+                                 # data-parallel step's count
 
 
 @pytest.fixture(scope="module")
@@ -54,6 +68,11 @@ def entries(tmp_path_factory):
     try:
         port = {sh: dryrun.run_one(ARCH, sh, "pod", device="cpu")
                 for sh in SHAPES}
+        port["deepseek"] = dryrun.run_one("deepseek-v2-236b", "train_4k",
+                                          "pod", device="cpu")
+        port["granite"] = dryrun.run_one("granite-moe-3b-a800m", "train_4k",
+                                         "pod", device="cpu",
+                                         compile_too=False)
         for sh, p in procs.items():
             _, err = p.communicate(timeout=240)
             assert p.returncode == 0, err[-4000:]
@@ -96,6 +115,25 @@ def test_tp_dryrun_peak_matches_repro_and_reads_tensor_parallel(entries,
         dryrun.TENSOR_PARALLEL
     # the rank holds its blocks: the sharded count of the whole tree
     assert port["memory"]["param_bytes"] == port["memory"]["param_bytes_model"]
+
+
+def test_deepseek_train_computes_in_the_specs_layout(entries):
+    from repro_torch.launch import dryrun
+    e = entries[0]["deepseek"]
+    assert e["status"] == "ok", e.get("trace")
+    assert e["memory"]["figures"] == e["hlo"]["figures"] == \
+        dryrun.TENSOR_PARALLEL
+    assert e["memory"]["param_bytes"] == e["memory"]["param_bytes_model"]
+    assert e["memory"]["peak_bytes"] < H100_BYTES, e["memory"]["peak_bytes"]
+    assert e["hlo"]["flops"] < DP_TFLOP * 1e12 / 4, e["hlo"]["flops"]
+    # FSDP gathers a unit at a time; nothing is gathered whole
+    for kind in ("all-gather", "reduce-scatter", "all-reduce"):
+        assert e["hlo"]["collectives"][kind]["count"] > 0, kind
+    g = entries[0]["granite"]
+    assert g["status"] == "ok", g.get("trace")
+    assert g["memory"]["figures"] == (
+        f"{dryrun.DATA_PARALLEL} (naive_tp's fractional heads (24 heads "
+        "over model 16))")
 
 
 def repro_dots(arch: str, shape: str, top: int = 12) -> dict:
