@@ -375,8 +375,25 @@ Phases, each printing one JSON line:
      a layer at q/k head dim 192 and no #6 (the absorbed decode), tokens
      equal to one process's but where its top two logits lie within
      ``LM_TOL_BF16`` (the near-tie rule, printed), logits within
-     ``LM_TOL_BF16`` x max|logit|; each case's peak and host seconds a
-     rank;
+     ``LM_TOL_BF16`` x max|logit|; (j) ``mtl_tp``: qwen1.5-0.5b's lm-mtl
+     (4 per-source heads, ``"par"``: 2 a ``model`` rank) at full width cut
+     to ``MTL_TP_LAYERS`` = 2, f32, ``fsdp=True``, on a ``shared_spec_fn``
+     plan: the trunk tensor-parallel as (f), every task's row of the
+     rank's data slice through it, then Megatron's f and the rank's 2
+     heads on its own tasks' rows; trained 2 steps of one 512-token row a
+     task a data rank, held as (f) with the per-task losses too, the
+     bytes a rank holds equal to its trunk blocks and its 2 heads (params
+     and both moments), no ``ShardingPlan.gather``, #1 once a step; (k)
+     ``xattn_serve``: seamless-m4t-medium at full width (d 1024, 16 / 16
+     heads, vocab 256,206) cut to ``XATTN_LAYERS`` = 2 + 2, f32, served
+     as (g) from ``XATTN_FRAMES`` = 1024 seeded source frames a row,
+     encoded on the rank's blocks (``make_encode_step``): its 8 of 16
+     heads in every encoder block, decoder self-attention and
+     cross-attention, #5 once an encoder layer, twice a decoder layer in
+     the prefill and once a decoder layer a decode step (the one-query
+     cross-attention), #6 once a decoder layer a decode step; the memory
+     and the logits within ``LM_TOL_F32`` of one process's, tokens equal;
+     each case's peak and host seconds a rank;
   6h. dryrun: one rank's program of a sharded plan, counted and run
      (``repro_torch.launch.dryrun``). The process opens a fake world (the
      ``"fake"`` process-group backend: collectives move nothing) as rank 0
@@ -4663,6 +4680,11 @@ DIST_TIMEOUT_S = 600                # the job, spawn to exit
 DIST_V_TOL = 1e-3                   # relative: the sum of AdamW's v (a
                                     # gradient off by c moves it by c^2)
 DIST_CASES = ("finetune", "lm", "lm_accum2", "lm_mtl", "moe")
+MTL_TP_LAYERS = 2                   # (j): qwen's lm-mtl trunk, 2 of 24
+MTL_TP_TASKS = 4                    # (j): per-source heads, 2 a model rank
+XATTN_LAYERS = (2, 2)               # (k): seamless's encoder + decoder
+                                    # layers, of 12 + 12
+XATTN_FRAMES = 1024                 # (k): source frames a served row
 DIST_SPEC_MESH = (2, 2)             # (f)-(i): the spec_fn plans computed
                                     # tensor-parallel, (data, model): a
                                     # job of its own, 4 ranks
@@ -4671,10 +4693,12 @@ DIST_DP_SPEC_MESH = (1, 2)          # (d'): xlstm's spec_fn plan, in the
 SPEC_CASES = {                      # case: (arch of the spec, fsdp, mesh)
     "dp_spec": ("xlstm", False, DIST_DP_SPEC_MESH),
     "lm_spec": ("qwen", True, DIST_SPEC_MESH),
-    "moe_tp": ("moe", True, DIST_SPEC_MESH)}
+    "moe_tp": ("moe", True, DIST_SPEC_MESH),
+    "mtl_tp": ("qwen_mtl", True, DIST_SPEC_MESH)}
 SERVE_CASES = {                     # case: (arch of the spec, fsdp)
     "tp_serve": ("qwen", True),
-    "mla_serve": ("deepseek", False)}
+    "mla_serve": ("deepseek", False),
+    "xattn_serve": ("seamless", False)}
 DIST_TP_NEW = 8                     # (g), (i): greedy tokens after the
                                     # prefill
 NEAR_TIE_REL = 2.0 ** -6            # (i): a router near-tie, the k-th and
@@ -4696,25 +4720,32 @@ def _tp_layout(cfg, plan, layout) -> dict | None:
     return {"heads": cfg.n_heads // m if tp.heads or tp.mla
             else cfg.n_heads, "mla": tp.mla,
             "experts": list(tp.experts) if tp.experts else None,
-            "expert_ffn": tp.expert_ffn, "vocab": tp.vocab}
+            "expert_ffn": tp.expert_ffn, "vocab": tp.vocab,
+            "tasks": list(plan.shard.heads) if plan.task_parallel
+            else None}
 
 
 def _spec_lm(torch, spec, device, mesh=None, case="lm_spec"):
-    """A ``SPEC_CASES`` case of phase train_dist: ``lm`` on a plan whose
-    ``spec_fn`` cuts its leaves over ``mesh``, ``spec["steps"]`` steps of
-    ``DIST_LM`` rows (one a data rank) from a seeded generator. (f)
-    ``lm_spec``: qwen1.5-0.5b at full width, ``fsdp=True``, computed
-    tensor-parallel (16 heads and the vocab over ``model``, FSDP over
-    ``data``); (h) ``moe_tp``: granite-moe likewise, its 40 experts over
-    ``model`` (20 a rank), its 24 / 8 heads 12 / 4 a rank; (d')
-    ``dp_spec``: xlstm-125m, whose family keeps the data-parallel step.
-    ``mesh`` None is the one process the ranks are held to. Returns the
-    losses, the sum of AdamW's v (each block once), each step's host
-    seconds and, on a rank, the fingerprint of each block it holds after
-    every step (nothing is gathered whole), the bytes it holds beside its
-    blocks' count and what it computes (``_tp_layout``)."""
-    from repro_torch import interop
+    """A ``SPEC_CASES`` case of phase train_dist: ``lm`` (``lm-mtl`` where
+    the config has per-source heads) on a plan whose ``spec_fn`` (the
+    trunk's ``shared_spec_fn``) cuts its leaves over ``mesh``,
+    ``spec["steps"]`` steps of ``DIST_LM`` rows (one a data rank; a task's
+    rows for lm-mtl) from a seeded generator. (f) ``lm_spec``:
+    qwen1.5-0.5b at full width, ``fsdp=True``, computed tensor-parallel
+    (16 heads and the vocab over ``model``, FSDP over ``data``); (h)
+    ``moe_tp``: granite-moe likewise, its 40 experts over ``model`` (20 a
+    rank), its 24 / 8 heads 12 / 4 a rank; (j) ``mtl_tp``: qwen's lm-mtl,
+    the trunk as (f) and its ``MTL_TP_TASKS`` heads over ``model``
+    (``"par"``); (d') ``dp_spec``: xlstm-125m, whose family keeps the
+    data-parallel step. ``mesh`` None is the one process the ranks are
+    held to. Returns the losses (and lm-mtl's per-task losses), the sum
+    of AdamW's v (each block and head once), each step's host seconds
+    and, on a rank, the fingerprint of each block it holds after every
+    step, the whole-tree gathers its steps made (``ShardingPlan.gather``),
+    the bytes it holds beside its blocks' count (and its heads') and what
+    it computes (``_tp_layout``)."""
     from repro_torch.configs.sharding import make_spec_fn
+    from repro_torch.core.taskpar import MTPConfig, take_heads
     from repro_torch.launch.memory import param_bytes_per_device as nbytes
     from repro_torch.engine import (ShardingPlan, TrainState, build_model,
                                     make_step)
@@ -4722,19 +4753,29 @@ def _spec_lm(torch, spec, device, mesh=None, case="lm_spec"):
     arch, fsdp, _ = SPEC_CASES[case]
     cfg = spec[arch].replace(fsdp=fsdp)
     B, S = spec["lm"]
+    T = cfg.n_tasks
+    mtl = T > 1
     dev = torch.device(device)
-    model = build_model("lm", cfg)
+    model = build_model("lm-mtl" if mtl else "lm", cfg)
     opt = adamw(3e-4, weight_decay=0.01, grad_clip=1.0)
-    plan = None if mesh is None else ShardingPlan(
-        mesh=mesh, spec_fn=make_spec_fn(cfg, mesh))
+    plan = None
+    if mesh is not None:
+        fn = make_spec_fn(cfg, mesh)
+        plan = ShardingPlan(mesh=mesh, mtp=MTPConfig(T, "par"),
+                            shared_spec_fn=fn) if mtl else \
+            ShardingPlan(mesh=mesh, spec_fn=fn)
     full = model.init(0, device=dev)
     layout = {} if plan is None else plan.layout(full)
     params = full if plan is None else plan.shard_params(full)
     out = {}
     if plan is not None:
+        specs = {p: s for p, (_, s) in layout.items()}
+        blocks = nbytes(full, specs=specs, mesh=mesh) if not mtl else (
+            nbytes(full["shared"], mesh=mesh, specs={
+                p[len("shared/"):]: s for p, s in specs.items()})
+            + nbytes(take_heads(full["heads"], plan.shard.heads)))
         out["held_bytes"] = 3 * nbytes(params)
-        out["blocks_bytes"] = 3 * nbytes(
-            full, specs={p: s for p, (_, s) in layout.items()}, mesh=mesh)
+        out["blocks_bytes"] = 3 * blocks
         out["cut_leaves"] = len(layout)
         out["tp"] = _tp_layout(cfg, plan, layout)
     del full
@@ -4742,23 +4783,47 @@ def _spec_lm(torch, spec, device, mesh=None, case="lm_spec"):
     step = make_step(model, opt, plan)
     g = torch.Generator(device=dev)
     g.manual_seed(5)
-    losses, prints, step_s = [], [], []
-    for _ in range(spec["steps"]):
-        toks = torch.randint(0, cfg.vocab, (2, B, S), generator=g,
-                             device=dev).to(torch.int32)
-        batch = {"tokens": toks[0], "labels": toks[1]}
-        if plan is not None:
-            batch = plan.shard_batch(batch, device=dev)
-        _sync(torch, dev)
-        t0 = time.perf_counter()
-        state, o = step(state, batch)
-        losses.append(float(o.loss))
-        step_s.append(time.perf_counter() - t0)
-        if plan is not None:
-            prints.append(_block_prints(torch, state.params, plan, layout))
-    out.update(losses=losses, fingerprints=prints, step_s=step_s,
+    losses, per_task, prints, step_s = [], [], [], []
+    with _whole_gathers() as whole:
+        for _ in range(spec["steps"]):
+            shape = (2, T, B, S) if mtl else (2, B, S)
+            toks = torch.randint(0, cfg.vocab, shape, generator=g,
+                                 device=dev).to(torch.int32)
+            batch = {"tokens": toks[0], "labels": toks[1]}
+            if plan is not None:
+                batch = plan.shard_batch(batch, device=dev)
+            _sync(torch, dev)
+            t0 = time.perf_counter()
+            state, o = step(state, batch)
+            losses.append(float(o.loss))
+            step_s.append(time.perf_counter() - t0)
+            if mtl:
+                per_task.append(o.metrics["per_task_loss"])
+            if plan is not None:
+                prints.append(_block_prints(torch, state.params, plan,
+                                            layout))
+    out.update(losses=losses,
+               per_task=torch.stack(per_task).tolist() if mtl else None,
+               fingerprints=prints, step_s=step_s, whole_gathers=len(whole),
                v_sum=_v_sum_blocks(torch, state.opt_state.v, plan, layout))
     return out
+
+
+@contextlib.contextmanager
+def _whole_gathers():
+    """A list that receives one entry for every ``ShardingPlan.gather``
+    (every cut leaf gathered whole) made while the block runs."""
+    from repro_torch.engine import ShardingPlan
+    calls, real = [], ShardingPlan.gather
+
+    def counted(self, tree, layout):
+        calls.append(len(layout))
+        return real(self, tree, layout)
+    ShardingPlan.gather = counted
+    try:
+        yield calls
+    finally:
+        ShardingPlan.gather = real
 
 
 def _block_prints(torch, params, plan, layout) -> dict:
@@ -4769,7 +4834,8 @@ def _block_prints(torch, params, plan, layout) -> dict:
     from repro_torch.configs.sharding import rank_slices
     flat = interop.leaves(params)
     keys = {p: str(rank_slices(*layout[p], plan.mesh, plan.coords))
-            if p in layout else "whole" for p in flat}
+            if p in layout else f"heads {plan.shard.heads}"
+            if p.startswith("heads/") else "whole" for p in flat}
     return dict(zip(sorted(flat), zip(
         (keys[p] for p in sorted(flat)),
         map(tuple, _fingerprint(torch, params)))))
@@ -4778,7 +4844,8 @@ def _block_prints(torch, params, plan, layout) -> dict:
 def _v_sum_blocks(torch, v, plan, layout) -> float:
     """The sum of AdamW's v over the whole tree, each block once: a
     rank adds the blocks it is the first holder of (a whole leaf: rank
-    0) and one SUM over the ranks adds them (None: one process)."""
+    0; per-source heads: the first rank of each head group) and one SUM
+    over the ranks adds them (None: one process)."""
     from repro_torch import interop
     from repro_torch.configs.sharding import holds_first_copy
     flat = interop.leaves(v)
@@ -4788,7 +4855,8 @@ def _v_sum_blocks(torch, v, plan, layout) -> float:
     first = all(i == 0 for i in plan.coords.values())
     mine = [x for p, x in flat.items() if (
         holds_first_copy(layout[p][1], plan.mesh, plan.coords)
-        if p in layout else first)]
+        if p in layout else plan.shard.index == 0
+        if p.startswith("heads/") else first)]
     total = torch.tensor([float(sum(x.double().sum() for x in mine))],
                          dtype=torch.float64)
     dist.all_reduce(total)
@@ -4827,14 +4895,22 @@ def _tp_serve(torch, spec, device, mesh=None, case="tp_serve"):
     (``outer_units``); (i) ``mla_serve``: deepseek-v2 (bf16 as
     configured, ``fsdp=False``), #5 at q/k head dim 192 on its 64 of 128
     heads after the replicated latent, the absorbed decode on them, its
-    80 of 160 experts. ``mesh`` None is the one process it is held to.
-    Returns the tokens, the logits each was taken from (the whole vocab,
-    gathered over ``model``), the host seconds of the prefill and the
-    decode steps and, for a MoE, every routing's choices and top router
-    probabilities (``_routes``: ``_tp_serve_check``'s near-tie rule)."""
+    80 of 160 experts; (k) ``xattn_serve``: seamless-m4t-medium (f32),
+    ``XATTN_FRAMES`` seeded source frames a row encoded first
+    (``make_encode_step``: #5 on the rank's 8 of 16 heads an encoder
+    layer), then served with that memory (#5 on 8 heads for each decoder
+    layer's self- and cross-attention in the prefill and its one-query
+    cross-attention a decode step, #6 for its self-attention a decode
+    step). ``mesh`` None is the one process it is held to. Returns the
+    tokens, the logits each was taken from (the whole vocab, gathered
+    over ``model``), an enc-dec row's memory, the host seconds of the
+    encoding, the prefill and the decode steps and, for a MoE, every
+    routing's choices and top router probabilities (``_routes``:
+    ``_tp_serve_check``'s near-tie rule)."""
     from repro_torch.configs.sharding import make_spec_fn
     from repro_torch.engine import ShardingPlan, build_model
-    from repro_torch.train.serve import greedy_generate
+    from repro_torch.models.frontends import AUDIO_EMBED_DIM
+    from repro_torch.train.serve import greedy_generate, make_encode_step
     arch, fsdp = SERVE_CASES[case]
     cfg = spec[arch].replace(fsdp=fsdp)
     B, S = spec["lm"]
@@ -4842,21 +4918,32 @@ def _tp_serve(torch, spec, device, mesh=None, case="tp_serve"):
     params = build_model("lm", cfg).init(0, device=dev)
     g = torch.Generator(device=dev)
     g.manual_seed(6)
-    prompt = torch.randint(0, cfg.vocab, (B, S), generator=g,
-                           device=dev).to(torch.int32)
+    rows = {"tokens": torch.randint(0, cfg.vocab, (B, S), generator=g,
+                                    device=dev).to(torch.int32)}
+    if cfg.n_enc_layers:
+        rows["src"] = torch.randn((B, spec["frames"], AUDIO_EMBED_DIM),
+                                  generator=g, device=dev)
     plan, out = None, {}
     if mesh is not None:
         plan = ShardingPlan(mesh=mesh, spec_fn=make_spec_fn(cfg, mesh))
         layout = plan.layout(params)
         params = plan.shard_params(params)
         out["tp"] = _tp_layout(cfg, plan, layout)
-        prompt = plan.slice_batch({"tokens": prompt})["tokens"]
-    timings = {}
+        rows = plan.slice_batch(rows)
+    timings, memory = {}, None
+    if cfg.n_enc_layers:
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        memory = make_encode_step(cfg, "pallas", plan)(params, rows["src"])
+        _sync(torch, dev)
+        timings["encode_s"] = time.perf_counter() - t0
+        out["memory"] = memory.float().cpu().numpy()
     with _routes() as routes:
-        toks, logits = greedy_generate(params, cfg, prompt, DIST_TP_NEW,
-                                       impl="pallas", device=dev,
-                                       return_logits=True, timings=timings,
-                                       plan=plan)
+        toks, logits = greedy_generate(params, cfg, rows["tokens"],
+                                       DIST_TP_NEW, impl="pallas",
+                                       device=dev, return_logits=True,
+                                       timings=timings, plan=plan,
+                                       memory=memory)
     # numpy, not a tensor: a rank's tensor crosses the result queue as a
     # shared-memory handle that dies with the rank's process
     return {"tokens": toks.cpu().tolist(),
@@ -4868,8 +4955,9 @@ def _tp_serve(torch, spec, device, mesh=None, case="tp_serve"):
 def _tp_rank(rank, world, spec, device):
     """One rank of phase train_dist's tensor-parallel job on a
     ``DIST_SPEC_MESH`` mesh: (f) ``lm_spec``, (g) ``tp_serve``, (h)
-    ``moe_tp``, then (i) ``mla_serve``, each with the launch counts zeroed
-    just before it and the peak reset."""
+    ``moe_tp``, (i) ``mla_serve``, (j) ``mtl_tp``, then (k)
+    ``xattn_serve``, each with the launch counts zeroed just before it
+    and the peak reset."""
     import torch
     import torch.distributed as dist
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -4896,6 +4984,12 @@ def _tp_rank(rank, world, spec, device):
         out["cases"]["mla_serve"] = _case_run(
             torch, dev, counters, _tp_serve, torch, spec, device, mesh,
             case="mla_serve")
+        out["cases"]["mtl_tp"] = _case_run(torch, dev, counters, _spec_lm,
+                                           torch, spec, device, mesh,
+                                           case="mtl_tp")
+        out["cases"]["xattn_serve"] = _case_run(
+            torch, dev, counters, _tp_serve, torch, spec, device, mesh,
+            case="xattn_serve")
     finally:
         dist.all_reduce = real
     out["t_exit"] = time.monotonic()
@@ -4911,13 +5005,22 @@ def _dist_spec():
     lie within a bf16 rounding, so only f32 compute holds the ranks to the
     one-process session within repro's cross-plan tolerance. deepseek-v2
     is only served (``mla_serve``), bf16 as configured, held to one
-    process by the near-tie rule (``_tp_serve_check``)."""
+    process by the near-tie rule (``_tp_serve_check``); qwen's lm-mtl
+    (``mtl_tp``) and seamless (``xattn_serve``) are cut in depth to
+    ``MTL_TP_LAYERS`` and ``XATTN_LAYERS``, never in width."""
     import torch
     from repro_torch.configs import (deepseek_v2_236b, granite_moe_3b_a800m,
-                                     hydragnn_gfm, qwen1_5_0_5b, xlstm_125m)
+                                     hydragnn_gfm, qwen1_5_0_5b,
+                                     seamless_m4t_medium, xlstm_125m)
     f32 = {"compute_dtype": torch.float32}
+    enc, dec = XATTN_LAYERS
     return {"gfm": hydragnn_gfm.CONFIG.replace(segment_sum_impl="fused"),
             "qwen": qwen1_5_0_5b.CONFIG.replace(**f32),
+            "qwen_mtl": qwen1_5_0_5b.CONFIG.replace(
+                n_layers=MTL_TP_LAYERS, n_tasks=MTL_TP_TASKS, **f32),
+            "seamless": seamless_m4t_medium.CONFIG.replace(
+                n_enc_layers=enc, n_layers=dec, **f32),
+            "frames": XATTN_FRAMES,
             "moe": granite_moe_3b_a800m.CONFIG.replace(
                 n_layers=DIST_MOE_LAYERS, **f32),
             "xlstm": xlstm_125m.CONFIG.replace(n_layers=REC_XLSTM_LAYERS,
@@ -5262,7 +5365,7 @@ def train_dist_phase(torch, device=DEVICE, spec=None):
              / spec["steps"], "heads": r["heads"]} for r in runs])
         out["cases"][case] = row
     for case, job in (("dp_spec", ranks), ("lm_spec", tp_ranks),
-                      ("moe_tp", tp_ranks)):
+                      ("moe_tp", tp_ranks), ("mtl_tp", tp_ranks)):
         out["cases"][case] = row = _spec_check(spec, case, job, refs,
                                                device, off, launches)
         print(f"chip_smoke: train_dist {case}: {json.dumps(row)}",
@@ -5311,11 +5414,14 @@ def _dist_job(fn, mesh, spec, device, label):
 
 def _spec_launches(spec, case, device) -> dict:
     """The launches a rank's run of a ``SPEC_CASES`` or ``SERVE_CASES``
-    case implies: one embedding backward (#1; (f) and (h) over the rank's
-    vocab block) a step; (g) #5 once a layer in the prefill and #6 once a
-    layer a decode step (on the rank's 8 of 16 heads); (i) #5 once a
-    layer in the prefill (at head dim 192 on its 64 heads) and no #6 (MLA
-    decodes absorbed, by plain products); none off the card."""
+    case implies: one embedding backward (#1; (f), (h) and (j) over the
+    rank's vocab block) a step; (g) #5 once a layer in the prefill and #6
+    once a layer a decode step (on the rank's 8 of 16 heads); (i) #5 once
+    a layer in the prefill (at head dim 192 on its 64 heads) and no #6
+    (MLA decodes absorbed, by plain products); (k) #5 once an encoder
+    layer, twice a decoder layer in the prefill (self and cross) and
+    once a decoder layer a decode step (the one-query cross-attention),
+    #6 once a decoder layer a decode step; none off the card."""
     if case == "dp_spec":           # the 2-rank job's counters, as (b)
         return _dist_launches(spec, "lm", device)
     zero = {"segment_sum_2d": 0, "flash_attention": 0, "flash_decode": 0}
@@ -5323,8 +5429,13 @@ def _spec_launches(spec, case, device) -> dict:
         return zero
     if case in SPEC_CASES:
         return dict(zero, segment_sum_2d=spec["steps"])
-    L = spec[SERVE_CASES[case][0]].n_layers
-    decode = 0 if case == "mla_serve" else L * (DIST_TP_NEW - 1)
+    cfg = spec[SERVE_CASES[case][0]]
+    L, steps = cfg.n_layers, DIST_TP_NEW - 1
+    if cfg.n_enc_layers:       # the encoder; self and cross a prefill;
+        return dict(zero,      # cross (#5) and self (#6) a decode step
+                    flash_attention=cfg.n_enc_layers + 2 * L + L * steps,
+                    flash_decode=L * steps)
+    decode = 0 if case == "mla_serve" else L * steps
     return dict(zero, flash_attention=L, flash_decode=decode)
 
 
@@ -5347,11 +5458,17 @@ def _spec_check(spec, case, ranks, refs, device, off, launches) -> dict:
     name, ref = f"train_dist {case}", refs[case]
     runs = [r["cases"][case] for r in ranks]
     worst = max(_close_rows([r["losses"]], [ref["losses"]]) for r in runs)
+    if ref["per_task"] is not None:
+        worst = max([worst] + [_close_rows(r["per_task"], ref["per_task"])
+                               for r in runs])
     v_err = max(abs(r["v_sum"] - ref["v_sum"]) for r in runs) / \
         abs(ref["v_sum"])
     if not worst <= 1.0:
         off.append(f"{name}: losses off the one-process step's by {worst} "
                    "x the tolerance")
+    if case != "dp_spec" and any(r["whole_gathers"] for r in runs):
+        off.append(f"{name}: a tensor-parallel step gathered a cut leaf "
+                   f"whole ({[r['whole_gathers'] for r in runs]} calls)")
     if not v_err <= DIST_V_TOL:
         off.append(f"{name}: AdamW's second moments sum to {v_err} "
                    "(relative) off the one-process step's")
@@ -5363,9 +5480,12 @@ def _spec_check(spec, case, ranks, refs, device, off, launches) -> dict:
     want = _spec_launches(spec, case, device)
     _launches_as_designed(name, runs, want, launches)
     arch, fsdp, mesh = SPEC_CASES[case]
-    return {"arch": spec[arch].name, "mesh": list(mesh), "fsdp": fsdp,
+    return {"arch": spec[arch].name, "layers": spec[arch].n_layers,
+            "tasks": spec[arch].n_tasks, "mesh": list(mesh), "fsdp": fsdp,
             "loss_err_vs_tol": worst, "losses": runs[0]["losses"],
-            "reference": ref["losses"], "v_sum_rel_err": v_err,
+            "reference": ref["losses"], "per_task": runs[0]["per_task"],
+            "reference_per_task": ref["per_task"], "v_sum_rel_err": v_err,
+            "whole_gathers": [r["whole_gathers"] for r in runs],
             "cut_leaves": runs[0]["cut_leaves"],
             "tp": [r["tp"] for r in runs],
             "held_bytes": [r["held_bytes"] for r in runs],
@@ -5423,8 +5543,9 @@ def _routing_near_tie(got, ref, rows, j, t, S, cfg) -> dict | None:
 def _tp_serve_check(spec, case, ranks, refs, device, off, launches) -> dict:
     """A ``SERVE_CASES`` case: each rank's greedy tokens equal to the one
     process's for its rows and the logits each was taken from within
-    ``LM_TOL_F32`` ((g), f32 compute) or ``LM_TOL_BF16`` x max|logit| ((i),
-    bf16); #5 (and #6) once a layer a pass on every rank. In bf16 the two
+    ``LM_TOL_F32`` ((g), (k): f32 compute) or ``LM_TOL_BF16`` x
+    max|logit| ((i), bf16), (k)'s memory within ``LM_TOL_F32`` too; #5
+    (and #6) as ``_spec_launches`` says on every rank. In bf16 the two
     packages' roundings differ (a rank sums its heads' and experts'
     partials over ``model``), and a token whose router's k-th and
     (k+1)-th probabilities lie within ``NEAR_TIE_REL`` of each other may
@@ -5492,6 +5613,14 @@ def _tp_serve_check(spec, case, ranks, refs, device, off, launches) -> dict:
     if not worst <= 1.0:
         off.append(f"{name}: logits off the one process's by {worst} x "
                    "the tolerance")
+    mem_err = None
+    if "memory" in ref:        # each rank's rows of the encoder's memory
+        mem_err = max(float((abs(r["memory"] - w) / (
+            atol + rtol * abs(w))).max()) for r in runs
+            for w in [ref["memory"][r["rows"] * n:(r["rows"] + 1) * n]])
+        if not mem_err <= 1.0:
+            off.append(f"{name}: the encoder's memory off the one "
+                       f"process's by {mem_err} x the tolerance")
     want = _spec_launches(spec, case, device)
     _launches_as_designed(name, runs, want, launches)
     arch, fsdp = SERVE_CASES[case]
@@ -5499,7 +5628,11 @@ def _tp_serve_check(spec, case, ranks, refs, device, off, launches) -> dict:
             "mesh": list(DIST_SPEC_MESH), "fsdp": fsdp,
             "rows_a_data_rank": n, "prompt": list(spec["lm"]),
             "new": DIST_TP_NEW, "tokens": runs[0]["tokens"],
-            "logit_err_vs_tol": worst, "partings": partings,
+            "logit_err_vs_tol": worst, "memory_err_vs_tol": mem_err,
+            "enc_layers": spec[arch].n_enc_layers,
+            "encode_s": [r.get("encode_s") for r in runs],
+            "reference_encode_s": ref.get("encode_s"),
+            "partings": partings,
             "routing_near_ties": near_ties,
             "tp": [r["tp"] for r in runs],
             "prefill_s": [r["prefill_s"] for r in runs],
@@ -6190,6 +6323,121 @@ def _fd_bound(torch, q, kp, K) -> dict:
             **_bound(torch, 4 * D * H * valid, nbytes, q.dtype)}
 
 
+# #5 and #6 at the local-head shapes of train_dist's 4-rank job, a rank's
+# share: (k) seamless's 8 of 16 heads (f32 as served there, and bf16, its
+# configured dtype) and (i) deepseek-v2's 64 of 128 MLA heads
+LOCAL_FA = [  # name, dtype, B, Sq, Sk, H, K, D, causal, positions
+    ("seamless_encoder_8h", "float32", 1, 1024, 1024, 8, 8, 64, False,
+     False),
+    ("seamless_cross_prefill_8h", "float32", 1, 512, 1024, 8, 8, 64, False,
+     "zeros"),
+    ("seamless_cross_decode_8h", "float32", 1, 1, 1024, 8, 8, 64, False,
+     "zeros"),
+    ("seamless_encoder_8h_bf16", "bfloat16", 1, 1024, 1024, 8, 8, 64,
+     False, False),
+    ("seamless_cross_prefill_8h_bf16", "bfloat16", 1, 512, 1024, 8, 8, 64,
+     False, "zeros"),
+    ("seamless_cross_decode_8h_bf16", "bfloat16", 1, 1, 1024, 8, 8, 64,
+     False, "zeros"),
+    ("mla_prefill_64h", "bfloat16", 1, 512, 512, 64, 64, 192, True, False),
+]
+LOCAL_FD = [  # name, dtype, B, C, H, K, D, pos
+    ("seamless_decode_8h", "float32", 1, 520, 8, 8, 64, 519),
+    ("seamless_decode_8h_bf16", "bfloat16", 1, 520, 8, 8, 64, 519),
+]
+
+
+def local_head_times(torch):
+    """#5 and #6 at ``LOCAL_FA`` / ``LOCAL_FD``, each checked against its
+    plain version (``_attn_err``) and timed by CUDA events (``time_ms``:
+    the kernel, its plain version and ``scaled_dot_product_attention`` on
+    the same inputs), beside the bound of ``_bound`` / ``_fd_bound``, and
+    the kernel's and SDPA's device time (``device_ms``): at these shapes
+    back-to-back calls can wait on the host, which CUDA events count. #6
+    reads its cache from copies that together exceed the L2, as
+    ``check_flash_decode`` times it."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+    from repro_torch.kernels.flash_attention.ref import keep_mask
+    from repro_torch.kernels.flash_decode import decode_ref, flash_decode
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(7)
+    out = {"phase": "local_head_times", "timer": "CUDA events",
+           "flash_attention": {}, "flash_decode": {}}
+    for name, dt, B, Sq, Sk, H, K, D, causal, zeros in LOCAL_FA:
+        dt = getattr(torch, dt)
+        q, k, v = (torch.randn((B, n, h, D), generator=g, device=dev).to(dt)
+                   for n, h in ((Sq, H), (Sk, K), (Sk, K)))
+        kp = torch.arange(Sk, device=dev, dtype=torch.int32)
+        qp = torch.arange(Sk - Sq, Sk, device=dev, dtype=torch.int32)
+        if zeros:
+            qp, kp = torch.zeros_like(qp), torch.zeros_like(kp)
+        err, share = _attn_err(
+            torch, flash_attention(q, k, v, q_pos=qp, k_pos=kp,
+                                   causal=causal),
+            flash_attention_ref(q, k, v, qp, kp, causal=causal), name)
+        keep = keep_mask(qp.long(), kp.long(), causal=causal, window=0)
+        lib_mask = None if bool(keep.all()) else keep
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        pairs = int(keep.sum()) * B * H
+        nbytes = q.element_size() * (2 * B * Sq * H * D + 2 * B * Sk * K * D) \
+            + 4 * (Sq + Sk)
+        def kernel():
+            flash_attention(q, k, v, q_pos=qp, k_pos=kp, causal=causal)
+
+        def library():
+            F.scaled_dot_product_attention(qt, kt, vt, attn_mask=lib_mask,
+                                           enable_gqa=True)
+        out["flash_attention"][name] = {
+            "shape": [B, Sq, Sk, H, K, D], "causal": causal,
+            "max_abs_err": err, "tol_share": share,
+            "ms": time_ms(torch, kernel, iters=20),
+            "plain_ms": time_ms(torch, lambda: flash_attention_ref(
+                q, k, v, qp, kp, causal=causal), iters=5),
+            "library_ms": time_ms(torch, library, iters=20),
+            "device_ms": device_ms(torch, kernel, iters=10),
+            "library_device_ms": device_ms(torch, library, iters=10),
+            **_bound(torch, 4 * D * pairs, nbytes, dt)}
+    for name, dt, B, C, H, K, D, pos in LOCAL_FD:
+        dt = getattr(torch, dt)
+        q = torch.randn((B, 1, H, D), generator=g, device=dev).to(dt)
+        k, v = (torch.randn((B, C, K, D), generator=g, device=dev).to(dt)
+                for _ in range(2))
+        kp = _cache_positions(torch, dev, C, pos, 0)[None].expand(B, C)
+        qp = torch.full((B,), pos, device=dev, dtype=torch.int32)
+        err, share = _attn_err(
+            torch, flash_decode(q, k, v, q_pos=qp, k_pos=kp),
+            decode_ref(q, k, v, q_pos=qp, k_pos=kp), name)
+        n_copy = 1 + (100 << 20) // (2 * B * C * K * D * q.element_size())
+        copies = itertools.cycle([(k.clone(), v.clone())
+                                  for _ in range(n_copy)])
+        mask = (kp > -(10 ** 8))[:, None, None, :]
+
+        def kernel():
+            kc, vc = next(copies)
+            flash_decode(q, kc, vc, q_pos=qp, k_pos=kp)
+
+        def library():
+            kc, vc = next(copies)
+            F.scaled_dot_product_attention(
+                q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2),
+                attn_mask=mask, enable_gqa=True)
+        out["flash_decode"][name] = {
+            "shape": [B, C, H, K, D], "pos": pos, "max_abs_err": err,
+            "tol_share": share, "l2_cold_copies": n_copy,
+            "ms": time_ms(torch, kernel, iters=50),
+            "plain_ms": time_ms(torch, lambda: decode_ref(
+                q, k, v, q_pos=qp, k_pos=kp), iters=10),
+            "library_ms": time_ms(torch, library, iters=50),
+            "device_ms": device_ms(torch, kernel, iters=50),
+            "library_device_ms": device_ms(torch, library, iters=50),
+            **_fd_bound(torch, q, kp, K)}
+    return out
+
+
 # the LM decode shapes of runs (a) and (b): name, B, cache slots, position
 FD_SWEEP = (("decode_a", 8, 1056, 1040), ("decode_b_rolling", 1, 4200, 4210))
 FD_SWEEP_SPLITS = (1, 2, 3, 4, 9, 17, 33, None)   # run (a); None: default
@@ -6678,6 +6926,11 @@ def main():
                                         "train_dist", "dryrun", "train"),
                     help="only build the kernels and run this phase, then "
                          "exit; no contract line")
+    ap.add_argument("--local-heads", action="store_true",
+                    help="only build the kernels and time #5 and #6 at the "
+                         "4-rank job's local-head shapes (LOCAL_FA, "
+                         "LOCAL_FD) by CUDA events, then exit; no "
+                         "contract line")
     ap.add_argument("--once", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     src = args.src.resolve()
@@ -6713,6 +6966,9 @@ def main():
               "train_dist": train_dist_phase,
               "dryrun": lambda t: dryrun_phase(t, counters),
               "train": lambda t: train_phase(t, counters)}[args.phase](torch))
+        return
+    if args.local_heads:
+        emit(local_head_times(torch))
         return
     if args.sweep:
         emit(edge_sweep(torch))

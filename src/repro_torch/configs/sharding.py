@@ -25,7 +25,8 @@ cut over ``model`` stays local (the product runs on the block), a dim cut
 over ``data`` is FSDP's (gathered just before use, freed after), and a
 leaf that names no axis is replicated compute. ``tensor_parallel_family``
 says which configs a ``spec_fn`` plan computes so on a mesh's ``model``
-axis (``engine.plan``).
+axis (``engine.plan``); ``make_spec_fn`` leaves its config on the function
+it returns (``spec_fn.cfg``), which is how a plan knows.
 """
 from __future__ import annotations
 
@@ -34,8 +35,8 @@ from typing import NamedTuple
 
 MODEL = "model"
 FSDP = "data"                      # the axis FSDP cuts params over
-TP_BLOCKS = ("attn", "swa", "mla")  # the blocks tensor-parallel compute
-                                     # covers
+TP_BLOCKS = ("attn", "swa", "mla", "enc_attn", "dec_attn")  # the blocks
+                                     # tensor-parallel compute covers
 
 
 def _rules(cfg, model_size: int = 16):
@@ -156,6 +157,7 @@ def make_spec_fn(cfg, mesh=None):
                 return (None,) * nd
         return (None,) * nd
 
+    spec_fn.cfg = cfg      # what a plan computes tensor-parallel
     return spec_fn
 
 
@@ -251,13 +253,18 @@ def read_spec(spec) -> LeafCut:
 
 
 def tensor_parallel_reason(cfg, model_size: int) -> str | None:
-    """Why a ``spec_fn`` plan whose ``model`` axis has ``model_size`` ranks
-    does NOT compute ``cfg`` tensor-parallel (None: it does).
-    Tensor-parallel compute covers the transformer LMs of ``attn`` /
-    ``swa`` / ``mla`` blocks, each with a dense SwiGLU or a MoE (experts
-    over ``model``, or every expert's ``d_ff_expert`` cut over it), text
-    only, one LM head, every head whole on a rank. The others keep the
-    data-parallel step (every cut leaf gathered whole)."""
+    """Why a ``spec_fn`` / ``shared_spec_fn`` plan whose ``model`` axis has
+    ``model_size`` ranks does NOT compute ``cfg`` tensor-parallel (None:
+    it does). Tensor-parallel compute covers the transformer LMs of
+    ``attn`` / ``swa`` / ``mla`` blocks, each with a dense SwiGLU or a MoE
+    (experts over ``model``, or every expert's ``d_ff_expert`` cut over
+    it), and the encoder-decoder's ``enc_attn`` / ``dec_attn`` blocks
+    (its audio projector names no axis: replicated compute, as GSPMD
+    repeats it), every head whole on a rank; with per-source heads
+    (lm-mtl) the trunk so and the heads over ``model`` by task. The
+    others keep the data-parallel step (every cut leaf gathered whole):
+    the vision frontend, the recurrent blocks (their specs cut fused
+    columns, not heads) and fractional heads."""
     m = model_size
     if cfg.family == "gnn" or not cfg.n_layers:
         return "not a transformer LM"
@@ -269,11 +276,7 @@ def tensor_parallel_reason(cfg, model_size: int) -> str | None:
     if "mla" in cfg.block_pattern and cfg.n_heads % m:
         return (f"MLA's heads would split ({cfg.n_heads} heads over model "
                 f"{m}: wq_b's columns are cut by columns, not heads)")
-    if cfg.n_tasks > 1:
-        return "per-source task_heads (lm-mtl)"
-    if cfg.n_enc_layers:
-        return "encoder-decoder cross-attention"
-    if cfg.modality != "text":
+    if cfg.modality not in ("text", "audio_embed"):
         return f"{cfg.modality} frontend"
     other = sorted({b for b in cfg.block_pattern if b not in TP_BLOCKS})
     if other:

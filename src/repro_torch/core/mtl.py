@@ -184,7 +184,21 @@ def make_lm_multitask(cfg, impl="chunked") -> MultiTaskModel:
     each task's rows, ``MultiTaskModel``'s contract) each task's
     cross-entropy is summed and divided by its tokens over the head group
     (``norm["counts"]``, from ``lm_batch_counts``), and its balance term is
-    the rank's share (``norm["balance"]``)."""
+    the rank's share (``norm["balance"]``).
+
+    With ``norm["tp"]`` (a ``shared_spec_fn`` plan that computes the trunk
+    tensor-parallel, ``engine.step.multitask_tensor_parallel_grad_fn``)
+    ``shared`` is the rank's blocks and the batch every task's rows of
+    the rank's data slice: one trunk pass on the local heads, then the
+    heads decode only ``norm["tasks"]``, the rank's own — ``"par"``: its
+    ``model`` index's tasks, after Megatron's f on the trunk's output
+    (each rank's loss covers its tasks only, so the output's gradient is
+    summed over ``model``); ``"base"``: every task on every rank,
+    replicated compute, no f. The balance terms are replicated compute
+    too: every task's enters every rank's result, so that the router's
+    gradient is whole and equal on each ``model`` rank. The result is
+    (T,): a task's cross-entropy share where the rank decodes it, plus
+    every task's balance share."""
     if cfg.n_tasks <= 1:
         raise ValueError(f"lm-mtl needs cfg.n_tasks > 1, got {cfg.n_tasks}")
 
@@ -194,21 +208,32 @@ def make_lm_multitask(cfg, impl="chunked") -> MultiTaskModel:
         return {"shared": p, "heads": {"w": p.pop("task_heads")["w"]}}
 
     def loss_fn(shared, hp, batch, norm=None):
+        tp = None if norm is None else norm.get("tp")
         toks = batch["tokens"]
         T, B, S = toks.shape
-        x = transformer.embed_inputs(shared, toks.reshape(T * B, S), cfg)
+        shared = transformer.outer_units(shared, tp)
+        x = transformer.embed_inputs(shared, toks.reshape(T * B, S), cfg,
+                                     tp=tp)
         h, _, aux = transformer.run_trunk(
             shared, x, cfg=cfg, positions=torch.arange(S, device=x.device),
             mode="train", impl=impl, segments=T,
-            balance=None if norm is None else norm["balance"])
+            balance=None if norm is None else norm["balance"], tp=tp)
         h = h.reshape(T, B, S, h.shape[-1])
+        labels = batch["labels"]
+        counts = None if norm is None else norm["counts"][:, 0]
+        own = None if tp is None or len(norm["tasks"]) == T else \
+            torch.as_tensor(norm["tasks"], device=h.device)
+        if own is not None:          # "par": the rank's tasks, after f
+            h, labels, counts = tp.copy(h)[own], labels[own], counts[own]
         logits = torch.einsum("tbsd,tdv->tbsv", h.float(),
                               hp["w"].to(h.dtype).float())
-        xent = _xent(logits, batch["labels"])
+        xent = _xent(logits, labels)
         xent = xent.mean((1, 2)) if norm is None else \
-            xent.sum((1, 2)) / norm["counts"][:, 0]
+            xent.sum((1, 2)) / counts
+        if own is not None:
+            xent = xent.new_zeros(T).index_put((own,), xent)
         return xent + cfg.router_aux_coef * aux, {}
 
     return MultiTaskModel(init=init, loss_fn=loss_fn,
                           name=f"lm-mtl-{cfg.name}", n_tasks=cfg.n_tasks,
-                          batch_counts=lm_batch_counts)
+                          batch_counts=lm_batch_counts, cfg=cfg)

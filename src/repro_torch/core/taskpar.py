@@ -28,7 +28,7 @@ construction lives in ``repro_torch.engine``: ``ShardingPlan(...)
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, NamedTuple
+from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -68,12 +68,21 @@ class MultiTaskModel(NamedTuple):
     global loss, normalised over the whole batch, and the shares of a
     task's ranks sum to that loss (``share`` scales the terms that do not
     depend on the batch, ``balance`` names the ranks an MoE balance term
-    is shared by). None: normalise over the batch given."""
+    is shared by). None: normalise over the batch given.
+
+    ``cfg``: an LM trunk's config (``core.mtl.make_lm_multitask``), which
+    decides whether a ``shared_spec_fn`` plan computes the trunk
+    tensor-parallel (``SingleTaskModel.cfg``'s counterpart; None: the
+    GFM models, data-parallel). On such a plan ``norm`` also carries
+    ``"tp"`` (the rank's ``models.common.TensorParallel``) and
+    ``"tasks"`` (the tasks whose heads the rank holds and decodes), and
+    the batch holds every task's rows of the rank's data slice."""
     init: Callable
     loss_fn: Callable
     name: str = "mtl"
     n_tasks: int = 0
     batch_counts: Callable | None = None
+    cfg: Any = None
 
 
 # ---------------------------------------------------------------------------

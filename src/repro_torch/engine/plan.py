@@ -29,10 +29,14 @@ batch:
 -> spec`` (``configs.sharding.make_spec_fn``), and a rank stores only its
 block of every leaf whose spec names an axis, for the params and both
 AdamW moments. A transformer LM of GQA or MLA attention with a dense or a
-MoE feed-forward (``configs.sharding.tensor_parallel_family`` at the
-mesh's ``model`` size) then computes in the layout ``repro``'s specs
-name (``tensor_parallel``): a dim cut over ``model`` stays local and its
-product runs on the block, a dim cut over ``data`` (FSDP) is gathered
+MoE feed-forward, or the encoder-decoder
+(``configs.sharding.tensor_parallel_family`` at the mesh's ``model``
+size, read off the spec function's ``cfg``: ``computes_tensor_parallel``)
+then computes in the layout ``repro``'s specs name (``tensor_parallel``;
+lm-mtl's trunk so under ``shared_spec_fn``, its per-source heads over
+``model`` by task, every task's rows of a data slice on each of its
+``model`` ranks, ``rows_shard``): a dim cut over ``model`` stays local
+and its product runs on the block, a dim cut over ``data`` (FSDP) is gathered
 just before use by ``gather_unit`` — one all-gather a block unit, inside
 its remat checkpoint, whose backward reduce-scatters the gradients into
 the rank's blocks — and a leaf that names no axis is replicated compute;
@@ -214,6 +218,35 @@ class ShardingPlan:
         return self.distributed and (self.spec_fn is not None or
                                      self.shared_spec_fn is not None)
 
+    @functools.cached_property
+    def computes_tensor_parallel(self) -> bool:
+        """Whether the plan computes its model on the rank's blocks: a
+        ``"pjit"`` plan whose ``spec_fn`` (single-task) or
+        ``shared_spec_fn`` (the multi-task trunk) carries a config
+        (``configs.sharding.make_spec_fn`` leaves it as ``fn.cfg``) in
+        ``tensor_parallel_family`` at the mesh's ``model`` size. A
+        multi-task batch is then sliced for that step (``slice_batch``)."""
+        from repro_torch.configs.sharding import tensor_parallel_family
+        if not self.sharded or self.resolved_backend != "pjit":
+            return False
+        fn = self.shared_spec_fn if self.task_parallel else self.spec_fn
+        cfg = getattr(fn, "cfg", None)
+        return cfg is not None and tensor_parallel_family(
+            cfg, mesh_shape(self.mesh)[MODEL])
+
+    @functools.cached_property
+    def rows_shard(self) -> TaskShard:
+        """The rows this rank computes on a tensor-parallel plan: every
+        task's rows (a multi-task model's; none for a single-task one), B
+        split over the data axes (the rank's ``model`` column, ``pod``
+        and ``data`` flattened), which its ``model`` ranks share."""
+        import torch.distributed as dist
+        ranks = self._mesh_ranks()
+        d, m = (int(x) for x in np.argwhere(ranks == dist.get_rank())[0])
+        heads = tuple(range(self.n_tasks)) if self.task_parallel else ()
+        return TaskShard(heads=heads, ranks=tuple(int(r) for r in
+                                                  ranks[:, m]), index=d)
+
     def coords_of(self, rank: int) -> dict:
         """``{axis: index}`` of ``rank`` on the mesh."""
         idx = np.argwhere(_mesh_array(self.mesh) == rank)[0]
@@ -363,10 +396,14 @@ class ShardingPlan:
         ``w_gate``'s, the embedding's rows; a MoE's experts or their
         ``d_ff_expert`` columns, its shared experts' ``w_gate`` columns;
         MLA's ``wq_b`` columns) and, when a leaf is cut over ``data``,
-        ``gather_unit`` over the layout."""
+        ``gather_unit`` over the layout. A multi-task layout is read at
+        its trunk's leaves (``shared/``), by their paths inside it."""
         import re
 
         from repro_torch.models.common import TensorParallel
+        if any(p.startswith("shared/") for p in layout):   # the trunk's
+            layout = {p[len("shared/"):]: v for p, v in layout.items()
+                      if p.startswith("shared/")}
 
         def find(pattern):
             return next(((shape, spec) for p, (shape, spec) in layout.items()
@@ -433,15 +470,19 @@ class ShardingPlan:
                               opt_state=opt)
 
     def slice_batch(self, batch: dict, accum: int = 1) -> dict:
-        """A task-major batch -> this rank's task rows and B rows; a
-        single-task model's flat batch -> its rows (numpy or tensors, where
-        they are). With ``accum`` microbatches the rank takes its rows of
-        each microbatch of the global batch (``core.taskpar.micro_rows``),
-        as ``repro`` shards each microbatch."""
+        """A task-major batch -> this rank's task rows and B rows (on a
+        plan that computes tensor-parallel, every task's rows of its data
+        slice, ``rows_shard``); a single-task model's flat batch -> its
+        rows (numpy or tensors, where they are). With ``accum``
+        microbatches the rank takes its rows of each microbatch of the
+        global batch (``core.taskpar.micro_rows``), as ``repro`` shards
+        each microbatch."""
         if not self.distributed:
             return batch
         if not self.task_parallel:
             return take_flat_batch(batch, self.shard, accum)
+        if self.computes_tensor_parallel:
+            return take_batch(batch, self.rows_shard, self.n_tasks, accum)
         return take_batch(batch, self.shard, self.n_tasks, accum)
 
     def shard_batch(self, batch: dict, device=None, accum: int = 1) -> dict:

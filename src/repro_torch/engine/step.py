@@ -30,8 +30,11 @@ A plan with ``spec_fn`` / ``shared_spec_fn`` (``engine.plan``) keeps each
 rank's block of every cut leaf, and the clip norm sums each block once
 across the ranks (``plan.norm_fn(layout)``). A transformer LM
 (``SingleTaskModel.cfg`` in ``configs.sharding.tensor_parallel_family`` at
-the mesh's ``model`` size: GQA or MLA attention, a dense SwiGLU or a MoE)
-computes in the layout ``repro``'s specs name (``tensor_parallel_grad_fn``):
+the mesh's ``model`` size: GQA or MLA attention, a dense SwiGLU or a MoE,
+or the encoder-decoder, its encoder and cross-attention on local heads)
+computes in the layout ``repro``'s specs name (``tensor_parallel_grad_fn``;
+lm-mtl's trunk likewise, its heads over ``model`` by task:
+``multitask_tensor_parallel_grad_fn``):
 the batch's rows split over the data axes only, a row's ``model`` ranks
 share it, and the forward runs on the rank's blocks — local heads (MLA's
 after the replicated latent), column- then row-parallel SwiGLU, a MoE's
@@ -376,55 +379,171 @@ def sharded_grad_fn(grad_fn: Callable, plan, layout: dict) -> Callable:
     return fn
 
 
+class _TensorParallelReduce(NamedTuple):
+    """The collectives of a tensor-parallel step: ``rows``, the group of
+    the ``n`` ranks over the data axes that split a row (its ``model``
+    ranks share it), and the gradient reduction (``__call__``)."""
+    rows: Any
+    n: int
+    pod: Any
+    pod_n: int
+    fsdp: frozenset
+
+    @classmethod
+    def of(cls, plan, layout: dict) -> "_TensorParallelReduce":
+        from repro_torch.configs.sharding import FSDP, mesh_shape, read_spec
+        sizes = mesh_shape(plan.mesh)
+        axes = plan.data_axes()
+        n = int(np.prod([sizes[a] for a in axes]))
+        pod = tuple(a for a in axes if a != FSDP)
+        return cls(plan.gather_group(axes), n,
+                   plan.gather_group(pod) if pod else None,
+                   n // sizes[FSDP] if pod else 1,
+                   frozenset(p for p, (_, s) in layout.items()
+                             if read_spec(s).fsdp))
+
+    def __call__(self, leaves: dict, grads: list, extra: list) -> tuple:
+        """``{name: reduced gradient}`` and ``extra`` (loss terms) summed
+        over the data axes: the gradients of leaves cut over ``data`` come
+        out of ``gather_unit``'s reduce-scatter summed over ``data`` and
+        are summed over ``pod`` where the mesh has one; the others (and
+        ``extra``) over every data axis, one flat buffer a dtype."""
+        names = list(leaves)
+        cut = [i for i, k in enumerate(names) if k in self.fsdp]
+        rest = [i for i, k in enumerate(names) if k not in self.fsdp]
+        parts = _reduce_leaves([grads[i] for i in rest] + extra, self.rows,
+                               self.n)
+        out = dict(zip([names[i] for i in rest], parts))
+        if cut:
+            out.update(zip([names[i] for i in cut], _reduce_leaves(
+                [grads[i] for i in cut], self.pod, self.pod_n)))
+        return out, parts[len(rest):]
+
+
 def tensor_parallel_grad_fn(model: SingleTaskModel, plan, layout: dict
                             ) -> Callable:
     """grad_fn of a transformer LM on a ``spec_fn`` plan, over this rank's
     blocks and its rows (see the module docstring). The loss's
-    denominators and the loss are summed over the data axes; the
-    gradients of leaves cut over ``data`` come out of ``gather_unit``'s
-    reduce-scatter summed over ``data`` and are summed over ``pod`` where
-    the mesh has one; the others are summed over every data axis, one
-    flat buffer a dtype."""
-    from repro_torch.configs.sharding import FSDP, mesh_shape, read_spec
+    denominators and the loss are summed over the data axes, and the
+    gradients reduced by ``_TensorParallelReduce``."""
     from repro_torch.models.moe import Balance
     tp = plan.tensor_parallel(layout)
-    sizes = mesh_shape(plan.mesh)
-    axes = plan.data_axes()
-    rows, n = plan.gather_group(axes), int(np.prod([sizes[a] for a in axes]))
-    pod = tuple(a for a in axes if a != FSDP)
-    pod_group, pod_n = (plan.gather_group(pod), n // sizes[FSDP]) if pod \
-        else (None, 1)
-    fsdp = {p for p, (_, s) in layout.items() if read_spec(s).fsdp}
-    balance = Balance(rows, n)
+    reduce = _TensorParallelReduce.of(plan, layout)
+    balance = Balance(reduce.rows, reduce.n)
 
     def grad_fn(params, batch):
         counts = model.batch_counts(batch).float().contiguous()
-        _all_reduce(counts, rows, n)
-        norm = {"counts": counts, "share": 1.0 / n, "balance": balance,
-                "tp": tp}
+        _all_reduce(counts, reduce.rows, reduce.n)
+        norm = {"counts": counts, "share": 1.0 / reduce.n,
+                "balance": balance, "tp": tp}
         leaves, p = _requires_grad(params)
         with torch.enable_grad():
             loss = model.loss_fn(p, batch, norm=norm)
             grads = leaf_grads(loss, leaves)
-        names = list(leaves)
-        cut = [i for i, k in enumerate(names) if k in fsdp]
-        rest = [i for i, k in enumerate(names) if k not in fsdp]
-        parts = _reduce_leaves([grads[i] for i in rest] +
-                               [loss.detach().float().reshape(1)], rows, n)
-        out = dict(zip([names[i] for i in rest], parts))
-        if cut:
-            out.update(zip([names[i] for i in cut], _reduce_leaves(
-                [grads[i] for i in cut], pod_group, pod_n)))
-        return parts[-1][0], {}, unflatten(params, out)
+        out, (loss,) = reduce(leaves, grads,
+                              [loss.detach().float().reshape(1)])
+        return loss[0], {}, unflatten(params, out)
+    return grad_fn
+
+
+def multitask_tensor_parallel_grad_fn(model: MultiTaskModel, plan,
+                                      layout: dict, task_weights=None
+                                      ) -> Callable:
+    """grad_fn of an LM ``MultiTaskModel`` (lm-mtl) on a ``shared_spec_fn``
+    plan that computes its trunk tensor-parallel: the rank's trunk blocks
+    and heads, every task's rows of its data slice (``plan.rows_shard``).
+    Each task's loss is its cross-entropy summed over the rank's rows and
+    divided by its tokens summed over the data axes; the loss function
+    decodes the rank's own tasks (``norm["tasks"]``: its heads) after
+    Megatron's f in ``"par"``, every task in ``"base"``. The paper's two
+    collective scopes inside one tensor-parallel step
+    (``_TensorParallelReduce``, one flat buffer a dtype):
+
+      * the trunk's gradients as ``tensor_parallel_grad_fn`` reduces a
+        single-task model's: ``model``-local and replicated leaves summed
+        over the data axes, FSDP leaves reduce-scattered by
+        ``gather_unit`` (and summed over ``pod``);
+      * each head's gradient summed over the data axes only, over the
+        ranks that hold that head (``"par"``: the rank's ``model``
+        column; ``"base"``: every head is whole on every rank and equal
+        across ``model``).
+
+    The per-task losses are made whole on every rank by one SUM over the
+    world of a (T,) vector that holds the rank's own tasks' shares (in
+    ``"base"`` only the first ``model`` column's, whose tasks are all)."""
+    import torch.distributed as dist
+
+    from repro_torch.models.moe import Balance
+    tp = plan.tensor_parallel(layout)
+    reduce = _TensorParallelReduce.of(plan, layout)
+    balance = Balance(reduce.rows, reduce.n)
+    T = model.n_tasks
+    tasks = tuple(plan.shard.heads)
+    world = dist.get_world_size()
+    lead = len(tasks) < T or plan.model_lead      # the rank reports its
+    tw_host = normalized_task_weights(T, task_weights)   # tasks' losses
+    on_device = {}
+
+    def grad_fn(params, batch):
+        counts = model.batch_counts(batch).float().contiguous()
+        _all_reduce(counts, reduce.rows, reduce.n)
+        dev = counts.device
+        if dev not in on_device:
+            own = torch.zeros(T, dtype=torch.bool)
+            own[list(tasks)] = lead
+            on_device[dev] = (tw_host.to(dev), own.to(dev))
+        tw, own = on_device[dev]
+        norm = {"counts": counts, "share": torch.full((T,), 1.0 / reduce.n,
+                                                      device=dev),
+                "balance": balance, "tp": tp, "tasks": tasks}
+        leaves, p = _requires_grad(params)
+        with torch.enable_grad():
+            pt, metrics = model.loss_fn(p["shared"], p["heads"], batch,
+                                        norm=norm)
+            # zero-weight (quarantined) tasks are excluded by select
+            objective = torch.where(tw > 0, pt * tw,
+                                    torch.zeros((), device=dev)).sum()
+            grads = leaf_grads(objective, leaves)
+        out, _ = reduce(leaves, grads, [])
+        mnames = list(metrics)
+        vec = torch.stack([pt.detach().float()] + [
+            metrics[k].detach().float() for k in mnames])
+        vec = _all_reduce(torch.where(own, vec, torch.zeros_like(vec)),
+                          None, world)
+        per_task = vec[0]
+        loss = torch.where(tw > 0, per_task * tw,
+                           torch.zeros((), device=dev)).sum()
+        out_metrics = {k: vec[1 + i] for i, k in enumerate(mnames)}
+        out_metrics["per_task_loss"] = per_task
+        return loss, out_metrics, unflatten(params, out)
     return grad_fn
 
 
 def _tensor_parallel(model, plan, layout) -> bool:
+    """Whether ``model`` computes on the rank's blocks of ``layout``: a
+    config in ``tensor_parallel_family`` at the mesh's ``model`` size.
+    A multi-task model follows its plan (``plan.computes_tensor_parallel``,
+    which also slices its batches): a ``shard_map`` plan keeps the
+    data-parallel step, whose per-shard semantics (each rank normalises
+    over its own rows, one head a ``model`` rank) have no tensor-parallel
+    counterpart — it carries no ``shared_spec_fn``, so ``layout`` is
+    empty there; so does a ``shared_spec_fn`` that carries no config."""
     from repro_torch.configs.sharding import (MODEL, mesh_shape,
                                              tensor_parallel_family)
-    return bool(layout) and isinstance(model, SingleTaskModel) and \
-        model.cfg is not None and tensor_parallel_family(
-            model.cfg, mesh_shape(plan.mesh)[MODEL])
+    if not layout:
+        return False
+    if isinstance(model, MultiTaskModel):
+        if not plan.computes_tensor_parallel:
+            return False
+        if model.cfg is None or not tensor_parallel_family(
+                model.cfg, mesh_shape(plan.mesh)[MODEL]):
+            raise ValueError(
+                f"model '{model.name}': its plan computes the trunk "
+                "tensor-parallel (shared_spec_fn's config) and slices its "
+                "batches so, but the model's cfg does not")
+        return True
+    return model.cfg is not None and tensor_parallel_family(
+        model.cfg, mesh_shape(plan.mesh)[MODEL])
 
 
 def _layout(model, plan) -> dict:
@@ -435,8 +554,10 @@ def _layout(model, plan) -> dict:
 def _grad_fn(model, plan, accum, task_weights, layout=None):
     axis = 1 if isinstance(model, MultiTaskModel) else 0
     if _tensor_parallel(model, plan, layout):
-        return with_grad_accum(tensor_parallel_grad_fn(model, plan, layout),
-                               accum, axis)
+        fn = multitask_tensor_parallel_grad_fn(
+            model, plan, layout, task_weights) if axis else \
+            tensor_parallel_grad_fn(model, plan, layout)
+        return with_grad_accum(fn, accum, axis)
     fn = with_grad_accum(make_grad_fn(model, plan,
                                       task_weights=task_weights), accum, axis)
     return sharded_grad_fn(fn, plan, layout) if layout else fn

@@ -29,7 +29,9 @@ tensors are CPU tensors, for which every wrapper takes its plain
 version); ``--materialize`` runs the same rank program on ``--device``
 with real seeded tensors — the kernels on the card — and reports its
 measured peak beside the static one. A stack of identical block units is
-traced at one and two units and extrapolated to the full depth, and
+traced at one and two units and extrapolated to the full depth (an
+encoder's layers likewise, at one and two of them beside the decoder's
+units, each count linear in both), and
 accumulation at one and two microbatches, and a model of recurrent blocks
 only at one, two and three chunks of its length (``cost.extrapolate``); the
 entry says so (``hlo.traced``). A blocked attention call outside autograd
@@ -44,7 +46,8 @@ The step computes what the port computes (``figures`` in an entry's
 GQA or MLA attention with a dense or a MoE feed-forward
 (``configs.sharding.tensor_parallel_family`` at the mesh's ``model``
 size) runs its products on the rank's blocks — local heads (MLA's after
-the replicated latent), column- and row-parallel SwiGLU, a MoE's local
+the replicated latent; the encoder-decoder's encoder, decoder and
+cross-attention), column- and row-parallel SwiGLU, a MoE's local
 experts or ``d_ff_expert`` columns with one SUM over ``model`` a layer, a
 vocab-parallel embedding, logits and loss, each unit's FSDP leaves
 gathered before use and reduce-scattered after — and its caches hold the
@@ -84,7 +87,8 @@ NOTES = ("static count: fake CPU tensors, so every hand kernel runs its "
          "plain version, the one-hot segment sum)")
 # what a spec_fn plan's figures are (``figures`` in ``memory`` and ``hlo``)
 TENSOR_PARALLEL = ("tensor-parallel: the products run on the rank's blocks "
-                   "(local heads, MLA's after the replicated latent; "
+                   "(local heads, MLA's after the replicated latent, an "
+                   "encoder's and each cross-attention's; "
                    "column/row-parallel SwiGLU; a MoE's local experts or "
                    "d_ff_expert columns, its routing replicated, one SUM "
                    "over model a layer; a vocab-parallel embedding, logits "
@@ -243,21 +247,20 @@ def _cut_params(cfg, mesh):
 
 def _lm_prefill(cfg, shape, mesh, accum, device, micro, seed=0):
     from repro_torch.configs.sharding import tensor_parallel_family
-    from repro_torch.models import transformer
-    from repro_torch.train.serve import make_prefill_step
+    from repro_torch.train.serve import make_encode_step, make_prefill_step
     plan, layout, local = _cut_params(cfg, mesh)
     rows = _rank_rows(input_specs(cfg, shape), mesh, plan.coords,
                       shape.global_batch)
     tp = tensor_parallel_family(cfg, _model_size(mesh))
     step = make_prefill_step(cfg, "chunked", plan=plan if tp else None)
+    encode = make_encode_step(cfg, "chunked", plan=plan if tp else None)
 
     @torch.no_grad()
     def prefill(params, batch):
         full = params if tp else plan.gather(params, layout)
         memory = None
         if cfg.n_enc_layers:
-            memory = transformer.encode(full, batch["src_embed"], cfg,
-                                        "chunked")
+            memory = encode(full, batch["src_embed"])
         logits, caches = step(full, batch["tokens"], media=batch.get("media"),
                               memory=memory)
         return logits[:, -1:], caches
@@ -580,9 +583,17 @@ def _static_at(arch_cfg, shape, mesh, mesh_kind, accum, device):
     info0 = build(arch_cfg, shape, mesh, accum, device, None)[2]
     a_run = info0.get("accum_run", 1) if shape.kind == "train" else 1
     micros = [1, 2] if a_run > 2 else [None]
+    # an encoder (train and prefill run it) is traced at one and two of
+    # its layers beside the decoder's units, every count linear in each
+    enc = arch_cfg.n_enc_layers if shape.kind != "decode" and \
+        depths != [None] and arch_cfg.n_enc_layers > 2 else 0
+    grid = [(r, 1 if enc else None) for r in depths] + \
+        ([(depths[0], 2)] if enc else [])
     by_depth, once = [], None
-    for r in depths:
+    for r, e in grid:
         cfg_r = arch_cfg if r is None else _depth_cfg(arch_cfg, r)
+        if e is not None:
+            cfg_r = cfg_r.replace(n_enc_layers=e)
         runs = [_count(build, cfg_r, shape, mesh, accum, device, m)[0]
                 for m in micros]
         if once is None:               # one unit, one microbatch
@@ -590,10 +601,16 @@ def _static_at(arch_cfg, shape, mesh, mesh_kind, accum, device):
         by_depth.append(runs[0] if len(runs) == 1 else cost.extrapolate(
             list(zip(micros, runs)), a_run, peak="last"))
     total = by_depth[0] if len(by_depth) == 1 else cost.extrapolate(
-        list(zip(depths, by_depth)), reps)
+        list(zip(depths, by_depth[:len(depths)])), reps)
+    if enc:             # + (enc - 1) x an encoder layer's counts and peak
+        layer = [(by_depth[2], enc - 1), (by_depth[0], 1 - enc)]
+        total = dict(cost.combine([(total, 1.0)] + layer), peak_bytes=int(
+            total["peak_bytes"] + sum(w * c["peak_bytes"] for c, w in layer)))
     traced = {"depth_units": "full" if depths == [None] else depths,
               "units": reps, "microbatches": micros if a_run > 2 else
               "all", "accum_run": a_run}
+    if enc:
+        traced.update(enc_layers=[1, 2], enc_units=enc)
     return total, info0, traced, once
 
 

@@ -24,7 +24,9 @@ divides the kv heads, else the columns of the replicated ones that its
 heads' groups need —, RoPE and attention (#5 / #6 under ``"pallas"``) on
 them, and ``wo``'s rows as a partial sum that is summed over ``model``
 (Megatron's f at the input, g after ``wo``). Its decode cache holds those
-kv heads (``local_kv_heads``).
+kv heads (``local_kv_heads``). ``local_qkv`` / ``local_out`` are those
+projections, which the encoder's bidirectional attention and the
+decoder's cross-attention (k and v of the encoder's memory) share.
 
 Tensor-parallel MLA (``mla_apply(tp=)`` with ``tp.mla``): the latents —
 ``q_norm(wq_a x)``, ``kv_norm`` of ``wkv_a``'s first ``kv_lora`` columns
@@ -199,6 +201,41 @@ def _kv_columns(p: Params, k0: int, k1: int, hd: int, tp) -> Params:
     return out
 
 
+def local_qkv(params: Params, x, cfg, tp=None, kv_x=None):
+    """q of ``x`` (B, S, d) and k, v of ``kv_x`` (B, M, d; ``x`` when None:
+    self-attention, a cross-attention's memory otherwise) on the heads
+    this rank computes under ``tp`` (every head without it): (B, S, H_l,
+    hd) and (B, M, K_l, hd), the kv heads repeated to one a q head where
+    ``local_kv_heads`` gives an ``owner``. Megatron's f on each input
+    that enters the split products."""
+    B, S, _ = x.shape
+    hd, cd = cfg.hd, cfg.compute_dtype
+    (h0, h1), (k0, k1), owner = local_kv_heads(cfg, tp)
+    if tp is not None and tp.heads:
+        x = tp.copy(x)
+        kv_x = None if kv_x is None else tp.copy(kv_x)
+        if not tp.kv:
+            params = dict(params, wk=_kv_columns(params["wk"], k0, k1, hd, tp),
+                          wv=_kv_columns(params["wv"], k0, k1, hd, tp))
+    kv_x = x if kv_x is None else kv_x
+    M = kv_x.shape[1]
+    q = dense(params["wq"], x, cd).reshape(B, S, h1 - h0, hd)
+    k = dense(params["wk"], kv_x, cd).reshape(B, M, k1 - k0, hd)
+    v = dense(params["wv"], kv_x, cd).reshape(B, M, k1 - k0, hd)
+    if owner is not None:
+        k, v = k[:, :, owner], v[:, :, owner]
+    return q, k, v
+
+
+def local_out(params: Params, o, cfg, tp=None):
+    """``wo`` over the local heads' output (B, S, H_l, hd): the rank's
+    rows of ``wo`` give a partial sum, summed over ``model`` (Megatron's
+    g) — whole on every rank."""
+    B, S = o.shape[:2]
+    out = dense(params["wo"], o.reshape(B, S, -1), cfg.compute_dtype)
+    return tp.reduce(out) if tp is not None and tp.heads else out
+
+
 def gqa_apply(params: Params, x, *, cfg, positions, window=0, cache=None,
               impl="chunked", tp=None):
     """x: (B,S,d). cache None => train/prefill (returns a new cache if
@@ -207,30 +244,14 @@ def gqa_apply(params: Params, x, *, cfg, positions, window=0, cache=None,
     (out, new_cache). ``tp``: tensor-parallel over the local heads (see
     the module docstring); the output is whole on every rank."""
     B, S, d = x.shape
-    hd = cfg.hd
-    cd = cfg.compute_dtype
-    split = tp is not None and tp.heads
-    (h0, h1), (k0, k1), owner = local_kv_heads(cfg, tp)
-    H, K = h1 - h0, k1 - k0
-    if split:
-        x = tp.copy(x)
-        if not tp.kv:
-            params = dict(params, wk=_kv_columns(params["wk"], k0, k1, hd, tp),
-                          wv=_kv_columns(params["wv"], k0, k1, hd, tp))
-    q = dense(params["wq"], x, cd).reshape(B, S, H, hd)
-    k = dense(params["wk"], x, cd).reshape(B, S, K, hd)
-    v = dense(params["wv"], x, cd).reshape(B, S, K, hd)
-    if owner is not None:
-        k, v = k[:, :, owner], v[:, :, owner]
+    q, k, v = local_qkv(params, x, cfg, tp)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
 
     if cache is None or (isinstance(cache, str) and cache == "init"):
         o = sdpa(q, k, v, q_pos=positions, k_pos=positions, causal=True,
                  window=window, impl=impl)
-        out = dense(params["wo"], o.reshape(B, S, H * hd), cd)
-        if split:
-            out = tp.reduce(out)
+        out = local_out(params, o, cfg, tp)
         if cache == "init":
             pos = torch.tensor(S, dtype=torch.int32, device=x.device)
             return out, {"k": k, "v": v, "pos": pos}
@@ -256,10 +277,7 @@ def gqa_apply(params: Params, x, *, cfg, positions, window=0, cache=None,
     else:
         o = sdpa_naive(q, ck, cv, q_pos=positions, k_pos=k_pos, causal=True,
                        window=0)
-    out = dense(params["wo"], o.reshape(B, 1, H * hd), cd)
-    if split:
-        out = tp.reduce(out)
-    return out, {"k": ck, "v": cv, "pos": pos + 1}
+    return local_out(params, o, cfg, tp), {"k": ck, "v": cv, "pos": pos + 1}
 
 
 def gqa_cache_init(cfg, batch: int, cache_len: int, dtype=None,

@@ -29,11 +29,14 @@ summed into the trunk's aux.
 ``spec_fn`` plan): ``params`` are this rank's blocks. Each block unit's
 FSDP-cut leaves are gathered inside its remat checkpoint (the recompute
 gathers them again, so the peak holds one gathered unit; the embedding
-and ``lm_head`` once a forward, ``outer_units``), the blocks run on
-their local heads (GQA's, or MLA's after the latent) and ``d_ff``
-columns, or a MoE's local experts or ``d_ff_expert`` columns, the
-embedding and the logits are vocab-parallel, and the caches hold the
-local kv heads (MLA's latent cache whole).
+and ``lm_head`` once a forward, ``outer_units``; an encoder block just
+before it runs), the blocks run on their local heads (GQA's, the
+encoder's and each cross-attention's too, or MLA's after the latent)
+and ``d_ff`` columns, or a MoE's local experts or ``d_ff_expert``
+columns, the embedding and the logits are vocab-parallel, and the caches
+hold the local kv heads (MLA's latent cache whole). The encoder's memory
+is whole on every ``model`` rank; each cross-attention takes it through
+Megatron's f.
 """
 from __future__ import annotations
 
@@ -43,8 +46,8 @@ import numpy as np
 import torch
 
 from ..interop import leaves, tree_map, unflatten
-from .attention import (gqa_apply, gqa_cache_init, gqa_init, mla_apply,
-                        mla_cache_init, mla_init, sdpa)
+from .attention import (gqa_apply, gqa_cache_init, gqa_init, local_out,
+                        local_qkv, mla_apply, mla_cache_init, mla_init, sdpa)
 from .common import (Params, apply_rope, dense, dense_init, embed,
                      embedding_init, layernorm, normal_init, ones_init,
                      rmsnorm, unembed, zeros_init)
@@ -148,10 +151,11 @@ def block_apply(bp: Params, x, *, btype, cfg, positions, cache=None,
     bidirectionally (prefill and decode are causal, as ``repro``'s).
     ``balance``: the ranks that split the rows (``moe.Balance``); ``tp``
     the tensor-parallel context (``models.common.TensorParallel``) of an
-    ``attn`` / ``swa`` block (local heads) or an ``mla`` block (local
-    heads after the latent), each with a SwiGLU (``d_ff`` columns) or a
-    MoE (local experts or ``d_ff_expert`` columns, the shared experts'
-    ``d_ff``)."""
+    ``attn`` / ``swa`` / ``enc_attn`` block (local heads), a ``dec_attn``
+    block (local heads in its self- and its cross-attention) or an
+    ``mla`` block (local heads after the latent), each with a SwiGLU
+    (``d_ff`` columns) or a MoE (local experts or ``d_ff_expert`` columns,
+    the shared experts' ``d_ff``)."""
     _check_block(btype)
     nrm = _norm(cfg)
     h = nrm(bp["ln1"], x)
@@ -181,13 +185,13 @@ def block_apply(bp: Params, x, *, btype, cfg, positions, cache=None,
         o, new_cache = attend(ap, h, cfg=cfg, positions=positions,
                               cache="init", impl=impl, **kw)
     elif btype == "enc_attn":
-        o = _bidir_attn(ap, h, cfg, positions, impl)
+        o = _bidir_attn(ap, h, cfg, positions, impl, tp)
     else:
         o = attend(ap, h, cfg=cfg, positions=positions, impl=impl, **kw)
     x = x + o
     if btype == "dec_attn":
         x = x + _cross_attn(bp["xattn"], nrm(bp["ln_x"], x), memory, cfg,
-                            impl)
+                            impl, tp)
         if new_cache is not None:
             new_cache = {"self": new_cache}
     if not _has_ffn(btype):
@@ -202,37 +206,32 @@ def block_apply(bp: Params, x, *, btype, cfg, positions, cache=None,
     return x + f, new_cache, aux
 
 
-def _bidir_attn(ap, h, cfg, positions, impl):
-    """The encoder's self-attention: RoPE at ``positions``, no mask."""
-    B, S, _ = h.shape
-    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    cd = cfg.compute_dtype
-    q = dense(ap["wq"], h, cd).reshape(B, S, H, hd)
-    k = dense(ap["wk"], h, cd).reshape(B, S, K, hd)
-    v = dense(ap["wv"], h, cd).reshape(B, S, K, hd)
+def _bidir_attn(ap, h, cfg, positions, impl, tp=None):
+    """The encoder's self-attention: RoPE at ``positions``, no mask. With
+    ``tp`` on the rank's heads (``attention.local_qkv``), ``wo``
+    row-parallel and summed over ``model``."""
+    q, k, v = local_qkv(ap, h, cfg, tp)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     o = sdpa(q, k, v, q_pos=positions, k_pos=positions, causal=False,
              impl=impl)
-    return dense(ap["wo"], o.reshape(B, S, H * hd), cd)
+    return local_out(ap, o, cfg, tp)
 
 
-def _cross_attn(ap, h, memory, cfg, impl):
+def _cross_attn(ap, h, memory, cfg, impl, tp=None):
     """Decoder cross-attention to the encoder's memory (B, M, d): no RoPE,
     every query and key at position 0, no mask. The memory's k and v are
-    projected at every call, a decode step's included (``repro``'s)."""
-    B, S, _ = h.shape
-    M = memory.shape[1]
-    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    cd = cfg.compute_dtype
-    q = dense(ap["wq"], h, cd).reshape(B, S, H, hd)
-    k = dense(ap["wk"], memory, cd).reshape(B, M, K, hd)
-    v = dense(ap["wv"], memory, cd).reshape(B, M, K, hd)
+    projected at every call, a decode step's included (``repro``'s). With
+    ``tp`` q, k and v are the rank's heads (the memory, whole on every
+    ``model`` rank, enters through Megatron's f, so its gradient is summed
+    over ``model``) and ``wo`` is row-parallel, summed over ``model``."""
+    S, M = h.shape[1], memory.shape[1]
+    q, k, v = local_qkv(ap, h, cfg, tp, kv_x=memory)
     zeros = functools.partial(torch.zeros, dtype=torch.int32,
                               device=h.device)
     o = sdpa(q, k, v, q_pos=zeros((S,)), k_pos=zeros((M,)), causal=False,
              impl=impl)
-    return dense(ap["wo"], o.reshape(B, S, H * hd), cd)
+    return local_out(ap, o, cfg, tp)
 
 
 def block_cache_init(cfg, btype, batch, cache_len, device="cpu"):
@@ -484,18 +483,22 @@ def lm_logits(params, hidden, cfg, task: int | None = None, tp=None):
                            else 0)
 
 
-def encode(params, src_embed, cfg, impl="chunked"):
+def encode(params, src_embed, cfg, impl="chunked", tp=None):
     """The encoder of an enc-dec model. src_embed: raw frontend frames
     (B, S_src, d_frontend) -> memory (B, S_src, d_model): the projector
     (a modality model's), then ``n_enc_layers`` bidirectional blocks at
     positions ``arange(S_src)``, then the encoder's final norm. No remat,
-    as ``repro``'s."""
+    as ``repro``'s. ``tp``: ``params`` are the rank's blocks; each block
+    runs on its local heads and ``d_ff`` columns, its FSDP-cut leaves
+    gathered first (``tp.unit``), and the projector and the norms are
+    replicated compute: the memory is whole on every ``model`` rank."""
     if cfg.modality in ("vision_embed", "audio_embed"):
         src_embed = projector_apply(params["projector"], src_embed, cfg)
     x = src_embed.to(cfg.compute_dtype)
     positions = torch.arange(x.shape[1], device=x.device)
     for i in range(cfg.n_enc_layers):
-        x, _, _ = block_apply(params["enc"]["blocks"][f"e{i}"], x,
+        x, _, _ = _unit_apply(params["enc"]["blocks"][f"e{i}"], x,
+                              path=f"enc/blocks/e{i}", tp=tp,
                               btype="enc_attn", cfg=cfg, positions=positions,
                               mode="train", impl=impl)
     return _norm(cfg)(params["enc"]["ln_f"], x)

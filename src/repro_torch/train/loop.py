@@ -31,7 +31,8 @@ def make_lm_loss(cfg, impl="chunked"):
     term is the rank's share (``norm["balance"]``); ``norm["tp"]``, where
     present, is the rank's tensor-parallel context
     (``models.common.TensorParallel``: ``params`` are its blocks, the
-    logits and the cross-entropy vocab-parallel)."""
+    encoder, the logits and the cross-entropy computed on them, the last
+    two vocab-parallel)."""
     from repro_torch.core.mtl import _xent, softmax_xent
     from repro_torch.models import transformer
 
@@ -45,7 +46,7 @@ def make_lm_loss(cfg, impl="chunked"):
                     f"neither 'memory' nor 'src_embed' (B, S_src, "
                     f"d_frontend) frames for the encoder")
             memory = transformer.encode(params, batch["src_embed"], cfg,
-                                        impl)
+                                        impl, tp)
         logits, _, aux = transformer.lm_apply(
             params, batch["tokens"], cfg=cfg, media=media, memory=memory,
             mode="train", impl=impl,

@@ -14,10 +14,13 @@ layer's cache (k/v, or MLA's ckv/krope) in place (see
 are ``repro``'s.
 
 On a ``spec_fn`` plan (``plan=``) a transformer LM (GQA or MLA, dense
-or MoE) is served tensor-parallel from the rank's blocks (``serving_tp``):
-its ``model`` ranks share the rows they are given, each computes its
-local heads and experts (or ``d_ff_expert`` columns), its caches hold its
-kv heads (MLA's latent cache whole), and the logits are its vocab block;
+or MoE, or the encoder-decoder) is served tensor-parallel from the rank's
+blocks (``serving_tp``): its ``model`` ranks share the rows they are
+given, each computes its local heads and experts (or ``d_ff_expert``
+columns) — the encoder's (``make_encode_step``), the decoder's causal
+self-attention and each cross-attention to the memory, which is whole on
+every ``model`` rank —, its caches hold its kv heads (MLA's latent cache
+whole), and the logits are its vocab block;
 greedy decoding takes the argmax over the ``model`` ranks (the lowest
 index on a tie, as ``torch.argmax`` and ``jnp.argmax`` take it).
 """
@@ -75,6 +78,9 @@ def serving_tp(cfg, plan):
         return None
     from ..configs.sharding import MODEL, mesh_shape, tensor_parallel_reason
     why = tensor_parallel_reason(cfg, mesh_shape(plan.mesh)[MODEL])
+    if why is None and cfg.n_tasks > 1:
+        why = "per-source LM heads are not served: repro's greedy " \
+              "decoding takes no task"
     if why is not None:
         raise ValueError(f"{cfg.name}: no tensor-parallel serving ({why}); "
                          "gather the params whole (plan.gather) and serve "
@@ -99,6 +105,20 @@ def greedy_tokens(logits, tp=None):
     ids = idx + tp.index * logits.shape[-1]
     ids = torch.where(val == top, ids, torch.full_like(ids, 2 ** 62))
     return all_reduce(ids, tp.group, "min").to(torch.int32)
+
+
+def make_encode_step(cfg, impl="chunked", plan=None):
+    """An enc-dec model's encoder as a serving step: ``encode(params,
+    src_embed)`` -> the memory (B, S_src, d_model) that prefill and every
+    decode step cross-attend. On a tensor-parallel plan ``params`` are the
+    rank's blocks (each encoder block on its local heads and ``d_ff``
+    columns) and the memory is whole on every ``model`` rank."""
+    tp = serving_tp(cfg, plan)
+
+    @torch.no_grad()
+    def encode(params, src_embed):
+        return transformer.encode(params, src_embed, cfg, impl, tp)
+    return encode
 
 
 def make_prefill_step(cfg, impl="chunked", plan=None):

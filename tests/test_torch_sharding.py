@@ -30,9 +30,16 @@ against ``repro``.
     ranks, 2 steps, against the port's one-process step (itself held to
     ``repro`` by ``tests/test_torch_lm_train.py``): total and per-task
     losses within the same tolerance, the rank's trunk bytes its blocks'.
-    Per-source heads keep the data-parallel step (every cut trunk leaf
-    gathered whole, ``plan.gather``), so this case holds that step on the
-    CPU;
+    The plan computes the trunk tensor-parallel on the rank's blocks and
+    each rank decodes its own task's head
+    (``engine.step.multitask_tensor_parallel_grad_fn``; held to
+    ``repro`` by ``tests/test_torch_tp_mtl.py``); a ``shard_map`` plan of
+    the same model keeps the data-parallel step, its rank's batch the
+    rows of its one task;
+  * ``tensor_parallel_reason``: None for lm-mtl and seamless at ``model``
+    2 and 16; the reason named for the recurrent blocks (xlstm, zamba2),
+    the vision frontend (internvl2) and granite's ``naive_tp`` on the
+    pod;
   * the scatter repair (``models.gnn``): on the CPU the ``"scatter"`` sum
     keeps the values of ``index_put_(accumulate=True)`` and the ordered
     gather's gradient equals ``torch.take_along_dim``'s.
@@ -303,6 +310,7 @@ def _mtl_run(inputs, mesh=None):
             full["shared"], specs={p[len("shared/"):]: s for p, (_, s) in
                                    layout.items()}, mesh=mesh)
         out["cut"] = len(layout)
+        out["tensor_parallel"] = plan.computes_tensor_parallel
     state = TrainState.create(params, opt)
     step = make_step(model, opt, plan)
     losses, per_task = [], []
@@ -316,12 +324,42 @@ def _mtl_run(inputs, mesh=None):
     return dict(out, losses=losses, per_task=per_task)
 
 
+def _shard_map_run(inputs, mesh):
+    """qwen's lm-mtl on a ``shard_map`` plan (one head a ``model`` rank):
+    whether its step is the tensor-parallel one, the shape of the rank's
+    batch, and whether a ``shared_spec_fn`` is refused on it."""
+    import torch
+
+    from repro_torch.configs.sharding import make_spec_fn
+    from repro_torch.core.taskpar import MTPConfig
+    from repro_torch.engine import ShardingPlan, build_model
+    from repro_torch.engine.step import _layout, _tensor_parallel
+    cfg = _cfg("repro_torch", "qwen").replace(n_tasks=2)
+    model = build_model("lm-mtl", cfg)
+    mtp = MTPConfig(n_tasks=2, mode="par")
+    plan = ShardingPlan(mesh=mesh, mtp=mtp, backend="shard_map")
+    batch = {k: torch.from_numpy(v) for k, v in
+             inputs["mtl_batches"][0].items()}
+    try:
+        ShardingPlan(mesh=mesh, mtp=mtp, backend="shard_map",
+                     shared_spec_fn=make_spec_fn(cfg, mesh))
+        refused = False
+    except ValueError:
+        refused = True
+    return {"tensor_parallel": _tensor_parallel(model, plan,
+                                                _layout(model, plan)),
+            "computes_tensor_parallel": plan.computes_tensor_parallel,
+            "rows": tuple(plan.slice_batch(batch)["tokens"].shape),
+            "spec_fn_refused": refused}
+
+
 def _rank_main(rank, world, workdir):
     from repro_torch.launch.mesh import make_host_mesh
     with open(os.path.join(workdir, "inputs.pkl"), "rb") as f:
         inputs = pickle.load(f)
     out = {case: _rank_case(case, inputs) for case in CASES}
     out["lm_mtl"] = _mtl_run(inputs, make_host_mesh(2, 2))
+    out["shard_map"] = _shard_map_run(inputs, make_host_mesh(2, 2))
     return out
 
 
@@ -442,6 +480,54 @@ def test_shared_spec_fn_trunk_matches_one_process(runs):
         np.testing.assert_allclose(got["per_task"], ref["per_task"],
                                    rtol=RTOL, atol=ATOL)
         assert got["cut"] > 0 and got["held"] == got["blocks"]
+        assert got["tensor_parallel"]
+
+
+def test_shard_map_multitask_plan_keeps_the_data_parallel_step(runs):
+    for r in runs["ranks"]:
+        got = r["shard_map"]
+        assert not got["tensor_parallel"]
+        assert not got["computes_tensor_parallel"]
+        # its one task's rows, B over the data ranks
+        assert got["rows"] == (1, 2, 16)
+        assert got["spec_fn_refused"]
+
+
+def _reason_cfg(arch, tasks=1):
+    from repro_torch import configs
+    return configs.get(arch).replace(n_tasks=tasks)
+
+
+@pytest.mark.parametrize("model_size", [2, 16])
+@pytest.mark.parametrize("arch,tasks,reason", [
+    ("qwen1.5-0.5b", 4, None),                   # lm-mtl on a pjit plan
+    ("seamless-m4t-medium", 1, None),
+    ("xlstm-125m", 1, "blocks ['mlstm', 'slstm']"),
+    ("zamba2-1.2b", 1, "blocks ['mamba2', 'shared_attn']"),
+    # naive_tp: at model 16 its 14 heads split fractionally first
+    ("internvl2-1b", 1, {2: "vision_embed frontend",
+                         16: "naive_tp's fractional heads (14 heads"}),
+])
+def test_tensor_parallel_reason(arch, tasks, reason, model_size):
+    from repro_torch.configs.sharding import (tensor_parallel_family,
+                                             tensor_parallel_reason)
+    cfg = _reason_cfg(arch, tasks)
+    why = tensor_parallel_reason(cfg, model_size)
+    if isinstance(reason, dict):
+        reason = reason[model_size]
+    if reason is None:
+        assert why is None and tensor_parallel_family(cfg, model_size)
+    else:
+        assert why is not None and why.startswith(reason), why
+        assert not tensor_parallel_family(cfg, model_size)
+
+
+def test_tensor_parallel_reason_names_naive_tp_on_the_pod():
+    from repro_torch.configs.sharding import tensor_parallel_reason
+    cfg = _reason_cfg("granite-moe-3b-a800m")
+    assert cfg.naive_tp
+    assert tensor_parallel_reason(cfg, 16) == \
+        "naive_tp's fractional heads (24 heads over model 16)"
 
 
 # ---------------------------------------------------------------------------
